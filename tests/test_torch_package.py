@@ -1,0 +1,107 @@
+"""The PyTorch port as a package: no jax, bit-identical generator, no
+silent CPU fallback, and the rules its CUDA sources keep."""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from two_pass_lanczos_tpu.models.generator import (
+    generate_mcf_instance as jax_generate,
+)
+from two_pass_lanczos_tpu_torch import FusedKKTSolver, generate_mcf_instance
+from two_pass_lanczos_tpu_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "two_pass_lanczos_tpu_torch"
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")))
+def test_module_imports_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    bad = [m for m in _imports(tree)
+           if m.split(".")[0] in ("jax", "jaxlib", "two_pass_lanczos_tpu")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_out():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "assert 'jax' not in sys.modules, 'jax imported'\n"
+            + "assert 'two_pass_lanczos_tpu' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("arcs,rho,iid", [
+    (60, 1, 1), (300, 2, 7), (1000, 3, 2), (5000, 3, 3), (500_000, 3, 1)])
+def test_generator_bit_identical(arcs, rho, iid):
+    ours = generate_mcf_instance(arcs, rho=rho, instance_id=iid)
+    ref = jax_generate(arcs, rho=rho, instance_id=iid)
+    assert ours.num_nodes == ref.num_nodes and ours.num_arcs == ref.num_arcs
+    for name in ("arc_u", "arc_v", "lin_costs", "capacities", "fixed_costs",
+                 "quad_costs", "supplies"):
+        a, b = getattr(ours, name), getattr(ref, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_headline_instance_shape():
+    inst = generate_mcf_instance(500_000, rho=3, instance_id=1)
+    assert (inst.num_arcs, inst.num_nodes) == (500_000, 1155)
+
+
+def test_cuda_solver_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: nothing to refuse")
+    d = np.ones(3, np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedKKTSolver(d, [0, 1, 2], [1, 2, 0], 3, device="cuda")
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_fails_without_gpu(alone, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        cwd = ROOT
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_kernel_sources_keep_the_rules():
+    # no atomics on the Lanczos path (they break bitwise replay), and no
+    # fast math (approximate 1/beta and sqrt, flushed subnormals)
+    sources = sorted(PKG.glob("csrc/*.cu")) + sorted(PKG.glob("csrc/*.cuh"))
+    assert {p.name for p in sources} >= {
+        "kkt_matvec.cu", "lanczos_pass_one.cu", "lanczos_pass_two.cu",
+        "lanczos_common.cuh"}
+    for p in sources:
+        assert not re.search(r"\batomic\w*\s*\(", p.read_text()), p.name
+    assert not any("fast_math" in f or "fmad" in f for f in _build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

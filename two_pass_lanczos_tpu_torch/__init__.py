@@ -1,0 +1,27 @@
+"""two_pass_lanczos_tpu_torch — the PyTorch/CUDA port of two_pass_lanczos_tpu.
+
+x = f(A)·b by two-pass Lanczos for the KKT matrix of a min-cost-flow
+problem, with the hot loop in hand-written CUDA kernels for an NVIDIA H100
+(``csrc/``, built with ``nvcc`` at first use). Module names follow the JAX
+package, which stays the reference; this package imports ``torch`` and never
+``jax``.
+
+Example::
+
+    import numpy as np
+    from two_pass_lanczos_tpu_torch import FusedKKTSolver, generate_mcf_instance
+
+    inst = generate_mcf_instance(500_000, rho=3, instance_id=1)
+    s = FusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
+                       inst.num_nodes, device="cuda")
+    b = np.random.default_rng(0).standard_normal(s.n).astype(np.float32)
+    x, decomp = s.solve(b, k=500, f="inv")
+"""
+
+from two_pass_lanczos_tpu_torch.algorithms.core import LanczosDecomposition
+from two_pass_lanczos_tpu_torch.functions import padded_f_e1
+from two_pass_lanczos_tpu_torch.models.generator import generate_mcf_instance
+from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver
+
+__all__ = ["FusedKKTSolver", "LanczosDecomposition", "padded_f_e1",
+           "generate_mcf_instance"]

@@ -1,0 +1,80 @@
+// Shared device code of the port's Lanczos kernels (kkt_matvec.cu,
+// lanczos_pass_one.cu, lanczos_pass_two.cu), built together into one
+// shared library by two_pass_lanczos_tpu_torch/ops/_build.py.
+//
+// Bitwise replay. Pass two regenerates pass one's basis from the stored
+// alpha and beta, so the vector update
+//     w -= beta_prev * v_prev;  w -= alpha * v;  v_next = w * (1 / beta)
+// must round identically in both passes. Both call the routines below, which
+// spell every operation with an explicit round-to-nearest intrinsic, so the
+// compiler cannot contract a multiply and a subtract into an FMA in one
+// pass and not in the other. 1/beta and sqrt are the IEEE-rounded
+// __frcp_rn / __fsqrt_rn (the build never passes --use_fast_math).
+//
+// Determinism. Every reduction is a fixed-order two-stage sum (per-thread
+// strided partials, a fixed shared-memory tree per block, then one block
+// folding the block partials) with a launch configuration that depends on
+// n only. No atomics anywhere on the Lanczos path.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tpl {
+
+constexpr int kThreads = 256;       // every kernel of the library
+constexpr int kMaxPartials = 1024;  // size of the wrapper's partials buffer
+
+// w - c * x, rounded after the product and after the difference.
+__device__ __forceinline__ float sub_scaled(float w, float c, float x) {
+  return __fsub_rn(w, __fmul_rn(c, x));
+}
+
+// The full replay update of one element: (w - beta_prev*vp) - alpha*v.
+__device__ __forceinline__ float lanczos_update(float w, float beta_prev,
+                                                float vp, float alpha,
+                                                float v) {
+  return sub_scaled(sub_scaled(w, beta_prev, vp), alpha, v);
+}
+
+// v_next = w * (1/beta), with 1/beta computed by lanczos_inverse.
+__device__ __forceinline__ float normalise(float w, float inv_beta) {
+  return __fmul_rn(w, inv_beta);
+}
+
+__device__ __forceinline__ float lanczos_inverse(float beta) {
+  return __frcp_rn(beta);
+}
+
+// Fixed-order block sum over kThreads threads; every thread must call it.
+// Returns the total in every thread.
+__device__ __forceinline__ float block_sum(float v, float* sh) {
+  const int t = threadIdx.x;
+  sh[t] = v;
+  __syncthreads();
+#pragma unroll
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (t < s) sh[t] = __fadd_rn(sh[t], sh[t + s]);
+    __syncthreads();
+  }
+  float total = sh[0];
+  __syncthreads();
+  return total;
+}
+
+// Number of blocks of the grid-strided reductions over n elements: a
+// function of n alone, so pass one reduces in the same order in every run.
+inline int reduction_blocks(int n) {
+  int g = (n + kThreads * 4 - 1) / (kThreads * 4);
+  if (g < 1) g = 1;
+  return g < kMaxPartials ? g : kMaxPartials;
+}
+
+// Enqueue one y = A x of the KKT matrix (kkt_matvec.cu). With gate != null
+// the launch is a no-op unless gate_lt < *gate, read on the device, which is
+// how the passes mask steps after a breakdown without a host sync.
+cudaError_t launch_kkt_matvec(const float* d, const int* u, const int* v,
+                              const int* ptr, const int* ent, int m, int p,
+                              const float* x, float* y, const int* gate,
+                              int gate_lt, cudaStream_t stream);
+
+}  // namespace tpl

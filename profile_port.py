@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Where a solve's time goes on the card: a ``torch.profiler`` trace of the
+port's paths on the headline instance, per kernel, with the device's idle
+share.
+
+Usage, from the root of a checkout, on a machine with one NVIDIA GPU::
+
+    python3 profile_port.py [--k 500] [--reps 3] [--out chiprun_out/profile_port.json]
+
+Paths, each on ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
+(n = 501,155) with ``b`` from ``default_rng(0)`` already on the card:
+``two_pass``, ``one_pass``, ``callback`` (never stopping, chunk 64) and
+``compensated`` solves at ``f="inv"``, and pass one alone, monolithic
+(``pass_one``) and in chunks of 64 (``chunked_pass_one``).
+
+Each path runs twice to warm up, then ``--reps`` times under the profiler,
+each call ending in ``torch.cuda.synchronize()``. Per call:
+
+- ``wall_ms``: host clock around the profiled calls, divided by ``reps``;
+- ``busy_ms``: the union of the device intervals (kernels and copies) of
+  the trace, divided by ``reps``;
+- ``idle_share``: ``1 - busy_ms / wall_ms``;
+- ``top``: ``[name, device ms per call, launches per call]`` by device time.
+
+Prints a table per path and the card's ``nvidia-smi`` name and power limit;
+writes the numbers as JSON to ``--out``. Raises when the trace holds no
+device event.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HEADLINE = {"arcs": 500_000, "rho": 3, "instance_id": 1}
+CHUNK = 64
+TOP = 12
+
+
+def device_events(prof):
+    """(name, start µs, end µs) of every device-side event of the trace."""
+    from torch.autograd import DeviceType
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' intervals."""
+    total, end = 0.0, float("-inf")
+    for _, s, e in sorted(events, key=lambda t: t[1]):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def profile(fn, reps: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    if not events:
+        raise RuntimeError("the profiler recorded no device event")
+    per_name = defaultdict(lambda: [0.0, 0])
+    for name, s, e in events:
+        per_name[name][0] += e - s
+        per_name[name][1] += 1
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    wall_ms = wall * 1e3 / reps
+    busy_ms = busy_us(events) / 1e3 / reps
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "top": [[name[:60], t / 1e3 / reps, round(c / reps)]
+                    for name, (t, c) in top]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k", type=int, default=500)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
+                                         / "profile_port.json"))
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_port: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from two_pass_lanczos_tpu_torch import FusedKKTSolver, generate_mcf_instance
+
+    dev = torch.device("cuda", 0)
+    inst = generate_mcf_instance(**HEADLINE)
+    solvers = {comp: FusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
+                                    inst.num_nodes, device=dev,
+                                    compensated=comp)
+               for comp in (False, True)}
+    s, sc = solvers[False], solvers[True]
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(s.n)
+                         .astype(np.float32)).to(dev)
+    k = args.k
+    paths = {
+        "two_pass": lambda: s.solve(b, k=k, raw=True),
+        "one_pass": lambda: s.solve(b, k=k, method="one_pass", raw=True),
+        "callback": lambda: s.solve(b, k=k, raw=True,
+                                    callback=lambda *_: True,
+                                    callback_chunk=CHUNK),
+        "compensated": lambda: sc.solve(b, k=k, raw=True),
+        "chunked_pass_one": lambda: s.pass_one_chunked(b, k, chunk=CHUNK),
+        "pass_one": lambda: s.pass_one(b, k),
+    }
+    out = {}
+    for name, fn in paths.items():
+        r = out[name] = profile(fn, args.reps)
+        print(f"== {name}: wall {r['wall_ms']:.3f} ms/solve, device busy "
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}")
+        for kname, ms, count in r["top"]:
+            print(f"    {ms:9.4f} ms  x {count:4d}  {kname}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+    out["card"] = card
+    out["k"] = k
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(out, indent=1))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

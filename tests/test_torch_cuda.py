@@ -1,0 +1,307 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here carries the ``requires_cuda`` marker and skips without a
+GPU. The file imports neither jax nor the JAX package, so it runs where
+only PyTorch for CUDA is set up::
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m requires_cuda
+
+(``--noconftest``: ``tests/conftest.py`` configures jax.) Sizes are small;
+``chip_smoke.py`` checks the same kernels at the headline size.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+# the sibling module by its own name: pytest puts tests/ on sys.path, and a
+# package named `tests` elsewhere on the path may shadow ours
+from torch_cases import (  # noqa: F401
+    CASES,
+    breakdown_kkt,
+    cuda_device,
+    random_kkt,
+)
+from two_pass_lanczos_tpu_torch.algorithms.core import (
+    dot_f64,
+    pass_one_last_vector,
+    pass_one_scan,
+    pass_two_scan,
+)
+from two_pass_lanczos_tpu_torch.functions import padded_f_e1
+from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
+from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+    LAUNCHES,
+    FusedKKTSolver,
+    eft_check_cuda,
+    kkt_matvec_cuda,
+    reset_launches,
+)
+from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
+
+pytestmark = pytest.mark.requires_cuda
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(42)
+    d, u, v, p = random_kkt(rng)
+    b = rng.standard_normal(len(d) + p).astype(np.float32)
+    return d, u, v, p, b
+
+
+def _rel(x, ref):
+    return float(np.linalg.norm(x - ref) / np.linalg.norm(ref))
+
+
+def _plain_mv(lay):
+    return lambda x: kkt_matvec(lay.d, lay.u, lay.v, lay.p, x)
+
+
+def _y_full(dec, nf, seed):
+    y = np.random.default_rng(seed).standard_normal((nf, dec.k_max))
+    y[:, dec.steps():] = 0.0
+    return y.astype(np.float32)
+
+
+# --- K1, K2, K3 ------------------------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain_on_card(case, cuda_device):
+    rng = np.random.default_rng(5)
+    d, u, v, p = CASES[case](rng)
+    x = rng.standard_normal(len(d) + p).astype(np.float32)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device)
+    before = LAUNCHES["kkt_matvec"]
+    y = kkt_matvec_cuda(s.layout, xd)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kkt_matvec"] == before + 1
+    t = torch.from_numpy
+    y_ref = kkt_matvec(t(d), t(u), t(v), p, t(x)).numpy()
+    m = len(d)
+    # the arc part uses the plain version's rounding exactly
+    np.testing.assert_array_equal(y[:m].cpu().numpy(), y_ref[:m])
+    np.testing.assert_allclose(y.cpu().numpy(), y_ref, rtol=0,
+                               atol=2e-5 * np.abs(y_ref).max())
+    # fixed-order node sums: bitwise reproducible run to run
+    np.testing.assert_array_equal(kkt_matvec_cuda(s.layout, xd).cpu().numpy(),
+                                  y.cpu().numpy())
+
+
+def test_kernels_match_plain_on_card(problem, cuda_device):
+    d, u, v, p, b = problem
+    k = 20
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    before = dict(LAUNCHES)
+    st1 = torch.empty(2, s.n, device=cuda_device)
+    dec = s.pass_one(bt, k, state=st1)
+    ref, _ = pass_one_scan(_plain_mv(s.layout), bt, k)
+    assert dec.steps() == ref.steps() == k
+    np.testing.assert_allclose(dec.alphas.cpu().numpy(),
+                               ref.alphas.cpu().numpy(), rtol=1e-4)
+    np.testing.assert_allclose(dec.betas.cpu().numpy(),
+                               ref.betas.cpu().numpy(), rtol=1e-4)
+    y = torch.from_numpy(_y_full(dec, 2, seed=9)).to(cuda_device)
+    st2 = torch.empty(2, s.n, device=cuda_device)
+    x = s.pass_two(bt, dec, y, state=st2)
+    x_ref, _ = pass_two_scan(_plain_mv(s.layout), bt, dec, y)
+    rel = (torch.linalg.norm(x - x_ref) / torch.linalg.norm(x_ref)).item()
+    assert rel < 1e-5, rel
+    assert torch.equal(pass_one_last_vector(dec, st1), st2[1])
+    assert LAUNCHES["lanczos_pass_one"] == before["lanczos_pass_one"] + 1
+    assert LAUNCHES["lanczos_pass_two"] == before["lanczos_pass_two"] + 1
+    assert LAUNCHES["kkt_matvec"] == before["kkt_matvec"] + 2 * k - 1
+
+
+def test_solve_on_card_matches_cpu(problem, cuda_device):
+    d, u, v, p, b = problem
+    k = 25
+    x_cpu, _ = FusedKKTSolver(d, u, v, p).solve(b, k=k, f="inv")
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    reset_launches()
+    x, dec = s.solve(torch.from_numpy(b).to(cuda_device), k=k, raw=True)
+    torch.cuda.synchronize()
+    assert all(LAUNCHES[name] > 0 for name in
+               ("kkt_matvec", "lanczos_pass_one", "lanczos_pass_two"))
+    assert dec.steps() == k
+    assert _rel(x.cpu().numpy(), x_cpu) < 1e-4
+
+
+# --- K4: pass one with the basis -------------------------------------------
+
+def test_basis_kernel_matches_plain_on_card(problem, cuda_device):
+    d, u, v, p, b = problem
+    k = 20
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    reset_launches()
+    dec, basis = s.pass_one_with_basis(bt, k)
+    assert LAUNCHES["lanczos_pass_one_basis"] == 1
+    assert LAUNCHES["kkt_matvec"] == k
+    dec2 = s.pass_one(bt, k)
+    assert torch.equal(dec.alphas, dec2.alphas)
+    assert torch.equal(dec.betas, dec2.betas)
+    _, basis_ref = pass_one_scan(_plain_mv(s.layout), bt, k, emit_basis=True)
+    rel = (torch.linalg.norm(basis - basis_ref)
+           / torch.linalg.norm(basis_ref)).item()
+    assert rel < 1e-5, rel
+    x1, _ = s.solve(bt, k=k, method="one_pass")
+    x_cpu, _ = FusedKKTSolver(d, u, v, p).solve(b, k=k, method="one_pass")
+    assert _rel(x1, x_cpu) < 1e-4
+
+
+@pytest.mark.parametrize("nf", [1, 3])
+def test_one_pass_product_ignores_tf32_on_card(problem, cuda_device, nf):
+    d, u, v, p, b = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    f = ("inv", "exp", "inv")[:nf] if nf > 1 else "inv"
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        x_f32, dec = s.solve(b, k=20, f=f, method="one_pass", raw=True)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        x_tf32, _ = s.solve(b, k=20, f=f, method="one_pass", raw=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(x_tf32, x_f32)
+    _, basis = s.pass_one_with_basis(b, 20)
+    y = np.stack([padded_f_e1(dec, fi).cpu().numpy() * float(dec.b_norm)
+                  for fi in (f if nf > 1 else (f,))])
+    x64 = y.astype(np.float64) @ basis.cpu().numpy().astype(np.float64)
+    got = x_f32.cpu().numpy().reshape(nf, -1)
+    assert _rel(got, x64) < 1e-5  # TF32 would be ~1e-3
+
+
+def test_basis_kernel_rows_past_breakdown_zero_on_card(cuda_device):
+    d, u, v, p, b = breakdown_kkt()
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    dec, basis = s.pass_one_with_basis(b, 12)
+    steps = dec.steps()
+    assert 0 < steps < 12
+    assert bool((basis[steps:] == 0).all())
+    dec_cpu, basis_cpu = FusedKKTSolver(d, u, v, p).pass_one_with_basis(b, 12)
+    assert dec_cpu.steps() == steps
+    np.testing.assert_allclose(basis.cpu().numpy(), basis_cpu.numpy(),
+                               rtol=0, atol=1e-6)
+    x0, dec0 = s.solve(np.zeros_like(b), k=8, method="one_pass")
+    assert dec0.steps() == 0
+    np.testing.assert_array_equal(x0, 0.0)
+
+
+# --- K5: the resumable pass one --------------------------------------------
+
+@pytest.mark.parametrize("compensated", [False, True], ids=["plain", "comp"])
+def test_chunk_kernel_matches_plain_on_card(problem, cuda_device,
+                                            compensated):
+    d, u, v, p, b = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device,
+                       compensated=compensated)
+    bt = torch.from_numpy(b).to(cuda_device)
+    k = 23  # not a multiple of the chunk
+    reset_launches()
+    got = s.pass_one_chunked(bt, k, chunk=8)
+    name = "lanczos_pass_one_comp" if compensated else "lanczos_pass_one_chunk"
+    assert LAUNCHES[name] == 3 and LAUNCHES["kkt_matvec"] == k
+    ref = s.pass_one(bt, k)
+    assert torch.equal(got.alphas, ref.alphas)
+    assert torch.equal(got.betas, ref.betas)
+    plain = FusedKKTSolver(d, u, v, p, compensated=compensated)
+    want = plain.pass_one_chunked(b, k, chunk=8)
+    np.testing.assert_allclose(got.alphas.cpu().numpy(), want.alphas.numpy(),
+                               rtol=1e-4)
+
+
+def test_chunk_kernel_stop_bounds_matvecs_on_card(problem, cuda_device):
+    d, u, v, p, b = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    reset_launches()
+    dec = s.pass_one_chunked(b, 40, callback=lambda st, V, sc: st < 11,
+                             chunk=8)
+    assert dec.steps() == 11 and LAUNCHES["kkt_matvec"] <= 16
+    assert bool((dec.alphas[11:] == 0).all())
+    assert bool((dec.betas[10:] == 0).all())
+    zero = s.pass_one_chunked(np.zeros(s.n, np.float32), 8, chunk=4)
+    assert zero.steps() == 0
+    e1 = np.eye(4, dtype=np.float32)[0]
+    tiny = FusedKKTSolver(np.array([2.0, 3.0]), [0, 1], [1, 0], 2,
+                          device=cuda_device)
+    ref = tiny.pass_one(e1, 6)
+    got = tiny.pass_one_chunked(e1, 6, chunk=4)
+    assert got.steps() == ref.steps() < 6
+    assert torch.equal(got.alphas, ref.alphas)
+
+
+# --- K6: the compensated builds --------------------------------------------
+
+def test_compensated_kernel_matches_plain_on_card(cuda_device):
+    # long reductions (n = 202,000), so that plain K2's f32 dots sit
+    # measurably off the f64-dot version
+    rng = np.random.default_rng(42)
+    d, u, v, p = random_kkt(rng, m=200_000, p=2_000)
+    b = rng.standard_normal(len(d) + p).astype(np.float32)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=True)
+    bt = torch.from_numpy(b).to(cuda_device)
+    k = 20
+    reset_launches()
+    dec = s.pass_one(bt, k)
+    assert LAUNCHES["lanczos_pass_one_comp"] == 1
+    assert LAUNCHES["lanczos_pass_one"] == 0
+    # the reference runs K1's matvec, so that only the reductions differ
+    ref, _ = pass_one_scan(lambda x: kkt_matvec_cuda(s.layout, x), bt, k,
+                           dot=dot_f64)
+    np.testing.assert_allclose(dec.alphas.cpu().numpy(),
+                               ref.alphas.cpu().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(dec.betas.cpu().numpy(),
+                               ref.betas.cpu().numpy(), rtol=1e-5)
+    # an uncompensated build also meets rtol 1e-5: hold the kernel well
+    # inside plain K2's own distance from the f64-dot version
+    plain = FusedKKTSolver(d, u, v, p, device=cuda_device).pass_one(bt, k)
+
+    def dist(x):
+        return max(float((x.alphas - ref.alphas).abs().max()),
+                   float((x.betas - ref.betas).abs().max()))
+
+    assert 0 < dist(plain) and dist(dec) <= 0.25 * dist(plain), (
+        dist(dec), dist(plain))
+    dec1, _ = s.pass_one_with_basis(bt, k)
+    assert torch.equal(dec1.alphas, dec.alphas)
+
+
+def test_compensated_alphas_closer_to_f64_on_card(cuda_device):
+    # the instance of tests/test_fused.py::test_compensated_alphas_closer_to_f64
+    rng = np.random.default_rng(42)
+    d, u, v, p = random_kkt(rng, m=1200, p=300)
+    b = rng.standard_normal(len(d) + p).astype(np.float32)
+    k = 6
+    t = torch.from_numpy
+    o64, _ = pass_one_scan(
+        lambda x: kkt_matvec(t(d.astype(np.float64)), t(u), t(v), p, x),
+        t(b.astype(np.float64)), k)
+    a64 = o64.alphas.numpy()
+    errs = []
+    for comp in (False, True):
+        s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=comp)
+        a = s.pass_one(b, k).alphas.cpu().numpy().astype(np.float64)
+        errs.append(np.abs(a - a64).max())
+    assert errs[1] < errs[0], errs
+
+
+# --- K13: the error-free transformations -----------------------------------
+
+def test_eft_kernel_exact_on_card(cuda_device):
+    a = torch.full((300,), 1.0 + 2.0 ** -12, device=cuda_device)
+    b = torch.full((300,), 2.0 ** -30, device=cuda_device)
+    reset_launches()
+    got = eft_check_cuda(a, b).cpu()
+    assert LAUNCHES["eft_check"] == 1
+    exact = torch.tensor([1.0 + 2.0 ** -12, 2.0 ** -30, 1.0 + 2.0 ** -11,
+                          2.0 ** -24, 1.0 + 2.0 ** -12, 2.0 ** -30])
+    assert torch.equal(got, exact[:, None].expand(6, 300))
+    # random inputs: bitwise the plain twin
+    rng = np.random.default_rng(0)
+    ra = torch.from_numpy(rng.standard_normal(1000).astype(np.float32))
+    rb = torch.from_numpy(rng.standard_normal(1000).astype(np.float32) * 1e-5)
+    assert torch.equal(eft_check_cuda(ra.to(cuda_device), rb.to(cuda_device))
+                       .cpu(), eft_check_plain(ra, rb))

@@ -2,6 +2,7 @@
 silent CPU fallback, and the rules its CUDA sources keep."""
 
 import ast
+import importlib.util
 import os
 import re
 import subprocess
@@ -37,6 +38,24 @@ def test_module_imports_no_jax(path):
     bad = [m for m in _imports(tree)
            if m.split(".")[0] in ("jax", "jaxlib", "two_pass_lanczos_tpu")]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_card_tests_import_no_jax():
+    # the card tests run with --noconftest, without the JAX package
+    tree = ast.parse((ROOT / "tests" / "test_torch_cuda.py").read_text())
+    bad = [m for m in _imports(tree)
+           if m.split(".")[0] in ("jax", "jaxlib", "two_pass_lanczos_tpu")]
+    assert not bad, bad
+    cases = ast.parse((ROOT / "tests" / "torch_cases.py").read_text())
+    assert not [m for m in _imports(cases) if m.split(".")[0] == "jax"]
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_port.py"])
+def test_card_scripts_import_no_jax(script):
+    tree = ast.parse((ROOT / script).read_text())
+    bad = [m for m in _imports(tree)
+           if m.split(".")[0] in ("jax", "jaxlib", "two_pass_lanczos_tpu")]
+    assert not bad, f"{script} imports {bad}"
 
 
 def test_import_leaves_jax_out():
@@ -94,13 +113,35 @@ def test_chip_smoke_fails_without_gpu(alone, tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
+def test_profile_port_fails_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: profile_port.py would run")
+    out = tmp_path / "p.json"
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "profile_port.py"), "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and not out.exists()
+
+
+def test_profile_busy_is_the_union_of_device_intervals():
+    spec = importlib.util.spec_from_file_location(
+        "profile_port", ROOT / "profile_port.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    # overlapping, nested, touching and disjoint intervals, in any order
+    events = [("a", 10.0, 20.0), ("b", 0.0, 5.0), ("c", 15.0, 30.0),
+              ("d", 16.0, 18.0), ("e", 30.0, 31.0), ("f", 40.0, 42.0)]
+    assert mod.busy_us(events) == 5.0 + 21.0 + 2.0
+    assert mod.busy_us([]) == 0.0
+
+
 def test_kernel_sources_keep_the_rules():
     # no atomics on the Lanczos path (they break bitwise replay), and no
     # fast math (approximate 1/beta and sqrt, flushed subnormals)
     sources = sorted(PKG.glob("csrc/*.cu")) + sorted(PKG.glob("csrc/*.cuh"))
     assert {p.name for p in sources} >= {
         "kkt_matvec.cu", "lanczos_pass_one.cu", "lanczos_pass_two.cu",
-        "lanczos_common.cuh"}
+        "eft_check.cu", "lanczos_common.cuh"}
     for p in sources:
         assert not re.search(r"\batomic\w*\s*\(", p.read_text()), p.name
     assert not any("fast_math" in f or "fmad" in f for f in _build.NVCC_FLAGS)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import two_pass_lanczos_tpu as tpl
-from tests.torch_cases import cuda_device, random_kkt  # noqa: F401
+from tests.torch_cases import random_kkt
 from two_pass_lanczos_tpu.algorithms.core import (
     LanczosDecomposition as JaxDecomposition,
 )
@@ -26,7 +26,6 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     pass_two_scan,
 )
 from two_pass_lanczos_tpu_torch.functions import host_f_tk_solve
-from two_pass_lanczos_tpu_torch.ops.kkt_fused import LAUNCHES, reset_launches
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
 
 
@@ -79,12 +78,14 @@ def test_solve_raw_and_device_rhs(problem):
 
 
 def test_unported_options_raise(problem):
+    # what the fused solver does not take, as in the JAX package: f64
+    # kernels, a callback with the one-pass method, an unknown method
     d, u, v, p, b = problem
     s = FusedKKTSolver(d, u, v, p)
-    with pytest.raises(NotImplementedError, match="kernel 4"):
-        s.solve(b, k=5, method="one_pass")
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        s.solve(b, k=5, callback=lambda *a: False)
+    with pytest.raises(ValueError, match="two_pass"):
+        s.solve(b, k=5, method="one_pass", callback=lambda *a: True)
+    with pytest.raises(ValueError, match="unknown method"):
+        s.solve(b, k=5, method="three_pass")
     with pytest.raises(ValueError, match="f32"):
         FusedKKTSolver(d, u, v, p, dtype=torch.float64)
 
@@ -133,17 +134,3 @@ def test_padded_f_e1_matches_jax(f, steps):
     host = host_f_tk_solve(alphas[:steps], betas[:steps - 1],
                            np.sin if f == "callable" else f)
     np.testing.assert_allclose(ours.numpy()[:steps], host, atol=1e-12)
-
-
-@pytest.mark.requires_cuda
-def test_solve_on_card_matches_cpu(problem, cuda_device):
-    d, u, v, p, b = problem
-    k = 25
-    x_cpu, _ = FusedKKTSolver(d, u, v, p).solve(b, k=k, f="inv")
-    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
-    reset_launches()
-    x, dec = s.solve(torch.from_numpy(b).to(cuda_device), k=k, raw=True)
-    torch.cuda.synchronize()
-    assert all(n > 0 for n in LAUNCHES.values()), LAUNCHES
-    assert dec.steps() == k
-    assert _rel(x.cpu().numpy(), x_cpu) < 1e-4

@@ -34,6 +34,16 @@ def hub_kkt(rng, m=900, p=150):
 CASES = {"random": random_kkt, "degree_zero": degree_zero_kkt, "hub": hub_kkt}
 
 
+def breakdown_kkt():
+    """All arcs share their endpoints, so the Krylov space of b = e_1 is
+    tiny and pass one breaks down after a few steps: (d, u, v, p, b)."""
+    m, p = 130, 130
+    b = np.zeros(m + p, np.float32)
+    b[0] = 1.0
+    return (np.full(m, 2.0, np.float32), np.zeros(m, np.int32),
+            np.ones(m, np.int32), p, b)
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or a skip: the kernels in ``csrc/`` run only on a card."""

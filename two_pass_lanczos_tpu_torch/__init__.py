@@ -16,12 +16,31 @@ Example::
                        inst.num_nodes, device="cuda")
     b = np.random.default_rng(0).standard_normal(s.n).astype(np.float32)
     x, decomp = s.solve(b, k=500, f="inv")
+    x1, _ = s.solve(b, k=500, f="inv", method="one_pass")  # stores the basis
+    cb = make_convergence_callback("inv", tol=1e-6)
+    x2, dec2 = s.solve(b, k=500, f="inv", callback=cb)    # in-run early stop
 """
 
 from two_pass_lanczos_tpu_torch.algorithms.core import LanczosDecomposition
+from two_pass_lanczos_tpu_torch.checkpoint import (
+    load_decomposition,
+    save_decomposition,
+)
+from two_pass_lanczos_tpu_torch.convergence import (
+    make_convergence_callback,
+    make_radau_error_callback,
+)
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
 from two_pass_lanczos_tpu_torch.models.generator import generate_mcf_instance
+from two_pass_lanczos_tpu_torch.observability import (
+    find_stopping_point,
+    replay_iterations,
+    truncate_decomposition,
+)
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver
 
 __all__ = ["FusedKKTSolver", "LanczosDecomposition", "padded_f_e1",
-           "generate_mcf_instance"]
+           "generate_mcf_instance", "make_convergence_callback",
+           "make_radau_error_callback", "replay_iterations",
+           "find_stopping_point", "truncate_decomposition",
+           "save_decomposition", "load_decomposition"]

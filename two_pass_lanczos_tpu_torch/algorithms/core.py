@@ -17,7 +17,14 @@ steps with no host synchronisation (the flags stay tensors). Pass two
 with the same arithmetic, so its regenerated basis is bit-identical to pass
 one's.
 
-Both functions are dtype-generic (f32 and f64) and device-generic; the
+One step is written once (:func:`_step`): :func:`pass_one_scan` runs ``k``
+of them from ``b``, :func:`pass_one_chunk_scan` runs ``chunk`` of them from
+a carried :class:`ChunkCarry`, so chained chunks give α and β bitwise equal
+to one monolithic pass. The inner products go through ``dot``: ``torch.dot``,
+or :func:`dot_f64` as the plain version of the compensated (two-float)
+kernel reductions.
+
+All functions are dtype-generic (f32 and f64) and device-generic; the
 fused solver (``ops/kkt_fused.py``) uses them for CPU tensors and the
 hand-written kernels for CUDA tensors.
 """
@@ -25,18 +32,24 @@ hand-written kernels for CUDA tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
     "breakdown_tolerance",
     "zero_tolerance",
     "LanczosDecomposition",
+    "ChunkCarry",
+    "dot_f64",
     "pass_one_scan",
+    "pass_one_chunk_scan",
     "pass_two_scan",
     "pass_one_last_vector",
 ]
+
+Dot = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def breakdown_tolerance(dtype: torch.dtype) -> float:
@@ -75,6 +88,40 @@ class LanczosDecomposition:
     def steps(self) -> int:
         return int(self.steps_taken)
 
+    def alphas_valid(self) -> np.ndarray:
+        """α₁..α_steps as a NumPy array."""
+        return self.alphas.detach().cpu().numpy()[: self.steps()]
+
+    def betas_valid(self) -> np.ndarray:
+        """β₁..β_{steps-1} as a NumPy array (length ``steps_taken - 1``)."""
+        s = self.steps()
+        return self.betas.detach().cpu().numpy()[: max(s - 1, 0)]
+
+    def beta_last(self) -> float:
+        """β_steps, the final residual norm (0.0 after a breakdown)."""
+        s = self.steps()
+        return 0.0 if s == 0 else float(self.betas[s - 1])
+
+
+def dot_f64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``⟨x, y⟩`` accumulated in f64 and rounded once to ``x``'s dtype.
+
+    The plain version of the compensated kernels' α, β and ‖b‖ reductions
+    (exact products folded as two-float pairs, then ``hi + lo``), which the
+    JAX package's ``_dot_rep_comp`` approximates to ~f32 rounding too."""
+    return torch.dot(x.to(torch.float64), y.to(torch.float64)).to(x.dtype)
+
+
+class ChunkCarry(NamedTuple):
+    """State carried from one chunk of pass one to the next."""
+
+    v_prev: torch.Tensor
+    v_curr: torch.Tensor
+    beta_prev: torch.Tensor  # 0-d
+    done: torch.Tensor  # 0-d bool: a breakdown or a zero b
+    steps: torch.Tensor  # 0-d int32: steps executed so far
+    b_norm: torch.Tensor  # 0-d
+
 
 def _init_v1(b: torch.Tensor, b_norm: torch.Tensor):
     zero_b = b_norm <= zero_tolerance(b.dtype)
@@ -82,55 +129,96 @@ def _init_v1(b: torch.Tensor, b_norm: torch.Tensor):
     return b * inv_n, zero_b
 
 
+def _start(b: torch.Tensor, dot: Dot) -> ChunkCarry:
+    """‖b‖, v₁ = b·(1/‖b‖), v₀ = 0; a zero b starts done (0 steps)."""
+    b_norm = torch.sqrt(dot(b, b))
+    v, zero_b = _init_v1(b, b_norm)
+    return ChunkCarry(
+        v_prev=torch.zeros_like(b), v_curr=v,
+        beta_prev=torch.zeros((), dtype=b.dtype, device=b.device),
+        done=zero_b,
+        steps=torch.zeros((), dtype=torch.int32, device=b.device),
+        b_norm=b_norm)
+
+
+def _step(matvec, c: ChunkCarry, executed: torch.Tensor, tol: float,
+          dot: Dot) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
+    """One masked recurrence step. Returns the step's stored α (0 unless
+    ``executed``), its stored β (0 unless it advanced) and the new carry."""
+    zero = torch.zeros((), dtype=c.v_curr.dtype, device=c.v_curr.device)
+    v, v_prev = c.v_curr, c.v_prev
+    w = matvec(v)
+    w = w - c.beta_prev * v_prev
+    alpha = dot(v, w)
+    w = w - alpha * v
+    beta = torch.sqrt(dot(w, w))
+    breakdown = beta <= tol
+    advance = executed & ~breakdown
+    inv_b = torch.where(advance, 1.0 / beta, zero)
+    v_next = w * inv_b
+    carry = ChunkCarry(
+        v_prev=torch.where(advance, v, v_prev),
+        v_curr=torch.where(advance, v_next, v),
+        beta_prev=torch.where(advance, beta, c.beta_prev),
+        done=c.done | (executed & breakdown),
+        steps=c.steps + executed.to(torch.int32),
+        b_norm=c.b_norm)
+    return (torch.where(executed, alpha, zero),
+            torch.where(advance, beta, zero), carry)
+
+
 def pass_one_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
                   b: torch.Tensor, k: int, *, emit_basis: bool = False,
-                  state: Optional[torch.Tensor] = None
+                  state: Optional[torch.Tensor] = None, dot: Dot = torch.dot
                   ) -> Tuple[LanczosDecomposition, Optional[torch.Tensor]]:
     """Run ``k`` masked recurrence steps from ``b``.
 
     Returns ``(decomposition, basis)``; ``basis`` is ``(k, n)`` with row ``i``
     equal to v_{i+1} (zero beyond ``steps_taken``) when ``emit_basis``, else
     ``None``. If ``state`` (a ``(2, n)`` tensor) is given it receives the
-    final ``(v_prev, v_curr)``.
+    final ``(v_prev, v_curr)``. ``dot`` computes ‖b‖², α and β².
     """
     if k < 1:
         raise ValueError("k must be >= 1")
     dt = b.dtype
     tol = breakdown_tolerance(dt)
-    b_norm = torch.sqrt(torch.dot(b, b))
-    v, done = _init_v1(b, b_norm)
-    v_prev = torch.zeros_like(b)
-    beta_prev = torch.zeros((), dtype=dt, device=b.device)
-    steps = torch.zeros((), dtype=torch.int32, device=b.device)
+    c = _start(b, dot)
     alphas = torch.zeros(k, dtype=dt, device=b.device)
     betas = torch.zeros(k, dtype=dt, device=b.device)
     basis = (torch.zeros((k, b.shape[0]), dtype=dt, device=b.device)
              if emit_basis else None)
-    zero = torch.zeros((), dtype=dt, device=b.device)
     for j in range(k):
-        executed = ~done
-        w = matvec(v)
-        w = w - beta_prev * v_prev
-        alpha = torch.dot(v, w)
-        w = w - alpha * v
-        beta = torch.sqrt(torch.dot(w, w))
-        breakdown = beta <= tol
-        advance = executed & ~breakdown
-        alphas[j] = torch.where(executed, alpha, zero)
-        betas[j] = torch.where(advance, beta, zero)
-        inv_b = torch.where(advance, 1.0 / beta, zero)
-        v_next = w * inv_b
+        executed = ~c.done
         if emit_basis:
-            basis[j] = torch.where(executed, v, zero)
-        v_prev = torch.where(advance, v, v_prev)
-        v = torch.where(advance, v_next, v)
-        beta_prev = torch.where(advance, beta, beta_prev)
-        done = done | breakdown
-        steps = steps + executed.to(torch.int32)
+            basis[j] = torch.where(executed, c.v_curr, torch.zeros_like(b))
+        alphas[j], betas[j], c = _step(matvec, c, executed, tol, dot)
     if state is not None:
-        state[0].copy_(v_prev)
-        state[1].copy_(v)
-    return LanczosDecomposition(alphas, betas, steps, b_norm), basis
+        state[0].copy_(c.v_prev)
+        state[1].copy_(c.v_curr)
+    return LanczosDecomposition(alphas, betas, c.steps, c.b_norm), basis
+
+
+def pass_one_chunk_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
+                        b: torch.Tensor, chunk: int,
+                        carry: Optional[ChunkCarry], k_limit: int, *,
+                        dot: Dot = torch.dot
+                        ) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
+    """Run ``chunk`` masked steps from ``carry`` (from ``b`` when ``carry``
+    is None). A step executes unless the run is done or ``k_limit`` steps
+    have been executed. Returns ``(alphas, betas, carry)``, the first two
+    ``(chunk,)`` and indexed from the chunk's first step; chained chunks
+    give α and β bitwise equal to one :func:`pass_one_scan`."""
+    if chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    dt = b.dtype
+    tol = breakdown_tolerance(dt)
+    c = _start(b, dot) if carry is None else carry
+    alphas = torch.zeros(chunk, dtype=dt, device=b.device)
+    betas = torch.zeros(chunk, dtype=dt, device=b.device)
+    for i in range(chunk):
+        executed = ~c.done & (c.steps < k_limit)
+        alphas[i], betas[i], c = _step(matvec, c, executed, tol, dot)
+    return alphas, betas, c
 
 
 def pass_two_scan(matvec: Callable[[torch.Tensor], torch.Tensor],

@@ -18,10 +18,12 @@ __all__ = ["solver_from_jax", "decomposition_from_jax"]
 
 def solver_from_jax(jax_fused_solver, device="cpu") -> FusedKKTSolver:
     """The port's solver for the instance of a JAX ``FusedKKTSolver``
-    (its ``_kkt_arrays``: quad costs, arc_u, arc_v, num_nodes)."""
+    (its ``_kkt_arrays``: quad costs, arc_u, arc_v, num_nodes), with the
+    same ``compensated`` setting."""
     d, u, v, p = jax_fused_solver._kkt_arrays
     return FusedKKTSolver(np.asarray(d), np.asarray(u), np.asarray(v), int(p),
-                          device=device)
+                          device=device,
+                          compensated=jax_fused_solver.compensated)
 
 
 def decomposition_from_jax(dec, device="cpu") -> LanczosDecomposition:

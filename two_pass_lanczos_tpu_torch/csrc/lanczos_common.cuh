@@ -1,6 +1,6 @@
 // Shared device code of the port's Lanczos kernels (kkt_matvec.cu,
-// lanczos_pass_one.cu, lanczos_pass_two.cu), built together into one
-// shared library by two_pass_lanczos_tpu_torch/ops/_build.py.
+// lanczos_pass_one.cu, lanczos_pass_two.cu, eft_check.cu), built together
+// into one shared library by two_pass_lanczos_tpu_torch/ops/_build.py.
 //
 // Bitwise replay. Pass two regenerates pass one's basis from the stored
 // alpha and beta, so the vector update
@@ -22,7 +22,10 @@
 namespace tpl {
 
 constexpr int kThreads = 256;       // every kernel of the library
-constexpr int kMaxPartials = 1024;  // size of the wrapper's partials buffer
+// Block partials of one reduction: plane 0 holds the sums (the hi parts in
+// the compensated build), plane 1 the lo parts; the wrapper's partials
+// buffer holds 2 * kMaxPartials floats.
+constexpr int kMaxPartials = 1024;
 
 // w - c * x, rounded after the product and after the difference.
 __device__ __forceinline__ float sub_scaled(float w, float c, float x) {
@@ -57,6 +60,61 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
     __syncthreads();
   }
   float total = sh[0];
+  __syncthreads();
+  return total;
+}
+
+// Error-free transformations of the compensated (two-float) reductions,
+// the counterparts of _two_sum_k, _two_prod and _df_add2 in
+// two_pass_lanczos_tpu/ops/kkt_fused.py. Every operation is an explicit
+// round-to-nearest intrinsic, so nvcc can neither contract nor reorder them
+// (a contracted or reassociated two_sum returns a zero error term).
+// csrc/eft_check.cu checks them on the card against exact values.
+
+// s + e == a + b exactly (Knuth).
+__device__ __forceinline__ float2 two_sum(float a, float b) {
+  const float s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  const float e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+  return make_float2(s, e);
+}
+
+// p + e == a * b exactly: Hopper's fused multiply-add rounds once, so
+// fma(a, b, -p) is the product's rounding error. The TPU kernel's mantissa
+// split (_mask_split) existed only to dodge contraction on the XLA CPU path.
+__device__ __forceinline__ float2 two_prod(float a, float b) {
+  const float p = __fmul_rn(a, b);
+  return make_float2(p, __fmaf_rn(a, b, -p));
+}
+
+// (ah, al) + (bh, bl) as a renormalised two-float pair, in _df_add2's order.
+__device__ __forceinline__ float2 df_add2(float ah, float al, float bh,
+                                          float bl) {
+  const float s = __fadd_rn(ah, bh);
+  const float bb = __fsub_rn(s, ah);
+  const float e = __fadd_rn(
+      __fadd_rn(__fsub_rn(ah, __fsub_rn(s, bb)), __fsub_rn(bh, bb)),
+      __fadd_rn(al, bl));
+  const float hi = __fadd_rn(s, e);
+  return make_float2(hi, __fsub_rn(e, __fsub_rn(hi, s)));
+}
+
+// block_sum for two-float pairs: the same fixed tree, folding with df_add2.
+__device__ __forceinline__ float2 block_sum2(float2 v, float* sh, float* sl) {
+  const int t = threadIdx.x;
+  sh[t] = v.x;
+  sl[t] = v.y;
+  __syncthreads();
+#pragma unroll
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      const float2 r = df_add2(sh[t], sl[t], sh[t + s], sl[t + s]);
+      sh[t] = r.x;
+      sl[t] = r.y;
+    }
+    __syncthreads();
+  }
+  const float2 total = make_float2(sh[0], sl[0]);
   __syncthreads();
   return total;
 }

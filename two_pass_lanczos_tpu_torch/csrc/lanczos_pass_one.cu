@@ -1,10 +1,13 @@
-// K2: Lanczos pass one, k steps, scalars only.
+// Lanczos pass one: K2 (scalars only), K4 (with the basis), K5 (resumable
+// chunks), each with a compensated build (K6).
 //
-// Replaces the TPU kernel _pass_one_kernel (two_pass_lanczos_tpu/ops/
-// kkt_fused.py:581), which ran all k steps inside one launch with the whole
-// state in VMEM. A Hopper grid cannot carry a sum from one block to the
-// next, so each step here is a short, fixed sequence of launches that one
-// C++ loop enqueues on the caller's stream, with no host synchronisation:
+// Replaces the TPU kernels _pass_one_kernel (two_pass_lanczos_tpu/ops/
+// kkt_fused.py:581), _pass_one_basis_kernel (:752) and
+// _pass_one_chunk_kernel (:647), and their comp=True builds (:567). The TPU
+// ran all k steps inside one launch with the whole state in VMEM. A Hopper
+// grid cannot carry a sum from one block to the next, so each step here is a
+// short, fixed sequence of launches that one C++ routine (enqueue_step)
+// enqueues on the caller's stream, with no host synchronisation:
 //   1. the K1 matvec               w = A v
 //   2. sub_dot                     w -= beta_prev * v_prev; partials of <v,w>
 //   3. finalize_alpha (1 block)    alpha = fold(partials)
@@ -17,13 +20,33 @@
 // executed step still counts and writes alpha but not beta. A zero b
 // (||b|| <= 1000 tiny) starts with the flag cleared: 0 steps.
 //
+// The three entry points differ only in what surrounds that routine, so
+// their alpha and beta are bitwise equal by construction:
+//   K2 tpl_lanczos_pass_one        the start from b, then steps 0..k-1;
+//   K4 tpl_lanczos_pass_one_basis  the same, and row j of a (k, n) basis is
+//      v_{j+1}: row 0 is stored by init_vectors, row j+1 by step j's
+//      rotate (one extra store per element; Hopper needs no async copy to
+//      overlap it). A step that does not advance stores nothing, so the
+//      caller must pass a zeroed basis;
+//   K5 tpl_lanczos_pass_one_chunk  steps j0..j0+count-1 on scratch that the
+//      caller keeps between calls (v_prev, v_curr, scal, flags, steps,
+//      bnorm); the start from b runs only when j0 == 0. Chained chunks
+//      enqueue the same kernels on the same buffers as one K2 call.
+// The compensated build (comp != 0) changes only the reductions of steps 2,
+// 4 and of ||b||: each thread folds exact products (two_prod) into a
+// two-float pair with df_add2, the block tree and the fold over the block
+// partials do the same, and the result is hi + lo.
+//
 // What bounds it on the H100: each step moves ~30 MB through the 50 MB L2
 // (the matvec plus three passes over the (n,) vectors) and issues six
 // launches of a few microseconds each, so at the headline size the pass is
-// bound by launch latency and L2 bandwidth, not by HBM. This first version
-// keeps each launch simple and fuses what it can (axpy with its dot, the
-// rotate with the normalisation); a persistent grid-synced kernel or a CUDA
-// graph of the step is the next step (ROADMAP).
+// bound by launch latency and L2 bandwidth, not by HBM. K4 adds a 2 MB
+// store per step that leaves the L2 for HBM (1 GB at k = 500). This first
+// version keeps each launch simple and fuses what it can (axpy with its
+// dot, the rotate with the normalisation and the basis store); a persistent
+// grid-synced kernel or a CUDA graph of the step is the next step (ROADMAP).
+#include <cstddef>
+
 #include "lanczos_common.cuh"
 
 namespace tpl {
@@ -32,37 +55,79 @@ namespace {
 // scal[0] = beta_prev, scal[1] = alpha, scal[2] = 1/beta (or 1/||b||)
 // flags[0] = live (1 until a breakdown or a zero b)
 
+// One thread's running sum of x*y: a float (fma) or a two-float pair of
+// exact products.
+template <bool Comp>
+__device__ __forceinline__ float2 accumulate(float2 acc, float x, float y) {
+  if constexpr (Comp) {
+    const float2 pr = two_prod(x, y);
+    return df_add2(acc.x, acc.y, pr.x, pr.y);
+  } else {
+    return make_float2(__fmaf_rn(x, y, acc.x), 0.0f);
+  }
+}
+
+// Block total of the threads' sums, stored by thread 0 as this block's
+// partial (hi in plane 0, lo in plane 1).
+template <bool Comp>
+__device__ __forceinline__ void store_partial(float2 acc, float* sh,
+                                              float* sl, float* partials) {
+  if constexpr (Comp) {
+    const float2 s = block_sum2(acc, sh, sl);
+    if (threadIdx.x == 0) {
+      partials[blockIdx.x] = s.x;
+      partials[kMaxPartials + blockIdx.x] = s.y;
+    }
+  } else {
+    const float s = block_sum(acc.x, sh);
+    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  }
+}
+
+// The fold of g block partials, in one block; every thread gets the total.
+template <bool Comp>
+__device__ __forceinline__ float fold_partials(const float* partials, int g,
+                                               float* sh, float* sl) {
+  if constexpr (Comp) {
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int i = threadIdx.x; i < g; i += kThreads)
+      acc = df_add2(acc.x, acc.y, partials[i], partials[kMaxPartials + i]);
+    const float2 t = block_sum2(acc, sh, sl);
+    return __fadd_rn(t.x, t.y);
+  } else {
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < g; i += kThreads)
+      acc = __fadd_rn(acc, partials[i]);
+    return block_sum(acc, sh);
+  }
+}
+
+template <bool Comp>
 __global__ void __launch_bounds__(kThreads)
 sq_partials_kernel(const float* __restrict__ b, int n,
                    float* __restrict__ partials) {
   __shared__ float sh[kThreads];
-  float acc = 0.0f;
+  __shared__ float sl[Comp ? kThreads : 1];
+  float2 acc = make_float2(0.0f, 0.0f);
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
        i += gridDim.x * kThreads)
-    acc = __fmaf_rn(b[i], b[i], acc);
-  const float s = block_sum(acc, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+    acc = accumulate<Comp>(acc, b[i], b[i]);
+  store_partial<Comp>(acc, sh, sl, partials);
 }
 
-__device__ __forceinline__ float fold_partials(const float* partials, int g,
-                                               float* sh) {
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < g; i += kThreads)
-    acc = __fadd_rn(acc, partials[i]);
-  return block_sum(acc, sh);
-}
-
+template <bool Comp>
 __global__ void __launch_bounds__(kThreads)
 init_kernel(const float* __restrict__ partials, int g, float ztol, int k,
             float* __restrict__ alphas, float* __restrict__ betas,
             float* __restrict__ bnorm, int* __restrict__ steps,
             float* __restrict__ scal, int* __restrict__ flags) {
   __shared__ float sh[kThreads];
+  __shared__ float sl[Comp ? kThreads : 1];
   for (int i = threadIdx.x; i < k; i += kThreads) {
     alphas[i] = 0.0f;
     betas[i] = 0.0f;
   }
-  const float nb = __fsqrt_rn(fold_partials(partials, g, sh));
+  const float nb = __fsqrt_rn(fold_partials<Comp>(partials, g, sh, sl));
   if (threadIdx.x == 0) {
     const bool zero_b = nb <= ztol;
     bnorm[0] = nb;
@@ -73,19 +138,23 @@ init_kernel(const float* __restrict__ partials, int g, float ztol, int k,
   }
 }
 
+// v_curr = b * (1/||b||), v_prev = 0; basis row 0 (when given) = v_curr.
 __global__ void __launch_bounds__(kThreads)
 init_vectors_kernel(const float* __restrict__ b, int n,
                     const float* __restrict__ scal, float* __restrict__ vp,
-                    float* __restrict__ vc) {
+                    float* __restrict__ vc, float* __restrict__ row) {
   const float inv_n = scal[2];
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
        i += gridDim.x * kThreads) {
-    vc[i] = normalise(b[i], inv_n);
+    const float v1 = normalise(b[i], inv_n);
+    vc[i] = v1;
     vp[i] = 0.0f;
+    if (row != nullptr) row[i] = v1;
   }
 }
 
 // w -= (*coef) * x; partials of <partner, w> (partner == nullptr: <w, w>).
+template <bool Comp>
 __global__ void __launch_bounds__(kThreads)
 sub_dot_kernel(float* __restrict__ w, const float* __restrict__ x,
                const float* __restrict__ coef,
@@ -93,31 +162,34 @@ sub_dot_kernel(float* __restrict__ w, const float* __restrict__ x,
                float* __restrict__ partials, const int* __restrict__ flags) {
   if (flags[0] == 0) return;
   __shared__ float sh[kThreads];
+  __shared__ float sl[Comp ? kThreads : 1];
   const float c = *coef;
-  float acc = 0.0f;
+  float2 acc = make_float2(0.0f, 0.0f);
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
        i += gridDim.x * kThreads) {
     const float wi = sub_scaled(w[i], c, x[i]);
     w[i] = wi;
-    acc = __fmaf_rn(partner != nullptr ? partner[i] : wi, wi, acc);
+    acc = accumulate<Comp>(acc, partner != nullptr ? partner[i] : wi, wi);
   }
-  const float s = block_sum(acc, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  store_partial<Comp>(acc, sh, sl, partials);
 }
 
+template <bool Comp>
 __global__ void __launch_bounds__(kThreads)
 finalize_alpha_kernel(const float* __restrict__ partials, int g, int j,
                       float* __restrict__ alphas, float* __restrict__ scal,
                       const int* __restrict__ flags) {
   if (flags[0] == 0) return;
   __shared__ float sh[kThreads];
-  const float alpha = fold_partials(partials, g, sh);
+  __shared__ float sl[Comp ? kThreads : 1];
+  const float alpha = fold_partials<Comp>(partials, g, sh, sl);
   if (threadIdx.x == 0) {
     scal[1] = alpha;
     alphas[j] = alpha;
   }
 }
 
+template <bool Comp>
 __global__ void __launch_bounds__(kThreads)
 finalize_beta_kernel(const float* __restrict__ partials, int g, int j,
                      float tol, float* __restrict__ betas,
@@ -125,7 +197,8 @@ finalize_beta_kernel(const float* __restrict__ partials, int g, int j,
                      int* __restrict__ flags) {
   if (flags[0] == 0) return;
   __shared__ float sh[kThreads];
-  const float beta = __fsqrt_rn(fold_partials(partials, g, sh));
+  __shared__ float sl[Comp ? kThreads : 1];
+  const float beta = __fsqrt_rn(fold_partials<Comp>(partials, g, sh, sl));
   if (threadIdx.x == 0) {
     steps[0] += 1;
     if (beta <= tol) {
@@ -138,16 +211,19 @@ finalize_beta_kernel(const float* __restrict__ partials, int g, int j,
   }
 }
 
+// v_prev = v_curr; v_curr = w * (1/beta); basis row (when given) = v_curr.
 __global__ void __launch_bounds__(kThreads)
 rotate_kernel(const float* __restrict__ w, float* __restrict__ vp,
               float* __restrict__ vc, int n, const float* __restrict__ scal,
-              const int* __restrict__ flags) {
+              const int* __restrict__ flags, float* __restrict__ row) {
   if (flags[0] == 0) return;
   const float inv_b = scal[2];
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
        i += gridDim.x * kThreads) {
+    const float vn = normalise(w[i], inv_b);
     vp[i] = vc[i];
-    vc[i] = normalise(w[i], inv_b);
+    vc[i] = vn;
+    if (row != nullptr) row[i] = vn;
   }
 }
 
@@ -156,50 +232,134 @@ inline int elementwise_blocks(int n) {
   return g < 4096 ? g : 4096;
 }
 
+// Everything one pass-one run touches; see the entry points for the sizes.
+struct PassOne {
+  const float* d;
+  const int* u;
+  const int* v;
+  const int* ptr;
+  const int* ent;
+  int m, p, n, k;
+  float tol, ztol;
+  float* alphas;
+  float* betas;
+  float* bnorm;
+  int* steps;
+  float* vp;
+  float* vc;
+  float* w;
+  float* partials;
+  float* scal;
+  int* flags;
+  float* basis;  // (k, n) rows v_{j+1}, or nullptr
+};
+
+template <bool Comp>
+cudaError_t enqueue_start(const PassOne& s, const float* b,
+                          cudaStream_t stream) {
+  const int g = reduction_blocks(s.n);
+  sq_partials_kernel<Comp><<<g, kThreads, 0, stream>>>(b, s.n, s.partials);
+  init_kernel<Comp><<<1, kThreads, 0, stream>>>(s.partials, g, s.ztol, s.k,
+                                                s.alphas, s.betas, s.bnorm,
+                                                s.steps, s.scal, s.flags);
+  init_vectors_kernel<<<elementwise_blocks(s.n), kThreads, 0, stream>>>(
+      b, s.n, s.scal, s.vp, s.vc, s.basis);
+  return cudaGetLastError();
+}
+
+// The six launches of step j (see the top of the file).
+template <bool Comp>
+cudaError_t enqueue_step(const PassOne& s, int j, int* matvec_launches,
+                         cudaStream_t stream) {
+  const int g = reduction_blocks(s.n);
+  cudaError_t err = launch_kkt_matvec(s.d, s.u, s.v, s.ptr, s.ent, s.m, s.p,
+                                      s.vc, s.w, s.flags, 0, stream);
+  if (err != cudaSuccess) return err;
+  *matvec_launches += 1;
+  sub_dot_kernel<Comp><<<g, kThreads, 0, stream>>>(
+      s.w, s.vp, s.scal + 0, s.vc, s.n, s.partials, s.flags);
+  finalize_alpha_kernel<Comp><<<1, kThreads, 0, stream>>>(
+      s.partials, g, j, s.alphas, s.scal, s.flags);
+  sub_dot_kernel<Comp><<<g, kThreads, 0, stream>>>(
+      s.w, s.vc, s.scal + 1, nullptr, s.n, s.partials, s.flags);
+  finalize_beta_kernel<Comp><<<1, kThreads, 0, stream>>>(
+      s.partials, g, j, s.tol, s.betas, s.steps, s.scal, s.flags);
+  float* row = s.basis != nullptr && j + 1 < s.k
+                   ? s.basis + static_cast<size_t>(j + 1) * s.n
+                   : nullptr;
+  rotate_kernel<<<elementwise_blocks(s.n), kThreads, 0, stream>>>(
+      s.w, s.vp, s.vc, s.n, s.scal, s.flags, row);
+  return cudaGetLastError();
+}
+
+// Steps [j0, j0 + count), preceded by the start from b when j0 == 0.
+template <bool Comp>
+cudaError_t enqueue_run(const PassOne& s, const float* b, int j0, int count,
+                        int* matvec_launches, cudaStream_t stream) {
+  *matvec_launches = 0;
+  if (j0 == 0) {
+    const cudaError_t err = enqueue_start<Comp>(s, b, stream);
+    if (err != cudaSuccess) return err;
+  }
+  for (int j = j0; j < j0 + count; ++j) {
+    const cudaError_t err = enqueue_step<Comp>(s, j, matvec_launches, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+int run(const PassOne& s, int comp, const float* b, int j0, int count,
+        int* matvec_launches, cudaStream_t stream) {
+  const cudaError_t err =
+      comp ? enqueue_run<true>(s, b, j0, count, matvec_launches, stream)
+           : enqueue_run<false>(s, b, j0, count, matvec_launches, stream);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 }  // namespace tpl
 
-// All pointers are device pointers except matvec_launches (host). Outputs:
-// alphas, betas (k), bnorm (1), steps (1). Scratch: v_prev, v_curr, w (n
-// each, n = m + p), partials (tpl::kMaxPartials), scal (3 floats), flags
-// (1 int). On return v_prev and v_curr hold the final state. Allocates
-// nothing and does not synchronise; returns cudaGetLastError().
-extern "C" int tpl_lanczos_pass_one(
-    const float* d, const int* u, const int* v, const int* ptr,
-    const int* ent, int m, int p, const float* b, int k, float tol,
-    float ztol, float* alphas, float* betas, float* bnorm, int* steps,
-    float* v_prev, float* v_curr, float* w, float* partials, float* scal,
-    int* flags, int* matvec_launches, cudaStream_t stream) {
-  using namespace tpl;
-  const int n = m + p;
-  const int g = reduction_blocks(n);
-  const int ge = elementwise_blocks(n);
-  *matvec_launches = 0;
-  sq_partials_kernel<<<g, kThreads, 0, stream>>>(b, n, partials);
-  init_kernel<<<1, kThreads, 0, stream>>>(partials, g, ztol, k, alphas, betas,
-                                          bnorm, steps, scal, flags);
-  init_vectors_kernel<<<ge, kThreads, 0, stream>>>(b, n, scal, v_prev,
-                                                   v_curr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int j = 0; j < k; ++j) {
-    err = launch_kkt_matvec(d, u, v, ptr, ent, m, p, v_curr, w, flags, 0,
-                            stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *matvec_launches += 1;
-    sub_dot_kernel<<<g, kThreads, 0, stream>>>(w, v_prev, scal + 0, v_curr,
-                                               n, partials, flags);
-    finalize_alpha_kernel<<<1, kThreads, 0, stream>>>(partials, g, j, alphas,
-                                                      scal, flags);
-    sub_dot_kernel<<<g, kThreads, 0, stream>>>(w, v_curr, scal + 1, nullptr,
-                                               n, partials, flags);
-    finalize_beta_kernel<<<1, kThreads, 0, stream>>>(partials, g, j, tol,
-                                                     betas, steps, scal,
-                                                     flags);
-    rotate_kernel<<<ge, kThreads, 0, stream>>>(w, v_prev, v_curr, n, scal,
-                                               flags);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+// All pointers are device pointers except matvec_launches (host). Common
+// arguments: the layout (d, u, v, ptr, ent; m arcs, p nodes, n = m + p), b
+// (n), k, the breakdown and zero-b tolerances, comp (1: compensated
+// reductions). Outputs: alphas, betas (k), bnorm (1), steps (1). Scratch:
+// v_prev, v_curr, w (n each), partials (2 * tpl::kMaxPartials), scal (3
+// floats), flags (1 int); on return v_prev and v_curr hold the state after
+// the last enqueued step. Each entry point allocates nothing and does not
+// synchronise; it returns cudaGetLastError() of its launches.
+#define TPL_PASS_ONE_ARGS                                                    \
+  const float *d, const int *u, const int *v, const int *ptr,               \
+      const int *ent, int m, int p, const float *b, int k, float tol,       \
+      float ztol, int comp, float *alphas, float *betas, float *bnorm,      \
+      int *steps, float *v_prev, float *v_curr, float *w, float *partials,  \
+      float *scal, int *flags
+#define TPL_PASS_ONE_STATE(basis)                                            \
+  tpl::PassOne {                                                             \
+    d, u, v, ptr, ent, m, p, m + p, k, tol, ztol, alphas, betas, bnorm,     \
+        steps, v_prev, v_curr, w, partials, scal, flags, basis               \
   }
-  return static_cast<int>(cudaSuccess);
+
+// K2: k steps from b, scalars only.
+extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, int* matvec_launches,
+                                    cudaStream_t stream) {
+  return tpl::run(TPL_PASS_ONE_STATE(nullptr), comp, b, 0, k,
+                  matvec_launches, stream);
+}
+
+// K4: k steps from b; row j of basis (k x n, zeroed by the caller) becomes
+// v_{j+1} for every executed step j.
+extern "C" int tpl_lanczos_pass_one_basis(TPL_PASS_ONE_ARGS, float* basis,
+                                          int* matvec_launches,
+                                          cudaStream_t stream) {
+  return tpl::run(TPL_PASS_ONE_STATE(basis), comp, b, 0, k, matvec_launches,
+                  stream);
+}
+
+// K5: steps [j0, j0 + count) of a k-step run (j0 + count <= k) on scratch
+// and outputs kept by the caller between calls; j0 == 0 starts from b.
+extern "C" int tpl_lanczos_pass_one_chunk(TPL_PASS_ONE_ARGS, int j0,
+                                          int count, int* matvec_launches,
+                                          cudaStream_t stream) {
+  return tpl::run(TPL_PASS_ONE_STATE(nullptr), comp, b, j0, count,
+                  matvec_launches, stream);
 }

@@ -38,11 +38,49 @@ Phases (each one raises on failure, so the exit code is non-zero):
     one-pass bitwise the
     monolithic run at k = 500, and the main path
     ``FusedKKTSolver(..., compensated=True).solve(b, 500)``;
-11. K13, the error-free transformations: exact values on the card.
+11. K13, the error-free transformations: exact values on the card;
+12. K8, the matvec of the generic KKT operators (``make_kkt_operator``):
+    the f32 instance against the plain ``kkt_matvec`` on the headline (arc
+    part bitwise, node part within 2·deg·ε·Σ|x|), the f64 instance against
+    the plain f64 matvec with the ε of f64, the operator that
+    ``operator_from_jax``'s NumPy path builds giving the same y, and the
+    time of a cuSPARSE CSR SpMV of the assembled A as the yardstick;
+13. the generic two-pass path ``solve_fAb(op, b, k=500, f="inv")`` on the
+    headline with the counters reset just before it: K8 launched exactly
+    2k - 1 = 999 times and no plain matvec; x finite; the basis that
+    ``lanczos_pass_two_with_basis`` regenerates bitwise
+    ``lanczos_standard``'s at k = 500; ``solve_fAb``'s x and the host
+    path's (``lanczos_two_pass``) x bitwise pass two of their own y (the
+    f32 solve of T_500 e₁ on the card and on the host), each y within
+    10·κ(T)·ε of the f64 solve of the same α, β, and the gap between the
+    two x within ‖V‖₂·‖Δy‖ plus pass two's f32 rounding; α, β at k = 20
+    within rtol 1e-4 of the fused K2; a small instance against the CPU f64
+    oracle; the launches of ``lanczos_two_pass`` and of ``lanczos``
+    (one-pass, a 1.0 GB basis) counted;
+14. f64 and the other operators on the card: ``lanczos_two_pass`` on a
+    ``DiagonalOperator`` against the analytic x ({inv, exp, z²} at 1e-3 /
+    1e-12), the two-pass basis bitwise on an f64 KKT of m = 200,000, and a
+    ``SparseOperator`` (``kkt_sorted_coo``) whose pass two regenerates pass
+    one's basis bitwise; then the medians of 5 generic two-pass and one-pass
+    k = 500 solves and K8's time beside the plain version's and cuSPARSE's.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the package beside this file, it prints no result and exits 2.
+Every kernel's entry of the JSON line carries its launches on its main
+path, its max_abs_err against its plain version, its time (``ms``), the
+plain version's (``plain_ms``), ``bound_ms`` (the larger of the bytes the
+function must move, each input read once and each output written once,
+over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100 SXM's
+peaks, counted from this run's shapes and steps; ``bound_by`` names the
+larger) and ``library_ms``, the time of one PyTorch call that computes the
+same function (cuSPARSE SpMV for the matvecs), or null. A single call
+(K1, K8, K13, their plain versions, cuSPARSE) is timed as device time:
+200 calls captured in one CUDA graph and replayed, so the host's launch
+cost is not in it. A pass (K2-K6 and their plain
+versions) is timed by CUDA events around the whole pass, idle gaps
+between its launches included.
+
+The line before the last is that JSON object; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package beside this file, it prints no result and exits 2.
 """
 
 from __future__ import annotations
@@ -61,6 +99,12 @@ K_LONG = 1000
 K_CHECK = 20
 CHUNK = 64
 STOP_AT = 100
+M_F64 = 200_000  # arcs of phase 14's f64 KKT
+K_F64 = 100
+#: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
+#: outside the tensor cores
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
 PASS_ONE_CU = "two_pass_lanczos_tpu_torch/csrc/lanczos_pass_one.cu"
 KERNELS = {
     "kkt_matvec": ("two_pass_lanczos_tpu_torch/csrc/kkt_matvec.cu",
@@ -77,6 +121,8 @@ KERNELS = {
                               "two_pass_lanczos_tpu/ops/kkt_fused.py:567"),
     "eft_check": ("two_pass_lanczos_tpu_torch/csrc/eft_check.cu",
                   "tests/test_fused_df.py:274"),
+    "kkt_operator_matvec": ("two_pass_lanczos_tpu_torch/csrc/kkt_matvec.cu",
+                            "two_pass_lanczos_tpu/ops/spmv_pallas.py:52"),
 }
 
 
@@ -103,6 +149,70 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, its replay timed by CUDA events, over ``reps``. The
+    host's launch cost is not in it; the graph's gaps between kernels
+    are."""
+    import torch
+    side = torch.cuda.Stream()  # warm up off the default stream, then capture
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = event_ms(graph.replay, 3) / reps
+    del graph
+    return ms
+
+
+def roofline_ms(nbytes: float, flops: float):
+    """(ms, what binds): the larger of bytes over the HBM rate and f32
+    operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
+    """``(bound ms, what binds)`` of each kernel's function on an instance
+    of m arcs and n = m + p unknowns, for passes of ``steps`` steps with
+    k-long coefficient arrays.
+
+    Bytes: each input read once and each output written once (f32 values,
+    int32 indices); what a kernel reads again (the node-sorted incidence
+    CSR that its layout builds from u and v, a pass's per-step state)
+    belongs to its design, not to the function. Operations: f32, per step
+    one matvec (3 per arc row, 2 per incidence entry) and the recurrence's
+    vector work.
+    """
+    mv_in = 12 * m                   # d, u, v
+    mv_flops = 5 * m
+    p1_bytes = mv_in + 4 * n + 8 * k  # + b; alpha, beta out
+    p1_flops = steps * (mv_flops + 9 * n)
+    matvec = roofline_ms(mv_in + 8 * n, mv_flops)  # + x in, y out
+    return {
+        "kkt_matvec": matvec,
+        "lanczos_pass_one": roofline_ms(p1_bytes, p1_flops),
+        # + x out, y in
+        "lanczos_pass_two": roofline_ms(p1_bytes + 4 * n + 4 * k,
+                                        steps * (mv_flops + 7 * n)),
+        # + the (steps, n) basis out
+        "lanczos_pass_one_basis": roofline_ms(p1_bytes + 4 * steps * n,
+                                              p1_flops),
+        "lanczos_pass_one_chunk": roofline_ms(p1_bytes, p1_flops),
+        "lanczos_pass_one_comp": roofline_ms(
+            p1_bytes, steps * (mv_flops + 31 * n)),
+        # (2, 128) in, (6, 128) out
+        "eft_check": roofline_ms(32 * 128, 30 * 128),
+        "kkt_operator_matvec": matvec,
+    }
 
 
 def wall_s(fn, reps: int) -> list:
@@ -140,6 +250,7 @@ def main() -> int:
         padded_f_e1,
     )
     from two_pass_lanczos_tpu_torch.algorithms.core import (
+        LanczosDecomposition,
         dot_f64,
         pass_one_chunk_scan,
         pass_one_last_vector,
@@ -333,7 +444,7 @@ def main() -> int:
     t_comp = wall_s(lambda: solver_c.solve(b, k=K, f="inv", raw=True), 5)
     t_plain2 = wall_s(plain_solve, 1)
     ms = {
-        "kkt_matvec": event_ms(lambda: kkt_matvec_cuda(lay, x), 200),
+        "kkt_matvec": device_ms(lambda: kkt_matvec_cuda(lay, x), 200),
         "lanczos_pass_one": event_ms(
             lambda: pass_one_cuda(lay, b, K, solver.tol, solver.ztol), 3),
         "lanczos_pass_two": event_ms(
@@ -345,10 +456,10 @@ def main() -> int:
         "lanczos_pass_one_comp": event_ms(
             lambda: pass_one_cuda(lay, b, K, solver.tol, solver.ztol,
                                   compensated=True), 3),
-        "eft_check": event_ms(lambda: eft_check_cuda(ea, eb), 200),
+        "eft_check": device_ms(lambda: eft_check_cuda(ea, eb), 200),
     }
     plain_ms = {
-        "kkt_matvec": event_ms(lambda: plain_mv(x), 200),
+        "kkt_matvec": device_ms(lambda: plain_mv(x), 200),
         "lanczos_pass_one": event_ms(lambda: pass_one_scan(plain_mv, b, K), 1),
         "lanczos_pass_two": event_ms(
             lambda: pass_two_scan(plain_mv, b, dec1, y_full), 1),
@@ -357,8 +468,9 @@ def main() -> int:
         "lanczos_pass_one_chunk": event_ms(lambda: plain_chunked(K, CHUNK), 1),
         "lanczos_pass_one_comp": event_ms(
             lambda: pass_one_scan(plain_mv, b, K, dot=dot_f64), 1),
-        "eft_check": event_ms(lambda: eft_check_plain(ea, eb), 200),
+        "eft_check": device_ms(lambda: eft_check_plain(ea, eb), 200),
     }
+    k1_call_ms = event_ms(lambda: kkt_matvec_cuda(lay, x), 200)
 
     def runs(ts):
         return (f"median {statistics.median(ts):.4f} s "
@@ -373,9 +485,11 @@ def main() -> int:
     print(f"    compensated two-pass solve k={K}: {runs(t_comp)}")
     print(f"    plain PyTorch solve k={K} on the card: "
           f"{', '.join(f'{t:.4f}' for t in t_plain1 + t_plain2)} s")
-    for name in KERNELS:
+    for name in ms:
         print(f"    {name}: kernel {ms[name]:.4f} ms, plain "
               f"{plain_ms[name]:.4f} ms")
+    print(f"    kkt_matvec per call from Python (CUDA events, 200 calls): "
+          f"{k1_call_ms:.4f} ms")
 
     # 8. K4: pass one with the basis
     dec4, basis = solver.pass_one_with_basis(b, K)
@@ -555,14 +669,300 @@ def main() -> int:
     err_k13 = float((got - exact).abs().max())
     print("[11] K13 ok: two_sum, two_prod, df_add2 exact on the card")
 
+    # 12. K8: the generic KKT operators' matvec
+    import two_pass_lanczos_tpu_torch as tpl
+    from two_pass_lanczos_tpu_torch.convert import operator_from_jax
+    from two_pass_lanczos_tpu_torch.functions import host_f_tk_solve
+    from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
+    from two_pass_lanczos_tpu_torch.ops import spmv_kernel
+    from two_pass_lanczos_tpu_torch.testing import (
+        check_reconstruction_stability,
+    )
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+
+    arrays = KKTArrays(quad_costs=inst.quad_costs, arc_u=inst.arc_u,
+                       arc_v=inst.arc_v, num_nodes=inst.num_nodes,
+                       num_arcs=inst.num_arcs)
+    op = tpl.make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
+                               inst.num_nodes, dtype=torch.float32)  # card, K8
+    check(isinstance(op, tpl.CudaKKTOperator) and op.device.type == "cuda"
+          and op.dtype == torch.float32, f"make_kkt_operator gave {op!r}")
+    op64 = tpl.make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
+                                 inst.num_nodes, dtype=torch.float64)
+    lay8, lay64 = op.layout, op64.layout
+
+    def node_bound(lay_, x_, eps):
+        absum_ = torch.zeros(lay_.p, dtype=x_.dtype, device=dev)
+        absum_.index_add_(0, lay_.u, x_[:m].abs())
+        absum_.index_add_(0, lay_.v, x_[:m].abs())
+        return 2 * (lay_.ptr[1:] - lay_.ptr[:-1]).to(x_.dtype) * eps * absum_
+
+    y8 = op.matvec(x)
+    y8_ref = kkt_matvec(lay8.d, lay8.u, lay8.v, lay8.p, x)
+    torch.cuda.synchronize()
+    check(torch.equal(y8, y), "K8 f32 differs from K1 on the same x")
+    check(torch.equal(y8[:m], y8_ref[:m]), "K8 f32 arc part not bitwise")
+    check(bool(((y8[m:] - y8_ref[m:]).abs()
+                <= node_bound(lay8, x, torch.finfo(torch.float32).eps)).all()),
+          "K8 f32 node part outside 2·deg·eps·Σ|x|")
+    check(torch.equal(op.matvec(x), y8), "K8 f32 not bitwise reproducible")
+    err_k8 = float((y8 - y8_ref).abs().max())
+    x64 = x.double()
+    y64 = op64.matvec(x64)
+    y64_ref = kkt_matvec(lay64.d, lay64.u, lay64.v, lay64.p, x64)
+    torch.cuda.synchronize()
+    check(y64.dtype == torch.float64 and torch.equal(y64[:m], y64_ref[:m]),
+          "K8 f64 arc part not bitwise")
+    check(bool(((y64[m:] - y64_ref[m:]).abs()
+                <= node_bound(lay64, x64,
+                              torch.finfo(torch.float64).eps)).all()),
+          "K8 f64 node part outside 2·deg·eps·Σ|x|")
+    err_k8_64 = float((y64 - y64_ref).abs().max())
+
+    # a PallasKKTOperator's fields, as operator_from_jax reads them (NumPy)
+    pal = type("PallasKKTOperator", (), {})()
+    m_pad = -(-m // 2048) * 2048  # the TPU kernel's padding, dropped again
+    pal.d_pad = np.zeros(m_pad, np.float32)
+    pal.d_pad[:m] = inst.quad_costs
+    pal.u_pad = np.zeros(m_pad, np.int32)
+    pal.u_pad[:m] = inst.arc_u
+    pal.v_pad = np.zeros(m_pad, np.int32)
+    pal.v_pad[:m] = inst.arc_v
+    pal.num_arcs, pal.num_nodes = m, inst.num_nodes
+    op_conv = operator_from_jax(pal)
+    check(isinstance(op_conv, tpl.CudaKKTOperator)
+          and torch.equal(op_conv.matvec(x), y8),
+          "operator_from_jax's CudaKKTOperator differs from the KKT operator")
+    coo32 = kkt_sorted_coo(arrays, dtype=np.float32)
+    a_csr = torch.sparse_csr_tensor(coo32.indptr, coo32.cols, coo32.vals,
+                                    size=(n, n))
+    y_lib = torch.mv(a_csr, x)
+    torch.cuda.synchronize()
+    rel_lib = float(torch.linalg.norm(y_lib - y8) / torch.linalg.norm(y8))
+    check(rel_lib < 1e-6, f"cuSPARSE SpMV rel {rel_lib:.3e} vs K8")
+    print(f"[12] K8 ok: f32 bitwise K1 and arc part bitwise plain, node part "
+          f"within bound, max_abs_err {err_k8:.3e}; f64 arc part bitwise, "
+          f"node part within bound, max_abs_err {err_k8_64:.3e}; the "
+          f"converted Pallas operator gives the same y; cuSPARSE CSR SpMV "
+          f"(nnz {coo32.nnz}) rel {rel_lib:.3e}")
+
+    # 13. the generic two-pass path on the headline, through K8 only
+    plain_calls = []
+    plain_mv_orig = spmv_kernel.kkt_matvec
+
+    def counted_plain(*args):
+        plain_calls.append(1)
+        return plain_mv_orig(*args)
+
+    spmv_kernel.kkt_matvec = counted_plain  # the operators' only plain route
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_gen = tpl.solve_fAb(op, b, k=K, f="inv")
+    torch.cuda.synchronize()
+    gen_first = time.perf_counter() - t0
+    launches["kkt_operator_matvec"] = LAUNCHES["kkt_operator_matvec"]
+    gen_launches = dict(LAUNCHES)
+    check(LAUNCHES["kkt_operator_matvec"] == 2 * K - 1
+          and sum(gen_launches.values()) == 2 * K - 1 and not plain_calls,
+          f"generic launches {gen_launches}, plain calls {len(plain_calls)}")
+    check(tuple(x_gen.shape) == (n,) and bool(torch.isfinite(x_gen).all()),
+          "generic x not finite")
+    reset_launches()
+    x_host = tpl.lanczos_two_pass(op, b, K, tpl.make_inv_solver())
+    torch.cuda.synchronize()
+    host_launches = LAUNCHES["kkt_operator_matvec"]
+    reset_launches()
+    x_gen1 = tpl.lanczos(op, b, K, tpl.make_inv_solver())
+    torch.cuda.synchronize()
+    one_launches = LAUNCHES["kkt_operator_matvec"]
+    spmv_kernel.kkt_matvec = plain_mv_orig
+    check(host_launches == 2 * K - 1 and one_launches == K and not plain_calls,
+          f"host path {host_launches}, one-pass {one_launches} launches")
+    rel_host = float(torch.linalg.norm(x_host - x_gen)
+                     / torch.linalg.norm(x_gen))
+    rel_gen1 = float(torch.linalg.norm(x_gen1 - x_gen)
+                     / torch.linalg.norm(x_gen))
+    rel_fused = float(torch.linalg.norm(x_gen - x_main)
+                      / torch.linalg.norm(x_main))
+    dec_s, basis_s = tpl.lanczos_standard(op, b, K)
+    steps_g = dec_s.steps()
+    _, regen = tpl.lanczos_pass_two_with_basis(
+        op, b, dec_s, torch.ones(K, device=dev))
+    torch.cuda.synchronize()
+    check(torch.equal(regen[:steps_g], basis_s[:steps_g]),
+          "generic pass two's basis differs from lanczos_standard's")
+    del regen
+    # x_gen and x_host are pass two over this one basis and differ only in
+    # y = f(T_500)·e1·‖b‖, solved in f32 on the card (solve_fAb) and on the
+    # host (make_inv_solver): hold each y to the f64 solve of the same α, β
+    # and the x gap to what the y gap can make of it through the basis
+    dec_p = tpl.lanczos_pass_one(op, b, K)
+    check(steps_g == K and torch.equal(dec_p.alphas, dec_s.alphas)
+          and torch.equal(dec_p.betas, dec_s.betas),
+          "pass one's alpha, beta differ with and without the basis")
+    y_gen = (padded_f_e1(dec_p, "inv") * dec_p.b_norm).to(b.dtype)
+    al_, be_ = dec_p.alphas_valid(), dec_p.betas_valid()
+    y_host = (torch.as_tensor(tpl.make_inv_solver()(al_, be_)).to(dev)
+              * dec_p.b_norm)
+    check(torch.equal(tpl.lanczos_pass_two(op, b, dec_p, y_gen), x_gen)
+          and torch.equal(tpl.lanczos_pass_two(op, b, dec_p, y_host), x_host),
+          "an x is not pass two of its own y")
+    # the card's solve code is right: in f64 it gives the host's f64 answer
+    # to within 10·κ(T)·ε64 ...
+    bn_ = float(dec_p.b_norm)
+    y_f64 = host_f_tk_solve(al_, be_, "inv") * bn_
+    dec_p64 = LanczosDecomposition(
+        alphas=dec_p.alphas.double(), betas=dec_p.betas.double(),
+        steps_taken=dec_p.steps_taken, b_norm=dec_p.b_norm.double())
+    y_card64 = (padded_f_e1(dec_p64, "inv") * dec_p64.b_norm).cpu().numpy()
+    tk = np.diag(al_.astype(np.float64)) + np.diag(be_, 1) + np.diag(be_, -1)
+    lam_t = np.abs(np.linalg.eigvalsh(tk))
+    kappa = float(lam_t.max() / lam_t.min())
+    eps32 = float(np.finfo(np.float32).eps)
+    eps64 = float(np.finfo(np.float64).eps)
+    rel_card64 = float(np.linalg.norm(y_card64 - y_f64) / np.linalg.norm(y_f64))
+    check(rel_card64 <= 10 * kappa * eps64,
+          f"padded_f_e1 in f64 on the card rel {rel_card64:.3e} from the "
+          f"host's f64 solve, above 10·κ·ε64 = {10 * kappa * eps64:.3e}")
+    # ... and each f32 y solves T y = ‖b‖e1 to a backward error of 10·ε32,
+    # so its distance from the f64 answer is the f32 rounding of an
+    # ill-conditioned solve
+    tnorm = float(np.linalg.norm(tk, 2))
+    rhs = np.zeros(K)
+    rhs[0] = bn_
+    back_y, rel_y = {}, {}
+    for name, yy in (("card", y_gen), ("host", y_host)):
+        y_ = yy.double().cpu().numpy()
+        back_y[name] = float(np.linalg.norm(tk @ y_ - rhs)
+                             / (tnorm * np.linalg.norm(y_)))
+        rel_y[name] = float(np.linalg.norm(y_ - y_f64) / np.linalg.norm(y_f64))
+    check(max(back_y.values()) <= 10 * eps32,
+          f"f32 solves of T_{K} with backward errors {back_y} above 10·ε32")
+    vd = basis_s.double()
+    gram = vd @ vd.T
+    v_norm = float(torch.linalg.eigvalsh(gram).max().sqrt())
+    orth_loss = float((gram - torch.eye(K, dtype=gram.dtype, device=dev))
+                      .abs().max())
+    col = gram.diagonal().sqrt()
+    del vd, gram, basis_s
+    dy = float(torch.linalg.norm(y_gen.double() - y_host.double()))
+    slack = (K + 1) * eps32 * float((y_gen.double().abs() * col).sum()
+                                    + (y_host.double().abs() * col).sum())
+    gap = float(torch.linalg.norm(x_gen.double() - x_host.double()))
+    check(gap <= 1.001 * (v_norm * dy + slack),
+          f"x gap {gap:.4e} above ‖V‖₂·‖Δy‖ + rounding = "
+          f"{v_norm * dy:.4e} + {slack:.4e}")
+    rel_alpha_fused = float((dec_main.alphas - dec_p.alphas).abs().max()
+                            / dec_p.alphas.abs().max())
+    dec_g = tpl.lanczos_pass_one(op, b, K_CHECK)
+    np.testing.assert_allclose(dec_g.alphas.cpu().numpy(),
+                               dec.alphas.cpu().numpy(), rtol=1e-4)
+    np.testing.assert_allclose(dec_g.betas.cpu().numpy(),
+                               dec.betas.cpu().numpy(), rtol=1e-4)
+    sop = tpl.make_kkt_operator(sd, su, sv, sp)
+    xs_gen = tpl.lanczos_two_pass(sop, sb.astype(np.float32), 25,
+                                  tpl.make_inv_solver()).cpu().numpy()
+    rel_small_gen = float(np.linalg.norm(xs_gen - xs_ref.numpy())
+                          / np.linalg.norm(xs_ref.numpy()))
+    check(rel_small_gen < 1e-4,
+          f"generic small-instance rel {rel_small_gen:.3e} vs f64 oracle")
+    print(f"[13] generic solve_fAb(k={K}, f='inv') first call "
+          f"{gen_first:.4f} s, launches {gen_launches}, plain matvecs "
+          f"{len(plain_calls)}; basis of lanczos_pass_two_with_basis bitwise "
+          f"lanczos_standard's, rows 0..{steps_g - 1} (n={n}); alpha, beta "
+          f"within rtol 1e-4 of K2 at k={K_CHECK}; x vs host path rel "
+          f"{rel_host:.3e}, vs generic one-pass rel {rel_gen1:.3e}, vs the "
+          f"fused solve rel {rel_fused:.3e}; lanczos_two_pass {host_launches}"
+          f" and lanczos {one_launches} K8 launches; small instance vs CPU "
+          f"f64 oracle rel {rel_small_gen:.3e}")
+    print(f"     both x are pass two of their own y, bitwise; kappa(T_{K}) "
+          f"{kappa:.4e}; padded_f_e1 in f64 on the card vs the host's f64 "
+          f"solve rel {rel_card64:.3e} <= 10·kappa·eps64 "
+          f"{10 * kappa * eps64:.3e}; f32 y backward error card "
+          f"{back_y['card']:.3e}, host {back_y['host']:.3e} <= 10·eps32; "
+          f"f32 y vs the f64 solve: card rel {rel_y['card']:.3e}, host rel "
+          f"{rel_y['host']:.3e}; x gap {gap:.4e} <= "
+          f"||V||_2 {v_norm:.4f} x ||dy|| {dy:.4e} + rounding {slack:.3e} "
+          f"(gap / bound {gap / (v_norm * dy + slack):.4f}); "
+          f"max|V V^T - I| {orth_loss:.3e}; fused vs generic alpha at k={K} "
+          f"max rel {rel_alpha_fused:.3e}")
+
+    # 14. f64 and the other operators on the card
+    eigs = np.arange(1.0, 101.0)
+    db = np.random.default_rng(12345).standard_normal(100)
+    dop = tpl.DiagonalOperator(eigs)
+    rel_diag = {}
+    for name, solver, fx, tol in (
+            ("inv", tpl.make_inv_solver(), 1.0 / eigs, 1e-3),
+            ("exp", tpl.make_exp_solver(), np.exp(eigs), 1e-3),
+            ("z2", tpl.make_poly_solver([0.0, 0.0, 1.0]), eigs ** 2, 1e-12)):
+        xd_ = tpl.lanczos_two_pass(dop, db, 30, solver).cpu().numpy()
+        rel_diag[name] = float(np.linalg.norm(xd_ - fx * db)
+                               / np.linalg.norm(fx * db))
+        check(rel_diag[name] < tol,
+              f"f64 diagonal {name}: rel {rel_diag[name]:.3e} >= {tol}")
+    frng = np.random.default_rng(42)
+    fm, fp = M_F64, 2_000
+    fu = frng.integers(0, fp, fm).astype(np.int32)
+    fv = ((fu + 1 + frng.integers(0, fp - 1, fm)) % fp).astype(np.int32)
+    fd = frng.uniform(1.0, 3.0, fm)
+    fop = tpl.make_kkt_operator(fd, fu, fv, fp, dtype=torch.float64)
+    fb = torch.from_numpy(frng.standard_normal(fm + fp)).to(dev)
+    reset_launches()
+    dec_f, basis_f = tpl.lanczos_standard(fop, fb, K_F64)
+    _, regen_f = tpl.lanczos_pass_two_with_basis(
+        fop, fb, dec_f, torch.ones(K_F64, dtype=torch.float64, device=dev))
+    torch.cuda.synchronize()
+    check(LAUNCHES["kkt_operator_matvec"] == 2 * K_F64 - 1,
+          f"f64 launches {dict(LAUNCHES)}")
+    check(torch.equal(regen_f, basis_f), "f64 KKT basis not replayed bitwise")
+    del basis_f, regen_f
+    small = KKTArrays(quad_costs=sd.astype(np.float64), arc_u=su, arc_v=sv,
+                      num_nodes=sp, num_arcs=sm_)
+    spop = tpl.SparseOperator(kkt_sorted_coo(small))
+    sp_b = torch.from_numpy(sb).to(dev)
+    drift = check_reconstruction_stability(spop, sp_b, 30).value
+    check(drift == 0.0, f"SparseOperator basis drift {drift} != 0")
+    check(torch.equal(spop.matvec(sp_b), spop.matvec(sp_b)),
+          "SparseOperator matvec not reproducible")
+    print(f"[14] f64 DiagonalOperator two-pass vs analytic: "
+          + ", ".join(f"{k_} rel {v_:.3e}" for k_, v_ in rel_diag.items())
+          + f"; f64 KKT m={fm}, p={fp}, k={K_F64}: basis bitwise; "
+          f"SparseOperator (nnz {spop.mat.nnz}) drift {drift} at k=30")
+
+    t_gen = wall_s(lambda: tpl.solve_fAb(op, b, k=K, f="inv"), 5)
+    t_gen1 = wall_s(lambda: tpl.solve_fAb(op, b, k=K, f="inv",
+                                          method="one_pass"), 5)
+    t_host = wall_s(lambda: tpl.lanczos_two_pass(op, b, K,
+                                                 tpl.make_inv_solver()), 3)
+    ms["kkt_operator_matvec"] = device_ms(lambda: op.matvec(x), 200)
+    plain_ms["kkt_operator_matvec"] = device_ms(lambda: plain_mv(x), 200)
+    lib_ms = device_ms(lambda: torch.mv(a_csr, x), 200)
+    ms_k8_64 = device_ms(lambda: op64.matvec(x64), 200)
+    k8_call_ms = event_ms(lambda: op.matvec(x), 200)
+    lib_call_ms = event_ms(lambda: torch.mv(a_csr, x), 200)
+    print(f"    on {card}: generic two-pass solve_fAb k={K}: {runs(t_gen)}")
+    print(f"    generic one-pass solve_fAb k={K}: {runs(t_gen1)}")
+    print(f"    generic lanczos_two_pass (host path) k={K}: {runs(t_host)}")
+    print(f"    kkt_operator_matvec device time: kernel "
+          f"{ms['kkt_operator_matvec']:.5f} ms (f64 {ms_k8_64:.5f} ms), "
+          f"plain {plain_ms['kkt_operator_matvec']:.5f} ms, cuSPARSE CSR "
+          f"SpMV {lib_ms:.5f} ms; per call from Python (CUDA events): "
+          f"kernel {k8_call_ms:.4f} ms, cuSPARSE {lib_call_ms:.4f} ms")
+
+    bounds = kernel_bounds(m, n, steps, K)
+    library = {"kkt_matvec": lib_ms, "kkt_operator_matvec": lib_ms}
     errs = {"kkt_matvec": err_k1, "lanczos_pass_one": err_k2,
             "lanczos_pass_two": err_k3, "lanczos_pass_one_basis": err_k4,
             "lanczos_pass_one_chunk": err_k5, "lanczos_pass_one_comp": err_k6,
-            "eft_check": err_k13}
+            "eft_check": err_k13, "kkt_operator_matvec": err_k8}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "ms": ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library.get(name)}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,10 @@ Usage, from the root of a checkout, on a machine with one NVIDIA GPU::
 Paths, each on ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
 (n = 501,155) with ``b`` from ``default_rng(0)`` already on the card:
 ``two_pass``, ``one_pass``, ``callback`` (never stopping, chunk 64) and
-``compensated`` solves at ``f="inv"``, and pass one alone, monolithic
-(``pass_one``) and in chunks of 64 (``chunked_pass_one``).
+``compensated`` solves of ``FusedKKTSolver`` at ``f="inv"``, pass one alone,
+monolithic (``pass_one``) and in chunks of 64 (``chunked_pass_one``), and
+the generic tier's ``solve_fAb`` on ``make_kkt_operator`` (K8),
+``generic_two_pass`` and ``generic_one_pass``.
 
 Each path runs twice to warm up, then ``--reps`` times under the profiler,
 each call ending in ``torch.cuda.synchronize()``. Per call:
@@ -105,7 +107,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from two_pass_lanczos_tpu_torch import FusedKKTSolver, generate_mcf_instance
+    from two_pass_lanczos_tpu_torch import (
+        FusedKKTSolver,
+        generate_mcf_instance,
+        make_kkt_operator,
+        solve_fAb,
+    )
 
     dev = torch.device("cuda", 0)
     inst = generate_mcf_instance(**HEADLINE)
@@ -114,6 +121,8 @@ def main(argv=None) -> int:
                                     compensated=comp)
                for comp in (False, True)}
     s, sc = solvers[False], solvers[True]
+    op = make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
+                           inst.num_nodes, dtype=torch.float32, device=dev)
     b = torch.from_numpy(np.random.default_rng(0).standard_normal(s.n)
                          .astype(np.float32)).to(dev)
     k = args.k
@@ -126,6 +135,9 @@ def main(argv=None) -> int:
         "compensated": lambda: sc.solve(b, k=k, raw=True),
         "chunked_pass_one": lambda: s.pass_one_chunked(b, k, chunk=CHUNK),
         "pass_one": lambda: s.pass_one(b, k),
+        "generic_two_pass": lambda: solve_fAb(op, b, k=k, f="inv"),
+        "generic_one_pass": lambda: solve_fAb(op, b, k=k, f="inv",
+                                              method="one_pass"),
     }
     out = {}
     for name, fn in paths.items():

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_cases import random_kkt
+from tests.torch_cases import CPU, random_kkt
 from two_pass_lanczos_tpu import checkpoint as jax_checkpoint
 from two_pass_lanczos_tpu import convergence as jax_convergence
 from two_pass_lanczos_tpu import observability as jax_observability
@@ -44,7 +44,7 @@ def _y_full(dec):
 def test_callback_replay_views(problem):
     d, u, v, p, b = problem
     k = 15
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     decomp, basis = s.pass_one_with_basis(b, k)
     seen = []
 
@@ -63,7 +63,7 @@ def test_callback_replay_views(problem):
 def test_callback_early_stop_and_truncation(problem):
     d, u, v, p, b = problem
     k = 15
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     decomp = s.pass_one(b, k)
 
     def cb(step, _v, tk):
@@ -85,7 +85,8 @@ def test_callback_early_stop_and_truncation(problem):
     jdec = js.pass_one(js.pack(b), k)
     assert jax_observability.find_stopping_point(jdec, cb) == stop
     jtr = jax_observability.truncate_decomposition(jdec, stop)
-    ptr = truncate_decomposition(decomposition_from_jax(jdec), stop)
+    ptr = truncate_decomposition(
+        decomposition_from_jax(jdec, device=CPU), stop)
     np.testing.assert_array_equal(ptr.alphas.numpy(), np.asarray(jtr.alphas))
     np.testing.assert_array_equal(ptr.betas.numpy(), np.asarray(jtr.betas))
     assert ptr.steps() == int(jtr.steps_taken)
@@ -95,7 +96,7 @@ def test_decomposition_accessors_match_jax(problem):
     d, u, v, p, b = problem
     js = JaxFused(d, u, v, p, interpret=True)
     jdec = js.pass_one(js.pack(b), 12)
-    dec = decomposition_from_jax(jdec)
+    dec = decomposition_from_jax(jdec, device=CPU)
     np.testing.assert_array_equal(dec.alphas_valid(), jdec.alphas_valid())
     np.testing.assert_array_equal(dec.betas_valid(), jdec.betas_valid())
     assert dec.beta_last() == jdec.beta_last()
@@ -104,12 +105,12 @@ def test_decomposition_accessors_match_jax(problem):
 def test_checkpoint_resume_fused(problem, tmp_path):
     d, u, v, p, b = problem
     k = 15
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     dec = s.pass_one(b, k)
     save_decomposition(tmp_path / "dec.npz", dec)
     # "another job": a fresh solver, load, replay pass two
-    s2 = FusedKKTSolver(d, u, v, p)
-    dec2 = load_decomposition(tmp_path / "dec.npz")
+    s2 = FusedKKTSolver(d, u, v, p, device=CPU)
+    dec2 = load_decomposition(tmp_path / "dec.npz", device=CPU)
     assert torch.equal(dec2.alphas, dec.alphas)
     assert dec2.steps_taken.dtype == torch.int32 and dec2.steps() == k
     x = s2.pass_two(b, dec2, _y_full(dec2)).numpy()
@@ -123,13 +124,13 @@ def test_checkpoint_jax_save_port_load(problem, tmp_path):
     js = JaxFused(d, u, v, p, interpret=True)
     jdec = js.pass_one(js.pack(b), k)
     jax_checkpoint.save_decomposition(tmp_path / "jax_dec", jdec)
-    dec = load_decomposition(tmp_path / "jax_dec")
+    dec = load_decomposition(tmp_path / "jax_dec", device=CPU)
     np.testing.assert_array_equal(dec.alphas.numpy(), np.asarray(jdec.alphas))
     np.testing.assert_array_equal(dec.betas.numpy(), np.asarray(jdec.betas))
     assert dec.steps() == int(jdec.steps_taken)
     assert float(dec.b_norm) == float(jdec.b_norm)
     # pass two of the port on the JAX package's pass one
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     x = s.pass_two(b, dec, _y_full(dec)).numpy()
     x_ref, _ = js.solve(b, k=k, f="inv")
     assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) < 1e-4
@@ -137,7 +138,7 @@ def test_checkpoint_jax_save_port_load(problem, tmp_path):
 
 def test_checkpoint_port_save_jax_load(problem, tmp_path):
     d, u, v, p, b = problem
-    dec = FusedKKTSolver(d, u, v, p).pass_one(b, 15)
+    dec = FusedKKTSolver(d, u, v, p, device=CPU).pass_one(b, 15)
     save_decomposition(tmp_path / "port_dec.npz", dec)
     jdec = jax_checkpoint.load_decomposition(tmp_path / "port_dec.npz")
     np.testing.assert_array_equal(np.asarray(jdec.alphas), dec.alphas.numpy())
@@ -151,7 +152,7 @@ def test_checkpoint_rejects_unknown_version(tmp_path):
              steps_taken=np.int32(0), b_norm=np.float32(0),
              meta='{"version": 99}')
     with pytest.raises(ValueError, match="unsupported"):
-        load_decomposition(tmp_path / "bad.npz")
+        load_decomposition(tmp_path / "bad.npz", device=CPU)
 
 
 def test_trace_names_a_profiler_region():
@@ -180,7 +181,7 @@ def test_sol_model_of_the_port_layout():
 @pytest.mark.parametrize("f", ["inv", "exp"])
 def test_convergence_matches_jax(problem, f):
     d, u, v, p, b = problem
-    dec = FusedKKTSolver(d, u, v, p).pass_one(b, 30)
+    dec = FusedKKTSolver(d, u, v, p, device=CPU).pass_one(b, 30)
     a, bt = dec.alphas_valid(), dec.betas_valid()
     np.testing.assert_allclose(
         convergence.update_norm(a, bt, f, lag=5),

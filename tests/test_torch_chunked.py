@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_cases import random_kkt
+from tests.torch_cases import CPU, random_kkt
 from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver as JaxFused
 from two_pass_lanczos_tpu_torch import make_convergence_callback, padded_f_e1
 from two_pass_lanczos_tpu_torch.algorithms.core import (
@@ -33,7 +33,7 @@ def _problem(m=900, p=120, seed=42):
 @pytest.mark.parametrize("compensated", [False, True], ids=["plain", "comp"])
 def test_bit_identical_to_monolithic(compensated):
     d, u, v, p, b = _problem()
-    s = FusedKKTSolver(d, u, v, p, compensated=compensated)
+    s = FusedKKTSolver(d, u, v, p, compensated=compensated, device=CPU)
     k = 23  # not a multiple of the chunk: the last chunk is clamped
     ref = s.pass_one(b, k)
     got = s.pass_one_chunked(b, k, chunk=8)
@@ -76,7 +76,7 @@ def test_plain_chunk_scan_chains_bitwise(chunk):
 
 def test_callback_early_stop_and_view_contract():
     d, u, v, p, b = _problem()
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     k, stop_at = 30, 11
     seen = []
 
@@ -109,7 +109,7 @@ def test_breakdown_inside_chunk():
     d = np.array([2.0, 3.0], np.float32)
     u = np.array([0, 1], np.int32)
     v = np.array([1, 0], np.int32)
-    s = FusedKKTSolver(d, u, v, 2)
+    s = FusedKKTSolver(d, u, v, 2, device=CPU)
     e1 = np.eye(4, dtype=np.float32)[0]
     ref = s.pass_one(e1, 6)
     got = s.pass_one_chunked(e1, 6, chunk=4)
@@ -123,7 +123,7 @@ def test_breakdown_inside_chunk():
 
 def test_zero_b():
     d, u, v, p, _ = _problem()
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     dec = s.pass_one_chunked(np.zeros(s.n, np.float32), 8, chunk=4)
     assert dec.steps() == 0
     np.testing.assert_array_equal(dec.alphas.numpy(), 0.0)
@@ -131,7 +131,7 @@ def test_zero_b():
 
 def test_full_run_keeps_last_beta():
     d, u, v, p, b = _problem()
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     dec = s.pass_one_chunked(b, 10, callback=lambda *a: True, chunk=4)
     assert dec.steps() == 10 and dec.beta_last() > 0.0
     assert dec.beta_last() == s.pass_one(b, 10).beta_last()
@@ -140,7 +140,7 @@ def test_full_run_keeps_last_beta():
 def test_solve_with_callback_early_stop():
     rng = np.random.default_rng(42)
     d, u, v, p = random_kkt(rng, m=800, p=110)
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     b = rng.standard_normal(len(d) + p).astype(np.float32)
     stop_at = 9
     x_cb, dec = s.solve(b, k=20, f="inv",
@@ -167,7 +167,7 @@ def test_convergence_callback_on_fused_path():
     u = rng.integers(0, p, m).astype(np.int32)
     v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
     d = rng.uniform(1.0, 3.0, m).astype(np.float32)
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     b = rng.standard_normal(m + p).astype(np.float32)
     # tol=inf fires at the first evaluated step (lag+1)
     cb = make_convergence_callback("inv", tol=np.inf, lag=5, stride=1)
@@ -181,7 +181,7 @@ def test_fused_multi_with_callback():
     rng = np.random.default_rng(4)
     d, u, v, p = random_kkt(rng, m=400, p=150)
     b = rng.standard_normal(len(d) + p).astype(np.float32)
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     stop = 9
     x_multi, dec = s.solve(b, k=24, f=("inv", "exp"),
                            callback=lambda s_, v_, t: s_ < stop,

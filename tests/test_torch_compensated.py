@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_cases import random_kkt
+from tests.torch_cases import CPU, random_kkt
 from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver as JaxFused
 from two_pass_lanczos_tpu_torch.algorithms.core import dot_f64, pass_one_scan
 from two_pass_lanczos_tpu_torch.convert import solver_from_jax
@@ -34,8 +34,8 @@ def _problem(m, p, seed=42):
 def test_compensated_solver_matches_plain():
     d, u, v, p, b = _problem(900, 200)
     k = 12
-    x0, dec0 = FusedKKTSolver(d, u, v, p).solve(b, k=k, f="inv")
-    x1, dec1 = FusedKKTSolver(d, u, v, p, compensated=True).solve(
+    x0, dec0 = FusedKKTSolver(d, u, v, p, device=CPU).solve(b, k=k, f="inv")
+    x1, dec1 = FusedKKTSolver(d, u, v, p, compensated=True, device=CPU).solve(
         b, k=k, f="inv")
     assert dec0.steps() == dec1.steps() == k
     np.testing.assert_allclose(dec1.alphas.numpy(), dec0.alphas.numpy(),
@@ -48,7 +48,7 @@ def test_compensated_matches_jax_compensated():
     k = 12
     js = JaxFused(d, u, v, p, interpret=True, compensated=True)
     ref = js.pass_one(js.pack(b), k)
-    s = solver_from_jax(js)
+    s = solver_from_jax(js, device=CPU)
     assert s.compensated
     dec = s.pass_one(b, k)
     np.testing.assert_allclose(dec.alphas.numpy(), np.asarray(ref.alphas),
@@ -65,8 +65,8 @@ def test_compensated_alphas_closer_to_f64():
         lambda x: kkt_matvec(t(d.astype(np.float64)), t(u), t(v), p, x),
         t(b.astype(np.float64)), k)
     a64 = o64.alphas.numpy()
-    a_p = FusedKKTSolver(d, u, v, p).pass_one(b, k).alphas.numpy()
-    a_c = FusedKKTSolver(d, u, v, p, compensated=True).pass_one(
+    a_p = FusedKKTSolver(d, u, v, p, device=CPU).pass_one(b, k).alphas.numpy()
+    a_c = FusedKKTSolver(d, u, v, p, compensated=True, device=CPU).pass_one(
         b, k).alphas.numpy()
     err_p = np.abs(a_p.astype(np.float64) - a64).max()
     err_c = np.abs(a_c.astype(np.float64) - a64).max()
@@ -92,7 +92,7 @@ def test_dot_f64_beats_plain_on_cancellation():
 def test_compensated_paths_bitwise(chunk):
     # one step routine: monolithic, chunked and one-pass agree bit for bit
     d, u, v, p, b = _problem(900, 120)
-    s = FusedKKTSolver(d, u, v, p, compensated=True)
+    s = FusedKKTSolver(d, u, v, p, compensated=True, device=CPU)
     k = 23
     ref = s.pass_one(b, k)
     for dec in (s.pass_one_chunked(b, k, chunk=chunk),

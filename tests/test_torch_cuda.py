@@ -18,9 +18,24 @@ import torch
 # package named `tests` elsewhere on the path may shadow ours
 from torch_cases import (  # noqa: F401
     CASES,
+    CPU,
     breakdown_kkt,
     cuda_device,
     random_kkt,
+)
+from two_pass_lanczos_tpu_torch import (
+    CudaKKTOperator,
+    DiagonalOperator,
+    FusedKKTSolver,
+    KKTOperator,
+    SparseOperator,
+    lanczos_pass_two_with_basis,
+    lanczos_standard,
+    lanczos_two_pass,
+    load_decomposition,
+    make_inv_solver,
+    make_kkt_operator,
+    solve_fAb,
 )
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     dot_f64,
@@ -28,16 +43,19 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     pass_one_scan,
     pass_two_scan,
 )
+from two_pass_lanczos_tpu_torch.convert import decomposition_from_jax
+from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     LAUNCHES,
-    FusedKKTSolver,
     eft_check_cuda,
     kkt_matvec_cuda,
     reset_launches,
 )
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
+from two_pass_lanczos_tpu_torch.testing import check_reconstruction_stability
+from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -118,7 +136,7 @@ def test_kernels_match_plain_on_card(problem, cuda_device):
 def test_solve_on_card_matches_cpu(problem, cuda_device):
     d, u, v, p, b = problem
     k = 25
-    x_cpu, _ = FusedKKTSolver(d, u, v, p).solve(b, k=k, f="inv")
+    x_cpu, _ = FusedKKTSolver(d, u, v, p, device=CPU).solve(b, k=k, f="inv")
     s = FusedKKTSolver(d, u, v, p, device=cuda_device)
     reset_launches()
     x, dec = s.solve(torch.from_numpy(b).to(cuda_device), k=k, raw=True)
@@ -148,7 +166,8 @@ def test_basis_kernel_matches_plain_on_card(problem, cuda_device):
            / torch.linalg.norm(basis_ref)).item()
     assert rel < 1e-5, rel
     x1, _ = s.solve(bt, k=k, method="one_pass")
-    x_cpu, _ = FusedKKTSolver(d, u, v, p).solve(b, k=k, method="one_pass")
+    x_cpu, _ = FusedKKTSolver(d, u, v, p, device=CPU).solve(
+        b, k=k, method="one_pass")
     assert _rel(x1, x_cpu) < 1e-4
 
 
@@ -181,7 +200,8 @@ def test_basis_kernel_rows_past_breakdown_zero_on_card(cuda_device):
     steps = dec.steps()
     assert 0 < steps < 12
     assert bool((basis[steps:] == 0).all())
-    dec_cpu, basis_cpu = FusedKKTSolver(d, u, v, p).pass_one_with_basis(b, 12)
+    dec_cpu, basis_cpu = FusedKKTSolver(
+        d, u, v, p, device=CPU).pass_one_with_basis(b, 12)
     assert dec_cpu.steps() == steps
     np.testing.assert_allclose(basis.cpu().numpy(), basis_cpu.numpy(),
                                rtol=0, atol=1e-6)
@@ -207,7 +227,7 @@ def test_chunk_kernel_matches_plain_on_card(problem, cuda_device,
     ref = s.pass_one(bt, k)
     assert torch.equal(got.alphas, ref.alphas)
     assert torch.equal(got.betas, ref.betas)
-    plain = FusedKKTSolver(d, u, v, p, compensated=compensated)
+    plain = FusedKKTSolver(d, u, v, p, compensated=compensated, device=CPU)
     want = plain.pass_one_chunked(b, k, chunk=8)
     np.testing.assert_allclose(got.alphas.cpu().numpy(), want.alphas.numpy(),
                                rtol=1e-4)
@@ -305,3 +325,112 @@ def test_eft_kernel_exact_on_card(cuda_device):
     rb = torch.from_numpy(rng.standard_normal(1000).astype(np.float32) * 1e-5)
     assert torch.equal(eft_check_cuda(ra.to(cuda_device), rb.to(cuda_device))
                        .cpu(), eft_check_plain(ra, rb))
+
+
+# --- K8: the generic operators' matvec -------------------------------------
+
+def _node_bound(lay, x, eps):
+    """2·deg·eps·Σ|x_a| per node: two summation orders of one node sum."""
+    m = lay.m
+    absum = torch.zeros(lay.p, dtype=x.dtype, device=x.device)
+    absum.index_add_(0, lay.u, x[:m].abs()).index_add_(0, lay.v, x[:m].abs())
+    deg = (lay.ptr[1:] - lay.ptr[:-1]).to(x.dtype)
+    return 2 * deg * eps * absum
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_operator_kernel_matches_plain_on_card(case, dtype, cuda_device):
+    rng = np.random.default_rng(5)
+    d, u, v, p = CASES[case](rng)
+    x = torch.from_numpy(rng.standard_normal(len(d) + p)).to(dtype)
+    op = make_kkt_operator(d, u, v, p, dtype=dtype, device=cuda_device)
+    assert isinstance(op, CudaKKTOperator) and op.dtype == dtype
+    xd = x.to(cuda_device)
+    before = LAUNCHES["kkt_operator_matvec"]
+    y = op.matvec(xd)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kkt_operator_matvec"] == before + 1
+    lay = op.layout
+    y_ref = kkt_matvec(lay.d.cpu(), lay.u.cpu(), lay.v.cpu(), p, x)
+    m = len(d)
+    # the arc part rounds as the plain version; the node part sums in
+    # another fixed order
+    assert torch.equal(y[:m].cpu(), y_ref[:m])
+    bound = _node_bound(lay, xd, torch.finfo(dtype).eps).cpu()
+    assert bool(((y[m:].cpu() - y_ref[m:]).abs() <= bound).all())
+    assert torch.equal(op.matvec(xd), y)  # bitwise reproducible
+    # KKTOperator on the card runs the same kernel, never index_add_
+    plain_class = KKTOperator(d, u, v, p, dtype=dtype, device=cuda_device)
+    assert torch.equal(plain_class.matvec(xd), y)
+    assert LAUNCHES["kkt_operator_matvec"] == before + 3
+    with pytest.raises(ValueError, match="plain"):
+        make_kkt_operator(d, u, v, p, backend="plain", device=cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_generic_two_pass_basis_bitwise_on_card(problem, cuda_device, dtype):
+    d, u, v, p, b = problem
+    k = 25
+    op = make_kkt_operator(d, u, v, p, dtype=dtype, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device, dtype)
+    reset_launches()
+    dec, basis = lanczos_standard(op, bt, k)
+    y = torch.ones(k, dtype=dtype, device=cuda_device)
+    _, regen = lanczos_pass_two_with_basis(op, bt, dec, y)
+    assert dec.steps() == k
+    assert torch.equal(regen, basis)  # basis_drift_fro == 0 on the card
+    assert LAUNCHES["kkt_operator_matvec"] == 2 * k - 1
+    assert LAUNCHES["kkt_matvec"] == 0
+    reset_launches()
+    x = solve_fAb(op, bt, k=k, f="inv")
+    assert LAUNCHES["kkt_operator_matvec"] == 2 * k - 1
+    x_host = lanczos_two_pass(op, bt, k, make_inv_solver())
+    cpu = make_kkt_operator(d, u, v, p, dtype=dtype, device="cpu")
+    x_cpu = solve_fAb(cpu, bt.cpu(), k=k, f="inv")
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert _rel(x.cpu().numpy(), x_cpu.numpy()) < tol
+    assert _rel(x_host.cpu().numpy(), x_cpu.numpy()) < tol
+
+
+def test_sparse_operator_replay_bitwise_on_card(problem, cuda_device):
+    d, u, v, p, b = problem
+    arrays = KKTArrays(quad_costs=d.astype(np.float64), arc_u=u, arc_v=v,
+                       num_nodes=p, num_arcs=len(d))
+    op = SparseOperator(kkt_sorted_coo(arrays, device=cuda_device),
+                        device=cuda_device)
+    bt = torch.from_numpy(b.astype(np.float64)).to(cuda_device)
+    report = check_reconstruction_stability(op, bt, 30)
+    assert report.value == 0.0
+    kkt = make_kkt_operator(d.astype(np.float64), u, v, p,
+                            dtype=torch.float64, device=cuda_device)
+    y = op.matvec(bt)
+    assert torch.equal(op.matvec(bt), y)
+    assert _rel(y.cpu().numpy(), kkt.matvec(bt).cpu().numpy()) < 1e-14
+    x = lanczos_two_pass(DiagonalOperator(np.arange(1.0, 101.0),
+                                          device=cuda_device),
+                         np.ones(100), 30, make_inv_solver())
+    assert _rel(x.cpu().numpy(), 1.0 / np.arange(1.0, 101.0)) < 1e-3
+
+
+# --- the default device ----------------------------------------------------
+
+@pytest.mark.parametrize("entry", [
+    "FusedKKTSolver", "make_kkt_operator", "DiagonalOperator",
+    "load_decomposition", "decomposition_from_jax"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
+    # with no card, the default device="cuda" raises; it never falls back
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = np.ones(3, np.float32)
+    calls = {
+        "FusedKKTSolver": lambda: FusedKKTSolver(d, [0, 1, 2], [1, 2, 0], 3),
+        "make_kkt_operator": lambda: make_kkt_operator(d, [0, 1, 2],
+                                                       [1, 2, 0], 3),
+        "DiagonalOperator": lambda: DiagonalOperator(d),
+        "load_decomposition": lambda: load_decomposition(tmp_path / "x.npz"),
+        "decomposition_from_jax": lambda: decomposition_from_jax(None),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()

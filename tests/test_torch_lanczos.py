@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_cases import random_kkt
+from tests.torch_cases import CPU, random_kkt
 from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver as JaxFused
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     pass_one_last_vector,
@@ -44,7 +44,7 @@ def test_pass_one_matches_jax(problem):
     d, u, v, p, b, js = problem
     k = 20
     ref = js.pass_one(js.pack(b), k)
-    dec = solver_from_jax(js).pass_one(b, k)
+    dec = solver_from_jax(js, device=CPU).pass_one(b, k)
     assert dec.steps() == int(ref.steps_taken) == k
     np.testing.assert_allclose(dec.alphas.numpy(), np.asarray(ref.alphas),
                                rtol=1e-4)
@@ -67,8 +67,9 @@ def test_pass_two_on_jax_decomposition(problem, nf):
         x_ref = np.stack([js.layout.unpack(xu[i], xn[i]) for i in range(nf)])
     else:
         x_ref = js.layout.unpack(xu, xn)
-    x = solver_from_jax(js).pass_two(
-        b, decomposition_from_jax(ref_dec), torch.from_numpy(y)).numpy()
+    x = solver_from_jax(js, device=CPU).pass_two(
+        b, decomposition_from_jax(ref_dec, device=CPU),
+        torch.from_numpy(y)).numpy()
     assert x.shape == x_ref.shape
     rel = np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref)
     assert rel < 1e-5, rel
@@ -82,7 +83,7 @@ def test_breakdown_truncates():
     d = np.full(m, 2.0, np.float32)
     b = np.zeros(m + p, np.float32)
     b[0] = 1.0
-    x, dec = FusedKKTSolver(d, u, v, p).solve(b, k=12, f="inv")
+    x, dec = FusedKKTSolver(d, u, v, p, device=CPU).solve(b, k=12, f="inv")
     x_ref, dec_ref = JaxFused(d, u, v, p, interpret=True).solve(b, k=12, f="inv")
     assert dec.steps() == int(dec_ref.steps_taken) < 12
     assert float(dec.betas[dec.steps() - 1]) == 0.0
@@ -93,7 +94,7 @@ def test_breakdown_truncates():
 
 def test_zero_b_gives_zero():
     d, u, v, p = random_kkt(np.random.default_rng(7), m=300, p=64)
-    x, dec = FusedKKTSolver(d, u, v, p).solve(
+    x, dec = FusedKKTSolver(d, u, v, p, device=CPU).solve(
         np.zeros(len(d) + p, np.float32), k=8, f="inv")
     assert dec.steps() == 0
     np.testing.assert_array_equal(x, 0.0)
@@ -111,7 +112,7 @@ def test_replay_is_bitwise(problem, breakdown):
         b = np.zeros(m + p, np.float32)
         b[0] = 1.0
     k = 30
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     bt = torch.from_numpy(b)
     lay = s.layout
 

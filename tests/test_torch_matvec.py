@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_cases import CASES
+from tests.torch_cases import CASES, CPU
 from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver as JaxFused
 from two_pass_lanczos_tpu.ops.spmv import kkt_matvec as jax_kkt_matvec
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver, KKTLayout
@@ -52,7 +52,7 @@ def test_plain_matches_xla_f64(case):
 def test_solver_matvec_matches_fused_interpret(case):
     d, u, v, p, x = _problem(case, 3, np.float32)
     y_ref = JaxFused(d, u, v, p, interpret=True).matvec(x)
-    y = FusedKKTSolver(d, u, v, p).matvec(x).numpy()
+    y = FusedKKTSolver(d, u, v, p, device=CPU).matvec(x).numpy()
     np.testing.assert_allclose(y, y_ref, rtol=0,
                                atol=2e-5 * np.abs(y_ref).max())
 

@@ -9,13 +9,13 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_cases import breakdown_kkt, random_kkt
+from tests.torch_cases import CPU, breakdown_kkt, random_kkt
 from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver as JaxFused
-from two_pass_lanczos_tpu_torch.algorithms.core import pass_one_last_vector
-from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
-    FusedKKTSolver,
-    _basis_product,
+from two_pass_lanczos_tpu_torch.algorithms.core import (
+    basis_product,
+    pass_one_last_vector,
 )
+from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +34,7 @@ def _rel(x, ref):
 def test_one_pass_solve(problem, f):
     d, u, v, p, b = problem
     k = 25
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     x1, dec = s.solve(b, k=k, f=f, method="one_pass")
     x_ref, dec_ref = JaxFused(d, u, v, p, interpret=True).solve(
         b, k=k, f=f, method="one_pass")
@@ -52,7 +52,7 @@ def test_basis_matches_jax(problem):
     _, bu, bn = js.pass_one_with_basis(js.pack(b), k)
     bu, bn = np.asarray(bu), np.asarray(bn)
     ref = np.stack([js.layout.unpack(bu[j], bn[j]) for j in range(k)])
-    _, basis = FusedKKTSolver(d, u, v, p).pass_one_with_basis(b, k)
+    _, basis = FusedKKTSolver(d, u, v, p, device=CPU).pass_one_with_basis(b, k)
     assert basis.shape == (k, len(d) + p)
     assert _rel(basis.numpy(), ref) < 1e-5, _rel(basis.numpy(), ref)
 
@@ -61,7 +61,7 @@ def test_basis_matches_jax(problem):
 def test_basis_invariants(problem, breakdown):
     d, u, v, p, b = breakdown_kkt() if breakdown else problem
     k = 20
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     st = torch.empty(2, s.n)
     dec1 = s.pass_one(b, k, state=st)
     dec, basis = s.pass_one_with_basis(b, k)
@@ -76,7 +76,7 @@ def test_basis_invariants(problem, breakdown):
 
 def test_one_pass_breakdown_and_zero_b():
     d, u, v, p, b = breakdown_kkt()
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     x1, dec = s.solve(b, k=12, f="inv", method="one_pass")
     x2, _ = s.solve(b, k=12, f="inv")
     assert dec.steps() < 12 and np.all(np.isfinite(x1))
@@ -91,7 +91,7 @@ def test_fused_multi_matches_singles(method):
     rng = np.random.default_rng(3)
     d, u, v, p = random_kkt(rng, m=400, p=150)
     b = rng.standard_normal(len(d) + p).astype(np.float32)
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     fs = ("inv", "exp")
     x_multi, dec = s.solve(b, k=16, f=fs, method=method)
     assert x_multi.shape == (2, len(d) + p)
@@ -112,9 +112,9 @@ def test_basis_product_is_full_f32(nf):
     rng = np.random.default_rng(11)
     basis = torch.from_numpy(rng.standard_normal((30, 2000)).astype(np.float32))
     y = torch.from_numpy(rng.standard_normal((nf, 30)).astype(np.float32))
-    got = _basis_product(y if nf > 1 else y[0], basis)
+    got = basis_product(y if nf > 1 else y[0], basis)
     assert got.shape == ((nf, 2000) if nf > 1 else (2000,))
     ref = y.double() @ basis.double()
     assert _rel(got.reshape(nf, -1).double().numpy(), ref.numpy()) < 1e-6
     for i in range(nf):
-        assert torch.equal(got.reshape(nf, -1)[i], _basis_product(y[i], basis))
+        assert torch.equal(got.reshape(nf, -1)[i], basis_product(y[i], basis))

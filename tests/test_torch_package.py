@@ -71,6 +71,33 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+#: names of the JAX package's ``__all__`` the port does not have yet: the
+#: capability layer and the double-float tier (ROADMAP Queue 1 items 6 and
+#: 8); ``PallasKKTOperator``'s counterpart is ``CudaKKTOperator``
+NOT_PORTED = {
+    "PallasKKTOperator",
+    "ritz_values", "ritz_pairs", "ritz_residual_bounds", "quadratic_form",
+    "gauss_radau_bracket", "quadrature_bracket", "a_norm_error_history",
+    "eigsh", "EigshResult", "chebyshev_fAb", "chebyshev_coefficients",
+    "estimate_interval", "BlockDecomposition", "block_pass_one",
+    "block_pass_two", "block_padded_f_e1", "solve_fAb_block",
+    "solve_fAb_block_jit", "SLQResult", "lanczos_pass_one_batched",
+    "batched_quadratic_form", "batched_ritz_weights", "slq_trace",
+    "slq_trace_adaptive", "slq_logdet", "slq_spectral_density",
+    "DFDiagonalOperator", "DFKKTOperator", "DFFusedKKTSolver",
+    "lanczos_pass_one_df", "solve_fAb_df",
+}
+
+
+def test_port_exports_the_jax_names():
+    import two_pass_lanczos_tpu as jtpl
+    import two_pass_lanczos_tpu_torch as port
+
+    assert set(jtpl.__all__) - set(port.__all__) == NOT_PORTED
+    assert all(hasattr(port, name) for name in port.__all__)
+    assert "CudaKKTOperator" in port.__all__
+
+
 @pytest.mark.parametrize("arcs,rho,iid", [
     (60, 1, 1), (300, 2, 7), (1000, 3, 2), (5000, 3, 3), (500_000, 3, 1)])
 def test_generator_bit_identical(arcs, rho, iid):
@@ -123,11 +150,37 @@ def test_profile_port_fails_without_gpu(tmp_path):
     assert proc.returncode != 0 and not out.exists()
 
 
-def test_profile_busy_is_the_union_of_device_intervals():
-    spec = importlib.util.spec_from_file_location(
-        "profile_port", ROOT / "profile_port.py")
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_bounds_count_each_input_once():
+    mod = _load_script("chip_smoke")
+    m, p, k = 500_000, 1155, 500
+    n = m + p
+    bounds = mod.kernel_bounds(m, n, k, k)
+    # one matvec: d, u, v, x read once and y written once (10.0 MB), not the
+    # layout's incidence CSR
+    assert bounds["kkt_operator_matvec"] == bounds["kkt_matvec"]
+    ms, by = bounds["kkt_operator_matvec"]
+    assert by == "bytes"
+    assert ms == pytest.approx((20 * m + 8 * p) / 3.35e12 * 1e3)
+    # a pass reads its inputs once, whatever it reads again per step, so its
+    # f32 operations bind
+    ms, by = bounds["lanczos_pass_one"]
+    assert by == "operations"
+    assert ms == pytest.approx(k * (5 * m + 9 * n) / 67e12 * 1e3)
+    # the one-pass basis is written once: its 4·k·n bytes bind
+    ms, by = bounds["lanczos_pass_one_basis"]
+    assert by == "bytes" and ms > 4 * k * n / 3.35e12 * 1e3
+    assert bounds["eft_check"][0] < 1e-5
+
+
+def test_profile_busy_is_the_union_of_device_intervals():
+    mod = _load_script("profile_port")
     # overlapping, nested, touching and disjoint intervals, in any order
     events = [("a", 10.0, 20.0), ("b", 0.0, 5.0), ("c", 15.0, 30.0),
               ("d", 16.0, 18.0), ("e", 30.0, 31.0), ("f", 40.0, 42.0)]

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import two_pass_lanczos_tpu as tpl
-from tests.torch_cases import random_kkt
+from tests.torch_cases import CPU, random_kkt
 from two_pass_lanczos_tpu.algorithms.core import (
     LanczosDecomposition as JaxDecomposition,
 )
@@ -46,7 +46,7 @@ def test_solve_matches_jax_fused(problem, f):
     d, u, v, p, b = problem
     k = 25
     x_ref, dec_ref = JaxFused(d, u, v, p, interpret=True).solve(b, k=k, f=f)
-    x, dec = FusedKKTSolver(d, u, v, p).solve(b, k=k, f=f)
+    x, dec = FusedKKTSolver(d, u, v, p, device=CPU).solve(b, k=k, f=f)
     assert dec.steps() == int(dec_ref.steps_taken) == k
     assert x.shape == x_ref.shape and x.dtype == np.float32
     assert _rel(x, x_ref) < 1e-4, _rel(x, x_ref)
@@ -55,7 +55,7 @@ def test_solve_matches_jax_fused(problem, f):
 def test_solve_function_tuple(problem):
     d, u, v, p, b = problem
     k = 25
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     x, _ = s.solve(b, k=k, f=("inv", "exp"))
     x_ref, _ = JaxFused(d, u, v, p, interpret=True).solve(
         b, k=k, f=("inv", "exp"))
@@ -68,7 +68,7 @@ def test_solve_function_tuple(problem):
 
 def test_solve_raw_and_device_rhs(problem):
     d, u, v, p, b = problem
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     x_np, _ = s.solve(b, k=12)
     bt = torch.from_numpy(b)
     x_raw, dec = s.solve(bt, k=12, raw=True)
@@ -81,13 +81,13 @@ def test_unported_options_raise(problem):
     # what the fused solver does not take, as in the JAX package: f64
     # kernels, a callback with the one-pass method, an unknown method
     d, u, v, p, b = problem
-    s = FusedKKTSolver(d, u, v, p)
+    s = FusedKKTSolver(d, u, v, p, device=CPU)
     with pytest.raises(ValueError, match="two_pass"):
         s.solve(b, k=5, method="one_pass", callback=lambda *a: True)
     with pytest.raises(ValueError, match="unknown method"):
         s.solve(b, k=5, method="three_pass")
     with pytest.raises(ValueError, match="f32"):
-        FusedKKTSolver(d, u, v, p, dtype=torch.float64)
+        FusedKKTSolver(d, u, v, p, dtype=torch.float64, device=CPU)
 
 
 @pytest.mark.parametrize("f", ["inv", "exp"])

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+#: the device of every CPU test: the port's entry points default to "cuda"
+CPU = torch.device("cpu")
+
 
 def random_kkt(rng, m=700, p=300):
     u = rng.integers(0, p, m).astype(np.int32)

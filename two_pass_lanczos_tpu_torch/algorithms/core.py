@@ -24,9 +24,12 @@ to one monolithic pass. The inner products go through ``dot``: ``torch.dot``,
 or :func:`dot_f64` as the plain version of the compensated (two-float)
 kernel reductions.
 
-All functions are dtype-generic (f32 and f64) and device-generic; the
-fused solver (``ops/kkt_fused.py``) uses them for CPU tensors and the
-hand-written kernels for CUDA tensors.
+All functions are dtype-generic (f32 and f64, and complex64/complex128 for
+a Hermitian A, as in the JAX package: α, β and ‖b‖ are then real, α is
+``Re⟨v, w⟩`` by ``torch.vdot`` and a norm is ``√Σ Re(x·x̄)``) and
+device-generic. The fused solver (``ops/kkt_fused.py``) uses them for CPU
+tensors and the hand-written kernels for CUDA tensors; the generic solvers
+(``solvers.py``) run them on any operator's ``matvec``.
 """
 
 from __future__ import annotations
@@ -40,9 +43,11 @@ import torch
 __all__ = [
     "breakdown_tolerance",
     "zero_tolerance",
+    "real_dtype",
     "LanczosDecomposition",
     "ChunkCarry",
     "dot_f64",
+    "basis_product",
     "pass_one_scan",
     "pass_one_chunk_scan",
     "pass_two_scan",
@@ -51,16 +56,24 @@ __all__ = [
 
 Dot = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The real dtype of ``dtype``: α, β and ‖b‖ of a complex run."""
+    return _REAL.get(dtype, dtype)
+
 
 def breakdown_tolerance(dtype: torch.dtype) -> float:
-    """Breakdown tolerance: ``1000 · ε`` of the working dtype."""
-    return float(torch.finfo(dtype).eps) * 1000.0
+    """Breakdown tolerance: ``1000 · ε`` of the working real dtype."""
+    return float(torch.finfo(real_dtype(dtype)).eps) * 1000.0
 
 
 def zero_tolerance(dtype: torch.dtype) -> float:
     """``‖b‖`` at or below this is the zero vector: ``1000 · tiny`` (the
-    smallest normal), so small but valid right-hand sides are kept."""
-    return float(torch.finfo(dtype).tiny) * 1000.0
+    smallest normal of the real dtype), so small but valid right-hand sides
+    are kept."""
+    return float(torch.finfo(real_dtype(dtype)).tiny) * 1000.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +125,31 @@ def dot_f64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.dot(x.to(torch.float64), y.to(torch.float64)).to(x.dtype)
 
 
+def _inner(dot: Dot, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``Re⟨x, y⟩``: ``dot`` for real tensors, ``Re(vdot)`` for complex."""
+    return torch.vdot(x, y).real if x.is_complex() else dot(x, y)
+
+
+def _norm(dot: Dot, x: torch.Tensor) -> torch.Tensor:
+    """‖x‖: ``√dot(x, x)`` for real x, ``√Σ Re(x·x̄)`` for complex x."""
+    if x.is_complex():
+        return torch.sqrt(torch.sum((x * x.conj()).real))
+    return torch.sqrt(dot(x, x))
+
+
+def basis_product(y_full: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """``x = y_full @ basis`` for a ``(k, n)`` basis, in full f32 whatever
+    the caller's TF32 setting (the JAX package asks for
+    ``Precision.HIGHEST``): one GEMV ``Vᵀ·y`` per row of ``y_full``, a route
+    on which cuBLAS never uses TF32, and no process-global switch is
+    touched. ``(k,)`` gives ``(n,)``, ``(nf, k)`` gives ``(nf, n)``; nf rows
+    read the basis nf times."""
+    vt = basis.t()
+    if y_full.dim() == 1:
+        return torch.mv(vt, y_full)
+    return torch.stack([torch.mv(vt, row) for row in y_full])
+
+
 class ChunkCarry(NamedTuple):
     """State carried from one chunk of pass one to the next."""
 
@@ -131,11 +169,11 @@ def _init_v1(b: torch.Tensor, b_norm: torch.Tensor):
 
 def _start(b: torch.Tensor, dot: Dot) -> ChunkCarry:
     """‖b‖, v₁ = b·(1/‖b‖), v₀ = 0; a zero b starts done (0 steps)."""
-    b_norm = torch.sqrt(dot(b, b))
+    b_norm = _norm(dot, b)
     v, zero_b = _init_v1(b, b_norm)
     return ChunkCarry(
         v_prev=torch.zeros_like(b), v_curr=v,
-        beta_prev=torch.zeros((), dtype=b.dtype, device=b.device),
+        beta_prev=torch.zeros((), dtype=real_dtype(b.dtype), device=b.device),
         done=zero_b,
         steps=torch.zeros((), dtype=torch.int32, device=b.device),
         b_norm=b_norm)
@@ -145,13 +183,14 @@ def _step(matvec, c: ChunkCarry, executed: torch.Tensor, tol: float,
           dot: Dot) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
     """One masked recurrence step. Returns the step's stored α (0 unless
     ``executed``), its stored β (0 unless it advanced) and the new carry."""
-    zero = torch.zeros((), dtype=c.v_curr.dtype, device=c.v_curr.device)
+    zero = torch.zeros((), dtype=real_dtype(c.v_curr.dtype),
+                       device=c.v_curr.device)
     v, v_prev = c.v_curr, c.v_prev
     w = matvec(v)
     w = w - c.beta_prev * v_prev
-    alpha = dot(v, w)
+    alpha = _inner(dot, v, w)
     w = w - alpha * v
-    beta = torch.sqrt(dot(w, w))
+    beta = _norm(dot, w)
     breakdown = beta <= tol
     advance = executed & ~breakdown
     inv_b = torch.where(advance, 1.0 / beta, zero)
@@ -183,8 +222,8 @@ def pass_one_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
     dt = b.dtype
     tol = breakdown_tolerance(dt)
     c = _start(b, dot)
-    alphas = torch.zeros(k, dtype=dt, device=b.device)
-    betas = torch.zeros(k, dtype=dt, device=b.device)
+    alphas = torch.zeros(k, dtype=real_dtype(dt), device=b.device)
+    betas = torch.zeros(k, dtype=real_dtype(dt), device=b.device)
     basis = (torch.zeros((k, b.shape[0]), dtype=dt, device=b.device)
              if emit_basis else None)
     for j in range(k):
@@ -201,22 +240,27 @@ def pass_one_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
 def pass_one_chunk_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
                         b: torch.Tensor, chunk: int,
                         carry: Optional[ChunkCarry], k_limit: int, *,
-                        dot: Dot = torch.dot
+                        dot: Dot = torch.dot,
+                        basis: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
     """Run ``chunk`` masked steps from ``carry`` (from ``b`` when ``carry``
     is None). A step executes unless the run is done or ``k_limit`` steps
     have been executed. Returns ``(alphas, betas, carry)``, the first two
     ``(chunk,)`` and indexed from the chunk's first step; chained chunks
-    give α and β bitwise equal to one :func:`pass_one_scan`."""
+    give α and β bitwise equal to one :func:`pass_one_scan`. A ``(chunk,
+    n)`` ``basis`` receives the chunk's rows of pass one's basis (row ``i``
+    the vector step ``i`` starts from, zero unless it executes)."""
     if chunk < 1:
         raise ValueError("chunk must be >= 1")
     dt = b.dtype
     tol = breakdown_tolerance(dt)
     c = _start(b, dot) if carry is None else carry
-    alphas = torch.zeros(chunk, dtype=dt, device=b.device)
-    betas = torch.zeros(chunk, dtype=dt, device=b.device)
+    alphas = torch.zeros(chunk, dtype=real_dtype(dt), device=b.device)
+    betas = torch.zeros(chunk, dtype=real_dtype(dt), device=b.device)
     for i in range(chunk):
         executed = ~c.done & (c.steps < k_limit)
+        if basis is not None:
+            basis[i] = torch.where(executed, c.v_curr, torch.zeros_like(b))
         alphas[i], betas[i], c = _step(matvec, c, executed, tol, dot)
     return alphas, betas, c
 
@@ -235,19 +279,20 @@ def pass_two_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
     :func:`pass_one_scan`; pass two's final ``v_curr`` is v_{steps_taken}.
     """
     dt = b.dtype
+    rdt = real_dtype(dt)
     k = decomp.k_max
     steps = decomp.steps_taken
-    alphas, betas = decomp.alphas.to(dt), decomp.betas.to(dt)
+    alphas, betas = decomp.alphas.to(rdt), decomp.betas.to(rdt)
     y_full = y_full.to(dt)
-    v, _ = _init_v1(b, decomp.b_norm.to(dt))
+    v, _ = _init_v1(b, decomp.b_norm.to(rdt))
     v_prev = torch.zeros_like(b)
     x = y_full[..., 0:1] * v
     basis = None
     if emit_basis:
         basis = torch.zeros((k, b.shape[0]), dtype=dt, device=b.device)
         basis[0] = v
-    zero = torch.zeros((), dtype=dt, device=b.device)
-    one = torch.ones((), dtype=dt, device=b.device)
+    zero = torch.zeros((), dtype=rdt, device=b.device)
+    one = torch.ones((), dtype=rdt, device=b.device)
     for j in range(k - 1):
         active = j < steps - 1
         beta_prev = betas[j - 1] if j > 0 else zero

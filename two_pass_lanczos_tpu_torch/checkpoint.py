@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from two_pass_lanczos_tpu_torch.algorithms.core import LanczosDecomposition
+from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["save_decomposition", "load_decomposition"]
 
@@ -51,8 +52,10 @@ def save_decomposition(path, decomposition: LanczosDecomposition) -> None:
     )
 
 
-def load_decomposition(path, device="cpu") -> LanczosDecomposition:
-    """Load a decomposition saved by either package, onto ``device``."""
+def load_decomposition(path, device=DEFAULT_DEVICE) -> LanczosDecomposition:
+    """Load a decomposition saved by either package, onto ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     with np.load(_npz_path(path), allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         if meta.get("version") != _FORMAT_VERSION:

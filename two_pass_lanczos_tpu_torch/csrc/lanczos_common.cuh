@@ -48,18 +48,40 @@ __device__ __forceinline__ float lanczos_inverse(float beta) {
   return __frcp_rn(beta);
 }
 
+// Round-to-nearest arithmetic for float and double, spelled with the
+// intrinsics so that code templated on the scalar type contracts nothing.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
 // Fixed-order block sum over kThreads threads; every thread must call it.
 // Returns the total in every thread.
-__device__ __forceinline__ float block_sum(float v, float* sh) {
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* sh) {
   const int t = threadIdx.x;
   sh[t] = v;
   __syncthreads();
 #pragma unroll
   for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] = __fadd_rn(sh[t], sh[t + s]);
+    if (t < s) sh[t] = add_rn(sh[t], sh[t + s]);
     __syncthreads();
   }
-  float total = sh[0];
+  T total = sh[0];
   __syncthreads();
   return total;
 }
@@ -127,12 +149,14 @@ inline int reduction_blocks(int n) {
   return g < kMaxPartials ? g : kMaxPartials;
 }
 
-// Enqueue one y = A x of the KKT matrix (kkt_matvec.cu). With gate != null
-// the launch is a no-op unless gate_lt < *gate, read on the device, which is
-// how the passes mask steps after a breakdown without a host sync.
-cudaError_t launch_kkt_matvec(const float* d, const int* u, const int* v,
+// Enqueue one y = A x of the KKT matrix (kkt_matvec.cu), for T = float or
+// double. With gate != null the launch is a no-op unless gate_lt < *gate,
+// read on the device, which is how the passes mask steps after a breakdown
+// without a host sync.
+template <typename T>
+cudaError_t launch_kkt_matvec(const T* d, const int* u, const int* v,
                               const int* ptr, const int* ent, int m, int p,
-                              const float* x, float* y, const int* gate,
-                              int gate_lt, cudaStream_t stream);
+                              const T* x, T* y, const int* gate, int gate_lt,
+                              cudaStream_t stream);
 
 }  // namespace tpl

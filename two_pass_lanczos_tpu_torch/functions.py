@@ -3,6 +3,11 @@
 Counterpart of ``two_pass_lanczos_tpu/functions.py``:
 
 * :func:`host_f_tk_solve` — NumPy f64 on the valid (α, β) prefix;
+* host closures (:func:`make_inv_solver` etc.) — the reference's pluggable
+  ``f_tk_solver(alphas, betas) -> f(T_k)·e₁`` for the generic solvers
+  (``solvers.py``): called with the valid (α, β) prefix as NumPy arrays,
+  they compute on the CPU in the prefix's dtype and return a
+  length-``steps`` tensor;
 * :func:`padded_f_e1` — on the fixed-shape ``(k,)`` decomposition tensors,
   on the decomposition's own device. Padding the diagonal with 1.0 beyond
   ``steps_taken`` makes T block-diagonal ``[T_s, I]``, hence
@@ -13,13 +18,22 @@ The k×k solve is plain ``torch.linalg``, outside any hand-written kernel.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
 from two_pass_lanczos_tpu_torch.algorithms.core import LanczosDecomposition
-from two_pass_lanczos_tpu_torch.ops.tridiag import _e1, assemble_tridiagonal
+from two_pass_lanczos_tpu_torch.ops.tridiag import (
+    _e1,
+    assemble_tridiagonal,
+    eigh_tridiagonal,
+    tridiagonal_solve_e1,
+)
 
-__all__ = ["host_f_tk_solve", "padded_f_e1", "FUNC_EXP", "FUNC_INV"]
+__all__ = ["host_f_tk_solve", "make_inv_solver", "make_exp_solver",
+           "make_function_solver", "make_poly_solver", "padded_f_e1",
+           "FUNC_EXP", "FUNC_INV"]
 
 FUNC_EXP = "exp"
 FUNC_INV = "inv"
@@ -46,6 +60,53 @@ def host_f_tk_solve(alphas, betas, f) -> np.ndarray:
         raise ValueError(f"unknown matrix function {f!r}")
     lam, q = np.linalg.eigh(t)
     return q @ (fn(lam) * q[0, :])
+
+
+def make_inv_solver() -> Callable:
+    """``f(z) = 1/z``: solve ``T_k y = e₁`` with a pivoted dense LU (stable
+    on the indefinite spectra; the reference uses faer's sparse LU,
+    ``src/bin/stability.rs:161-170``)."""
+
+    def solver(alphas, betas):
+        return tridiagonal_solve_e1(torch.as_tensor(alphas),
+                                    torch.as_tensor(betas))
+
+    return solver
+
+
+def make_exp_solver() -> Callable:
+    """``f(z) = exp(z)`` via the symmetric eigendecomposition,
+    ``Q·exp(Λ)·Qᵀ·e₁`` (reference ``exp_tk_solver``,
+    ``src/bin/stability.rs:175-193``)."""
+    return make_function_solver(torch.exp)
+
+
+def make_function_solver(f: Callable) -> Callable:
+    """``f(T_k)·e₁`` for any scalar function ``f`` of a tensor of
+    eigenvalues, via the symmetric eigendecomposition of T_k."""
+
+    def solver(alphas, betas):
+        lam, q = eigh_tridiagonal(torch.as_tensor(alphas),
+                                  torch.as_tensor(betas))
+        # f(T) e1 = Q f(Λ) Qᵀ e1: only the first row of Q is needed
+        return q @ (f(lam) * q[0, :])
+
+    return solver
+
+
+def make_poly_solver(coeffs) -> Callable:
+    """``f(z) = Σ c_i z^i`` (ascending coefficients), exact when
+    ``k > deg f``: the sharp oracle of the reference's ``z²`` test
+    (``tests/correctness.rs:42-51``)."""
+    coeffs = list(coeffs)
+
+    def f(lam):
+        acc = torch.zeros_like(lam)
+        for c in reversed(coeffs):
+            acc = acc * lam + c
+        return acc
+
+    return make_function_solver(f)
 
 
 def _padded_tridiagonal(decomp: LanczosDecomposition) -> torch.Tensor:

@@ -45,8 +45,9 @@ _F = ctypes.c_float
 _PASS_ONE = [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F, _I,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
-    # d, u, v, ptr, ent, m, p, x, y, stream
+    # d, u, v, ptr, ent, m, p, x, y, stream (f32 and f64 instances)
     "tpl_kkt_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "tpl_kkt_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # *_PASS_ONE, *matvec_launches, stream
     "tpl_lanczos_pass_one": [*_PASS_ONE, ctypes.POINTER(_I), _P],
     # *_PASS_ONE, basis, *matvec_launches, stream

@@ -37,6 +37,7 @@ import torch
 
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     LanczosDecomposition,
+    basis_product,
     breakdown_tolerance,
     dot_f64,
     pass_one_chunk_scan,
@@ -44,6 +45,7 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     pass_two_scan,
     zero_tolerance,
 )
+from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
 from two_pass_lanczos_tpu_torch.ops._build import load_library
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
@@ -52,10 +54,13 @@ from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
 __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`; a
-#: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``
+#: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``,
+#: and K8, the matvec of the generic KKT operators (``ops/spmv_kernel.py``),
+#: as ``kkt_operator_matvec``
 LAUNCHES = {"kkt_matvec": 0, "lanczos_pass_one": 0, "lanczos_pass_two": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
-            "lanczos_pass_one_comp": 0, "eft_check": 0}
+            "lanczos_pass_one_comp": 0, "eft_check": 0,
+            "kkt_operator_matvec": 0}
 #: size of one plane of pass one's block-partials scratch
 #: (``tpl::kMaxPartials``); the scratch holds two planes
 MAX_PARTIALS = 1024
@@ -70,7 +75,7 @@ def reset_launches() -> None:
 class KKTLayout:
     """Device layout of one KKT instance (see the module docstring)."""
 
-    d: torch.Tensor  # (m,) f32
+    d: torch.Tensor  # (m,) f32 (f64 for the f64 instance of K8)
     u: torch.Tensor  # (m,) int32 tail node
     v: torch.Tensor  # (m,) int32 head node
     ptr: torch.Tensor  # (p+1,) int32 CSR row pointer over nodes
@@ -83,10 +88,11 @@ class KKTLayout:
         return self.m + self.p
 
     @classmethod
-    def build(cls, quad_costs, arc_u, arc_v, num_nodes: int,
-              device) -> "KKTLayout":
-        """Host build (NumPy, O(m log m)), then one upload per array."""
-        d = np.asarray(quad_costs, np.float32)
+    def build(cls, quad_costs, arc_u, arc_v, num_nodes: int, device,
+              dtype=np.float32) -> "KKTLayout":
+        """Host build (NumPy, O(m log m)), then one upload per array; ``d``
+        is stored in ``dtype``."""
+        d = np.asarray(quad_costs, dtype)
         u = np.asarray(arc_u, np.int64)
         v = np.asarray(arc_v, np.int64)
         m, p = len(d), int(num_nodes)
@@ -106,9 +112,9 @@ class KKTLayout:
         dev = torch.device(device)
 
         def up(a, dt):
-            return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+            return torch.from_numpy(np.array(a, dt)).to(dev)
 
-        return cls(d=up(d, np.float32), u=up(u, np.int32), v=up(v, np.int32),
+        return cls(d=up(d, dtype), u=up(u, np.int32), v=up(v, np.int32),
                    ptr=up(ptr, np.int32), ent=up(ids[order], np.int32),
                    m=m, p=p)
 
@@ -304,18 +310,6 @@ def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
 # Solver
 # ---------------------------------------------------------------------------
 
-def _basis_product(y_full: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
-    """``y_full @ basis`` in full f32 whatever the caller's TF32 setting
-    (the JAX package asks for ``Precision.HIGHEST``): one GEMV ``Vᵀ·y`` per
-    row of ``y_full``, a route on which cuBLAS never uses TF32, and no
-    process-global switch is touched. ``(k,)`` gives ``(n,)``, ``(nf, k)``
-    gives ``(nf, n)``; nf rows read the basis nf times."""
-    vt = basis.t()
-    if y_full.dim() == 1:
-        return torch.mv(vt, y_full)
-    return torch.stack([torch.mv(vt, row) for row in y_full])
-
-
 #: inputs of the EFT tripwire with exact, known outputs (``ops/eft.py``)
 _EFT_A, _EFT_B = 1.0 + 2.0 ** -12, 2.0 ** -30
 
@@ -325,14 +319,15 @@ class FusedKKTSolver:
 
     Usage::
 
-        s = FusedKKTSolver(quad_costs, arc_u, arc_v, num_nodes, device="cuda")
+        s = FusedKKTSolver(quad_costs, arc_u, arc_v, num_nodes)  # the card
         x, decomp = s.solve(b, k=500, f="inv")            # NumPy (n,)
         x_dev, decomp = s.solve(b, k=500, f="inv", raw=True)  # device tensor
         x, decomp = s.solve(b, k=500, method="one_pass")  # stores the basis
         x, decomp = s.solve(b, k=500, callback=cb)        # in-run early stop
 
-    On ``device="cuda"`` every pass runs the hand-written kernels; on
-    ``device="cpu"`` the plain PyTorch versions. f32 only, as the TPU path.
+    On ``device="cuda"`` (the default; it raises without a card) every pass
+    runs the hand-written kernels; on ``device="cpu"`` the plain PyTorch
+    versions. f32 only, as the TPU path.
     ``compensated=True`` takes the α, β and ‖b‖ reductions as exact products
     folded in two-float pairs (the plain version: f64-accumulated dots); on
     the card the constructor first checks the compiled error-free
@@ -340,17 +335,13 @@ class FusedKKTSolver:
     """
 
     def __init__(self, quad_costs, arc_u, arc_v, num_nodes,
-                 dtype=torch.float32, device="cpu", compensated: bool = False):
+                 dtype=torch.float32, device=DEFAULT_DEVICE,
+                 compensated: bool = False):
         if dtype not in (torch.float32, np.float32):
             raise ValueError(
                 "FusedKKTSolver kernels are f32; the plain pass_one_scan / "
                 "pass_two_scan take f64 on the CPU")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' but torch.cuda.is_available() is False")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = resolve_device(device)
         self.layout = KKTLayout.build(quad_costs, arc_u, arc_v, num_nodes,
                                       self.device)
         self.n = self.layout.n
@@ -537,7 +528,7 @@ class FusedKKTSolver:
         y_full = torch.where(keep, y * decomp.b_norm, torch.zeros_like(y))
         y_full = y_full if multi else y_full[0]
         if basis is not None:
-            x = _basis_product(y_full, basis)
+            x = basis_product(y_full, basis)
         else:
             x = self.pass_two(b, decomp, y_full)
         if raw:

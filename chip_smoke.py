@@ -62,13 +62,26 @@ Phases (each one raises on failure, so the exit code is non-zero):
     1e-12), the two-pass basis bitwise on an f64 KKT of m = 200,000, and a
     ``SparseOperator`` (``kkt_sorted_coo``) whose pass two regenerates pass
     one's basis bitwise; then the medians of 5 generic two-pass and one-pass
-    k = 500 solves and K8's time beside the plain version's and cuSPARSE's.
+    k = 500 solves and K8's time beside the plain version's and cuSPARSE's;
+15. K11, the double-float matvec (``DFKKTOperator``), on the headline with
+    f64 costs: arc part bitwise its plain version in both planes, node part
+    within 8·(deg+1)·2⁻⁴⁸·Σ|x|, rel 1e-13 of K8's f64 instance, and its
+    time beside the plain version's and a cuSPARSE f64 CSR SpMV's;
+16. K9 and K10, the double-float passes, and the df main path
+    ``DFFusedKKTSolver(d64, u, v, p).solve(b64, k=500, f="inv")`` with b on
+    the card and the counters reset: K9 and K10 once each with 2k - 1 = 999
+    K11 launches inside them and no plain df op; x finite; pass two's hi
+    and lo v_s bitwise pass one's; α, β at k = 20 within 1e-11·max|α| of
+    the f64 generic pass one (K8 f64) and of the plain df pass one; a
+    small instance against the CPU f64 oracle; max|Δα| against the f64
+    run at k = 100/200/500; the median of 5 df solves.
 
 Every kernel's entry of the JSON line carries its launches on its main
 path, its max_abs_err against its plain version, its time (``ms``), the
 plain version's (``plain_ms``), ``bound_ms`` (the larger of the bytes the
 function must move, each input read once and each output written once,
-over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100 SXM's
+over 3.35 TB/s and its f32 operations (a double-float operation counted as
+the f32 operations it is made of) over 67 TFLOP/s, the H100 SXM's
 peaks, counted from this run's shapes and steps; ``bound_by`` names the
 larger) and ``library_ms``, the time of one PyTorch call that computes the
 same function (cuSPARSE SpMV for the matvecs), or null. A single call
@@ -123,6 +136,14 @@ KERNELS = {
                   "tests/test_fused_df.py:274"),
     "kkt_operator_matvec": ("two_pass_lanczos_tpu_torch/csrc/kkt_matvec.cu",
                             "two_pass_lanczos_tpu/ops/spmv_pallas.py:52"),
+    "df_kkt_matvec": ("two_pass_lanczos_tpu_torch/csrc/df_kkt_matvec.cu",
+                      "two_pass_lanczos_tpu/ops/kkt_fused_df.py:673"),
+    "df_lanczos_pass_one": (
+        "two_pass_lanczos_tpu_torch/csrc/df_lanczos_pass_one.cu",
+        "two_pass_lanczos_tpu/ops/kkt_fused_df.py:381"),
+    "df_lanczos_pass_two": (
+        "two_pass_lanczos_tpu_torch/csrc/df_lanczos_pass_two.cu",
+        "two_pass_lanczos_tpu/ops/kkt_fused_df.py:486"),
 }
 
 
@@ -190,13 +211,22 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
     CSR that its layout builds from u and v, a pass's per-step state)
     belongs to its design, not to the function. Operations: f32, per step
     one matvec (3 per arc row, 2 per incidence entry) and the recurrence's
-    vector work.
+    vector work. The double-float kernels move (hi, lo) pairs, 8 bytes a
+    value, and count the f32 operations of their error-free
+    transformations (``csrc/df_common.cuh``: df_prod 6, df_add2 11,
+    df_axpy 17, df_scale 9): a df matvec 28 per arc row and 11 per
+    incidence entry, 50 per arc; a df pass-one step 76 per unknown (two
+    axpys fused with a product and a fold, one scale), a pass-two step 60.
     """
+    from two_pass_lanczos_tpu_torch.observability import df_kkt_matvec_bytes
     mv_in = 12 * m                   # d, u, v
     mv_flops = 5 * m
     p1_bytes = mv_in + 4 * n + 8 * k  # + b; alpha, beta out
     p1_flops = steps * (mv_flops + 9 * n)
     matvec = roofline_ms(mv_in + 8 * n, mv_flops)  # + x in, y out
+    df_mv_flops = 50 * m
+    # d, u, v, b pairs in; alpha, beta pairs and the ||b|| pair out
+    df_p1_bytes = 16 * m + 8 * n + 16 * k + 8
     return {
         "kkt_matvec": matvec,
         "lanczos_pass_one": roofline_ms(p1_bytes, p1_flops),
@@ -212,6 +242,13 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
         # (2, 128) in, (6, 128) out
         "eft_check": roofline_ms(32 * 128, 30 * 128),
         "kkt_operator_matvec": matvec,
+        "df_kkt_matvec": roofline_ms(
+            df_kkt_matvec_bytes(m, n - m), df_mv_flops),
+        "df_lanczos_pass_one": roofline_ms(
+            df_p1_bytes, steps * (df_mv_flops + 76 * n)),
+        # + the x pair out, the y pair in
+        "df_lanczos_pass_two": roofline_ms(
+            df_p1_bytes + 8 * n + 8 * k, steps * (df_mv_flops + 60 * n)),
     }
 
 
@@ -951,12 +988,225 @@ def main() -> int:
           f"SpMV {lib_ms:.5f} ms; per call from Python (CUDA events): "
           f"kernel {k8_call_ms:.4f} ms, cuSPARSE {lib_call_ms:.4f} ms")
 
+    # 15. K11: the double-float matvec on the headline, f64 costs
+    from two_pass_lanczos_tpu_torch import DFFusedKKTSolver, DFKKTOperator
+    from two_pass_lanczos_tpu_torch.algorithms.df import lanczos_pass_one_df
+    from two_pass_lanczos_tpu_torch.ops import kkt_fused_df
+    from two_pass_lanczos_tpu_torch.ops.df import DF, df_from_f64
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+        df_kkt_matvec_cuda,
+        df_pass_one_last_vector,
+    )
+
+    dfop = DFKKTOperator.from_f64(inst.quad_costs, inst.arc_u, inst.arc_v,
+                                  inst.num_nodes, device=dev)
+    check(torch.equal(dfop.d2[0], lay64.d.float())
+          and bool((dfop.d2[1] != 0).any()),
+          "the df costs are not the exact split of the f64 costs")
+    dlay = dfop.layout
+    xdf = df_from_f64(x64 * (1.0 + 1e-9 * x64))  # a lo plane that is not 0
+    x2 = torch.stack([xdf.hi, xdf.lo])
+    x_sp = x2[0].double() + x2[1].double()
+    y2 = df_kkt_matvec_cuda(dlay, dfop.d2, x2)
+    y2_ref = dfop.plain_matvec_df(xdf)
+    torch.cuda.synchronize()
+    check(torch.equal(y2[0, :m], y2_ref.hi[:m])
+          and torch.equal(y2[1, :m], y2_ref.lo[:m]),
+          "K11 arc part differs from the plain version's rounding")
+    y_df = y2[0].double() + y2[1].double()
+    y_df_ref = y2_ref.hi.double() + y2_ref.lo.double()
+    # two compensated folds of a node sum: each df_add2 of partial sums a,
+    # b errs by <= 3·2^-48·(|a| + |b|), a fold of deg terms adds deg such
+    # errors, the plain version's final df_sub one more
+    xa_abs = x_sp[:m].abs()
+    absum_df = torch.zeros(dlay.p, dtype=torch.float64, device=dev)
+    absum_df.index_add_(0, dlay.u, xa_abs).index_add_(0, dlay.v, xa_abs)
+    deg_df = (dlay.ptr[1:] - dlay.ptr[:-1]).double()
+    bound_df = 8 * (deg_df + 1) * 2.0 ** -48 * absum_df
+    node_err_df = (y_df[m:] - y_df_ref[m:]).abs()
+    check(bool((node_err_df <= bound_df).all()),
+          "K11 node part outside 8·(deg+1)·2^-48·Σ|x|")
+    check(torch.equal(df_kkt_matvec_cuda(dlay, dfop.d2, x2), y2),
+          "K11 not bitwise reproducible")
+    y_k8 = op64.matvec(x_sp)
+    rel_k8 = float(torch.linalg.norm(y_df - y_k8) / torch.linalg.norm(y_k8))
+    check(rel_k8 < 1e-13, f"K11 vs K8 f64 rel {rel_k8:.3e} >= 1e-13")
+    err_k11 = float((y_df - y_df_ref).abs().max())
+    coo64 = kkt_sorted_coo(arrays)
+    a_csr64 = torch.sparse_csr_tensor(coo64.indptr, coo64.cols, coo64.vals,
+                                      size=(n, n))
+    rel_lib64 = float(torch.linalg.norm(torch.mv(a_csr64, x_sp) - y_k8)
+                      / torch.linalg.norm(y_k8))
+    check(rel_lib64 < 1e-13, f"cuSPARSE f64 SpMV rel {rel_lib64:.3e} vs K8")
+    print(f"[15] K11 ok: arc part bitwise the plain version in hi and lo, "
+          f"node part max|err| {float(node_err_df.max()):.3e} within "
+          f"8·(deg+1)·2^-48·Σ|x| (min over nodes {float(bound_df.min()):.3e})"
+          f", max_abs_err {err_k11:.3e}; vs K8 f64 rel {rel_k8:.3e}; "
+          f"cuSPARSE f64 CSR SpMV rel {rel_lib64:.3e}")
+
+    # 16. K9 and K10: the df main path, through the kernels only
+    plain_df = []
+    patched = [(DFKKTOperator, "plain_matvec_df"),
+               (kkt_fused_df, "_pass_one_df"), (kkt_fused_df, "_pass_two_df")]
+    originals = [getattr(o, a) for o, a in patched]
+
+    def counted_df(fn):
+        def wrapper(*args, **kw):
+            plain_df.append(fn.__name__)
+            return fn(*args, **kw)
+        return wrapper
+
+    sdf = DFFusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
+                           inst.num_nodes, device=dev)
+    b64 = b.double()
+    for (o, a), fn in zip(patched, originals):
+        setattr(o, a, counted_df(fn))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_df, (al_df, be_df, steps_df) = sdf.solve(b64, k=K, f="inv")
+    torch.cuda.synchronize()
+    df_first = time.perf_counter() - t0
+    df_launches = dict(LAUNCHES)
+    for (o, a), fn in zip(patched, originals):
+        setattr(o, a, fn)
+    for name in ("df_kkt_matvec", "df_lanczos_pass_one",
+                 "df_lanczos_pass_two"):
+        launches[name] = df_launches[name]
+    check(df_launches["df_lanczos_pass_one"] == 1
+          and df_launches["df_lanczos_pass_two"] == 1
+          and df_launches["df_kkt_matvec"] == 2 * K - 1
+          and sum(df_launches.values()) == 2 * K + 1 and not plain_df,
+          f"df launches {df_launches}, plain df calls {plain_df}")
+    check(tuple(x_df.shape) == (n,) and x_df.dtype == torch.float64
+          and x_df.is_cuda and bool(torch.isfinite(x_df).all()),
+          "df x not a finite f64 (n,) tensor on the card")
+    b2 = sdf.pack(b64)
+    st1 = torch.empty(2, 2, n, device=dev)
+    st2 = torch.empty(2, 2, n, device=dev)
+    coeffs = sdf.pass_one(b2, K, state=st1)
+    a_rep = (coeffs[0].double() + coeffs[1].double()).cpu().numpy()
+    check(int(coeffs[5][0]) == steps_df
+          and np.array_equal(a_rep[:steps_df], al_df),
+          "df pass one not bitwise reproducible")
+    bn_df = float(coeffs[4][0].double() + coeffs[4][1].double())
+    y_solve = np.zeros(K)
+    y_solve[:steps_df] = host_f_tk_solve(al_df, be_df, "inv") * bn_df
+    y_h32 = y_solve.astype(np.float32)
+    y_h = torch.from_numpy(y_h32).to(dev)
+    y_l = torch.from_numpy((y_solve - y_h32).astype(np.float32)).to(dev)
+    x2_rep = sdf.pass_two(b2, coeffs, y_h, y_l, state=st2)
+    torch.cuda.synchronize()
+    check(torch.equal(df_pass_one_last_vector(coeffs, st1), st2[1]),
+          f"df pass two's v_{steps_df} differs from pass one's (hi or lo)")
+    check(torch.equal(sdf.unpack64(x2_rep), x_df), "df x not reproducible")
+    # k = 20 against the f64 generic pass one (K8 f64) and the plain df one
+    dec64_20 = tpl.lanczos_pass_one(op64, b64, K_CHECK)
+    c20 = sdf.pass_one(b2, K_CHECK)
+    a20 = (c20[0].double() + c20[1].double()).cpu().numpy()
+    b20 = (c20[2].double() + c20[3].double()).cpu().numpy()
+    atol20 = 1e-11 * float(dec64_20.alphas.abs().max())
+    da64 = float(np.abs(a20 - dec64_20.alphas.cpu().numpy()).max())
+    db64 = float(np.abs(b20[:K_CHECK - 1]
+                        - dec64_20.betas.cpu().numpy()[:K_CHECK - 1]).max())
+    check(int(c20[5][0]) == K_CHECK and max(da64, db64) <= atol20,
+          f"df alpha/beta at k={K_CHECK} {da64:.3e}/{db64:.3e} from f64, "
+          f"above 1e-11·max|alpha| = {atol20:.3e}")
+    ref20 = lanczos_pass_one_df(dfop, b64, K_CHECK)
+    ra20 = (ref20.alphas.hi.double() + ref20.alphas.lo.double()).cpu().numpy()
+    rb20 = (ref20.betas.hi.double() + ref20.betas.lo.double()).cpu().numpy()
+    err_k9 = max(float(np.abs(a20 - ra20).max()),
+                 float(np.abs(b20 - rb20).max()))
+    check(err_k9 <= atol20, f"K9 vs plain df pass one {err_k9:.3e} > "
+          f"{atol20:.3e} at k={K_CHECK}")
+    y20 = host_f_tk_solve(a20, b20[:K_CHECK - 1], "inv") * float(
+        c20[4][0].double() + c20[4][1].double())
+    y20h = torch.from_numpy(y20.astype(np.float32)).to(dev)
+    y20l = torch.from_numpy((y20 - y20.astype(np.float32).astype(np.float64))
+                            .astype(np.float32)).to(dev)
+    x20 = sdf.unpack64(sdf.pass_two(b2, c20, y20h, y20l))
+    dec20 = kkt_fused_df.DFDecomposition(
+        alphas=DF(c20[0], c20[1]), betas=DF(c20[2], c20[3]),
+        steps_taken=c20[5].reshape(()), b_norm=DF(c20[4][0], c20[4][1]))
+    x20_ref, _, _ = kkt_fused_df._pass_two_df(
+        dfop, DF(b2[0], b2[1]), dec20, DF(y20h, y20l), False)
+    x20_ref = x20_ref.hi.double() + x20_ref.lo.double()
+    rel_k10 = float(torch.linalg.norm(x20 - x20_ref)
+                    / torch.linalg.norm(x20_ref))
+    check(rel_k10 < 1e-12, f"K10 vs plain df pass two rel {rel_k10:.3e}")
+    err_k10 = float((x20 - x20_ref).abs().max())
+    # the small instance against the CPU f64 oracle
+    xs_df, _ = DFFusedKKTSolver(sd.astype(np.float64), su, sv, sp,
+                                device=dev).solve(sb, k=25, f="inv")
+    rel_small_df = float(np.linalg.norm(xs_df.cpu().numpy() - xs_ref.numpy())
+                         / np.linalg.norm(xs_ref.numpy()))
+    check(rel_small_df < 1e-9,
+          f"df small-instance rel {rel_small_df:.3e} vs f64 oracle")
+    # how far df and f32 drift from an f64 run over the headline's steps
+    a64_k = tpl.lanczos_pass_one(op64, b64, K).alphas.cpu().numpy()
+    a32_k = dec1.alphas.double().cpu().numpy()
+    drift = {kk: (float(np.abs(al_df[:kk] - a64_k[:kk]).max()),
+                  float(np.abs(a32_k[:kk] - a64_k[:kk]).max()))
+             for kk in (100, 200, K)}
+    scale_a = float(np.abs(a64_k).max())
+
+    def onset(a, tol):
+        """The first step whose alpha sits more than tol·max|alpha_f64|
+        from the f64 run's, or None."""
+        far = np.nonzero(np.abs(a[:steps_df] - a64_k[:steps_df])
+                         > tol * scale_a)[0]
+        return int(far[0]) + 1 if len(far) else None
+    print(f"[16] df solve(k={K}, f='inv') first call {df_first:.4f} s, "
+          f"steps_taken {steps_df}, launches {df_launches}, plain df calls "
+          f"{len(plain_df)}; pass two's v_{steps_df} bitwise pass one's in "
+          f"hi and lo (n={n}); alpha, beta at k={K_CHECK} vs f64 (K8) "
+          f"{da64:.3e} / {db64:.3e} <= 1e-11·max|alpha| {atol20:.3e}; K9 vs "
+          f"plain df {err_k9:.3e}; K10 vs plain df rel {rel_k10:.3e}; small "
+          f"instance vs CPU f64 oracle rel {rel_small_df:.3e}")
+    print(f"     max|alpha - alpha_f64| (max|alpha_f64| {scale_a:.6e}): "
+          + "; ".join(f"k<={kk}: df {d_:.3e}, f32 K2 {f_:.3e}"
+                      for kk, (d_, f_) in drift.items()))
+    print("     first step with |alpha - alpha_f64| > tol·max|alpha_f64|: "
+          + "; ".join(f"tol {tol:g}: df {onset(al_df, tol)}, f32 K2 "
+                      f"{onset(a32_k, tol)}" for tol in (1e-12, 1e-6, 1e-2)))
+
+    t_df = wall_s(lambda: sdf.solve(b64, k=K, f="inv"), 5)
+    ms["df_kkt_matvec"] = device_ms(
+        lambda: df_kkt_matvec_cuda(dlay, dfop.d2, x2), 200)
+    plain_ms["df_kkt_matvec"] = device_ms(
+        lambda: dfop.plain_matvec_df(xdf), 20)
+    lib64_ms = device_ms(lambda: torch.mv(a_csr64, x_sp), 200)
+    ms["df_lanczos_pass_one"] = event_ms(lambda: sdf.pass_one(b2, K), 3)
+    ms["df_lanczos_pass_two"] = event_ms(
+        lambda: sdf.pass_two(b2, coeffs, y_h, y_l), 3)
+    dec_k = kkt_fused_df.DFDecomposition(
+        alphas=DF(coeffs[0], coeffs[1]), betas=DF(coeffs[2], coeffs[3]),
+        steps_taken=coeffs[5].reshape(()),
+        b_norm=DF(coeffs[4][0], coeffs[4][1]))
+    bdf = DF(b2[0], b2[1])
+    plain_ms["df_lanczos_pass_one"] = event_ms(
+        lambda: kkt_fused_df._pass_one_df(dfop, bdf, K, False), 1)
+    plain_ms["df_lanczos_pass_two"] = event_ms(
+        lambda: kkt_fused_df._pass_two_df(dfop, bdf, dec_k, DF(y_h, y_l),
+                                          False), 1)
+    print(f"    on {card}: df two-pass solve k={K}: {runs(t_df)}")
+    for name in ("df_kkt_matvec", "df_lanczos_pass_one",
+                 "df_lanczos_pass_two"):
+        print(f"    {name}: kernel {ms[name]:.5f} ms, plain "
+              f"{plain_ms[name]:.5f} ms")
+    print(f"    cuSPARSE f64 CSR SpMV (nnz {coo64.nnz}) {lib64_ms:.5f} ms")
+
     bounds = kernel_bounds(m, n, steps, K)
-    library = {"kkt_matvec": lib_ms, "kkt_operator_matvec": lib_ms}
+    for name in ("df_lanczos_pass_one", "df_lanczos_pass_two"):
+        bounds[name] = kernel_bounds(m, n, steps_df, K)[name]
+    library = {"kkt_matvec": lib_ms, "kkt_operator_matvec": lib_ms,
+               "df_kkt_matvec": lib64_ms}
     errs = {"kkt_matvec": err_k1, "lanczos_pass_one": err_k2,
             "lanczos_pass_two": err_k3, "lanczos_pass_one_basis": err_k4,
             "lanczos_pass_one_chunk": err_k5, "lanczos_pass_one_comp": err_k6,
-            "eft_check": err_k13, "kkt_operator_matvec": err_k8}
+            "eft_check": err_k13, "kkt_operator_matvec": err_k8,
+            "df_kkt_matvec": err_k11, "df_lanczos_pass_one": err_k9,
+            "df_lanczos_pass_two": err_k10}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -25,10 +25,13 @@ from torch_cases import (  # noqa: F401
 )
 from two_pass_lanczos_tpu_torch import (
     CudaKKTOperator,
+    DFFusedKKTSolver,
+    DFKKTOperator,
     DiagonalOperator,
     FusedKKTSolver,
     KKTOperator,
     SparseOperator,
+    lanczos_pass_one_df,
     lanczos_pass_two_with_basis,
     lanczos_standard,
     lanczos_two_pass,
@@ -46,12 +49,17 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
 from two_pass_lanczos_tpu_torch.convert import decomposition_from_jax
 from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
+from two_pass_lanczos_tpu_torch.ops.df import df_from_f64
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     LAUNCHES,
     eft_check_cuda,
     kkt_matvec_cuda,
     reset_launches,
+)
+from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+    df_kkt_matvec_cuda,
+    df_pass_one_last_vector,
 )
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
 from two_pass_lanczos_tpu_torch.testing import check_reconstruction_stability
@@ -415,11 +423,137 @@ def test_sparse_operator_replay_bitwise_on_card(problem, cuda_device):
     assert _rel(x.cpu().numpy(), 1.0 / np.arange(1.0, 101.0)) < 1e-3
 
 
+# --- K11, K9, K10: the double-float tier -----------------------------------
+
+def _df_node_bound(lay, x2):
+    """Two compensated folds of one node sum differ by at most
+    8·(deg+1)·2⁻⁴⁸·Σ|x_a| (f64): each df_add2 of partial sums a, b errs by
+    ≤ 3·2⁻⁴⁸·(|a| + |b|), a fold of deg terms adds ≤ deg such errors over
+    partial sums bounded by Σ|x_a|, and the plain version's final df_sub
+    adds one more."""
+    m = lay.m
+    xa = (x2[0, :m].double() + x2[1, :m].double()).abs()
+    absum = torch.zeros(lay.p, dtype=torch.float64, device=x2.device)
+    absum.index_add_(0, lay.u, xa).index_add_(0, lay.v, xa)
+    deg = (lay.ptr[1:] - lay.ptr[:-1]).double()
+    return 8 * (deg + 1) * 2.0 ** -48 * absum
+
+
+def _df_problem(rng, m=700, p=300):
+    u = rng.integers(0, p, m).astype(np.int32)
+    v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
+    return rng.uniform(0.5, 5.0, m), u, v, p
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_df_matvec_kernel_matches_plain_on_card(case, cuda_device,
+                                                monkeypatch):
+    rng = np.random.default_rng(5)
+    d, u, v, p = CASES[case](rng)
+    d64 = d.astype(np.float64) * (1.0 + rng.uniform(0, 1e-7, len(d)))
+    x64 = rng.standard_normal(len(d) + p)
+    op = DFKKTOperator.from_f64(d64, u, v, p, device=cuda_device)
+    xdf = df_from_f64(x64, cuda_device)
+    x2 = torch.stack([xdf.hi, xdf.lo])
+    reset_launches()
+    y2 = df_kkt_matvec_cuda(op.layout, op.d2, x2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["df_kkt_matvec"] == 1
+    ref = op.plain_matvec_df(xdf)
+    m = len(d)
+    # the arc part rounds as the plain version, in both planes
+    assert torch.equal(y2[0, :m], ref.hi[:m])
+    assert torch.equal(y2[1, :m], ref.lo[:m])
+    # the node part folds in another fixed order
+    got = y2[0, m:].double() + y2[1, m:].double()
+    want = ref.hi[m:].double() + ref.lo[m:].double()
+    assert bool(((got - want).abs() <= _df_node_bound(op.layout, x2)).all())
+    assert torch.equal(df_kkt_matvec_cuda(op.layout, op.d2, x2), y2)
+    # DFKKTOperator.matvec_df on the card is K11, never the plain fold
+    monkeypatch.setattr(DFKKTOperator, "plain_matvec_df",
+                        lambda *a: pytest.fail("plain df matvec on the card"))
+    y = op.matvec_df(xdf)
+    assert LAUNCHES["df_kkt_matvec"] == 3
+    assert torch.equal(y.hi, y2[0]) and torch.equal(y.lo, y2[1])
+    # and near the f64 truth
+    t = torch.from_numpy
+    truth = kkt_matvec(t(d64), t(u), t(v), p, t(x64)).numpy()
+    y64 = (y2[0].double() + y2[1].double()).cpu().numpy()
+    assert np.abs(y64 - truth).max() <= 1e-13 * np.abs(truth).max()
+
+
+def test_df_pass_kernels_match_plain_on_card(cuda_device):
+    rng = np.random.default_rng(11)
+    d, u, v, p = _df_problem(rng)
+    b = rng.standard_normal(len(d) + p)
+    k = 20
+    s = DFFusedKKTSolver(d, u, v, p, device=cuda_device)
+    b2 = s.pack(torch.from_numpy(b).to(cuda_device))
+    reset_launches()
+    st1 = torch.empty(2, 2, s.n, device=cuda_device)
+    coeffs = s.pass_one(b2, k, state=st1)
+    torch.cuda.synchronize()
+    assert LAUNCHES["df_lanczos_pass_one"] == 1
+    assert LAUNCHES["df_kkt_matvec"] == k
+    ah, al, bh, bl, bn2, steps = coeffs
+    assert int(steps[0]) == k
+    ref = lanczos_pass_one_df(DFKKTOperator.from_f64(d, u, v, p, device=CPU),
+                              b, k)
+    a64 = (ah.double() + al.double()).cpu().numpy()
+    b64 = (bh.double() + bl.double()).cpu().numpy()
+    atol = 1e-11 * max(1.0, np.abs(ref.alphas_f64()).max())
+    np.testing.assert_allclose(a64, ref.alphas_f64(), rtol=0, atol=atol)
+    np.testing.assert_allclose(b64[:k - 1], ref.betas_f64(), rtol=0,
+                               atol=atol)
+    bn = float(bn2[0].double() + bn2[1].double())
+    assert abs(bn - np.linalg.norm(b)) < 1e-12 * np.linalg.norm(b)
+    # K10 regenerates K9's basis: v_k bitwise in both planes
+    y = torch.zeros(2, k, device=cuda_device)
+    st2 = torch.empty(2, 2, s.n, device=cuda_device)
+    s.pass_two(b2, coeffs, y[0], y[1], state=st2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["df_lanczos_pass_two"] == 1
+    assert LAUNCHES["df_kkt_matvec"] == 2 * k - 1
+    assert torch.equal(df_pass_one_last_vector(coeffs, st1), st2[1])
+    # the whole solve against the plain one on the CPU
+    x, (al64, be64, st) = s.solve(b, k=k, f="inv")
+    x_cpu, _ = DFFusedKKTSolver(d, u, v, p, device=CPU).solve(b, k=k)
+    assert x.dtype == torch.float64 and x.is_cuda and st == k
+    assert _rel(x.cpu().numpy(), x_cpu.numpy()) < 1e-10
+
+
+def test_df_breakdown_and_zero_b_on_card(cuda_device):
+    d, u, v, p, b = breakdown_kkt()
+    s = DFFusedKKTSolver(d.astype(np.float64), u, v, p, device=cuda_device)
+    coeffs = s.pass_one(b.astype(np.float64), 12)
+    steps = int(coeffs[5][0])
+    ref = DFFusedKKTSolver(d.astype(np.float64), u, v, p,
+                           device=CPU).pass_one(b.astype(np.float64), 12)
+    assert 0 < steps < 12 and steps == int(ref[5][0])
+    # the step that breaks down writes alpha but not beta
+    assert float(coeffs[0][steps - 1]) != 0.0
+    assert float(coeffs[2][steps - 1]) == 0.0
+    assert bool((coeffs[0][steps:] == 0).all())
+    x, (_, _, st) = s.solve(b.astype(np.float64), k=12)
+    assert st == steps and bool(torch.isfinite(x).all())
+    # a zero b: 0 steps and x = 0; a subnormal b: the same, never NaN
+    n = s.n
+    x0, (_, _, s0) = s.solve(np.zeros(n), k=5)
+    assert s0 == 0 and bool((x0 == 0).all())
+    b_sub = s.pack(np.full(n, 1e-42))
+    c_sub = s.pass_one(b_sub, 4)
+    assert int(c_sub[5][0]) == 0
+    zero = torch.zeros(4, device=cuda_device)
+    x_sub = s.pass_two(b_sub, c_sub, zero, zero)
+    assert bool(torch.isfinite(x_sub).all()) and bool((x_sub == 0).all())
+
+
 # --- the default device ----------------------------------------------------
 
 @pytest.mark.parametrize("entry", [
     "FusedKKTSolver", "make_kkt_operator", "DiagonalOperator",
-    "load_decomposition", "decomposition_from_jax"])
+    "load_decomposition", "decomposition_from_jax", "DFFusedKKTSolver",
+    "DFKKTOperator"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     # with no card, the default device="cuda" raises; it never falls back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -431,6 +565,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "DiagonalOperator": lambda: DiagonalOperator(d),
         "load_decomposition": lambda: load_decomposition(tmp_path / "x.npz"),
         "decomposition_from_jax": lambda: decomposition_from_jax(None),
+        "DFFusedKKTSolver": lambda: DFFusedKKTSolver(d, [0, 1, 2],
+                                                     [1, 2, 0], 3),
+        "DFKKTOperator": lambda: DFKKTOperator.from_f64(d, [0, 1, 2],
+                                                        [1, 2, 0], 3),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

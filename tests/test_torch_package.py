@@ -17,6 +17,7 @@ from two_pass_lanczos_tpu.models.generator import (
     generate_mcf_instance as jax_generate,
 )
 from two_pass_lanczos_tpu_torch import FusedKKTSolver, generate_mcf_instance
+from two_pass_lanczos_tpu_torch.observability import df_kkt_matvec_bytes
 from two_pass_lanczos_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,8 +73,8 @@ def test_import_leaves_jax_out():
 
 
 #: names of the JAX package's ``__all__`` the port does not have yet: the
-#: capability layer and the double-float tier (ROADMAP Queue 1 items 6 and
-#: 8); ``PallasKKTOperator``'s counterpart is ``CudaKKTOperator``
+#: capability layer (ROADMAP Queue 1 item 6); ``PallasKKTOperator``'s
+#: counterpart is ``CudaKKTOperator``
 NOT_PORTED = {
     "PallasKKTOperator",
     "ritz_values", "ritz_pairs", "ritz_residual_bounds", "quadratic_form",
@@ -84,8 +85,6 @@ NOT_PORTED = {
     "solve_fAb_block_jit", "SLQResult", "lanczos_pass_one_batched",
     "batched_quadratic_form", "batched_ritz_weights", "slq_trace",
     "slq_trace_adaptive", "slq_logdet", "slq_spectral_density",
-    "DFDiagonalOperator", "DFKKTOperator", "DFFusedKKTSolver",
-    "lanczos_pass_one_df", "solve_fAb_df",
 }
 
 
@@ -179,6 +178,26 @@ def test_chip_smoke_bounds_count_each_input_once():
     assert bounds["eft_check"][0] < 1e-5
 
 
+def test_chip_smoke_df_bounds_count_each_input_once():
+    mod = _load_script("chip_smoke")
+    m, p, k = 500_000, 1155, 500
+    n = m + p
+    bounds = mod.kernel_bounds(m, n, k, k)
+    # K11: d, x, y as hi/lo pairs and u, v, each once: 32·m + 16·p bytes
+    # (16.0 MB), the observability model's function bytes
+    ms, by = bounds["df_kkt_matvec"]
+    assert by == "bytes"
+    assert ms == pytest.approx((32 * m + 16 * p) / 3.35e12 * 1e3)
+    assert df_kkt_matvec_bytes(m, p) == 32 * m + 16 * p
+    # the df passes read their inputs once: their df operations bind, ~10x
+    # the f32 passes'
+    for name, f32 in (("df_lanczos_pass_one", "lanczos_pass_one"),
+                      ("df_lanczos_pass_two", "lanczos_pass_two")):
+        ms, by = bounds[name]
+        assert by == "operations"
+        assert 8 * bounds[f32][0] < ms < 20 * bounds[f32][0]
+
+
 def test_profile_busy_is_the_union_of_device_intervals():
     mod = _load_script("profile_port")
     # overlapping, nested, touching and disjoint intervals, in any order
@@ -194,7 +213,9 @@ def test_kernel_sources_keep_the_rules():
     sources = sorted(PKG.glob("csrc/*.cu")) + sorted(PKG.glob("csrc/*.cuh"))
     assert {p.name for p in sources} >= {
         "kkt_matvec.cu", "lanczos_pass_one.cu", "lanczos_pass_two.cu",
-        "eft_check.cu", "lanczos_common.cuh"}
+        "eft_check.cu", "lanczos_common.cuh", "df_common.cuh",
+        "df_kkt_matvec.cu", "df_lanczos_pass_one.cu",
+        "df_lanczos_pass_two.cu"}
     for p in sources:
         assert not re.search(r"\batomic\w*\s*\(", p.read_text()), p.name
     assert not any("fast_math" in f or "fmad" in f for f in _build.NVCC_FLAGS)

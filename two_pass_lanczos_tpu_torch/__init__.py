@@ -12,7 +12,11 @@ Two tiers:
 * the generic tier over any operator — ``lanczos`` (one-pass),
   ``lanczos_two_pass`` and ``solve_fAb`` — where a KKT operator's matvec is
   the kernel K8;
-* the fused KKT solver ``FusedKKTSolver``, whose passes are whole kernels.
+* the fused KKT solver ``FusedKKTSolver``, whose passes are whole kernels;
+* the double-float tier: ``DFDiagonalOperator``, ``DFKKTOperator`` (its df
+  matvec is the kernel K11), ``lanczos_pass_one_df``, ``solve_fAb_df`` and
+  the fused ``DFFusedKKTSolver`` (kernels K9 and K10), near-f64 results
+  from (hi, lo) f32 pairs.
 
 Example::
 
@@ -29,6 +33,9 @@ Example::
     s = tpl.FusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
                            inst.num_nodes)
     x3, decomp = s.solve(b, k=500, f="inv")               # fused kernels
+    sdf = tpl.DFFusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
+                               inst.num_nodes)                # f64 costs
+    x4, (alphas, betas, steps) = sdf.solve(b.astype(np.float64), k=500)
 """
 
 from two_pass_lanczos_tpu_torch.algorithms.chunked import (
@@ -38,6 +45,12 @@ from two_pass_lanczos_tpu_torch.algorithms.chunked import (
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     LanczosDecomposition,
     breakdown_tolerance,
+)
+from two_pass_lanczos_tpu_torch.algorithms.df import (
+    DFDiagonalOperator,
+    DFKKTOperator,
+    lanczos_pass_one_df,
+    solve_fAb_df,
 )
 from two_pass_lanczos_tpu_torch.algorithms.one_pass import lanczos_standard
 from two_pass_lanczos_tpu_torch.algorithms.two_pass import (
@@ -90,6 +103,7 @@ from two_pass_lanczos_tpu_torch.operators import (
     make_kkt_operator,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver
+from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import DFFusedKKTSolver
 from two_pass_lanczos_tpu_torch.solvers import (
     lanczos,
     lanczos_two_pass,
@@ -121,6 +135,12 @@ __all__ = [
     "CallableOperator",
     "as_operator",
     "FusedKKTSolver",
+    # double-float (compensated) precision
+    "DFDiagonalOperator",
+    "DFKKTOperator",
+    "DFFusedKKTSolver",
+    "lanczos_pass_one_df",
+    "solve_fAb_df",
     # matrix functions
     "make_inv_solver",
     "make_exp_solver",

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from two_pass_lanczos_tpu_torch.algorithms.core import LanczosDecomposition
+from two_pass_lanczos_tpu_torch.algorithms.df import DFKKTOperator
 from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from two_pass_lanczos_tpu_torch.operators import (
     CudaKKTOperator,
@@ -22,9 +23,11 @@ from two_pass_lanczos_tpu_torch.operators import (
     SparseOperator,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver
+from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import DFFusedKKTSolver
 from two_pass_lanczos_tpu_torch.ops.spmv import csr_from_triplets
 
-__all__ = ["solver_from_jax", "decomposition_from_jax", "operator_from_jax"]
+__all__ = ["solver_from_jax", "decomposition_from_jax", "operator_from_jax",
+           "df_operator_from_jax", "df_solver_from_jax"]
 
 
 def solver_from_jax(jax_fused_solver, device=DEFAULT_DEVICE) -> FusedKKTSolver:
@@ -75,3 +78,33 @@ def operator_from_jax(op, device=DEFAULT_DEVICE) -> LinearOperator:
             np.asarray(op.d_pad)[:m], np.asarray(op.u_pad)[:m],
             np.asarray(op.v_pad)[:m], int(op.num_nodes), device=device)
     raise TypeError(f"no counterpart in the port for a JAX {kind}")
+
+
+def df_operator_from_jax(op, device=DEFAULT_DEVICE) -> DFKKTOperator:
+    """The port's :class:`DFKKTOperator` for a JAX ``DFKKTOperator``: its
+    ``d.hi`` and ``d.lo`` planes as they are (never recombined: hi + lo is
+    not the f64 costs exactly, and both packages must compute with the same
+    pair), its arcs and node count."""
+    return DFKKTOperator((np.asarray(op.d.hi), np.asarray(op.d.lo)),
+                         np.asarray(op.arc_u), np.asarray(op.arc_v),
+                         int(op.num_nodes), device=device)
+
+
+def df_solver_from_jax(jax_df_solver, device=DEFAULT_DEVICE
+                       ) -> DFFusedKKTSolver:
+    """The port's :class:`DFFusedKKTSolver` for a JAX ``DFFusedKKTSolver``.
+    The JAX solver keeps only its rep layout, so the arcs are read back from
+    the tail ordering: at ``layout.u.pos`` the d hi/lo planes
+    (``_arrs[0:2]``) hold each arc's cost pair, ``es2`` its tail and
+    ``eo2`` its head."""
+    lay = jax_df_solver.layout
+    pos = np.asarray(lay.u.pos)
+    arrs = jax_df_solver._arrs
+
+    def at_pos(a):
+        return np.asarray(a).reshape(-1)[pos]
+
+    return DFFusedKKTSolver((at_pos(arrs[0]), at_pos(arrs[1])),
+                            at_pos(lay.u.es2).astype(np.int64),
+                            at_pos(lay.u.eo2).astype(np.int64), int(lay.p),
+                            device=device)

@@ -12,7 +12,9 @@ Counterpart of ``two_pass_lanczos_tpu/observability.py``:
   trace.
 * **Speed-of-light model** — :func:`kkt_matvec_bytes` and
   :func:`kkt_spmv_sol`: the bytes one K1 matvec (``csrc/kkt_matvec.cu``)
-  must move, against the H100 SXM's HBM3 bandwidth.
+  must move, against the H100 SXM's HBM3 bandwidth;
+  :func:`df_kkt_matvec_bytes` the same for K11, the double-float matvec
+  (``csrc/df_kkt_matvec.cu``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ __all__ = [
     "trace",
     "SoLReport",
     "kkt_matvec_bytes",
+    "df_kkt_matvec_bytes",
     "kkt_spmv_sol",
     "H100_SXM_HBM3_BW",
 ]
@@ -151,6 +154,22 @@ def kkt_matvec_bytes(num_arcs: int, num_nodes: int) -> int:
     from the L2, not from HBM, and are not counted.
     """
     return 28 * num_arcs + 12 * num_nodes + 4
+
+
+def df_kkt_matvec_bytes(num_arcs: int, num_nodes: int) -> int:
+    """Bytes one K11 df matvec (``csrc/df_kkt_matvec.cu``) must move to or
+    from device memory on the port's layout (arcs in their original order,
+    no padding, (hi, lo) f32 planes), each array once.
+
+    d, x and y as (hi, lo) pairs and the int32 arc endpoints u, v: 8 B per
+    arc for d, 8 for u and v, 8 + 8 per unknown for x and y, so
+    32·m + 16·p (16.0 MB at the headline). What the kernel's design reads
+    besides — the node-sorted incidence CSR it builds from u and v (``ptr``
+    and ``ent``, 8·m + 4·p + 4 bytes, as for K1 in
+    :func:`kkt_matvec_bytes`) and the L2-resident gathers of the x_a pairs
+    — belongs to the design, not to the function.
+    """
+    return 32 * num_arcs + 16 * num_nodes
 
 
 def kkt_spmv_sol(num_arcs: int, num_nodes: int, achieved_seconds: float,

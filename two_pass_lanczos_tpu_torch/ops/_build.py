@@ -62,6 +62,19 @@ _SIGNATURES = {
                              ctypes.POINTER(_I), _P],
     # a, b, n, out (6 x n), stream
     "tpl_eft_check": [_P, _P, _I, _P, _P],
+    # the double-float kernels (csrc/df_*.cu): d2, u, v, ptr, ent, m, p, ...
+    # ... x2, y2, stream
+    "tpl_df_kkt_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # ... b2, k, tol, ztol, coeffs, bnorm2, steps, v_prev2, v_curr2, w2,
+    # partials, scal, flags, *matvec_launches, stream
+    "tpl_df_lanczos_pass_one": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                ctypes.POINTER(_I), _P],
+    # ... b2, k, ztol, coeffs, y2, bnorm2, steps, x2, v_prev2, v_curr2, w2,
+    # *matvec_launches, stream
+    "tpl_df_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
+                                _P, _P, _P, _P, _P, _P, _P, _P,
+                                ctypes.POINTER(_I), _P],
 }
 
 _lock = threading.Lock()

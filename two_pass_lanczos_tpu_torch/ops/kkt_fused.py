@@ -56,11 +56,14 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches"]
 #: kernel launches per kernel since the last :func:`reset_launches`; a
 #: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``,
 #: and K8, the matvec of the generic KKT operators (``ops/spmv_kernel.py``),
-#: as ``kkt_operator_matvec``
+#: as ``kkt_operator_matvec``; K11, K9 and K10, the double-float kernels
+#: (``ops/kkt_fused_df.py``), as ``df_kkt_matvec``, ``df_lanczos_pass_one``
+#: and ``df_lanczos_pass_two``
 LAUNCHES = {"kkt_matvec": 0, "lanczos_pass_one": 0, "lanczos_pass_two": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
             "lanczos_pass_one_comp": 0, "eft_check": 0,
-            "kkt_operator_matvec": 0}
+            "kkt_operator_matvec": 0, "df_kkt_matvec": 0,
+            "df_lanczos_pass_one": 0, "df_lanczos_pass_two": 0}
 #: size of one plane of pass one's block-partials scratch
 #: (``tpl::kMaxPartials``); the scratch holds two planes
 MAX_PARTIALS = 1024

@@ -74,7 +74,26 @@ Phases (each one raises on failure, so the exit code is non-zero):
     and lo v_s bitwise pass one's; α, β at k = 20 within 1e-11·max|α| of
     the f64 generic pass one (K8 f64) and of the plain df pass one; a
     small instance against the CPU f64 oracle; max|Δα| against the f64
-    run at k = 100/200/500; the median of 5 df solves.
+    run at k = 100/200/500; the median of 5 df solves;
+17. K7, one shard's matvec, and the f32 sharded main path
+    ``ShardedFusedKKTSolver(d, u, v, p, make_mesh(1)).solve(b, k=500,
+    f="inv")`` on a one-rank NCCL group, at the headline and at the
+    distributed tier's own size ``generate_mcf_instance(5_000_000, rho=3,
+    instance_id=1)`` (m = 5,000,000, p = 3,651): one shard bitwise K1, four
+    shards in one process with arc parts bitwise K1's slices and node
+    partials folding to K1's node part within 2·deg·ε·Σ|x|, K7 against its
+    plain version; with the counters reset, 2k - 1 = 999 K7 launches and
+    nothing else, no plain shard matvec, x finite, pass two's v_s bitwise
+    pass one's, α, β at k = 20 within rtol 2e-4 of K2; medians of 5 (3 at
+    5M) solves, and of one-pass and callback (chunk 64) solves at the
+    headline; K7's time beside a cuSPARSE CSR SpMV of the shard's A;
+18. K12, one shard's df matvec, and the df sharded main path
+    ``DFShardedFusedKKTSolver(d64, u, v, p, mesh).solve(b64, k=500)`` on the
+    same group at both sizes: one shard bitwise K11 in both planes, four
+    shards folding within 8·(deg+1)·2⁻⁴⁸·Σ|x|; 999 K12 launches and nothing
+    else, no plain df op, x finite, hi and lo v_s bitwise, α, β at k = 20
+    within 1e-11·max|α| of ``DFFusedKKTSolver``; medians of 3 df solves;
+    K12's time beside a cuSPARSE f64 CSR SpMV.
 
 Every kernel's entry of the JSON line carries its launches on its main
 path, its max_abs_err against its plain version, its time (``ms``), the
@@ -107,6 +126,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HEADLINE = {"arcs": 500_000, "rho": 3, "instance_id": 1}
+#: the distributed tier's size, BASELINE.json's ">= 5M arcs" netgen KKT
+BIG = {"arcs": 5_000_000, "rho": 3, "instance_id": 1}
 K = 500
 K_LONG = 1000
 K_CHECK = 20
@@ -144,6 +165,12 @@ KERNELS = {
     "df_lanczos_pass_two": (
         "two_pass_lanczos_tpu_torch/csrc/df_lanczos_pass_two.cu",
         "two_pass_lanczos_tpu/ops/kkt_fused_df.py:486"),
+    "kkt_streaming_matvec": (
+        "two_pass_lanczos_tpu_torch/csrc/kkt_shard_matvec.cu",
+        "two_pass_lanczos_tpu/ops/kkt_fused.py:937"),
+    "df_kkt_streaming_matvec": (
+        "two_pass_lanczos_tpu_torch/csrc/df_kkt_shard_matvec.cu",
+        "two_pass_lanczos_tpu/ops/kkt_fused_df.py:602"),
 }
 
 
@@ -249,6 +276,11 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
         # + the x pair out, the y pair in
         "df_lanczos_pass_two": roofline_ms(
             df_p1_bytes + 8 * n + 8 * k, steps * (df_mv_flops + 60 * n)),
+        # one shard's matvec (the whole instance on one rank) computes the
+        # same function: its y_a and node partial are the matvec's y
+        "kkt_streaming_matvec": matvec,
+        "df_kkt_streaming_matvec": roofline_ms(
+            df_kkt_matvec_bytes(m, n - m), df_mv_flops),
     }
 
 
@@ -262,6 +294,346 @@ def wall_s(fn, reps: int) -> list:
         fn()
         torch.cuda.synchronize()
         out.append(time.perf_counter() - t0)
+    return out
+
+
+def node_bound(lay, x, eps):
+    """2·deg·eps·Σ|x_a| per node: two summation orders of one node sum."""
+    import torch
+    m = lay.m
+    absum = torch.zeros(lay.p, dtype=x.dtype, device=x.device)
+    absum.index_add_(0, lay.u, x[:m].abs()).index_add_(0, lay.v, x[:m].abs())
+    return 2 * (lay.ptr[1:] - lay.ptr[:-1]).to(x.dtype) * eps * absum
+
+
+def df_node_bound(lay, x2):
+    """8·(deg+1)·2⁻⁴⁸·Σ|x_a| (f64) per node: two compensated folds of one
+    node sum (each df_add2 errs by <= 3·2⁻⁴⁸·(|a| + |b|))."""
+    import torch
+    m = lay.m
+    xa = (x2[0, :m].double() + x2[1, :m].double()).abs()
+    absum = torch.zeros(lay.p, dtype=torch.float64, device=x2.device)
+    absum.index_add_(0, lay.u, xa).index_add_(0, lay.v, xa)
+    return 8 * ((lay.ptr[1:] - lay.ptr[:-1]).double() + 1) * 2.0 ** -48 * absum
+
+
+def shard_slices(m: int, n_shards: int):
+    """The JAX package's contiguous arc split, as slices."""
+    import numpy as np
+    return [slice(int(ix[0]), int(ix[-1]) + 1)
+            for ix in np.array_split(np.arange(m), n_shards)]
+
+
+def runs(ts) -> str:
+    return (f"median {statistics.median(ts):.4f} s "
+            f"(runs {', '.join(f'{t:.4f}' for t in ts)})")
+
+
+def sharded_f32_phase(card, dev, mesh, sizes) -> dict:
+    """Phase 17: K7 against K1 and its plain version, and the f32 sharded
+    main path on ``mesh``, for each ``(label, instance)`` of ``sizes``.
+    Returns per label K7's launches, error, times and bound."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch.algorithms.core import pass_one_last_vector
+    from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        KKTLayout,
+        kkt_matvec_cuda,
+        kkt_shard_matvec,
+        kkt_shard_matvec_cuda,
+        pass_one_cuda,
+        reset_launches,
+        scaled_y,
+    )
+    from two_pass_lanczos_tpu_torch.parallel import (
+        ShardedFusedKKTSolver,
+        fused_sharded,
+    )
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+
+    eps = torch.finfo(torch.float32).eps
+    out = {}
+    for label, ins in sizes:
+        m, p = ins.num_arcs, ins.num_nodes
+        n = m + p
+        rng = np.random.default_rng(17)
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        whole = KKTLayout.build(ins.quad_costs, ins.arc_u, ins.arc_v, p, dev)
+        y1 = kkt_matvec_cuda(whole, x)
+        y7 = kkt_shard_matvec_cuda(whole, x)
+        bound = node_bound(whole, x, eps)
+        check(torch.equal(y7, y1), f"{label}: one-shard K7 is not bitwise K1")
+        fold = None
+        for sl in shard_slices(m, 4):
+            lay = KKTLayout.build(ins.quad_costs[sl], ins.arc_u[sl],
+                                  ins.arc_v[sl], p, dev)
+            yl = kkt_shard_matvec_cuda(lay, torch.cat([x[sl], x[m:]]))
+            check(torch.equal(yl[:lay.m], y1[sl]),
+                  f"{label}: K7 shard arc part is not K1's slice")
+            fold = yl[lay.m:] if fold is None else fold + yl[lay.m:]
+            del lay, yl
+        check(bool(((fold - y1[m:]).abs() <= bound).all()),
+              f"{label}: four K7 partials fold outside 2·deg·eps·Σ|x|")
+        # the plain version on the card is a reference (index_add_), never
+        # the solver's path there
+        y_pl = kkt_shard_matvec(whole, x)
+        torch.cuda.synchronize()
+        check(torch.equal(y_pl[:m], y7[:m])
+              and bool(((y_pl[m:] - y7[m:]).abs() <= bound).all()),
+              f"{label}: K7 differs from its plain version")
+        err = float((y7 - y_pl).abs().max())
+        arrays = KKTArrays(quad_costs=ins.quad_costs, arc_u=ins.arc_u,
+                           arc_v=ins.arc_v, num_nodes=p, num_arcs=m)
+        coo = kkt_sorted_coo(arrays, dtype=np.float32, device=dev)
+        a_csr = torch.sparse_csr_tensor(coo.indptr, coo.cols, coo.vals,
+                                        size=(n, n))
+        del coo
+        rel_lib = float(torch.linalg.norm(torch.mv(a_csr, x) - y7)
+                        / torch.linalg.norm(y7))
+        check(rel_lib < 1e-6, f"{label}: cuSPARSE rel {rel_lib:.3e} vs K7")
+        ms = device_ms(lambda: kkt_shard_matvec_cuda(whole, x), 200)
+        plain_ms = device_ms(lambda: kkt_shard_matvec(whole, x), 200)
+        lib_ms = device_ms(lambda: torch.mv(a_csr, x), 200)
+        del a_csr
+
+        # the main path, through K7 only
+        solver = ShardedFusedKKTSolver(ins.quad_costs, ins.arc_u, ins.arc_v,
+                                       p, mesh)
+        plain_calls = []
+        plain_orig = fused_sharded.kkt_shard_matvec
+
+        def counted(*args, **kw):
+            plain_calls.append(1)
+            return plain_orig(*args, **kw)
+
+        fused_sharded.kkt_shard_matvec = counted
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_main, dec_main = solver.solve(b, k=K, f="inv")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        fused_sharded.kkt_shard_matvec = plain_orig
+        check(launches["kkt_streaming_matvec"] == 2 * K - 1
+              and sum(launches.values()) == 2 * K - 1 and not plain_calls,
+              f"{label}: sharded launches {launches}, plain calls "
+              f"{len(plain_calls)}")
+        check(x_main.shape == (n,) and bool(np.isfinite(x_main).all()),
+              f"{label}: sharded x not a finite (n,) array")
+        bl = solver.pack(b)
+        st1 = torch.empty(2, solver.n_local, device=dev)
+        st2 = torch.empty(2, solver.n_local, device=dev)
+        dec1 = solver.pass_one(bl, K, state=st1)
+        solver.pass_two(bl, dec1, scaled_y(dec1, "inv", K), state=st2)
+        torch.cuda.synchronize()
+        steps = dec1.steps()
+        check(torch.equal(dec1.alphas, dec_main.alphas)
+              and torch.equal(dec1.betas, dec_main.betas),
+              f"{label}: sharded pass one not bitwise reproducible")
+        check(torch.equal(pass_one_last_vector(dec1, st1), st2[1]),
+              f"{label}: sharded pass two's v_{steps} differs from pass one's")
+        d20 = solver.pass_one(bl, K_CHECK)
+        k2 = pass_one_cuda(whole, b, K_CHECK, solver.tol, solver.ztol)
+        np.testing.assert_allclose(d20.alphas.cpu().numpy(),
+                                   k2.alphas.cpu().numpy(), rtol=2e-4)
+        np.testing.assert_allclose(d20.betas.cpu().numpy(),
+                                   k2.betas.cpu().numpy(), rtol=2e-4)
+        rel20 = float(((d20.alphas - k2.alphas).abs()
+                       / k2.alphas.abs()).max())
+        print(f"[17] {label} (m={m}, p={p}, n={n}): K7 one shard bitwise K1"
+              f", four shards' arc parts bitwise and partials within bound, "
+              f"vs plain max_abs_err {err:.3e}; cuSPARSE rel {rel_lib:.3e}; "
+              f"sharded solve(k={K}) on a one-rank "
+              f"{torch.distributed.get_backend(mesh.group)} group first call "
+              f"{first_s:.4f} s, steps {steps}, launches {launches}, plain "
+              f"calls {len(plain_calls)}; pass two's v_{steps} bitwise pass "
+              f"one's; alpha, beta at k={K_CHECK} vs K2 max rel {rel20:.3e}")
+        t_solve = wall_s(lambda: solver.solve(b, k=K, f="inv", raw=True),
+                         5 if label == "headline" else 3)
+        print(f"     on {card}: K7 {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              f"cuSPARSE CSR SpMV {lib_ms:.5f} ms, bound "
+              f"{roofline_ms(20 * m + 8 * p, 5 * m)[0]:.5f} ms; sharded "
+              f"two-pass solve k={K}: {runs(t_solve)}")
+        if label == "headline":
+            t_one = wall_s(lambda: solver.solve(
+                b, k=K, f="inv", method="one_pass", raw=True), 5)
+            t_cb = wall_s(lambda: solver.solve(
+                b, k=K, f="inv", raw=True, callback=lambda *a: True,
+                callback_chunk=CHUNK), 5)
+            print(f"     sharded one-pass solve k={K}: {runs(t_one)}; "
+                  f"callback (never stops, chunk {CHUNK}): {runs(t_cb)}")
+        out[label] = {"launches": launches["kkt_streaming_matvec"],
+                      "err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms,
+                      "bound": roofline_ms(20 * m + 8 * p, 5 * m)}
+        del solver, whole, bl, st1, st2
+    return out
+
+
+def sharded_df_phase(card, dev, mesh, sizes) -> dict:
+    """Phase 18: K12 against K11 and its plain version, and the df sharded
+    main path on ``mesh``, for each ``(label, instance, operator or
+    None)`` of ``sizes`` (an operator with its plain tables is compared
+    with its plain version). Returns per label K12's numbers."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch import DFFusedKKTSolver, DFKKTOperator
+    from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
+    from two_pass_lanczos_tpu_torch.observability import df_kkt_matvec_bytes
+    from two_pass_lanczos_tpu_torch.ops.df import DF, df_add, df_from_f64
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+        df_kkt_matvec_cuda,
+        df_kkt_shard_matvec_cuda,
+        df_pass_one_last_vector,
+    )
+    from two_pass_lanczos_tpu_torch.parallel import DFShardedFusedKKTSolver
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+
+    out = {}
+    for label, ins, op in sizes:
+        m, p = ins.num_arcs, ins.num_nodes
+        n = m + p
+        rng = np.random.default_rng(18)
+        x64 = torch.from_numpy(rng.standard_normal(n)).to(dev)
+        xdf = df_from_f64(x64 * (1.0 + 1e-9 * x64))  # a lo plane that is not 0
+        x2 = torch.stack([xdf.hi, xdf.lo])
+        b64 = torch.from_numpy(rng.standard_normal(n)).to(dev)
+        whole = op or DFKKTOperator(ins.quad_costs, ins.arc_u, ins.arc_v, p,
+                                    device=dev)
+        lay = whole.layout
+        y11 = df_kkt_matvec_cuda(lay, whole.d2, x2)
+        y12 = df_kkt_shard_matvec_cuda(lay, whole.d2, x2)
+        bound = df_node_bound(lay, x2)
+        check(torch.equal(y12, y11),
+              f"{label}: one-shard K12 is not bitwise K11 in both planes")
+        acc = None
+        for sl in shard_slices(m, 4):
+            sop = DFKKTOperator(ins.quad_costs[sl], ins.arc_u[sl],
+                                ins.arc_v[sl], p, device=dev)
+            yl = df_kkt_shard_matvec_cuda(sop.layout, sop.d2,
+                                          torch.cat([x2[:, sl], x2[:, m:]], 1))
+            ms_ = sop.layout.m
+            check(torch.equal(yl[:, :ms_], y11[:, sl]),
+                  f"{label}: K12 shard arc part is not K11's slice")
+            part = DF(yl[0, ms_:], yl[1, ms_:])
+            acc = part if acc is None else df_add(acc, part)
+            del sop, yl
+        folded = acc.hi.double() + acc.lo.double()
+        want = y11[0, m:].double() + y11[1, m:].double()
+        check(bool(((folded - want).abs() <= bound).all()),
+              f"{label}: four K12 partials fold outside "
+              "8·(deg+1)·2^-48·Σ|x|")
+        err, plain_ms = None, None
+        if op is not None:
+            y_pl = op.plain_matvec_df(xdf)
+            torch.cuda.synchronize()
+            check(torch.equal(y12[0, :m], y_pl.hi[:m])
+                  and torch.equal(y12[1, :m], y_pl.lo[:m]),
+                  f"{label}: K12 arc part differs from its plain version")
+            y12_64 = y12[0].double() + y12[1].double()
+            pl_64 = y_pl.hi.double() + y_pl.lo.double()
+            check(bool(((y12_64[m:] - pl_64[m:]).abs() <= bound).all()),
+                  f"{label}: K12 node part outside the bound of its plain "
+                  "version")
+            err = float((y12_64 - pl_64).abs().max())
+            plain_ms = device_ms(lambda: op.plain_matvec_df(xdf), 20)
+        arrays = KKTArrays(quad_costs=ins.quad_costs, arc_u=ins.arc_u,
+                           arc_v=ins.arc_v, num_nodes=p, num_arcs=m)
+        coo = kkt_sorted_coo(arrays, device=dev)
+        a_csr = torch.sparse_csr_tensor(coo.indptr, coo.cols, coo.vals,
+                                        size=(n, n))
+        del coo
+        x_sp = x2[0].double() + x2[1].double()
+        y64 = y12[0].double() + y12[1].double()
+        rel_lib = float(torch.linalg.norm(torch.mv(a_csr, x_sp) - y64)
+                        / torch.linalg.norm(y64))
+        check(rel_lib < 1e-13, f"{label}: cuSPARSE f64 rel {rel_lib:.3e}")
+        ms = device_ms(lambda: df_kkt_shard_matvec_cuda(lay, whole.d2, x2),
+                       200)
+        lib_ms = device_ms(lambda: torch.mv(a_csr, x_sp), 200)
+        del a_csr
+
+        # the df main path, through K12 only
+        s = DFShardedFusedKKTSolver(ins.quad_costs, ins.arc_u, ins.arc_v, p,
+                                    mesh)
+        plain_df = []
+        plain_orig = DFKKTOperator.plain_matvec_df
+
+        def counted(*args, **kw):
+            plain_df.append(1)
+            return plain_orig(*args, **kw)
+
+        DFKKTOperator.plain_matvec_df = counted
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_df, (al, _, steps) = s.solve(b64, k=K, f="inv")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        DFKKTOperator.plain_matvec_df = plain_orig
+        check(launches["df_kkt_streaming_matvec"] == 2 * K - 1
+              and sum(launches.values()) == 2 * K - 1 and not plain_df,
+              f"{label}: df sharded launches {launches}, plain df calls "
+              f"{len(plain_df)}")
+        check(x_df.shape == (n,) and x_df.dtype == np.float64
+              and bool(np.isfinite(x_df).all()),
+              f"{label}: df sharded x not a finite f64 (n,) array")
+        b2 = s.pack(b64)
+        st1 = torch.empty(2, 2, s.n_local, device=dev)
+        st2 = torch.empty(2, 2, s.n_local, device=dev)
+        coeffs = s.pass_one(b2, K, state=st1)
+        zero = torch.zeros(K, device=dev)
+        s.pass_two(b2, coeffs, zero, zero, state=st2)
+        torch.cuda.synchronize()
+        a_rep = (coeffs[0].double() + coeffs[1].double()).cpu().numpy()
+        check(int(coeffs[5][0]) == steps and np.array_equal(a_rep[:steps], al),
+              f"{label}: df sharded pass one not bitwise reproducible")
+        check(torch.equal(df_pass_one_last_vector(coeffs, st1), st2[1]),
+              f"{label}: df sharded pass two's v_{steps} differs from pass "
+              "one's (hi or lo)")
+        c20 = s.pass_one(b2, K_CHECK)
+        r20 = DFFusedKKTSolver(ins.quad_costs, ins.arc_u, ins.arc_v, p,
+                               device=dev).pass_one(b64, K_CHECK)
+
+        def f64(c, i):
+            return (c[i].double() + c[i + 1].double()).cpu().numpy()
+
+        atol = 1e-11 * float(np.abs(f64(r20, 0)).max())
+        da = float(np.abs(f64(c20, 0) - f64(r20, 0)).max())
+        db = float(np.abs(f64(c20, 2)[:K_CHECK - 1]
+                          - f64(r20, 2)[:K_CHECK - 1]).max())
+        check(int(c20[5][0]) == int(r20[5][0]) == K_CHECK
+              and max(da, db) <= atol,
+              f"{label}: df sharded alpha/beta at k={K_CHECK} {da:.3e}/"
+              f"{db:.3e} from K9, above 1e-11·max|alpha| = {atol:.3e}")
+        print(f"[18] {label} (m={m}, p={p}): K12 one shard bitwise K11 in hi "
+              f"and lo, four shards' arc parts bitwise and df partials within"
+              f" bound" + (f", vs plain max_abs_err {err:.3e}" if op else "")
+              + f"; cuSPARSE f64 rel {rel_lib:.3e}; df sharded solve(k={K}) "
+              f"first call {first_s:.4f} s, steps {steps}, launches "
+              f"{launches}, plain df calls {len(plain_df)}; hi and lo "
+              f"v_{steps} bitwise across passes; alpha, beta at k={K_CHECK} "
+              f"vs K9 {da:.3e} / {db:.3e} <= {atol:.3e}")
+        t_df = wall_s(lambda: s.solve(b64, k=K, f="inv"), 3)
+        bnd = roofline_ms(df_kkt_matvec_bytes(m, p), 50 * m)
+        print(f"     on {card}: K12 {ms:.5f} ms"
+              + (f", plain {plain_ms:.5f} ms" if op else "")
+              + f", cuSPARSE f64 CSR SpMV {lib_ms:.5f} ms, bound "
+              f"{bnd[0]:.5f} ms; df sharded two-pass solve k={K}: "
+              f"{runs(t_df)}")
+        out[label] = {"launches": launches["df_kkt_streaming_matvec"],
+                      "err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound": bnd}
+        del s, whole, b2, st1, st2
     return out
 
 
@@ -509,10 +881,6 @@ def main() -> int:
     }
     k1_call_ms = event_ms(lambda: kkt_matvec_cuda(lay, x), 200)
 
-    def runs(ts):
-        return (f"median {statistics.median(ts):.4f} s "
-                f"(runs {', '.join(f'{t:.4f}' for t in ts)})")
-
     print(f"[7] on {card}:")
     print(f"    solve k={K}: {runs(t500)}")
     print(f"    solve k={K_LONG}: {runs(t1000)}")
@@ -727,12 +1095,6 @@ def main() -> int:
     op64 = tpl.make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
                                  inst.num_nodes, dtype=torch.float64)
     lay8, lay64 = op.layout, op64.layout
-
-    def node_bound(lay_, x_, eps):
-        absum_ = torch.zeros(lay_.p, dtype=x_.dtype, device=dev)
-        absum_.index_add_(0, lay_.u, x_[:m].abs())
-        absum_.index_add_(0, lay_.v, x_[:m].abs())
-        return 2 * (lay_.ptr[1:] - lay_.ptr[:-1]).to(x_.dtype) * eps * absum_
 
     y8 = op.matvec(x)
     y8_ref = kkt_matvec(lay8.d, lay8.u, lay8.v, lay8.p, x)
@@ -1015,14 +1377,9 @@ def main() -> int:
           "K11 arc part differs from the plain version's rounding")
     y_df = y2[0].double() + y2[1].double()
     y_df_ref = y2_ref.hi.double() + y2_ref.lo.double()
-    # two compensated folds of a node sum: each df_add2 of partial sums a,
-    # b errs by <= 3·2^-48·(|a| + |b|), a fold of deg terms adds deg such
-    # errors, the plain version's final df_sub one more
-    xa_abs = x_sp[:m].abs()
-    absum_df = torch.zeros(dlay.p, dtype=torch.float64, device=dev)
-    absum_df.index_add_(0, dlay.u, xa_abs).index_add_(0, dlay.v, xa_abs)
-    deg_df = (dlay.ptr[1:] - dlay.ptr[:-1]).double()
-    bound_df = 8 * (deg_df + 1) * 2.0 ** -48 * absum_df
+    # two compensated folds of a node sum, the plain version's final
+    # df_sub one more: 8·(deg+1)·2^-48·Σ|x|
+    bound_df = df_node_bound(dlay, x2)
     node_err_df = (y_df[m:] - y_df_ref[m:]).abs()
     check(bool((node_err_df <= bound_df).all()),
           "K11 node part outside 8·(deg+1)·2^-48·Σ|x|")
@@ -1196,17 +1553,42 @@ def main() -> int:
               f"{plain_ms[name]:.5f} ms")
     print(f"    cuSPARSE f64 CSR SpMV (nnz {coo64.nnz}) {lib64_ms:.5f} ms")
 
+    # 17-18. the sharded solvers on a one-rank NCCL group (NCCL refuses
+    #        two ranks on one card), at the headline and at 5M arcs
+    from two_pass_lanczos_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    big = generate_mcf_instance(**BIG)
+    print(f"     5M instance m={big.num_arcs} p={big.num_nodes} generated in "
+          f"{time.perf_counter() - t0:.3f} s")
+    mesh = make_mesh(1, device=dev)
+    check(mesh.size == 1 and mesh.backend == "nccl"
+          and torch.distributed.get_backend(mesh.group) == "nccl",
+          f"mesh {mesh}")
+    k7 = sharded_f32_phase(card, dev, mesh, [("headline", inst), ("5M", big)])
+    k12 = sharded_df_phase(card, dev, mesh, [("headline", inst, dfop),
+                                             ("5M", big, None)])
+    torch.distributed.destroy_process_group()
+    for name, got in (("kkt_streaming_matvec", k7["headline"]),
+                      ("df_kkt_streaming_matvec", k12["headline"])):
+        launches[name] = got["launches"]
+        ms[name], plain_ms[name] = got["ms"], got["plain_ms"]
+
     bounds = kernel_bounds(m, n, steps, K)
     for name in ("df_lanczos_pass_one", "df_lanczos_pass_two"):
         bounds[name] = kernel_bounds(m, n, steps_df, K)[name]
     library = {"kkt_matvec": lib_ms, "kkt_operator_matvec": lib_ms,
-               "df_kkt_matvec": lib64_ms}
+               "df_kkt_matvec": lib64_ms,
+               "kkt_streaming_matvec": k7["headline"]["library_ms"],
+               "df_kkt_streaming_matvec": k12["headline"]["library_ms"]}
     errs = {"kkt_matvec": err_k1, "lanczos_pass_one": err_k2,
             "lanczos_pass_two": err_k3, "lanczos_pass_one_basis": err_k4,
             "lanczos_pass_one_chunk": err_k5, "lanczos_pass_one_comp": err_k6,
             "eft_check": err_k13, "kkt_operator_matvec": err_k8,
             "df_kkt_matvec": err_k11, "df_lanczos_pass_one": err_k9,
-            "df_lanczos_pass_two": err_k10}
+            "df_lanczos_pass_two": err_k10,
+            "kkt_streaming_matvec": k7["headline"]["err"],
+            "df_kkt_streaming_matvec": k12["headline"]["err"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -11,9 +11,13 @@ Paths, each on ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
 (n = 501,155) with ``b`` from ``default_rng(0)`` already on the card:
 ``two_pass``, ``one_pass``, ``callback`` (never stopping, chunk 64) and
 ``compensated`` solves of ``FusedKKTSolver`` at ``f="inv"``, pass one alone,
-monolithic (``pass_one``) and in chunks of 64 (``chunked_pass_one``), and
+monolithic (``pass_one``) and in chunks of 64 (``chunked_pass_one``),
 the generic tier's ``solve_fAb`` on ``make_kkt_operator`` (K8),
-``generic_two_pass`` and ``generic_one_pass``.
+``generic_two_pass`` and ``generic_one_pass``, the df tier's
+``DFFusedKKTSolver.solve`` (``df_two_pass``), and the sharded solvers on a
+one-rank NCCL group, ``ShardedFusedKKTSolver.solve`` (``sharded_two_pass``,
+K7) and ``DFShardedFusedKKTSolver.solve`` (``df_sharded_two_pass``, K12;
+one traced call, ~600 launches a step).
 
 Each path runs twice to warm up, then ``--reps`` times under the profiler,
 each call ending in ``torch.cuda.synchronize()``. Per call:
@@ -22,6 +26,9 @@ each call ending in ``torch.cuda.synchronize()``. Per call:
 - ``busy_ms``: the union of the device intervals (kernels and copies) of
   the trace, divided by ``reps``;
 - ``idle_share``: ``1 - busy_ms / wall_ms``;
+- ``events``: device events (kernels and copies) per call;
+- ``host_top``: ``[name, host self ms per call, calls per call]`` of the
+  operators that take the host longest (``key_averages``' self CPU time);
 - ``top``: ``[name, device ms per call, launches per call]`` by device time.
 
 Prints a table per path and the card's ``nvidia-smi`` name and power limit;
@@ -84,12 +91,16 @@ def profile(fn, reps: int) -> dict:
         per_name[name][0] += e - s
         per_name[name][1] += 1
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     wall_ms = wall * 1e3 / reps
     busy_ms = busy_us(events) / 1e3 / reps
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
+            "events": len(events) / reps,
             "top": [[name[:60], t / 1e3 / reps, round(c / reps)]
-                    for name, (t, c) in top]}
+                    for name, (t, c) in top],
+            "host_top": [[a.key[:60], a.self_cpu_time_total / 1e3 / reps,
+                          round(a.count / reps)] for a in host[:6]]}
 
 
 def main(argv=None) -> int:
@@ -108,10 +119,16 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from two_pass_lanczos_tpu_torch import (
+        DFFusedKKTSolver,
         FusedKKTSolver,
         generate_mcf_instance,
         make_kkt_operator,
         solve_fAb,
+    )
+    from two_pass_lanczos_tpu_torch.parallel import (
+        DFShardedFusedKKTSolver,
+        ShardedFusedKKTSolver,
+        make_mesh,
     )
 
     dev = torch.device("cuda", 0)
@@ -125,6 +142,12 @@ def main(argv=None) -> int:
                            inst.num_nodes, dtype=torch.float32, device=dev)
     b = torch.from_numpy(np.random.default_rng(0).standard_normal(s.n)
                          .astype(np.float32)).to(dev)
+    arrays = (inst.quad_costs, inst.arc_u, inst.arc_v, inst.num_nodes)
+    sdf = DFFusedKKTSolver(*arrays, device=dev)
+    mesh = make_mesh(1, device=dev)  # a one-rank NCCL group
+    sh = ShardedFusedKKTSolver(*arrays, mesh)
+    shdf = DFShardedFusedKKTSolver(*arrays, mesh)
+    b64 = b.double()
     k = args.k
     paths = {
         "two_pass": lambda: s.solve(b, k=k, raw=True),
@@ -138,20 +161,29 @@ def main(argv=None) -> int:
         "generic_two_pass": lambda: solve_fAb(op, b, k=k, f="inv"),
         "generic_one_pass": lambda: solve_fAb(op, b, k=k, f="inv",
                                               method="one_pass"),
+        "df_two_pass": lambda: sdf.solve(b64, k=k),
+        "sharded_two_pass": lambda: sh.solve(b, k=k, raw=True),
+        "df_sharded_two_pass": lambda: shdf.solve(b64, k=k, raw=True),
     }
     out = {}
     for name, fn in paths.items():
-        r = out[name] = profile(fn, args.reps)
+        reps = 1 if name == "df_sharded_two_pass" else args.reps
+        r = out[name] = profile(fn, reps)
         print(f"== {name}: wall {r['wall_ms']:.3f} ms/solve, device busy "
-              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}")
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
+              f"{r['events']:.0f} device events")
         for kname, ms, count in r["top"]:
             print(f"    {ms:9.4f} ms  x {count:4d}  {kname}")
+        print("    host self time:")
+        for kname, ms, count in r["host_top"]:
+            print(f"    {ms:9.4f} ms  x {count:6d}  {kname}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True
     ).stdout.strip().splitlines()[0]
     out["card"] = card
     out["k"] = k
+    torch.distributed.destroy_process_group()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))
     print(card)

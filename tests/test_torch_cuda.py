@@ -23,6 +23,7 @@ from torch_cases import (  # noqa: F401
     cuda_device,
     random_kkt,
 )
+from torch_ranks import spawn
 from two_pass_lanczos_tpu_torch import (
     CudaKKTOperator,
     DFFusedKKTSolver,
@@ -49,19 +50,28 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
 from two_pass_lanczos_tpu_torch.convert import decomposition_from_jax
 from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
-from two_pass_lanczos_tpu_torch.ops.df import df_from_f64
+from two_pass_lanczos_tpu_torch.ops.df import DF, df_add, df_from_f64
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     LAUNCHES,
+    KKTLayout,
     eft_check_cuda,
     kkt_matvec_cuda,
+    kkt_shard_matvec,
+    kkt_shard_matvec_cuda,
     reset_launches,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
     df_kkt_matvec_cuda,
+    df_kkt_shard_matvec,
+    df_kkt_shard_matvec_cuda,
     df_pass_one_last_vector,
 )
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
+from two_pass_lanczos_tpu_torch.parallel import (
+    initialize_distributed,
+    make_mesh,
+)
 from two_pass_lanczos_tpu_torch.testing import check_reconstruction_stability
 from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
 
@@ -548,12 +558,148 @@ def test_df_breakdown_and_zero_b_on_card(cuda_device):
     assert bool(torch.isfinite(x_sub).all()) and bool((x_sub == 0).all())
 
 
+# --- K7, K12: the shard matvecs of the sharded solvers --------------------
+
+def _local(x, ix, m):
+    """A shard's local vector [x_a of its arcs, x_n] (last axis)."""
+    return torch.cat([x[..., ix[0]:ix[-1] + 1], x[..., m:]], dim=-1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_shard_matvec_kernel_matches_k1_on_card(case, cuda_device):
+    rng = np.random.default_rng(5)
+    d, u, v, p = CASES[case](rng)
+    m = len(d)
+    x = torch.from_numpy(rng.standard_normal(m + p).astype(np.float32))
+    xd = x.to(cuda_device)
+    whole = KKTLayout.build(d, u, v, p, cuda_device)
+    reset_launches()
+    y1 = kkt_matvec_cuda(whole, xd)
+    y7 = kkt_shard_matvec_cuda(whole, xd)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kkt_streaming_matvec"] == 1
+    assert torch.equal(y7, y1)  # one shard at e = 1: bitwise K1
+    bound = _node_bound(whole, xd, torch.finfo(torch.float32).eps)
+    parts = []
+    for ix in np.array_split(np.arange(m), 4):
+        lay = KKTLayout.build(d[ix], u[ix], v[ix], p, cuda_device)
+        xl = _local(xd, ix, m)
+        yl = kkt_shard_matvec_cuda(lay, xl)
+        # the arc part is K1's slice, bit for bit
+        assert torch.equal(yl[:len(ix)], y1[ix[0]:ix[-1] + 1])
+        parts.append(yl[len(ix):])
+        # against the plain version on the CPU, at e = 1 and e = 2
+        cpu = KKTLayout.build(d[ix], u[ix], v[ix], p, CPU)
+        for e in (1.0, 2.0):
+            ye = kkt_shard_matvec_cuda(lay, xl, e_scale=e).cpu()
+            ref = kkt_shard_matvec(cpu, xl.cpu(), e_scale=e)
+            assert torch.equal(ye[:len(ix)], ref[:len(ix)])
+            assert bool(((ye[len(ix):] - ref[len(ix):]).abs()
+                         <= e * bound.cpu()).all())
+    folded = parts[0]
+    for s_ in parts[1:]:
+        folded = folded + s_
+    assert bool(((folded - y1[m:]).abs() <= bound).all())
+    assert LAUNCHES["kkt_streaming_matvec"] == 13 and LAUNCHES["kkt_matvec"] == 1
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_df_shard_matvec_kernel_matches_k11_on_card(case, cuda_device):
+    rng = np.random.default_rng(5)
+    d, u, v, p = CASES[case](rng)
+    m = len(d)
+    d64 = d.astype(np.float64) * (1.0 + rng.uniform(0, 1e-7, m))
+    xdf = df_from_f64(rng.standard_normal(m + p), cuda_device)
+    x2 = torch.stack([xdf.hi, xdf.lo])
+    whole = DFKKTOperator(d64, u, v, p, device=cuda_device)
+    reset_launches()
+    y11 = df_kkt_matvec_cuda(whole.layout, whole.d2, x2)
+    y12 = df_kkt_shard_matvec_cuda(whole.layout, whole.d2, x2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["df_kkt_streaming_matvec"] == 1
+    assert torch.equal(y12, y11)  # one shard: bitwise K11 in both planes
+    bound = _df_node_bound(whole.layout, x2)
+    acc = None
+    for ix in np.array_split(np.arange(m), 4):
+        op = DFKKTOperator(d64[ix], u[ix], v[ix], p, device=cuda_device)
+        xl = _local(x2, ix, m)
+        yl = df_kkt_shard_matvec(op, xl)
+        mine = len(ix)
+        assert torch.equal(yl[:, :mine], y11[:, ix[0]:ix[-1] + 1])
+        part = DF(yl[0, mine:], yl[1, mine:])
+        acc = part if acc is None else df_add(acc, part)
+        # against the plain version (the shard's table fold) on the CPU
+        ref = df_kkt_shard_matvec(
+            DFKKTOperator(d64[ix], u[ix], v[ix], p, device=CPU), xl.cpu())
+        assert torch.equal(yl[:, :mine].cpu(), ref[:, :mine])
+        got = yl[0, mine:].double() + yl[1, mine:].double()
+        want = ref[0, mine:].double() + ref[1, mine:].double()
+        assert bool(((got.cpu() - want).abs() <= bound.cpu()).all())
+    folded = acc.hi.double() + acc.lo.double()
+    want = y11[0, m:].double() + y11[1, m:].double()
+    assert bool(((folded - want).abs() <= bound).all())
+    assert LAUNCHES["df_kkt_streaming_matvec"] == 5
+    assert LAUNCHES["df_kkt_matvec"] == 1
+
+
+def test_sharded_solvers_on_a_one_rank_nccl_group_on_card(problem,
+                                                          cuda_device,
+                                                          tmp_path):
+    d, u, v, p, b = problem
+    d64 = d.astype(np.float64) * (1.0 + np.linspace(0, 1e-7, len(d)))
+    k = 20
+    [rank0] = spawn(1, [("path", "card_path",
+                         dict(d=d, u=u, v=v, p=p, b=b, d64=d64, k=k))],
+                    tmp_path, device="cuda")
+    r = rank0["path"]
+    # K7 and K12 are the only matvecs of the sharded paths on the card
+    assert r["f32_launches"]["kkt_streaming_matvec"] == 2 * k - 1
+    assert sum(r["f32_launches"].values()) == 2 * k - 1
+    assert r["df_launches"]["df_kkt_streaming_matvec"] == 2 * k - 1
+    assert sum(r["df_launches"].values()) == 2 * k - 1
+    assert r["dec"]["steps"] == r["dec1"]["steps"] == k
+    np.testing.assert_allclose(r["dec"]["alphas"], r["dec1"]["alphas"],
+                               rtol=2e-4)
+    assert _rel(r["x"], r["x1"]) < 1e-4
+    a1 = r["c1"]["alphas"]
+    np.testing.assert_allclose(r["c"]["alphas"], a1, rtol=0,
+                               atol=1e-11 * max(1.0, np.abs(a1).max()))
+    assert r["c"]["steps"] == k and _rel(r["xd"], r["xd1"]) < 1e-10
+
+
+def test_sharded_solvers_across_four_cards(problem, cuda_device, tmp_path):
+    """Four NCCL ranks, one card each: every rank runs only K7 / K12 and
+    holds the same x, within the f32 and df tolerances of one card."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    d, u, v, p, b = problem
+    d64 = d.astype(np.float64) * (1.0 + np.linspace(0, 1e-7, len(d)))
+    k = 20
+    ranks = spawn(4, [("path", "card_path",
+                       dict(d=d, u=u, v=v, p=p, b=b, d64=d64, k=k))],
+                  tmp_path, device="cuda")
+    for r in (rank["path"] for rank in ranks):
+        assert r["f32_launches"]["kkt_streaming_matvec"] == 2 * k - 1
+        assert sum(r["f32_launches"].values()) == 2 * k - 1
+        assert r["df_launches"]["df_kkt_streaming_matvec"] == 2 * k - 1
+        assert sum(r["df_launches"].values()) == 2 * k - 1
+        assert np.array_equal(r["x"], ranks[0]["path"]["x"])
+        assert np.array_equal(r["xd"], ranks[0]["path"]["xd"])
+        np.testing.assert_allclose(r["dec"]["alphas"], r["dec1"]["alphas"],
+                                   rtol=2e-4)
+        assert _rel(r["x"], r["x1"]) < 1e-4
+        a1 = r["c1"]["alphas"]
+        np.testing.assert_allclose(r["c"]["alphas"], a1, rtol=0,
+                                   atol=1e-11 * max(1.0, np.abs(a1).max()))
+        assert _rel(r["xd"], r["xd1"]) < 1e-10
+
+
 # --- the default device ----------------------------------------------------
 
 @pytest.mark.parametrize("entry", [
     "FusedKKTSolver", "make_kkt_operator", "DiagonalOperator",
     "load_decomposition", "decomposition_from_jax", "DFFusedKKTSolver",
-    "DFKKTOperator"])
+    "DFKKTOperator", "make_mesh", "initialize_distributed"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     # with no card, the default device="cuda" raises; it never falls back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -569,6 +715,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
                                                      [1, 2, 0], 3),
         "DFKKTOperator": lambda: DFKKTOperator.from_f64(d, [0, 1, 2],
                                                         [1, 2, 0], 3),
+        # the sharded solvers' device is their mesh's
+        "make_mesh": lambda: make_mesh(),
+        "initialize_distributed": lambda: initialize_distributed(
+            f"file://{tmp_path / 'store'}", 1, 0),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

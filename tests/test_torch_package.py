@@ -41,9 +41,11 @@ def test_module_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_card_tests_import_no_jax():
-    # the card tests run with --noconftest, without the JAX package
-    tree = ast.parse((ROOT / "tests" / "test_torch_cuda.py").read_text())
+@pytest.mark.parametrize("name", ["test_torch_cuda.py", "torch_ranks.py"])
+def test_card_tests_import_no_jax(name):
+    # the card tests run with --noconftest, without the JAX package, and
+    # the sharded solvers' ranks (tests/torch_ranks.py) import torch only
+    tree = ast.parse((ROOT / "tests" / name).read_text())
     bad = [m for m in _imports(tree)
            if m.split(".")[0] in ("jax", "jaxlib", "two_pass_lanczos_tpu")]
     assert not bad, bad
@@ -57,6 +59,13 @@ def test_card_scripts_import_no_jax(script):
     bad = [m for m in _imports(tree)
            if m.split(".")[0] in ("jax", "jaxlib", "two_pass_lanczos_tpu")]
     assert not bad, f"{script} imports {bad}"
+
+
+def test_no_jax_checks_cover_the_distributed_tier():
+    checked = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
+            "parallel/fused_sharded.py", "parallel/fused_sharded_df.py",
+            "utils/collectives.py"} <= checked
 
 
 def test_import_leaves_jax_out():
@@ -198,6 +207,22 @@ def test_chip_smoke_df_bounds_count_each_input_once():
         assert 8 * bounds[f32][0] < ms < 20 * bounds[f32][0]
 
 
+def test_chip_smoke_shard_bounds_count_each_input_once():
+    mod = _load_script("chip_smoke")
+    # one shard's matvec computes the matvec's function: K7 is K1's bound,
+    # K12 is K11's
+    for m, p in ((500_000, 1155), (5_000_000, 3651)):
+        bounds = mod.kernel_bounds(m, m + p, 500, 500)
+        assert bounds["kkt_streaming_matvec"] == bounds["kkt_matvec"]
+        assert bounds["df_kkt_streaming_matvec"] == bounds["df_kkt_matvec"]
+    # at 5M arcs: 20·m + 8·p = 100.0 MB and 32·m + 16·p = 160.1 MB
+    ms, by = bounds["kkt_streaming_matvec"]
+    assert by == "bytes" and ms == pytest.approx(0.02986, rel=1e-3)
+    ms, by = bounds["df_kkt_streaming_matvec"]
+    assert by == "bytes" and ms == pytest.approx(0.04777, rel=1e-3)
+    assert set(mod.KERNELS) <= set(bounds)
+
+
 def test_profile_busy_is_the_union_of_device_intervals():
     mod = _load_script("profile_port")
     # overlapping, nested, touching and disjoint intervals, in any order
@@ -215,7 +240,8 @@ def test_kernel_sources_keep_the_rules():
         "kkt_matvec.cu", "lanczos_pass_one.cu", "lanczos_pass_two.cu",
         "eft_check.cu", "lanczos_common.cuh", "df_common.cuh",
         "df_kkt_matvec.cu", "df_lanczos_pass_one.cu",
-        "df_lanczos_pass_two.cu"}
+        "df_lanczos_pass_two.cu", "kkt_shard_matvec.cu",
+        "df_kkt_shard_matvec.cu"}
     for p in sources:
         assert not re.search(r"\batomic\w*\s*\(", p.read_text()), p.name
     assert not any("fast_math" in f or "fmad" in f for f in _build.NVCC_FLAGS)

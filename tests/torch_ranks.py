@@ -1,0 +1,375 @@
+"""The rank side of the sharded solvers' tests, and the spawner that runs it.
+
+The sharded solvers run in a process group, one process per rank, and a
+pytest worker never joins one. A test hands :func:`spawn` its cases; every
+rank is a fresh ``python tests/torch_ranks.py`` process that joins a gloo
+(CPU) or NCCL (card) group through a ``FileStore`` under the test's
+``tmp_path``, runs the cases in order and pickles their results. Several
+cases share one spawn. The ranks import torch and the port only, never jax:
+the tests compute the JAX package's values in the pytest process and compare
+after the ranks return. A spawn that outlives its deadline is killed, and
+the test fails instead of hanging.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+#: seconds a spawn may take, set-up included, before its ranks are killed
+DEADLINE_S = 120
+
+
+def _tail(path: Path, n: int = 3000) -> str:
+    return path.read_text(errors="replace")[-n:] if path.exists() else ""
+
+
+def spawn(world, cases, tmp_path, device="cpu", deadline=DEADLINE_S):
+    """Run ``cases``, a list of ``(key, case name, kwargs)``, on ``world``
+    ranks; returns one ``{key: result}`` dict per rank, in rank order.
+    Raises ``AssertionError`` when a rank fails or the deadline passes."""
+    tmp = Path(tmp_path)
+    tmp.mkdir(parents=True, exist_ok=True)
+    job = tmp / "job.pkl"
+    with open(job, "wb") as fh:
+        pickle.dump({"device": device, "cases": cases}, fh)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), str(r),
+                 str(world), str(tmp / "store"), str(job), str(tmp)],
+                env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+    end = time.monotonic() + deadline
+    try:
+        for p in procs:
+            p.wait(timeout=max(end - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(
+            f"{world} ranks outlived the {deadline} s deadline:\n"
+            + "\n".join(_tail(log) for log in logs)) from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"rank(s) {failed} of {world} failed:\n"
+                             + "\n".join(_tail(logs[r]) for r in failed))
+    out = []
+    for r in range(world):
+        with open(tmp / f"rank{r}.out.pkl", "rb") as fh:
+            out.append(pickle.load(fh))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The cases, run on every rank (torch and the port only)
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    """A tensor anywhere, or an array, as a NumPy array."""
+    return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+def _mesh(device):
+    from two_pass_lanczos_tpu_torch.parallel import make_mesh
+    return make_mesh(device=device)
+
+
+def _f32(device, d, u, v, p):
+    from two_pass_lanczos_tpu_torch.parallel import ShardedFusedKKTSolver
+    return ShardedFusedKKTSolver(d, u, v, p, _mesh(device))
+
+
+def _df(device, d, u, v, p):
+    from two_pass_lanczos_tpu_torch.parallel import DFShardedFusedKKTSolver
+    return DFShardedFusedKKTSolver(d, u, v, p, _mesh(device))
+
+
+def _dec(dec):
+    return {"alphas": _np(dec.alphas), "betas": _np(dec.betas),
+            "steps": dec.steps(), "b_norm": float(dec.b_norm)}
+
+
+def case_mesh(device):
+    """The mesh's fields, and what ``make_mesh`` refuses."""
+    import torch.distributed as dist
+    from two_pass_lanczos_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+    )
+    mesh = make_mesh(device=device)
+    try:
+        make_mesh(mesh.size + 1, device=device)
+        too_many = None
+    except ValueError as e:
+        too_many = str(e)
+    return {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+            "axis": mesh.axis, "device": str(mesh.device),
+            "world": dist.get_world_size(), "too_many": too_many,
+            "again": initialize_distributed(device=device)}
+
+
+def case_matvec(device, d, u, v, p, x):
+    return _f32(device, d, u, v, p).matvec(x)
+
+
+def case_solve(device, d, u, v, p, b, k, f="inv", method="two_pass",
+               packed=False, raw=False):
+    s = _f32(device, d, u, v, p)
+    rhs = s.pack(b) if packed else b
+    x, dec = s.solve(rhs, k=k, f=f, method=method, raw=raw)
+    if raw:
+        x = {"xa": _np(x[0]), "xn": _np(x[1]), "m_d": s.m_d,
+             "arc0": int(s.arc_idx[s.mesh.rank][0])}
+    return dict(_dec(dec), x=x)
+
+
+def case_chunked(device, d, u, v, p, b, k, chunk):
+    s = _f32(device, d, u, v, p)
+    dec, stopped = s.pass_one_chunked(s.pack(b), k, chunk=chunk)
+    mono = s.pass_one(b, k)
+    return dict(_dec(dec), stopped=stopped, mono=_dec(mono),
+                launches=s._last_p1_launches)
+
+
+def case_callback(device, d, u, v, p, b, k, stop_at, chunk):
+    s = _f32(device, d, u, v, p)
+    seen, views = [], []
+
+    def cb(step, basis, scalars):
+        alphas, betas = scalars
+        views.append(basis is None and len(alphas) == step
+                     and len(betas) == step - 1)
+        seen.append(step)
+        return step < stop_at
+
+    x_cb, dec = s.solve(b, k=k, f="inv", callback=cb, callback_chunk=chunk)
+    out = dict(_dec(dec), x=x_cb, seen=seen, views=all(views),
+               p1_launches=s._last_p1_launches, p2_len=s._last_p2_len)
+    x_ref, dec_ref = s.solve(b, k=stop_at, f="inv")
+    out["ref"] = dict(_dec(dec_ref), x=x_ref)
+    return out
+
+
+def case_zero_chunked(device, d, u, v, p, k, chunk):
+    s = _f32(device, d, u, v, p)
+    zero = np.zeros(s.n, np.float32)
+    dec, stopped = s.pass_one_chunked(s.pack(zero), k, chunk=chunk)
+    x, dec2 = s.solve(zero, k=k, f="inv", callback=lambda *a: True,
+                      callback_chunk=chunk)
+    return {"steps": dec.steps(), "stopped": stopped,
+            "steps_cb": dec2.steps(), "x": x}
+
+
+def case_errors(device, d, u, v, p):
+    """The messages of what the f32 solver refuses (None: no error)."""
+    s = _f32(device, d, u, v, p)
+    zero = np.zeros(s.n, np.float32)
+    need_k = s.ONE_PASS_HBM_BUDGET // ((max(s.shard_sizes) + s.p) * 4) + 1
+    calls = {
+        "hbm": lambda: s.solve(zero, k=need_k, method="one_pass"),
+        "callback_one_pass": lambda: s.solve(
+            zero, k=4, method="one_pass", callback=lambda *a: True),
+        "method": lambda: s.solve(zero, k=4, method="three_pass"),
+        "shape": lambda: s.solve(zero[:-1], k=4),
+    }
+    for name in ("slq_trace", "slq_spectral_density", "slq_trace_adaptive",
+                 "estimate_interval", "chebyshev_fAb"):
+        calls[name] = getattr(s, name)
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    out["one_pass_bytes"] = s.one_pass_basis_bytes(7)
+    out["budget"] = s.ONE_PASS_HBM_BUDGET
+    out["shard_sizes"] = s.shard_sizes
+    return out
+
+
+def case_replay(device, d, u, v, p, b, k):
+    """Pass two's v_s against pass one's on this rank, and the replicated
+    values every rank must hold bit for bit."""
+    import torch
+    from two_pass_lanczos_tpu_torch.algorithms.core import (
+        pass_one_last_vector,
+    )
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import scaled_y
+    s = _f32(device, d, u, v, p)
+    bl = s.pack(b)
+    st1 = torch.empty(2, s.n_local, device=s.device)
+    st2 = torch.empty(2, s.n_local, device=s.device)
+    dec = s.pass_one(bl, k, state=st1)
+    x = s.pass_two(bl, dec, scaled_y(dec, "inv", k), state=st2)
+    v1 = pass_one_last_vector(dec, st1)
+    m = s.m_d
+    return dict(_dec(dec), replay=bool(torch.equal(v1, st2[1])),
+                node=_np(st1[1, m:]), x_node=_np(x[m:]))
+
+
+def case_collectives(device, d, u, v, p, b, k):
+    from two_pass_lanczos_tpu_torch.utils.collectives import (
+        collective_bytes,
+        record_collectives,
+    )
+    s = _f32(device, d, u, v, p)
+    with record_collectives() as log:
+        x, dec = s.solve(b, k=k, f="inv")
+    ops = log.ops()
+    return {"ops": [(o.kind, o.dtype, o.shape, o.count) for o in ops],
+            "bytes": collective_bytes(ops), "steps": dec.steps(),
+            "width": max(s.shard_sizes), "calls": len(log.calls)}
+
+
+def case_convert(device, d, u, v, p, b, k, arc_idx):
+    """``sharded_solver_from_jax`` on an object with the JAX solver's
+    host fields, and its refusal of another split."""
+    from two_pass_lanczos_tpu_torch.convert import sharded_solver_from_jax
+    mesh = _mesh(device)
+    jax_like = SimpleNamespace(_kkt_arrays=(d, u, v, p), arc_idx=arc_idx)
+    x, dec = sharded_solver_from_jax(jax_like, mesh).solve(b, k=k, f="inv")
+    other = SimpleNamespace(_kkt_arrays=(d, u, v, p),
+                            arc_idx=np.array_split(np.arange(len(d)),
+                                                   mesh.size + 1))
+    try:
+        sharded_solver_from_jax(other, mesh)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return dict(_dec(dec), x=x, refused=refused)
+
+
+def _coeffs(c):
+    a64, b64, steps = c
+    return {"alphas": np.asarray(a64), "betas": np.asarray(b64),
+            "steps": int(steps)}
+
+
+def case_df_solve(device, d, u, v, p, b, k, f="inv", packed=False,
+                  pair=False):
+    if pair:
+        hi = np.asarray(d, np.float32)
+        d = (hi, (np.asarray(d) - hi.astype(np.float64)).astype(np.float32))
+    s = _df(device, d, u, v, p)
+    rhs = s.pack(b) if packed else b
+    x, c = s.solve(rhs, k=k, f=f)
+    return dict(_coeffs(c), x=x)
+
+
+def case_df_replay(device, d, u, v, p, b, k):
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+        df_pass_one_last_vector,
+    )
+    s = _df(device, d, u, v, p)
+    b2 = s.pack(b)
+    st1 = torch.empty(2, 2, s.n_local, device=s.device)
+    st2 = torch.empty(2, 2, s.n_local, device=s.device)
+    coeffs = s.pass_one(b2, k, state=st1)
+    y = torch.zeros(2, k, device=s.device)
+    s.pass_two(b2, coeffs, y[0], y[1], state=st2)
+    m = s.m_d
+    return {"replay": bool(torch.equal(df_pass_one_last_vector(coeffs, st1),
+                                       st2[1])),
+            "coeffs": [_np(c) for c in coeffs], "node": _np(st1[1, :, m:])}
+
+
+def case_df_collectives(device, d, u, v, p, b, k):
+    from two_pass_lanczos_tpu_torch.utils.collectives import (
+        record_collectives,
+    )
+    s = _df(device, d, u, v, p)
+    with record_collectives() as log:
+        _, c = s.solve(b, k=k, f="inv")
+    return {"ops": [(o.kind, o.dtype, o.shape, o.count) for o in log.ops()],
+            "steps": int(c[2]), "width": max(s.shard_sizes)}
+
+
+def case_df_convert(device, d, u, v, p, b, k, arc_idx, m, p_jax):
+    from two_pass_lanczos_tpu_torch.convert import df_sharded_solver_from_jax
+    mesh = _mesh(device)
+    jax_like = SimpleNamespace(arc_idx=arc_idx, m=m, p=p_jax)
+    s = df_sharded_solver_from_jax(jax_like, mesh, (d, u, v, p))
+    x, c = s.solve(b, k=k, f="inv")
+    try:
+        df_sharded_solver_from_jax(jax_like, mesh, (d[:-1], u[:-1], v[:-1],
+                                                    p))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return dict(_coeffs(c), x=x, refused=refused)
+
+
+def case_card_path(device, d, u, v, p, b, d64, k):
+    """On a card: the f32 and df sharded solves count only K7 / K12
+    launches and agree with the single-device solvers."""
+    import torch
+    from two_pass_lanczos_tpu_torch import DFFusedKKTSolver, FusedKKTSolver
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+    )
+    s = _f32(device, d, u, v, p)
+    bt = torch.from_numpy(b).to(s.device)
+    reset_launches()
+    x, dec = s.solve(bt, k=k, f="inv")
+    torch.cuda.synchronize()
+    f32_launches = dict(LAUNCHES)
+    x1, dec1 = FusedKKTSolver(d, u, v, p, device=s.device).solve(
+        bt, k=k, f="inv")
+    sd = _df(device, d64, u, v, p)
+    b64 = bt.double()
+    reset_launches()
+    xd, c = sd.solve(b64, k=k, f="inv")
+    torch.cuda.synchronize()
+    df_launches = dict(LAUNCHES)
+    xd1, c1 = DFFusedKKTSolver(d64, u, v, p, device=s.device).solve(
+        b64, k=k, f="inv")
+    return {"f32_launches": f32_launches, "df_launches": df_launches,
+            "x": x, "x1": _np(x1), "dec": _dec(dec), "dec1": _dec(dec1),
+            "xd": xd, "xd1": _np(xd1), "c": _coeffs(c), "c1": _coeffs(c1)}
+
+
+CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())
+         if name.startswith("case_")}
+
+
+def _main(argv) -> int:
+    rank, world = int(argv[1]), int(argv[2])
+    store, job_path, out = argv[3], argv[4], Path(argv[5])
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    from two_pass_lanczos_tpu_torch.parallel import initialize_distributed
+
+    with open(job_path, "rb") as fh:
+        job = pickle.load(fh)
+    device = job["device"]
+    initialize_distributed(f"file://{store}", world, rank, device=device)
+    results = {}
+    for key, name, kwargs in job["cases"]:
+        results[key] = CASES[name](device, **kwargs)
+    dist.barrier()
+    dist.destroy_process_group()
+    assert "jax" not in sys.modules, "a rank imported jax"
+    with open(out / f"rank{rank}.out.pkl", "wb") as fh:
+        pickle.dump(results, fh)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_main(sys.argv))

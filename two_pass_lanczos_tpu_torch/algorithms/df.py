@@ -40,7 +40,7 @@ from two_pass_lanczos_tpu_torch.ops.df import (
     df_dot,
     df_from_f64,
     df_mul,
-    df_norm,
+    df_sqrt,
     df_sub,
     df_to_f64,
     df_zeros_like,
@@ -321,12 +321,15 @@ def _v1(b: DF, b_norm: DF) -> Tuple[DF, torch.Tensor]:
     return df_mul(b, _inverse(b_norm, ~zero_b)), zero_b
 
 
-def _pass_one_df(op, b: DF, k: int, emit_basis: bool):
+def _pass_one_df(op, b: DF, k: int, emit_basis: bool, dot=df_dot):
     """k masked df steps from b: ``(DFDecomposition, basis or None,
-    (v_prev, v_curr))``, basis row i = v_{i+1} when ``emit_basis``."""
+    (v_prev, v_curr))``, basis row i = v_{i+1} when ``emit_basis``. ``dot``
+    computes ‖b‖², α and β² as df pairs: ``df_dot``, or the sharded df
+    solver's dot across ranks (``parallel/fused_sharded_df.py``). Pass two
+    computes no inner product, so it takes no dot."""
     dev = b.hi.device
     tol = df_breakdown_tolerance()
-    b_norm = df_norm(b)
+    b_norm = df_sqrt(dot(b, b))
     vc, done = _v1(b, b_norm)
     vp = df_zeros_like(b)
     beta_prev = _scalar(0.0, dev)
@@ -344,9 +347,9 @@ def _pass_one_df(op, b: DF, k: int, emit_basis: bool):
             basis.hi[j], basis.lo[j] = row.hi, row.lo
         w = op.matvec_df(vc)
         w = _sub_scaled(w, beta_prev, vp)
-        alpha = df_dot(vc, w)
+        alpha = dot(vc, w)
         w = _sub_scaled(w, alpha, vc)
-        beta = df_norm(w)
+        beta = df_sqrt(dot(w, w))
         breakdown = beta.hi <= tol
         advance = executed & ~breakdown
         a_out, b_out = _mask(alpha, executed), _mask(beta, advance)

@@ -3,7 +3,9 @@
 The port never imports ``jax``; these functions take the JAX objects and read
 them with ``np.asarray``, so the tests can feed one instance, one operator
 or one decomposition to both packages. Like every entry point of the port
-they put the result on the card unless the caller asks for the CPU.
+they put the result on the card unless the caller asks for the CPU; the
+sharded solvers' device is their mesh's (``make_mesh`` defaults to the
+card).
 """
 
 from __future__ import annotations
@@ -25,9 +27,16 @@ from two_pass_lanczos_tpu_torch.operators import (
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import DFFusedKKTSolver
 from two_pass_lanczos_tpu_torch.ops.spmv import csr_from_triplets
+from two_pass_lanczos_tpu_torch.parallel.fused_sharded import (
+    ShardedFusedKKTSolver,
+)
+from two_pass_lanczos_tpu_torch.parallel.fused_sharded_df import (
+    DFShardedFusedKKTSolver,
+)
 
 __all__ = ["solver_from_jax", "decomposition_from_jax", "operator_from_jax",
-           "df_operator_from_jax", "df_solver_from_jax"]
+           "df_operator_from_jax", "df_solver_from_jax",
+           "sharded_solver_from_jax", "df_sharded_solver_from_jax"]
 
 
 def solver_from_jax(jax_fused_solver, device=DEFAULT_DEVICE) -> FusedKKTSolver:
@@ -108,3 +117,45 @@ def df_solver_from_jax(jax_df_solver, device=DEFAULT_DEVICE
                             at_pos(lay.u.es2).astype(np.int64),
                             at_pos(lay.u.eo2).astype(np.int64), int(lay.p),
                             device=device)
+
+
+def _same_split(jax_solver, port_solver) -> None:
+    """Both solvers must own the same arcs on every rank (the JAX
+    package's ``np.array_split`` over the same device count)."""
+    theirs = [np.asarray(ix) for ix in jax_solver.arc_idx]
+    ours = port_solver.arc_idx
+    if len(theirs) != len(ours) or not all(
+            np.array_equal(a, b) for a, b in zip(theirs, ours)):
+        raise ValueError(
+            f"the JAX solver splits its arcs over {len(theirs)} devices, "
+            f"the mesh has {len(ours)} ranks: arc_idx differs")
+
+
+def sharded_solver_from_jax(jax_solver, mesh) -> ShardedFusedKKTSolver:
+    """This rank's :class:`ShardedFusedKKTSolver` for the instance of a JAX
+    ``ShardedFusedKKTSolver`` (its host ``_kkt_arrays``), on ``mesh``; the
+    mesh must have as many ranks as the JAX mesh has devices, so that each
+    rank owns the JAX shard of its index."""
+    d, u, v, p = jax_solver._kkt_arrays
+    s = ShardedFusedKKTSolver(np.asarray(d), np.asarray(u), np.asarray(v),
+                              int(p), mesh)
+    _same_split(jax_solver, s)
+    return s
+
+
+def df_sharded_solver_from_jax(jax_solver, mesh, kkt_arrays
+                               ) -> DFShardedFusedKKTSolver:
+    """This rank's :class:`DFShardedFusedKKTSolver` for a JAX
+    ``DFShardedFusedKKTSolver``. The JAX solver keeps only its padded
+    per-device layouts, so the caller passes the instance's
+    ``(d64, u, v, p)``; its size and the arc split are checked against the
+    JAX solver's."""
+    d, u, v, p = kkt_arrays
+    if (len(d), int(p)) != (jax_solver.m, jax_solver.p):
+        raise ValueError(
+            f"kkt_arrays have m={len(d)}, p={int(p)}; the JAX solver "
+            f"m={jax_solver.m}, p={jax_solver.p}")
+    s = DFShardedFusedKKTSolver(np.asarray(d, np.float64), np.asarray(u),
+                                np.asarray(v), int(p), mesh)
+    _same_split(jax_solver, s)
+    return s

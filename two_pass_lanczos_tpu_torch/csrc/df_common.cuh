@@ -1,6 +1,7 @@
 // Shared device code of the double-float (df) kernels: K11 the df matvec
-// (df_kkt_matvec.cu), K9 df pass one (df_lanczos_pass_one.cu) and K10 df
-// pass two (df_lanczos_pass_two.cu).
+// (df_kkt_matvec.cu), K12 one shard's df matvec (df_kkt_shard_matvec.cu),
+// K9 df pass one (df_lanczos_pass_one.cu) and K10 df pass two
+// (df_lanczos_pass_two.cu).
 //
 // A df value is the unevaluated sum hi + lo of two floats; a df vector of
 // length n is one contiguous (2, n) array, hi plane first. The routines
@@ -94,6 +95,39 @@ __device__ __forceinline__ float2 df_fold_partials(const float* partials,
   float2 acc = make_float2(0.0f, 0.0f);
   for (int i = threadIdx.x; i < g; i += kThreads)
     acc = df_add2(acc.x, acc.y, partials[i], partials[kMaxPartials + i]);
+  return block_sum2(acc, sh, sl);
+}
+
+// The two parts of one df KKT matvec, shared by K11 (df_kkt_matvec.cu) and
+// K12 (df_kkt_shard_matvec.cu) so that both round alike.
+// Arc row j, in the order of _df_emit_matvec: (p, e) = d_j (x) x_j, the
+// exact product with cross terms; t = g_u (-) g_v (df_add2 of the gathered
+// pairs, which move hi and lo unchanged); y_j = df_add2(p, e, t).
+__device__ __forceinline__ float2 df_kkt_arc_row(float dh, float dl, float xh,
+                                                 float xl, float guh,
+                                                 float gul, float gvh,
+                                                 float gvl) {
+  const float2 pr = df_prod(dh, dl, xh, xl);
+  const float2 t = df_add2(guh, gul, -gvh, -gvl);
+  return df_add2(pr.x, pr.y, t.x, t.y);
+}
+
+// Node row: the node's CSR segment of +-x_a pairs, each thread folding its
+// strided share with df_add2, then the fixed tree of block_sum2. Every
+// thread of the block must call it; returns the pair in every thread.
+__device__ __forceinline__ float2 df_kkt_node_row(const int* __restrict__ ptr,
+                                                  const int* __restrict__ ent,
+                                                  const float* __restrict__ xh,
+                                                  const float* __restrict__ xl,
+                                                  int node, float* sh,
+                                                  float* sl) {
+  const int end = ptr[node + 1];
+  float2 acc = make_float2(0.0f, 0.0f);
+  for (int q = ptr[node] + threadIdx.x; q < end; q += kThreads) {
+    const int a = ent[q];
+    acc = a >= 0 ? df_add2(acc.x, acc.y, xh[a], xl[a])
+                 : df_add2(acc.x, acc.y, -xh[~a], -xl[~a]);
+  }
   return block_sum2(acc, sh, sl);
 }
 

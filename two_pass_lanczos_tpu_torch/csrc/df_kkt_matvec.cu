@@ -50,24 +50,16 @@ df_kkt_matvec_kernel(const float* __restrict__ d2, const int* __restrict__ u,
     if (j < m) {
       const int a = m + u[j];
       const int b = m + v[j];
-      const float2 pr = df_prod(d2[j], d2[m + j], xh[j], xl[j]);
-      const float2 t = df_add2(__ldg(xh + a), __ldg(xl + a), -__ldg(xh + b),
-                               -__ldg(xl + b));
-      const float2 y = df_add2(pr.x, pr.y, t.x, t.y);
+      const float2 y = df_kkt_arc_row(d2[j], d2[m + j], xh[j], xl[j],
+                                      __ldg(xh + a), __ldg(xl + a),
+                                      __ldg(xh + b), __ldg(xl + b));
       y2[j] = y.x;
       y2[n + j] = y.y;
     }
     return;  // block-uniform: arc blocks never reach block_sum2
   }
   const int node = blockIdx.x - arc_blocks;
-  const int end = ptr[node + 1];
-  float2 acc = make_float2(0.0f, 0.0f);
-  for (int q = ptr[node] + threadIdx.x; q < end; q += kThreads) {
-    const int a = ent[q];
-    acc = a >= 0 ? df_add2(acc.x, acc.y, xh[a], xl[a])
-                 : df_add2(acc.x, acc.y, -xh[~a], -xl[~a]);
-  }
-  const float2 total = block_sum2(acc, sh, sl);
+  const float2 total = df_kkt_node_row(ptr, ent, xh, xl, node, sh, sl);
   if (threadIdx.x == 0) {
     y2[m + node] = total.x;
     y2[n + m + node] = total.y;

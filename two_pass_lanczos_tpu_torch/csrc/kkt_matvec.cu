@@ -54,21 +54,12 @@ kkt_matvec_kernel(const T* __restrict__ d, const int* __restrict__ u,
   const T* xn = x + m;
   if (blockIdx.x < arc_blocks) {
     const int j = blockIdx.x * kThreads + threadIdx.x;
-    if (j < m) {
-      T t = mul_rn(d[j], x[j]);
-      t = add_rn(t, __ldg(xn + u[j]));
-      y[j] = sub_rn(t, __ldg(xn + v[j]));
-    }
+    if (j < m)
+      y[j] = kkt_arc_row(d[j], x[j], __ldg(xn + u[j]), __ldg(xn + v[j]));
     return;  // block-uniform: arc blocks never reach block_sum
   }
   const int node = blockIdx.x - arc_blocks;
-  const int end = ptr[node + 1];
-  T acc = T(0);
-  for (int q = ptr[node] + threadIdx.x; q < end; q += kThreads) {
-    const int a = ent[q];
-    acc = a >= 0 ? add_rn(acc, x[a]) : sub_rn(acc, x[~a]);
-  }
-  const T total = block_sum(acc, sh);
+  const T total = kkt_node_row(ptr, ent, x, node, sh);
   if (threadIdx.x == 0) y[m + node] = total;
 }
 

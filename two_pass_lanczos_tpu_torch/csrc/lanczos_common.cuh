@@ -1,6 +1,7 @@
 // Shared device code of the port's Lanczos kernels (kkt_matvec.cu,
-// lanczos_pass_one.cu, lanczos_pass_two.cu, eft_check.cu), built together
-// into one shared library by two_pass_lanczos_tpu_torch/ops/_build.py.
+// kkt_shard_matvec.cu, lanczos_pass_one.cu, lanczos_pass_two.cu,
+// eft_check.cu), built together into one shared library by
+// two_pass_lanczos_tpu_torch/ops/_build.py.
 //
 // Bitwise replay. Pass two regenerates pass one's basis from the stored
 // alpha and beta, so the vector update
@@ -84,6 +85,32 @@ __device__ __forceinline__ T block_sum(T v, T* sh) {
   T total = sh[0];
   __syncthreads();
   return total;
+}
+
+// The two parts of one KKT matvec, shared by K1/K8 (kkt_matvec.cu) and K7
+// (kkt_shard_matvec.cu) so that both round alike.
+// Arc row j: (d_j * x_j + g_u) - g_v, g_u and g_v the gathered node values.
+template <typename T>
+__device__ __forceinline__ T kkt_arc_row(T d, T x, T gu, T gv) {
+  return sub_rn(add_rn(mul_rn(d, x), gu), gv);
+}
+
+// Node row: the sum of +-x_a over the node's CSR segment ptr/ent (entry ~a
+// is arc a with sign -1), walked in a fixed strided order and folded with
+// block_sum: deterministic, no atomics. Every thread of the block must call
+// it; returns the sum in every thread.
+template <typename T>
+__device__ __forceinline__ T kkt_node_row(const int* __restrict__ ptr,
+                                          const int* __restrict__ ent,
+                                          const T* __restrict__ xa, int node,
+                                          T* sh) {
+  const int end = ptr[node + 1];
+  T acc = T(0);
+  for (int q = ptr[node] + threadIdx.x; q < end; q += kThreads) {
+    const int a = ent[q];
+    acc = a >= 0 ? add_rn(acc, xa[a]) : sub_rn(acc, xa[~a]);
+  }
+  return block_sum(acc, sh);
 }
 
 // Error-free transformations of the compensated (two-float) reductions,

@@ -48,6 +48,8 @@ _SIGNATURES = {
     # d, u, v, ptr, ent, m, p, x, y, stream (f32 and f64 instances)
     "tpl_kkt_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "tpl_kkt_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # one shard's layout (d, u, v, ptr, ent, m, p), e_scale, x, y, stream
+    "tpl_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
     # *_PASS_ONE, *matvec_launches, stream
     "tpl_lanczos_pass_one": [*_PASS_ONE, ctypes.POINTER(_I), _P],
     # *_PASS_ONE, basis, *matvec_launches, stream
@@ -65,6 +67,8 @@ _SIGNATURES = {
     # the double-float kernels (csrc/df_*.cu): d2, u, v, ptr, ent, m, p, ...
     # ... x2, y2, stream
     "tpl_df_kkt_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # the same arguments over one shard's layout and local pairs
+    "tpl_df_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # ... b2, k, tol, ztol, coeffs, bnorm2, steps, v_prev2, v_curr2, w2,
     # partials, scal, flags, *matvec_launches, stream
     "tpl_df_lanczos_pass_one": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,

@@ -17,12 +17,14 @@ The kernels (``csrc/``): K1 the matvec, K2 pass one, K3 pass two, K4 pass
 one with the basis (``method="one_pass"``), K5 the resumable pass one
 (``callback=``, :meth:`FusedKKTSolver.pass_one_chunked`), K6 the compensated
 builds of K2, K4 and K5 (``compensated=True``) and K13 the tripwire of their
-error-free transformations. Each has a wrapper here that launches it for
-CUDA tensors and raises on anything it does not take, and a plain PyTorch
-version (``ops/spmv.kkt_matvec``, ``algorithms/core.pass_one_scan``,
-``pass_one_chunk_scan`` and ``pass_two_scan``, ``dot_f64`` for the
-compensated reductions, ``ops/eft.eft_check_plain``) that the solver runs
-for CPU tensors. ``LAUNCHES`` counts the kernel launches of each wrapper.
+error-free transformations; K7, one shard's matvec with a node partial,
+serves the sharded solver (``parallel/fused_sharded.py``). Each has a
+wrapper here that launches it for CUDA tensors and raises on anything it
+does not take, and a plain PyTorch version (``ops/spmv.kkt_matvec``,
+``algorithms/core.pass_one_scan``, ``pass_one_chunk_scan`` and
+``pass_two_scan``, ``dot_f64`` for the compensated reductions,
+``ops/eft.eft_check_plain``, :func:`kkt_shard_matvec`) that runs for CPU
+tensors. ``LAUNCHES`` counts the kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -51,19 +53,23 @@ from two_pass_lanczos_tpu_torch.ops._build import load_library
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
 
-__all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches"]
+__all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
+           "kkt_shard_matvec", "kkt_shard_matvec_cuda"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`; a
 #: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``,
 #: and K8, the matvec of the generic KKT operators (``ops/spmv_kernel.py``),
 #: as ``kkt_operator_matvec``; K11, K9 and K10, the double-float kernels
 #: (``ops/kkt_fused_df.py``), as ``df_kkt_matvec``, ``df_lanczos_pass_one``
-#: and ``df_lanczos_pass_two``
+#: and ``df_lanczos_pass_two``; K7 and K12, the shard matvecs of the sharded
+#: solvers (``parallel/``), as ``kkt_streaming_matvec`` and
+#: ``df_kkt_streaming_matvec``, the names of the TPU kernels' wrappers
 LAUNCHES = {"kkt_matvec": 0, "lanczos_pass_one": 0, "lanczos_pass_two": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
             "lanczos_pass_one_comp": 0, "eft_check": 0,
-            "kkt_operator_matvec": 0, "df_kkt_matvec": 0,
-            "df_lanczos_pass_one": 0, "df_lanczos_pass_two": 0}
+            "kkt_streaming_matvec": 0, "kkt_operator_matvec": 0,
+            "df_kkt_matvec": 0, "df_lanczos_pass_one": 0,
+            "df_lanczos_pass_two": 0, "df_kkt_streaming_matvec": 0}
 #: size of one plane of pass one's block-partials scratch
 #: (``tpl::kMaxPartials``); the scratch holds two planes
 MAX_PARTIALS = 1024
@@ -162,6 +168,38 @@ def kkt_matvec_cuda(lay: KKTLayout, x: torch.Tensor) -> torch.Tensor:
     code = lib.tpl_kkt_matvec(*_layout_args(lay), _ptr(x), _ptr(y), _stream())
     _check(lib, code, "kkt_matvec")
     LAUNCHES["kkt_matvec"] += 1
+    return y
+
+
+def kkt_shard_matvec(lay: KKTLayout, x: torch.Tensor,
+                     e_scale: float = 1.0) -> torch.Tensor:
+    """The plain version of K7 on any device: for one shard's layout (its
+    arcs over the global node ids) and the local ``[x_a of the shard, x_n]``,
+    ``[y_a, s]`` with ``y_a = (d·x_a + e·x_n[u]) − e·x_n[v]`` in K7's order
+    and ``s = e·E_shard·x_a`` the shard's node partial (an atomic
+    ``index_add_`` on CUDA: a reference, never the solver's path there)."""
+    m = lay.m
+    xa, xn = x[:m], x[m:]
+    ya = lay.d * xa + e_scale * xn[lay.u] - e_scale * xn[lay.v]
+    s = torch.zeros(lay.p, dtype=x.dtype, device=x.device)
+    s.index_add_(0, lay.u, xa).index_add_(0, lay.v, -xa)
+    return torch.cat([ya, e_scale * s])
+
+
+def kkt_shard_matvec_cuda(lay: KKTLayout, x: torch.Tensor,
+                          e_scale: float = 1.0) -> torch.Tensor:
+    """K7 (``csrc/kkt_shard_matvec.cu``): :func:`kkt_shard_matvec` for an
+    (m_d + p,) f32 CUDA x on a CUDA shard layout. With ``e_scale = 1`` and
+    one shard it is bitwise K1."""
+    if lay.d.device.type != "cuda":
+        raise ValueError(f"K7 takes a CUDA layout, not {lay.d.device}")
+    _need(x, (lay.n,), torch.float32, lay.d.device, "x")
+    lib = load_library()
+    y = torch.empty_like(x)
+    code = lib.tpl_kkt_shard_matvec(*_layout_args(lay), float(e_scale),
+                                    _ptr(x), _ptr(y), _stream())
+    _check(lib, code, "kkt_shard_matvec")
+    LAUNCHES["kkt_streaming_matvec"] += 1
     return y
 
 
@@ -317,6 +355,57 @@ def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
 _EFT_A, _EFT_B = 1.0 + 2.0 ** -12, 2.0 ** -30
 
 
+def scaled_y(decomp: LanczosDecomposition, f, k: int) -> torch.Tensor:
+    """``f(T_k)e₁·‖b‖``, zero beyond ``steps_taken``: pass two's y, ``(k,)``
+    for one function spec and ``(nf, k)`` for a tuple of them."""
+    multi = isinstance(f, tuple)
+    fs = f if multi else (f,)
+    y = torch.stack([padded_f_e1(decomp, fi) for fi in fs])
+    keep = torch.arange(k, device=y.device) < decomp.steps_taken
+    y_full = torch.where(keep, y * decomp.b_norm, torch.zeros_like(y))
+    return y_full if multi else y_full[0]
+
+
+def run_chunks(run, k: int, chunk: int, callback, device
+               ) -> Tuple[LanczosDecomposition, bool, int]:
+    """The host side of a chunked pass one (the fused and the sharded
+    solver's ``pass_one_chunked``). ``run(j0, c)`` runs the ``c`` steps
+    from step ``j0`` and returns their α and β (NumPy, indexed from the
+    chunk's first step), the steps executed so far, whether the run is still
+    live, and ‖b‖. After each chunk ``callback(s, None, (alphas[:s],
+    betas[:s-1]))`` is replayed for every new step ``s``; returning False
+    stops, which zeroes α from ``s`` and β from ``s-1``; a full run or a
+    breakdown keeps β_steps. Returns ``(decomposition, stopped, chunks
+    run)``."""
+    if k < 1 or chunk < 1:
+        raise ValueError("k and chunk must be >= 1")
+    alphas = np.zeros(k, np.float32)
+    betas = np.zeros(k, np.float32)
+    visited, stopped, chunks = 0, False, 0
+    for j0 in range(0, k, chunk):
+        a_c, b_c, steps_now, live, b_norm = run(j0, min(chunk, k - j0))
+        chunks += 1
+        alphas[visited:steps_now] = a_c[:steps_now - visited]
+        betas[visited:steps_now] = b_c[:steps_now - visited]
+        for s in range(visited + 1, steps_now + 1):
+            visited = s
+            if callback is not None and not callback(
+                    s, None, (alphas[:s], betas[:s - 1])):
+                stopped = True
+                break
+        if stopped or not live or steps_now >= k:
+            break
+    alphas[visited:] = 0.0
+    betas[max(visited - 1, 0) if stopped else visited:] = 0.0
+    decomp = LanczosDecomposition(
+        alphas=torch.from_numpy(alphas).to(device),
+        betas=torch.from_numpy(betas).to(device),
+        steps_taken=torch.tensor(visited, dtype=torch.int32, device=device),
+        b_norm=torch.as_tensor(b_norm, dtype=torch.float32).to(device)
+        .reshape(()))
+    return decomp, stopped, chunks
+
+
 class FusedKKTSolver:
     """End-to-end f(A)·b solver for one KKT instance.
 
@@ -433,8 +522,6 @@ class FusedKKTSolver:
         β_steps as :meth:`pass_one` does. α and β are bitwise those of
         :meth:`pass_one`.
         """
-        if k < 1 or chunk < 1:
-            raise ValueError("k and chunk must be >= 1")
         b = self.pack(b)
         if self._cuda:
             bufs = PassOneBuffers.alloc(self.layout, k)
@@ -458,29 +545,8 @@ class FusedKKTSolver:
                 return (a.numpy(), bt.numpy(), int(carry.steps),
                         not bool(carry.done), carry.b_norm.numpy())
 
-        alphas = np.zeros(k, np.float32)
-        betas = np.zeros(k, np.float32)
-        visited, stopped = 0, False
-        for j0 in range(0, k, chunk):
-            a_c, b_c, steps_now, live, b_norm = run(j0, min(chunk, k - j0))
-            alphas[visited:steps_now] = a_c[:steps_now - visited]
-            betas[visited:steps_now] = b_c[:steps_now - visited]
-            for s in range(visited + 1, steps_now + 1):
-                visited = s
-                if callback is not None and not callback(
-                        s, None, (alphas[:s], betas[:s - 1])):
-                    stopped = True
-                    break
-            if stopped or not live or steps_now >= k:
-                break
-        alphas[visited:] = 0.0
-        betas[max(visited - 1, 0) if stopped else visited:] = 0.0
-        dev = self.device
-        return LanczosDecomposition(
-            alphas=torch.from_numpy(alphas).to(dev),
-            betas=torch.from_numpy(betas).to(dev),
-            steps_taken=torch.tensor(visited, dtype=torch.int32, device=dev),
-            b_norm=torch.tensor(b_norm, dtype=torch.float32, device=dev))
+        decomp, _, _ = run_chunks(run, k, chunk, callback, self.device)
+        return decomp
 
     def pass_two(self, b, decomp: LanczosDecomposition, y_full,
                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -524,12 +590,7 @@ class FusedKKTSolver:
             decomp, basis = self.pass_one_with_basis(b, k)
         else:
             decomp = self.pass_one(b, k)
-        multi = isinstance(f, tuple)
-        fs = f if multi else (f,)
-        y = torch.stack([padded_f_e1(decomp, fi) for fi in fs])
-        keep = torch.arange(k, device=y.device) < decomp.steps_taken
-        y_full = torch.where(keep, y * decomp.b_norm, torch.zeros_like(y))
-        y_full = y_full if multi else y_full[0]
+        y_full = scaled_y(decomp, f, k)
         if basis is not None:
             x = basis_product(y_full, basis)
         else:

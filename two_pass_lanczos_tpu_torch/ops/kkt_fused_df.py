@@ -18,7 +18,10 @@ tensor, hi plane first. The kernels (``csrc/df_*.cu``):
 * K11 ``df_kkt_matvec.cu`` — one df ``y = A·x`` (:func:`df_kkt_matvec`);
 * K9 ``df_lanczos_pass_one.cu`` — pass one, α, β and ‖b‖ as df pairs;
 * K10 ``df_lanczos_pass_two.cu`` — the replay from the stored df β and the
-  df accumulation of x; its hi and lo basis are bitwise pass one's.
+  df accumulation of x; its hi and lo basis are bitwise pass one's;
+* K12 ``df_kkt_shard_matvec.cu`` — one shard's df matvec with its df node
+  partial (:func:`df_kkt_shard_matvec`), for the sharded df solver
+  (``parallel/fused_sharded_df.py``).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 does not take; on the CPU the solver runs the plain versions,
@@ -61,8 +64,9 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
 )
 
 __all__ = ["DFFusedKKTSolver", "DF_BREAKDOWN_TOL", "df_kkt_matvec",
-           "df_kkt_matvec_cuda", "df_pass_one_cuda", "df_pass_two_cuda",
-           "df_pass_one_last_vector"]
+           "df_kkt_matvec_cuda", "df_kkt_shard_matvec",
+           "df_kkt_shard_matvec_cuda", "df_pass_one_cuda",
+           "df_pass_two_cuda", "df_pass_one_last_vector"]
 
 #: breakdown tolerance at double-float working precision (1000 · 2⁻⁴⁹).
 DF_BREAKDOWN_TOL = 1000.0 * 2.0 ** -49
@@ -105,6 +109,33 @@ def df_kkt_matvec(op: DFKKTOperator, x2: torch.Tensor) -> torch.Tensor:
     pairwise table fold (``op.plain_matvec_df``) for a CPU x."""
     if x2.is_cuda:
         return df_kkt_matvec_cuda(op.layout, op.d2, x2.contiguous())
+    y = op.plain_matvec_df(DF(x2[0], x2[1]))
+    return torch.stack([y.hi, y.lo])
+
+
+def df_kkt_shard_matvec_cuda(lay: KKTLayout, d2: torch.Tensor,
+                             x2: torch.Tensor) -> torch.Tensor:
+    """K12 (``csrc/df_kkt_shard_matvec.cu``): one shard's df matvec for its
+    CUDA layout (arcs over the global node ids), its (2, m_d) costs and the
+    local (2, m_d + p) pair ``[x_a of the shard, x_n]``; returns ``[y_a,
+    s]`` as (2, m_d + p), s the shard's df node partial. With one shard it
+    is bitwise K11."""
+    args = _df_layout_args(lay, d2)
+    _need(x2, (2, lay.n), torch.float32, lay.d.device, "x2")
+    lib = load_library()
+    y2 = torch.empty_like(x2)
+    code = lib.tpl_df_kkt_shard_matvec(*args, _ptr(x2), _ptr(y2), _stream())
+    _check(lib, code, "df_kkt_shard_matvec")
+    LAUNCHES["df_kkt_streaming_matvec"] += 1
+    return y2
+
+
+def df_kkt_shard_matvec(op: DFKKTOperator, x2: torch.Tensor) -> torch.Tensor:
+    """One shard's df matvec for a (2, m_d + p) local pair, ``op`` the
+    shard's :class:`DFKKTOperator`: K12 for a CUDA x, the plain pairwise
+    table fold over the shard (``op.plain_matvec_df``) for a CPU x."""
+    if x2.is_cuda:
+        return df_kkt_shard_matvec_cuda(op.layout, op.d2, x2.contiguous())
     y = op.plain_matvec_df(DF(x2[0], x2[1]))
     return torch.stack([y.hi, y.lo])
 

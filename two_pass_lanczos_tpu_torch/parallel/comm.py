@@ -1,0 +1,78 @@
+"""The collectives of the sharded solvers: all-gathers folded in rank order.
+
+Every collective of ``parallel/fused_sharded.py`` and
+``parallel/fused_sharded_df.py`` goes through these helpers, which report
+each call to ``utils/collectives.record_collectives``.
+
+The JAX f32 solver reduced its node partials and dot partials with
+``lax.psum``; these helpers all-gather the partials into a ``(D, ...)``
+buffer and sum them in rank order on every rank instead. The result is
+then bitwise the same on every rank whatever algorithm NCCL picks, which
+the replicated node block and the bitwise pass-two replay need, and the
+gather is tiny (D·p·4 bytes: 18 KB at p = 1,155 and 58 KB at p = 3,651 for
+D = 4). The double-float fold is ``_df_fold_leading`` of
+``two_pass_lanczos_tpu/parallel/fused_sharded_df.py``: an f32 sum of df
+partials would re-round them to f32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from two_pass_lanczos_tpu_torch.ops.df import DF, df_add
+from two_pass_lanczos_tpu_torch.parallel.mesh import Mesh
+from two_pass_lanczos_tpu_torch.utils.collectives import record_call
+
+__all__ = ["all_gather", "gather_fold", "df_gather_fold", "all_gather_arcs"]
+
+# one flat all-gather into a preallocated buffer (gloo takes it flat):
+# all_gather_single, or its older name where PyTorch predates it
+_gather_flat = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``(D, *t.shape)``: row r is rank r's ``t``."""
+    t = t.contiguous()
+    out = torch.empty((mesh.size,) + tuple(t.shape), dtype=t.dtype,
+                      device=t.device)
+    _gather_flat(out.view(-1), t.view(-1), group=mesh.group)
+    record_call("all-gather", out.dtype, out.shape)
+    return out
+
+
+def gather_fold(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over ranks of ``t``, added in rank order: ((t_0 + t_1) + t_2)
+    + ..., the same bits on every rank; ``t`` itself on one rank."""
+    g = all_gather(t, mesh)
+    acc = g[0]
+    for r in range(1, mesh.size):
+        acc = acc + g[r]
+    return acc
+
+
+def df_gather_fold(hi: torch.Tensor, lo: torch.Tensor, mesh: Mesh) -> DF:
+    """The double-float sum over ranks of the pair ``(hi, lo)``: one gather
+    of the stacked ``(2, ...)`` pair, folded with ``df_add`` in rank
+    order."""
+    g = all_gather(torch.stack([hi, lo]), mesh)
+    acc = DF(g[0, 0], g[0, 1])
+    for r in range(1, mesh.size):
+        acc = df_add(acc, DF(g[r, 0], g[r, 1]))
+    return acc
+
+
+def all_gather_arcs(xa: torch.Tensor, sizes: Sequence[int],
+                    mesh: Mesh) -> torch.Tensor:
+    """The whole arc block from each rank's contiguous shard ``xa`` (its
+    last axis; rank r holds ``sizes[r]`` arcs): every shard padded to the
+    largest, gathered once, and the pads dropped, in arc order."""
+    width = max(sizes)
+    pad = torch.zeros(xa.shape[:-1] + (width - xa.shape[-1],),
+                      dtype=xa.dtype, device=xa.device)
+    g = all_gather(torch.cat([xa, pad], dim=-1), mesh)
+    return torch.cat([g[r, ..., :sizes[r]] for r in range(mesh.size)],
+                     dim=-1)

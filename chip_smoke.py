@@ -93,7 +93,21 @@ Phases (each one raises on failure, so the exit code is non-zero):
     shards folding within 8·(deg+1)·2⁻⁴⁸·Σ|x|; 999 K12 launches and nothing
     else, no plain df op, x finite, hi and lo v_s bitwise, α, β at k = 20
     within 1e-11·max|α| of ``DFFusedKKTSolver``; medians of 3 df solves;
-    K12's time beside a cuSPARSE f64 CSR SpMV.
+    K12's time beside a cuSPARSE f64 CSR SpMV;
+19. K14, the probes (``two_pass_lanczos_tpu_torch.probes``: gather, stream,
+    stages, pipeline), their main path ``probes.run`` at both sizes with the
+    counters reset: every variant checked against its plain version
+    (``probe_stages`` full and ``probe_pipeline`` bitwise K7, every gather
+    bitwise ``tab[idx]``, ``probe_stream`` bitwise) and timed warm and
+    cold-L2; K7's stage split at each size, which says whether its node
+    blocks' x_a gather or its arc stream bounds it;
+20. the row-sharded ``ShardedSparseOperator`` on the same one-rank NCCL
+    group, on the headline's f32 KKT triplets: ``solve_fAb(b, k=500,
+    f="inv")`` with 999 asynchronous gathers and owned SpMVs and no port
+    kernel, x finite, pass two's v_s bitwise pass one's, α, β at k = 20
+    within rtol 1e-4 of the generic ``SparseOperator`` solve; device events
+    per step; medians of 5 solves beside the generic two-pass solve; a
+    small f64 instance within rel 1e-9 of one device.
 
 Every kernel's entry of the JSON line carries its launches on its main
 path, its max_abs_err against its plain version, its time (``ms``), the
@@ -108,7 +122,12 @@ same function (cuSPARSE SpMV for the matvecs), or null. A single call
 200 calls captured in one CUDA graph and replayed, so the host's launch
 cost is not in it. A pass (K2-K6 and their plain
 versions) is timed by CUDA events around the whole pass, idle gaps
-between its launches included.
+between its launches included. The K14 rows (and their plain and library
+calls) take the cold-L2 time, a 128 MB write before each call inside the
+graph, its own time subtracted: warm, the headline's inputs come from L2
+and the HBM bound would not hold. The launches of K14 are the kernels
+phase 19's timing graphs ran, once per replay. The script fails if any
+kernel's ``ms`` is below its ``bound_ms``.
 
 The line before the last is that JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -118,6 +137,7 @@ package beside this file, it prints no result and exits 2.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -171,7 +191,21 @@ KERNELS = {
     "df_kkt_streaming_matvec": (
         "two_pass_lanczos_tpu_torch/csrc/df_kkt_shard_matvec.cu",
         "two_pass_lanczos_tpu/ops/kkt_fused_df.py:602"),
+    # K14, the Pallas probes (each replaces several; the first is named)
+    "probe_gather": ("two_pass_lanczos_tpu_torch/csrc/probe_gather.cu",
+                     "scripts/probe_gather.py:41"),
+    "probe_stream": ("two_pass_lanczos_tpu_torch/csrc/probe_stream.cu",
+                     "scripts/probe/stream_blocks.py:44"),
+    "probe_stages": ("two_pass_lanczos_tpu_torch/csrc/probe_stages.cu",
+                     "scripts/probe/stream_stages.py:98"),
+    "probe_pipeline": ("two_pass_lanczos_tpu_torch/csrc/probe_pipeline.cu",
+                       "scripts/probe/stream_manual.py:194"),
 }
+#: the probe variant whose numbers stand in the ``kernels`` line
+PROBE_MAIN = {"probe_gather": ("gather", "arc_u/ldg/int32"),
+              "probe_stream": ("stream", "soa/256x1"),
+              "probe_stages": ("stages", "full"),
+              "probe_pipeline": ("pipeline", "pipeline")}
 
 
 class SmokeFailure(RuntimeError):
@@ -281,6 +315,14 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
         "kkt_streaming_matvec": matvec,
         "df_kkt_streaming_matvec": roofline_ms(
             df_kkt_matvec_bytes(m, n - m), df_mv_flops),
+        # K14 at the variants of PROBE_MAIN: x_n[u] (an int32 index in, an
+        # f32 out per arc, the table once); the arc stream (20 bytes and 4
+        # operations an arc); K7's function for the stage and pipeline
+        # probes
+        "probe_gather": roofline_ms(8 * m + 4 * (n - m), 0),
+        "probe_stream": roofline_ms(20 * m, 4 * m),
+        "probe_stages": matvec,
+        "probe_pipeline": matvec,
     }
 
 
@@ -637,6 +679,247 @@ def sharded_df_phase(card, dev, mesh, sizes) -> dict:
     return out
 
 
+def _pct(share: float) -> str:
+    return f"{100 * share:.1f} %"
+
+
+def probes_phase(card, dev, sizes) -> dict:
+    """Phase 19: the K14 probes' main path, ``probes.run`` of every probe on
+    each ``(label, instance)`` of ``sizes``, with the counters reset just
+    before it. Each run checks its variants against their plain versions
+    (``probe_stages`` full and ``probe_pipeline`` bitwise K7, every gather
+    bitwise ``tab[idx]``, ``probe_stream`` bitwise its plain version) and
+    raises on a failure. Prints a summary and K7's stage split, writes every
+    record to ``chiprun_out/probes.json`` and returns, per kernel, the
+    cold-L2 numbers of its ``PROBE_MAIN`` variant at the first size, and
+    its plain version's, timed cold alike."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch import probes
+    from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        KKTLayout,
+        kkt_shard_matvec,
+        reset_launches,
+    )
+    from two_pass_lanczos_tpu_torch.probes.gather import gather_plain
+    from two_pass_lanczos_tpu_torch.probes.stream import stream_plain
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+
+    inputs = {}
+    for label, ins in sizes:
+        m, p = ins.num_arcs, ins.num_nodes
+        lay = KKTLayout.build(ins.quad_costs, ins.arc_u, ins.arc_v, p, dev)
+        x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+            m + p).astype(np.float32)).to(dev)
+        coo = kkt_sorted_coo(KKTArrays(
+            quad_costs=ins.quad_costs, arc_u=ins.arc_u, arc_v=ins.arc_v,
+            num_nodes=p, num_arcs=m), dtype=np.float32, device=dev)
+        a_csr = torch.sparse_csr_tensor(coo.indptr, coo.cols, coo.vals,
+                                        size=(m + p, m + p))
+        inputs[label] = (lay, x, a_csr)
+        del coo
+
+    # the main path: the probes' own entry point, every probe at each size
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = {label: {name: probes.run(name, lay, x, a_csr=a_csr)
+                    for name in probes.RUNS}
+            for label, (lay, x, a_csr) in inputs.items()}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    check(all(launches[name] > 0 for name in PROBE_MAIN),
+          f"probe launches {launches}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "probes.json").write_text(json.dumps(
+        {"card": card, "records": recs}, indent=1))
+    print(f"[19] K14 probes at {', '.join(inputs)} in {run_s:.1f} s: every "
+          f"variant checked (stages full and pipeline bitwise K7, gathers "
+          f"bitwise tab[idx], stream bitwise its plain version); launches "
+          f"{ {k: launches[k] for k in PROBE_MAIN} }; records in "
+          f"chiprun_out/probes.json")
+
+    def line(r):
+        lib = (f", index_select {r['library_us']:.3f} us"
+               if "library_us" in r else "")
+        return (f"{r['variant']}: {r['us']:.3f} us ({_pct(r['share'])} of "
+                f"bound, {r['gbps']:.0f} GB/s), cold {r['us_cold']:.3f} us "
+                f"({_pct(r['share_cold'])}){lib}")
+
+    for label, by in recs.items():
+        lay = inputs[label][0]
+        print(f"     {label} (m={lay.m}, p={lay.p}) on {card}:")
+        for r in by["gather"]:
+            if not r["variant"].startswith("sweep"):
+                print("       gather " + line(r))
+        sweep = {}
+        for r in by["gather"]:
+            if r["variant"].startswith("sweep"):
+                size, mode, idx = r["variant"][5:].split("/")
+                sweep.setdefault(size, []).append(
+                    f"{mode}/{idx} {r['us']:.2f} (cold {r['us_cold']:.2f})")
+        for size, cells in sweep.items():
+            print(f"       gather sweep, table {size}: " + "; ".join(cells)
+                  + " us")
+        streams = sorted(by["stream"], key=lambda r: r["us"])
+        shown = streams[:2] + [r for r in streams if r["variant"] in (
+            "soa/256x1", "aos/256x1", "copy_d2d")] + streams[-1:]
+        for r in {r["variant"]: r for r in shown}.values():
+            print("       stream " + line(r))
+        for r in by["pipeline"]:
+            print("       pipeline " + line(r))
+        print("       K7 stage split:")
+        for row in probes.stage_split(by["stages"]).splitlines():
+            print("         " + row)
+
+    # the kernels line: cold-L2 times, which the HBM bound holds (warm, the
+    # headline's 10 MB come from the 50 MB L2)
+    head, (lay, x, _) = next(iter(recs.values())), next(iter(inputs.values()))
+    m = lay.m
+    plain = {"probe_gather": lambda: gather_plain(x[m:], lay.u),
+             "probe_stream": lambda: stream_plain(lay.d, lay.u, lay.v, x[:m]),
+             "probe_stages": lambda: kkt_shard_matvec(lay, x),
+             "probe_pipeline": lambda: kkt_shard_matvec(lay, x)}
+    cusparse = next(r for r in head["stages"] if r["variant"] == "cusparse")
+    timer = probes.Timer(dev)
+    out = {}
+    for name, (probe, variant) in PROBE_MAIN.items():
+        r = next(r for r in head[probe] if r["variant"] == variant)
+        lib = r.get("library_us_cold", None if probe == "stream"
+                    else cusparse["us_cold"])
+        out[name] = {"launches": launches[name], "err": r["max_abs_err"],
+                     "ms": r["us_cold"] / 1e3,
+                     "plain_ms": timer.cold(plain[name]) / 1e3,
+                     "library_ms": None if lib is None else lib / 1e3}
+    return out
+
+
+def sparse_phase(card, dev, mesh, inst) -> None:
+    """Phase 20: the row-sharded ``ShardedSparseOperator`` on ``mesh`` (a
+    one-rank NCCL group), on the f32 KKT triplets of ``inst``, with b on the
+    card and the counters reset: ``solve_fAb(b, k=500, f="inv")`` issues
+    one asynchronous gather and one owned SpMV a matvec and launches no
+    port kernel (its SpMV is the fixed-order CSR row sum), x is finite, pass
+    two's v_s is bitwise pass one's, α, β at k = 20 within rtol 1e-4 of the
+    generic ``solve_fAb`` tier on a ``SparseOperator`` of the same matrix;
+    device kernels per step counted by the profiler; medians of 5 solves
+    beside the generic two-pass solve; and a small f64 instance within rel
+    1e-9 of the single-device generic solve."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    import two_pass_lanczos_tpu_torch as tpl
+    from two_pass_lanczos_tpu_torch.algorithms.core import (
+        pass_one_last_vector,
+        pass_one_scan,
+        pass_two_scan,
+    )
+    from two_pass_lanczos_tpu_torch.models.generator import (
+        generate_mcf_instance,
+    )
+    from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+        scaled_y,
+    )
+    from two_pass_lanczos_tpu_torch.parallel import ShardedSparseOperator
+    from two_pass_lanczos_tpu_torch.utils.collectives import (
+        record_collectives,
+    )
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+
+    def arrays_of(ins):
+        return KKTArrays(quad_costs=ins.quad_costs, arc_u=ins.arc_u,
+                         arc_v=ins.arc_v, num_nodes=ins.num_nodes,
+                         num_arcs=ins.num_arcs)
+
+    arrays = arrays_of(inst)
+    n = arrays.n
+    t0 = time.perf_counter()
+    sop = ShardedSparseOperator.from_kkt_arrays(arrays, mesh,
+                                                dtype=np.float32)
+    build_s = time.perf_counter() - t0
+    b = torch.from_numpy(np.random.default_rng(20).standard_normal(n)
+                         .astype(np.float32)).to(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_collectives() as log:
+        x, dec = sop.solve_fAb(b, k=K, f="inv")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    starts = log.events.count("all-gather-start")
+    owned = log.events.count("owned-spmv")
+    check(sum(launches.values()) == 0,
+          f"the row-sharded solve launched port kernels {launches}")
+    check(starts == owned == 2 * K - 1,
+          f"{starts} gathers and {owned} owned SpMVs, not {2 * K - 1}")
+    check(x.shape == (n,) and bool(np.isfinite(x).all()),
+          "row-sharded x not a finite (n,) array")
+    bl = sop._prepare_b(b)
+    st1 = torch.empty(2, bl.shape[0], device=dev)
+    st2 = torch.empty_like(st1)
+    dec1, _ = pass_one_scan(sop._matvec, bl, K, state=st1, dot=sop._dot)
+    pass_two_scan(sop._matvec, bl, dec1, scaled_y(dec1, "inv", K), state=st2)
+    torch.cuda.synchronize()
+    steps = dec1.steps()
+    check(torch.equal(dec1.alphas, dec.alphas)
+          and torch.equal(dec1.betas, dec.betas),
+          "row-sharded pass one not bitwise reproducible")
+    check(torch.equal(pass_one_last_vector(dec1, st1), st2[1]),
+          f"row-sharded pass two's v_{steps} differs from pass one's")
+    op = tpl.SparseOperator(kkt_sorted_coo(arrays, dtype=np.float32,
+                                           device=dev))
+    _, d20 = sop.solve_fAb(b, k=K_CHECK, f="inv")
+    g20 = tpl.lanczos_pass_one(op, b, K_CHECK)
+    np.testing.assert_allclose(d20.alphas.cpu().numpy(),
+                               g20.alphas.cpu().numpy(), rtol=1e-4)
+    np.testing.assert_allclose(d20.betas.cpu().numpy(),
+                               g20.betas.cpu().numpy(), rtol=1e-4)
+    rel20 = float(((d20.alphas - g20.alphas).abs()
+                   / g20.alphas.abs()).max())
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        sop.solve_fAb(b, k=K_CHECK, f="inv", raw=True)
+        torch.cuda.synchronize()
+    dev_events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    nccl = sum("nccl" in name.lower() for name in dev_events)
+    per_step = len(dev_events) / (2 * K_CHECK - 1)
+    t_sh = wall_s(lambda: sop.solve_fAb(b, k=K, f="inv", raw=True), 5)
+    t_gen = wall_s(lambda: tpl.solve_fAb(op, b, k=K, f="inv"), 5)
+    small = arrays_of(generate_mcf_instance(500, rho=3, instance_id=1))
+    s64 = ShardedSparseOperator.from_kkt_arrays(small, mesh)
+    b64 = np.random.default_rng(42).standard_normal(small.n)
+    x64, _ = s64.solve_fAb(b64, k=25, f="inv")
+    x1 = tpl.solve_fAb(tpl.SparseOperator(kkt_sorted_coo(small, device=dev)),
+                       torch.from_numpy(b64).to(dev), k=25,
+                       f="inv").cpu().numpy()
+    rel64 = float(np.linalg.norm(x64 - x1) / np.linalg.norm(x1))
+    check(rel64 < 1e-9, f"row-sharded f64 rel {rel64:.3e} vs one device")
+    print(f"[20] ShardedSparseOperator (n={n}, rows_per "
+          f"{sop.part.rows_per}, nnz {int(sop.nnz_per_device.sum())}) on a "
+          f"one-rank {torch.distributed.get_backend(mesh.group)} group, "
+          f"built in {build_s:.3f} s: solve_fAb(k={K}, f='inv') first call "
+          f"{first_s:.4f} s, steps {steps}, {starts} async gathers and "
+          f"{owned} owned SpMVs, port kernel launches "
+          f"{sum(launches.values())}; pass two's v_{steps} bitwise pass "
+          f"one's; alpha, beta at k={K_CHECK} vs the generic SparseOperator "
+          f"max rel {rel20:.3e}; {per_step:.1f} device events per matvec "
+          f"step ({nccl} NCCL kernels in {2 * K_CHECK - 1} steps, traced); "
+          f"f64 m=500 vs one device rel {rel64:.3e}")
+    print(f"     on {card}: row-sharded two-pass solve k={K}: {runs(t_sh)}; "
+          f"generic two-pass solve_fAb(SparseOperator) k={K}: {runs(t_gen)}")
+    del sop, op, s64
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -694,9 +977,24 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.3f} s")
+    # ptxas -v: one "Compiling entry" line per kernel instance, then its
+    # spill and register lines; print a summary and any kernel that spills
+    entries, regs, spills = 0, [], []
+    name = ""
     for line in _build.build_log().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("    " + line.strip())
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if "Compiling entry" in line:
+            entries += 1
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif used:
+            regs.append(int(used.group(1)))
+        elif stores and int(stores.group(1)):
+            spills.append(f"{name}: {line.strip()}")
+    print(f"    ptxas: {entries} kernel instances, registers <= "
+          f"{max(regs, default=0)} a thread, {len(spills)} with spills")
+    for line in spills:
+        print("    spills: " + line)
 
     # the headline instance, on the card
     inst = generate_mcf_instance(**HEADLINE)
@@ -1568,9 +1866,13 @@ def main() -> int:
     k7 = sharded_f32_phase(card, dev, mesh, [("headline", inst), ("5M", big)])
     k12 = sharded_df_phase(card, dev, mesh, [("headline", inst, dfop),
                                              ("5M", big, None)])
+    # 19. the K14 probes; 20. the row-sharded operator on the same group
+    k14 = probes_phase(card, dev, [("headline", inst), ("5M", big)])
+    sparse_phase(card, dev, mesh, inst)
     torch.distributed.destroy_process_group()
     for name, got in (("kkt_streaming_matvec", k7["headline"]),
-                      ("df_kkt_streaming_matvec", k12["headline"])):
+                      ("df_kkt_streaming_matvec", k12["headline"]),
+                      *k14.items()):
         launches[name] = got["launches"]
         ms[name], plain_ms[name] = got["ms"], got["plain_ms"]
 
@@ -1580,8 +1882,10 @@ def main() -> int:
     library = {"kkt_matvec": lib_ms, "kkt_operator_matvec": lib_ms,
                "df_kkt_matvec": lib64_ms,
                "kkt_streaming_matvec": k7["headline"]["library_ms"],
-               "df_kkt_streaming_matvec": k12["headline"]["library_ms"]}
-    errs = {"kkt_matvec": err_k1, "lanczos_pass_one": err_k2,
+               "df_kkt_streaming_matvec": k12["headline"]["library_ms"],
+               **{name: got["library_ms"] for name, got in k14.items()}}
+    errs = {**{name: got["err"] for name, got in k14.items()},
+            "kkt_matvec": err_k1, "lanczos_pass_one": err_k2,
             "lanczos_pass_two": err_k3, "lanczos_pass_one_basis": err_k4,
             "lanczos_pass_one_chunk": err_k5, "lanczos_pass_one_comp": err_k6,
             "eft_check": err_k13, "kkt_operator_matvec": err_k8,
@@ -1589,13 +1893,16 @@ def main() -> int:
             "df_lanczos_pass_two": err_k10,
             "kkt_streaming_matvec": k7["headline"]["err"],
             "df_kkt_streaming_matvec": k12["headline"]["err"]}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": ms[name], "plain_ms": plain_ms[name],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": library.get(name)}
-        for name, (src, rep) in KERNELS.items()]}))
+    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches[name], "max_abs_err": errs[name],
+             "ms": ms[name], "plain_ms": plain_ms[name],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+             "library_ms": library.get(name)}
+            for name, (src, rep) in KERNELS.items()]
+    below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
+    check(not below, f"timed below their bound (a bound of the wrong "
+                     f"memory level): {below}")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,7 +17,12 @@ the generic tier's ``solve_fAb`` on ``make_kkt_operator`` (K8),
 ``DFFusedKKTSolver.solve`` (``df_two_pass``), and the sharded solvers on a
 one-rank NCCL group, ``ShardedFusedKKTSolver.solve`` (``sharded_two_pass``,
 K7) and ``DFShardedFusedKKTSolver.solve`` (``df_sharded_two_pass``, K12;
-one traced call, ~600 launches a step).
+one traced call, ~600 launches a step), and the row-sharded
+``ShardedSparseOperator.solve_fAb`` on the f32 KKT triplets
+(``sparse_sharded_two_pass``), whose record also says how many of the
+trace's NCCL ranges, and how much of their device time, overlap a compute
+kernel (not a copy) and the owned-column SpMV's row sums, which are queued
+between each gather's start and its wait.
 
 Each path runs twice to warm up, then ``--reps`` times under the profiler,
 each call ending in ``torch.cuda.synchronize()``. Per call:
@@ -70,7 +75,50 @@ def busy_us(events) -> float:
     return total
 
 
-def profile(fn, reps: int) -> dict:
+def overlap_us(events, pick, against):
+    """``(total, overlapped, hit)``: µs of the events whose name ``pick``s,
+    how many of those µs an event that ``against`` picks ran at the same
+    time, and how many picked events overlapped one at all."""
+    import bisect
+    mine = [(s, e) for name, s, e in events if pick(name)]
+    merged = []
+    for s, e in sorted((s, e) for name, s, e in events if against(name)):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    starts = [s for s, _ in merged]
+    total = over = 0.0
+    hit = 0
+    for s, e in mine:
+        total += e - s
+        i = max(bisect.bisect_right(starts, s) - 1, 0)
+        here = 0.0
+        while i < len(merged) and merged[i][0] < e:
+            here += max(0.0, min(e, merged[i][1]) - max(s, merged[i][0]))
+            i += 1
+        over += here
+        hit += here > 0
+    return total, over, hit
+
+
+def is_nccl(name: str) -> bool:
+    return "nccl" in name.lower()
+
+
+def is_compute(name: str) -> bool:
+    """A kernel, not a copy, a memset or a NCCL range."""
+    low = name.lower()
+    return not (is_nccl(name) or low.startswith(("memcpy", "memset")))
+
+
+def is_segment_reduce(name: str) -> bool:
+    """The row sums of ``coo_spmv`` (``torch.segment_reduce``), the owned
+    SpMV's last kernel and by far its longest."""
+    return "segmentedreduce" in name.lower().replace("_", "")
+
+
+def profile(fn, reps: int, overlap: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity
     for _ in range(2):
@@ -94,7 +142,16 @@ def profile(fn, reps: int) -> dict:
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     wall_ms = wall * 1e3 / reps
     busy_ms = busy_us(events) / 1e3 / reps
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+    extra = {}
+    if overlap:
+        extra = {"nccl_events": sum(is_nccl(n) for n, _, _ in events) / reps}
+        for label, against in (("compute", is_compute),
+                               ("row_sums", is_segment_reduce)):
+            nccl_us, over_us, hit = overlap_us(events, is_nccl, against)
+            extra["nccl_ms"] = nccl_us / 1e3 / reps
+            extra[f"nccl_overlap_{label}_ms"] = over_us / 1e3 / reps
+            extra[f"nccl_events_overlapping_{label}"] = hit / reps
+    return {**extra, "wall_ms": wall_ms, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "events": len(events) / reps,
             "top": [[name[:60], t / 1e3 / reps, round(c / reps)]
@@ -128,8 +185,10 @@ def main(argv=None) -> int:
     from two_pass_lanczos_tpu_torch.parallel import (
         DFShardedFusedKKTSolver,
         ShardedFusedKKTSolver,
+        ShardedSparseOperator,
         make_mesh,
     )
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
 
     dev = torch.device("cuda", 0)
     inst = generate_mcf_instance(**HEADLINE)
@@ -147,6 +206,10 @@ def main(argv=None) -> int:
     mesh = make_mesh(1, device=dev)  # a one-rank NCCL group
     sh = ShardedFusedKKTSolver(*arrays, mesh)
     shdf = DFShardedFusedKKTSolver(*arrays, mesh)
+    sop = ShardedSparseOperator.from_kkt_arrays(
+        KKTArrays(quad_costs=inst.quad_costs, arc_u=inst.arc_u,
+                  arc_v=inst.arc_v, num_nodes=inst.num_nodes,
+                  num_arcs=inst.num_arcs), mesh, dtype=np.float32)
     b64 = b.double()
     k = args.k
     paths = {
@@ -164,14 +227,25 @@ def main(argv=None) -> int:
         "df_two_pass": lambda: sdf.solve(b64, k=k),
         "sharded_two_pass": lambda: sh.solve(b, k=k, raw=True),
         "df_sharded_two_pass": lambda: shdf.solve(b64, k=k, raw=True),
+        "sparse_sharded_two_pass": lambda: sop.solve_fAb(b, k=k, f="inv",
+                                                         raw=True),
     }
     out = {}
     for name, fn in paths.items():
         reps = 1 if name == "df_sharded_two_pass" else args.reps
-        r = out[name] = profile(fn, reps)
+        r = out[name] = profile(fn, reps,
+                                overlap=name == "sparse_sharded_two_pass")
         print(f"== {name}: wall {r['wall_ms']:.3f} ms/solve, device busy "
               f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
               f"{r['events']:.0f} device events")
+        if "nccl_ms" in r:
+            print(f"    NCCL ranges {r['nccl_events']:.0f} a solve, "
+                  f"{r['nccl_ms']:.4f} ms of device time; "
+                  f"{r['nccl_events_overlapping_compute']:.0f} overlap a "
+                  f"compute kernel for {r['nccl_overlap_compute_ms']:.4f} ms"
+                  f", {r['nccl_events_overlapping_row_sums']:.0f} the owned "
+                  f"SpMV's row sums for {r['nccl_overlap_row_sums_ms']:.4f} "
+                  "ms")
         for kname, ms, count in r["top"]:
             print(f"    {ms:9.4f} ms  x {count:4d}  {kname}")
         print("    host self time:")

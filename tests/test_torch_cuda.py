@@ -72,6 +72,27 @@ from two_pass_lanczos_tpu_torch.parallel import (
     initialize_distributed,
     make_mesh,
 )
+from two_pass_lanczos_tpu_torch.probes import run as probe_run
+from two_pass_lanczos_tpu_torch.probes import stage_split, stream_records
+from two_pass_lanczos_tpu_torch.probes.bench import REPLAYS as PROBE_REPLAYS
+from two_pass_lanczos_tpu_torch.probes.bench import main as probes_main
+from two_pass_lanczos_tpu_torch.probes.gather import (
+    gather_cuda as probe_gather_cuda,
+    gather_plain as probe_gather_plain,
+    two_level,
+)
+from two_pass_lanczos_tpu_torch.probes.pipeline import (
+    pipeline_cuda as probe_pipeline_cuda,
+)
+from two_pass_lanczos_tpu_torch.probes.stages import (
+    stages_cuda as probe_stages_cuda,
+    stages_plain,
+)
+from two_pass_lanczos_tpu_torch.probes.stream import (
+    pack_records,
+    stream as probe_stream,
+    stream_plain,
+)
 from two_pass_lanczos_tpu_torch.testing import check_reconstruction_stability
 from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
 
@@ -694,12 +715,143 @@ def test_sharded_solvers_across_four_cards(problem, cuda_device, tmp_path):
         assert _rel(r["xd"], r["xd1"]) < 1e-10
 
 
+# --- K14: the probes ---------------------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_probe_gather_kernel_matches_plain_on_card(case, cuda_device):
+    rng = np.random.default_rng(6)
+    d, u, v, p = CASES[case](rng)
+    m = len(d)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    x = torch.from_numpy(rng.standard_normal(m + p).astype(np.float32)).to(
+        cuda_device)
+    hi, lo = two_level(lay.u)
+    arcs_of_ent = torch.where(lay.ent >= 0, lay.ent, ~lay.ent)
+    forms = [(x[m:], lay.u, None), (x[m:], lay.u.to(torch.int16), None),
+             (x[m:], lo, hi), (x[:m], arcs_of_ent, None),
+             (x[m:], (lay.u % 256).to(torch.uint8), None)]
+    reset_launches()
+    calls = 0
+    for tab, idx, hi_ in forms:
+        for mode in ("smem", "ldg", "plain"):
+            g = probe_gather_cuda(tab, idx, hi_, mode)
+            calls += 1
+            assert torch.equal(g, probe_gather_plain(tab, idx, hi_)), mode
+    torch.cuda.synchronize()
+    assert LAUNCHES["probe_gather"] == calls
+
+
+def test_probe_stream_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(7)
+    d, u, v, p = CASES["random"](rng, 5003, 300)  # a ragged last block
+    dev = cuda_device
+    d, u, v = (torch.from_numpy(a).to(dev) for a in (d, u, v))
+    x = torch.from_numpy(rng.standard_normal(len(d)).astype(np.float32)).to(dev)
+    rec = pack_records(d, u, v, x)
+    ref = stream_plain(d, u, v, x)
+    reset_launches()
+    for threads in (128, 256, 512, 1024):
+        for apt in (1, 2, 4, 8):
+            assert torch.equal(probe_stream(d, u, v, x, threads, apt), ref)
+            assert torch.equal(stream_records(rec, threads, apt), ref)
+    torch.cuda.synchronize()
+    assert LAUNCHES["probe_stream"] == 32
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_probe_stages_and_pipeline_match_k7_on_card(case, cuda_device):
+    rng = np.random.default_rng(8)
+    d, u, v, p = CASES[case](rng)
+    m = len(d)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    cpu = KKTLayout.build(d, u, v, p, CPU)
+    x = torch.from_numpy(rng.standard_normal(m + p).astype(np.float32))
+    xd = x.to(cuda_device)
+    reset_launches()
+    y7 = kkt_shard_matvec_cuda(lay, xd)
+    # full and the pipeline are K7, bit for bit
+    assert torch.equal(probe_stages_cuda(lay, xd, "full"), y7)
+    assert torch.equal(probe_pipeline_cuda(lay, xd), y7)
+    bound = _node_bound(lay, xd, torch.finfo(torch.float32).eps).cpu()
+    tiny = 1e-30 * torch.arange(m, dtype=torch.float32)
+    tiny_bound = _node_bound(cpu, torch.cat([tiny, torch.zeros(p)]),
+                             torch.finfo(torch.float32).eps)
+    modes = [("full", 0), ("arc_only", 0), ("node_only", 0),
+             ("node_no_gather", 0), ("no_gather", 0), ("stream_only", 0),
+             ("alu", 5), ("gather", min(3, p - 1))]
+    for mode, param in modes:
+        y = probe_stages_cuda(lay, xd, mode, param).cpu()
+        ref = stages_plain(cpu, x, mode, param)
+        assert torch.equal(y[:m], ref[:m]), mode
+        nb = tiny_bound if "no_gather" in mode else bound
+        assert bool(((y[m:] - ref[m:]).abs() <= nb).all()), mode
+    torch.cuda.synchronize()
+    assert LAUNCHES["probe_stages"] == 1 + len(modes)
+    assert LAUNCHES["probe_pipeline"] == 1
+
+
+def test_probe_runs_check_and_time_on_card(cuda_device):
+    rng = np.random.default_rng(9)
+    d, u, v, p = CASES["random"](rng, 4000, 300)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    x = torch.from_numpy(rng.standard_normal(4300).astype(np.float32)).to(
+        cuda_device)
+    for name in ("stream", "stages", "pipeline"):
+        reset_launches()
+        recs = probe_run(name, lay, x, reps=5)
+        assert recs and all(r["us"] > 0 and r["us_cold"] > 0 for r in recs)
+    # the pipeline's two checked calls, then two timed variants, each warm
+    # and cold: 3 warm-up calls and 5 calls a replay of the graph
+    assert LAUNCHES["probe_pipeline"] == 2 + 2 * 2 * (3 + 5 * PROBE_REPLAYS)
+    assert "bound by the" in stage_split(probe_run("stages", lay, x, reps=5))
+
+
+def test_sharded_sparse_operator_on_a_one_rank_nccl_group_on_card(
+        problem, cuda_device, tmp_path):
+    d, u, v, p, b = problem
+    k = 20
+    [rank0] = spawn(1, [("path", "sparse_card_path",
+                         dict(d=d, u=u, v=v, p=p, b=b, k=k))],
+                    tmp_path, device="cuda")
+    r = rank0["path"]
+    # no port kernel: the SpMV is the fixed-order CSR row sum; one gather
+    # a matvec; the replay bitwise; the generic tier's coefficients
+    assert sum(r["launches"].values()) == 0
+    assert r["starts"] == 2 * k - 1 and r["replay"]
+    assert r["dec"]["steps"] == r["dec1"]["steps"] == k
+    np.testing.assert_allclose(r["dec"]["alphas"], r["dec1"]["alphas"],
+                               rtol=1e-4)
+    assert _rel(r["x"], r["x1"]) < 1e-4
+
+
+def test_sharded_sparse_operator_across_four_cards(problem, cuda_device,
+                                                   tmp_path):
+    """Four NCCL ranks, one card each: every rank holds the same x and α,
+    β, within the f32 tolerances of one card's generic solve."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    d, u, v, p, b = problem
+    k = 20
+    ranks = spawn(4, [("path", "sparse_card_path",
+                       dict(d=d, u=u, v=v, p=p, b=b, k=k))],
+                  tmp_path, device="cuda")
+    for r in (rank["path"] for rank in ranks):
+        assert sum(r["launches"].values()) == 0 and r["replay"]
+        assert r["starts"] == 2 * k - 1
+        assert np.array_equal(r["x"], ranks[0]["path"]["x"])
+        assert np.array_equal(r["dec"]["alphas"],
+                              ranks[0]["path"]["dec"]["alphas"])
+        np.testing.assert_allclose(r["dec"]["alphas"], r["dec1"]["alphas"],
+                                   rtol=1e-4)
+        assert _rel(r["x"], r["x1"]) < 1e-4
+
+
 # --- the default device ----------------------------------------------------
 
 @pytest.mark.parametrize("entry", [
     "FusedKKTSolver", "make_kkt_operator", "DiagonalOperator",
     "load_decomposition", "decomposition_from_jax", "DFFusedKKTSolver",
-    "DFKKTOperator", "make_mesh", "initialize_distributed"])
+    "DFKKTOperator", "make_mesh", "initialize_distributed", "probes"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     # with no card, the default device="cuda" raises; it never falls back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -719,6 +871,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "make_mesh": lambda: make_mesh(),
         "initialize_distributed": lambda: initialize_distributed(
             f"file://{tmp_path / 'store'}", 1, 0),
+        # the probes' entry point: the card or nothing
+        "probes": lambda: probes_main(["stages", "--arcs", "100"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

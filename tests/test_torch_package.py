@@ -65,7 +65,10 @@ def test_no_jax_checks_cover_the_distributed_tier():
     checked = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
             "parallel/fused_sharded.py", "parallel/fused_sharded_df.py",
-            "utils/collectives.py"} <= checked
+            "parallel/partition.py", "parallel/sharded.py",
+            "utils/collectives.py", "probes/__init__.py", "probes/__main__.py",
+            "probes/bench.py", "probes/gather.py", "probes/stream.py",
+            "probes/stages.py", "probes/pipeline.py"} <= checked
 
 
 def test_import_leaves_jax_out():
@@ -223,6 +226,28 @@ def test_chip_smoke_shard_bounds_count_each_input_once():
     assert set(mod.KERNELS) <= set(bounds)
 
 
+def test_chip_smoke_probe_bounds_count_each_input_once():
+    mod = _load_script("chip_smoke")
+    m, p = 5_000_000, 3651
+    bounds = mod.kernel_bounds(m, m + p, 500, 500)
+    # the stage and pipeline probes compute K7's function
+    assert bounds["probe_stages"] == bounds["probe_pipeline"] \
+        == bounds["kkt_streaming_matvec"]
+    # the stream: d, u, v, x in and y out, 20 bytes an arc
+    assert bounds["probe_stream"] == (pytest.approx(20 * m / 3.35e12 * 1e3),
+                                      "bytes")
+    # x_n[u]: an int32 index in and an f32 out per arc, the table once
+    assert bounds["probe_gather"][0] == pytest.approx(
+        (8 * m + 4 * p) / 3.35e12 * 1e3)
+    # every probe in the kernels line names its variant and a TPU probe
+    assert set(mod.PROBE_MAIN) == {k for k in mod.KERNELS
+                                   if k.startswith("probe_")}
+    for name in mod.PROBE_MAIN:
+        src, rep = mod.KERNELS[name]
+        assert (ROOT / src).is_file() and rep.startswith("scripts/")
+        assert (ROOT / rep.split(":")[0]).is_file()
+
+
 def test_profile_busy_is_the_union_of_device_intervals():
     mod = _load_script("profile_port")
     # overlapping, nested, touching and disjoint intervals, in any order
@@ -230,6 +255,27 @@ def test_profile_busy_is_the_union_of_device_intervals():
               ("d", 16.0, 18.0), ("e", 30.0, 31.0), ("f", 40.0, 42.0)]
     assert mod.busy_us(events) == 5.0 + 21.0 + 2.0
     assert mod.busy_us([]) == 0.0
+
+
+def test_profile_overlap_counts_time_beside_other_kernels():
+    mod = _load_script("profile_port")
+    events = [("ncclKernel_AllGather", 10.0, 20.0),
+              ("DeviceSegmentedReduceKernel", 5.0, 12.0),
+              ("mul", 15.0, 16.0), ("mul", 15.5, 17.0),
+              ("ncclKernel_AllGather", 30.0, 31.0), ("add", 40.0, 41.0)]
+    total, over, hit = mod.overlap_us(events, mod.is_nccl,
+                                      lambda n: not mod.is_nccl(n))
+    assert total == 11.0 and over == 2.0 + 2.0 and hit == 1
+    total, over, hit = mod.overlap_us(events, mod.is_nccl,
+                                      mod.is_segment_reduce)
+    assert (total, over, hit) == (11.0, 2.0, 1)
+    assert mod.is_segment_reduce(
+        "void at_cuda_detail::cub::DeviceSegmentedReduceKernel<at_cud")
+    assert mod.overlap_us([], mod.is_nccl, mod.is_nccl) == (0.0, 0.0, 0)
+    # a copy inside a NCCL range is not compute
+    assert not mod.is_compute("Memcpy DtoD (Device -> Device)")
+    assert not mod.is_compute("nccl:_all_gather_base")
+    assert mod.is_compute("void at::native::index_elementwise_kernel<128>")
 
 
 def test_kernel_sources_keep_the_rules():
@@ -241,7 +287,8 @@ def test_kernel_sources_keep_the_rules():
         "eft_check.cu", "lanczos_common.cuh", "df_common.cuh",
         "df_kkt_matvec.cu", "df_lanczos_pass_one.cu",
         "df_lanczos_pass_two.cu", "kkt_shard_matvec.cu",
-        "df_kkt_shard_matvec.cu"}
+        "df_kkt_shard_matvec.cu", "probe_common.cuh", "probe_gather.cu",
+        "probe_stream.cu", "probe_stages.cu", "probe_pipeline.cu"}
     for p in sources:
         assert not re.search(r"\batomic\w*\s*\(", p.read_text()), p.name
     assert not any("fast_math" in f or "fmad" in f for f in _build.NVCC_FLAGS)

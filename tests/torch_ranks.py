@@ -343,6 +343,179 @@ def case_card_path(device, d, u, v, p, b, d64, k):
             "xd": xd, "xd1": _np(xd1), "c": _coeffs(c), "c1": _coeffs(c1)}
 
 
+# --- the row-sharded ShardedSparseOperator ----------------------------------
+
+def _sparse(device, spec):
+    """The operator of ``spec``: ``{"kkt": (d, u, v, p), "dtype": ...}``
+    through ``from_kkt_arrays``, or ``{"triplets": (n, rows, cols, vals)}``
+    through the constructor."""
+    from two_pass_lanczos_tpu_torch.parallel import ShardedSparseOperator
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+    mesh = _mesh(device)
+    if "kkt" in spec:
+        d, u, v, p = spec["kkt"]
+        arrays = KKTArrays(quad_costs=d, arc_u=u, arc_v=v, num_nodes=p,
+                           num_arcs=len(d))
+        return ShardedSparseOperator.from_kkt_arrays(
+            arrays, mesh, dtype=spec.get("dtype", np.float64))
+    n, rows, cols, vals = spec["triplets"]
+    return ShardedSparseOperator(n, rows, cols, vals, mesh)
+
+
+def case_sparse_matvec(device, spec, x):
+    sop = _sparse(device, spec)
+    return {"y": sop.matvec_distributed(x), "shape": sop.shape,
+            "nnz": sop.nnz_per_device, "rows_per": sop.part.rows_per}
+
+
+def case_sparse_solve(device, spec, b, k, f="exp", method="two_pass",
+                      raw=False):
+    sop = _sparse(device, spec)
+    x, dec = sop.solve_fAb(b, k=k, f=f, method=method, raw=raw)
+    return dict(_dec(dec), x=_np(x))
+
+
+def case_sparse_chunked(device, spec, b, k, chunk):
+    sop = _sparse(device, spec)
+    _, mono = sop.solve_fAb(b, k=k, f="inv")
+    dec, stopped = sop.pass_one_chunked(b, k, chunk=chunk)
+    return dict(_dec(dec), stopped=stopped, mono=_dec(mono),
+                launches=sop._last_p1_launches)
+
+
+def case_sparse_callback(device, spec, b, k, stop_at, chunk):
+    sop = _sparse(device, spec)
+    seen, views = [], []
+
+    def cb(step, basis, scalars):
+        alphas, betas = scalars
+        views.append(basis is None and len(alphas) == step
+                     and len(betas) == step - 1)
+        seen.append(step)
+        return step < stop_at
+
+    x_cb, dec = sop.solve_fAb(b, k=k, f="inv", callback=cb,
+                              callback_chunk=chunk)
+    out = dict(_dec(dec), x=x_cb, seen=seen, views=all(views),
+               p1_launches=sop._last_p1_launches, p2_len=sop._last_p2_len)
+    x_ref, dec_ref = sop.solve_fAb(b, k=stop_at, f="inv")
+    out["ref"] = dict(_dec(dec_ref), x=x_ref)
+    return out
+
+
+def case_sparse_zero(device, spec, k, chunk):
+    sop = _sparse(device, spec)
+    zero = np.zeros(sop.shape[0])
+    dec, stopped = sop.pass_one_chunked(zero, k, chunk=chunk)
+    x, dec2 = sop.solve_fAb(zero, k=k, f="inv", callback=lambda *a: True,
+                            callback_chunk=chunk)
+    x1, dec3 = sop.solve_fAb(zero, k=k, f="inv")
+    return {"steps": dec.steps(), "stopped": stopped,
+            "steps_cb": dec2.steps(), "x": x, "steps_mono": dec3.steps(),
+            "x_mono": x1}
+
+
+def case_sparse_replay(device, spec, b, k):
+    """Pass two's v_s against pass one's on this rank, and what every rank
+    must hold bit for bit."""
+    import torch
+    from two_pass_lanczos_tpu_torch.algorithms.core import (
+        pass_one_last_vector,
+        pass_one_scan,
+        pass_two_scan,
+    )
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import scaled_y
+    sop = _sparse(device, spec)
+    bl = sop._prepare_b(b)
+    st1 = torch.empty(2, bl.shape[0], dtype=bl.dtype, device=bl.device)
+    st2 = torch.empty_like(st1)
+    dec, _ = pass_one_scan(sop._matvec, bl, k, state=st1, dot=sop._dot)
+    pass_two_scan(sop._matvec, bl, dec, scaled_y(dec, "inv", k), state=st2)
+    return dict(_dec(dec), replay=bool(torch.equal(
+        pass_one_last_vector(dec, st1), st2[1])))
+
+
+def case_sparse_collectives(device, spec, b, k):
+    """The collectives and markers of one two-pass solve, in order."""
+    from two_pass_lanczos_tpu_torch.utils.collectives import (
+        collective_bytes,
+        record_collectives,
+    )
+    sop = _sparse(device, spec)
+    with record_collectives() as log:
+        _, dec = sop.solve_fAb(b, k=k, f="inv")
+    ops = log.ops()
+    return {"ops": [(o.kind, o.dtype, o.shape, o.count) for o in ops],
+            "bytes": collective_bytes(ops), "steps": dec.steps(),
+            "events": list(log.events), "rows_per": sop.part.rows_per,
+            "n_pad": sop.part.n_pad, "nnz": sop.nnz_per_device}
+
+
+def case_sparse_errors(device, spec):
+    """The messages of what the operator refuses (None: no error)."""
+    sop = _sparse(device, spec)
+    n = sop.shape[0]
+    zero = np.zeros(n)
+    calls = {
+        "reorth": lambda: sop.solve_fAb(zero, k=4, reorth=True),
+        "method": lambda: sop.solve_fAb(zero, k=4, method="three_pass"),
+        "callback_one_pass": lambda: sop.solve_fAb(
+            zero, k=4, method="one_pass", callback=lambda *a: True),
+        "shape": lambda: sop.solve_fAb(zero[:-1], k=4),
+        "chunk": lambda: sop.pass_one_chunked(zero, 4, chunk=0),
+    }
+    for name in ("eigsh", "slq_trace", "slq_spectral_density",
+                 "slq_trace_adaptive", "solve_fAb_block",
+                 "estimate_interval", "chebyshev_fAb"):
+        calls[name] = getattr(sop, name)
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def case_sparse_card_path(device, d, u, v, p, b, k):
+    """On a card: the f32 row-sharded solve launches no port kernel (its
+    SpMV is the fixed-order CSR row sum), gathers once a matvec, replays
+    bitwise, and agrees with the generic single-device solve."""
+    import torch
+    from two_pass_lanczos_tpu_torch import (
+        SparseOperator,
+        lanczos_pass_one,
+        solve_fAb,
+    )
+    from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from two_pass_lanczos_tpu_torch.utils.collectives import (
+        record_collectives,
+    )
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+    spec = {"kkt": (d, u, v, p), "dtype": np.float32}
+    sop = _sparse(device, spec)
+    bt = torch.from_numpy(b).to(sop.device)
+    reset_launches()
+    with record_collectives() as log:
+        x, dec = sop.solve_fAb(bt, k=k, f="inv")
+    torch.cuda.synchronize()
+    arrays = KKTArrays(quad_costs=d, arc_u=u, arc_v=v, num_nodes=p,
+                       num_arcs=len(d))
+    op = SparseOperator(kkt_sorted_coo(arrays, dtype=np.float32,
+                                       device=sop.device))
+    x1 = solve_fAb(op, bt, k=k, f="inv")
+    dec1 = lanczos_pass_one(op, bt, k)
+    rep = case_sparse_replay(device, spec, b, k)
+    return {"launches": dict(LAUNCHES), "x": x, "x1": _np(x1),
+            "dec": _dec(dec), "dec1": _dec(dec1), "replay": rep["replay"],
+            "starts": sum(1 for e in log.events if e == "all-gather-start")}
+
+
 CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())
          if name.startswith("case_")}
 

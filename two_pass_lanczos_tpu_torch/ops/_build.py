@@ -79,6 +79,16 @@ _SIGNATURES = {
     "tpl_df_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
                                 _P, _P, _P, _P, _P, _P, _P, _P,
                                 ctypes.POINTER(_I), _P],
+    # the K14 probes (csrc/probe_*.cu): tab, ntab, idx, idx_type, hi, n,
+    # mode, g, stream
+    "tpl_probe_gather": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
+    # d, u, v, x, rec, m, threads, arcs per thread, y, stream
+    "tpl_probe_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # K7's arguments, then mode, param, stream
+    "tpl_probe_stages": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _I,
+                         _P],
+    # K7's arguments, then with_nodes, stream
+    "tpl_probe_pipeline": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

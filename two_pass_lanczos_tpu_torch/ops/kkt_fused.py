@@ -63,13 +63,17 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
 #: (``ops/kkt_fused_df.py``), as ``df_kkt_matvec``, ``df_lanczos_pass_one``
 #: and ``df_lanczos_pass_two``; K7 and K12, the shard matvecs of the sharded
 #: solvers (``parallel/``), as ``kkt_streaming_matvec`` and
-#: ``df_kkt_streaming_matvec``, the names of the TPU kernels' wrappers
+#: ``df_kkt_streaming_matvec``, the names of the TPU kernels' wrappers; the
+#: K14 micro-kernels (``probes/``) as ``probe_gather``, ``probe_stream``,
+#: ``probe_stages`` and ``probe_pipeline``
 LAUNCHES = {"kkt_matvec": 0, "lanczos_pass_one": 0, "lanczos_pass_two": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
             "lanczos_pass_one_comp": 0, "eft_check": 0,
             "kkt_streaming_matvec": 0, "kkt_operator_matvec": 0,
             "df_kkt_matvec": 0, "df_lanczos_pass_one": 0,
-            "df_lanczos_pass_two": 0, "df_kkt_streaming_matvec": 0}
+            "df_lanczos_pass_two": 0, "df_kkt_streaming_matvec": 0,
+            "probe_gather": 0, "probe_stream": 0, "probe_stages": 0,
+            "probe_pipeline": 0}
 #: size of one plane of pass one's block-partials scratch
 #: (``tpl::kMaxPartials``); the scratch holds two planes
 MAX_PARTIALS = 1024
@@ -353,6 +357,8 @@ def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
 
 #: inputs of the EFT tripwire with exact, known outputs (``ops/eft.py``)
 _EFT_A, _EFT_B = 1.0 + 2.0 ** -12, 2.0 ** -30
+_CAPABILITY = ("{} is not ported yet: the fused solver's capability methods "
+               "come with ROADMAP Queue 1 item 2 step 7")
 
 
 def scaled_y(decomp: LanczosDecomposition, f, k: int) -> torch.Tensor:
@@ -366,10 +372,11 @@ def scaled_y(decomp: LanczosDecomposition, f, k: int) -> torch.Tensor:
     return y_full if multi else y_full[0]
 
 
-def run_chunks(run, k: int, chunk: int, callback, device
-               ) -> Tuple[LanczosDecomposition, bool, int]:
+def run_chunks(run, k: int, chunk: int, callback, device,
+               dtype=torch.float32) -> Tuple[LanczosDecomposition, bool, int]:
     """The host side of a chunked pass one (the fused and the sharded
-    solver's ``pass_one_chunked``). ``run(j0, c)`` runs the ``c`` steps
+    solvers' ``pass_one_chunked``), with α, β and ‖b‖ kept in ``dtype``.
+    ``run(j0, c)`` runs the ``c`` steps
     from step ``j0`` and returns their α and β (NumPy, indexed from the
     chunk's first step), the steps executed so far, whether the run is still
     live, and ‖b‖. After each chunk ``callback(s, None, (alphas[:s],
@@ -379,8 +386,8 @@ def run_chunks(run, k: int, chunk: int, callback, device
     run)``."""
     if k < 1 or chunk < 1:
         raise ValueError("k and chunk must be >= 1")
-    alphas = np.zeros(k, np.float32)
-    betas = np.zeros(k, np.float32)
+    alphas = torch.zeros(k, dtype=dtype).numpy()
+    betas = torch.zeros(k, dtype=dtype).numpy()
     visited, stopped, chunks = 0, False, 0
     for j0 in range(0, k, chunk):
         a_c, b_c, steps_now, live, b_norm = run(j0, min(chunk, k - j0))
@@ -401,8 +408,7 @@ def run_chunks(run, k: int, chunk: int, callback, device
         alphas=torch.from_numpy(alphas).to(device),
         betas=torch.from_numpy(betas).to(device),
         steps_taken=torch.tensor(visited, dtype=torch.int32, device=device),
-        b_norm=torch.as_tensor(b_norm, dtype=torch.float32).to(device)
-        .reshape(()))
+        b_norm=torch.as_tensor(b_norm, dtype=dtype).to(device).reshape(()))
     return decomp, stopped, chunks
 
 
@@ -419,7 +425,9 @@ class FusedKKTSolver:
 
     On ``device="cuda"`` (the default; it raises without a card) every pass
     runs the hand-written kernels; on ``device="cpu"`` the plain PyTorch
-    versions. f32 only, as the TPU path.
+    versions. f32 only, as the TPU path. The capability methods
+    (``slq_*``, ``estimate_interval``, ``chebyshev_fAb``) raise
+    ``NotImplementedError`` until ROADMAP Queue 1 item 2 step 7.
     ``compensated=True`` takes the α, β and ‖b‖ reductions as exact products
     folded in two-float pairs (the plain version: f64-accumulated dots); on
     the card the constructor first checks the compiled error-free
@@ -598,3 +606,19 @@ class FusedKKTSolver:
         if raw:
             return x, decomp
         return x.cpu().numpy(), decomp
+
+    # -- not ported yet -----------------------------------------------------
+    def slq_trace(self, *args, **kwargs):
+        raise NotImplementedError(_CAPABILITY.format("slq_trace"))
+
+    def slq_spectral_density(self, *args, **kwargs):
+        raise NotImplementedError(_CAPABILITY.format("slq_spectral_density"))
+
+    def slq_trace_adaptive(self, *args, **kwargs):
+        raise NotImplementedError(_CAPABILITY.format("slq_trace_adaptive"))
+
+    def estimate_interval(self, *args, **kwargs):
+        raise NotImplementedError(_CAPABILITY.format("estimate_interval"))
+
+    def chebyshev_fAb(self, *args, **kwargs):
+        raise NotImplementedError(_CAPABILITY.format("chebyshev_fAb"))

@@ -1,8 +1,11 @@
 """The collectives of the sharded solvers: all-gathers folded in rank order.
 
-Every collective of ``parallel/fused_sharded.py`` and
-``parallel/fused_sharded_df.py`` goes through these helpers, which report
-each call to ``utils/collectives.record_collectives``.
+Every collective of ``parallel/fused_sharded.py``,
+``parallel/fused_sharded_df.py`` and ``parallel/sharded.py`` goes through
+these helpers, which report each call to
+``utils/collectives.record_collectives``. The row-sharded operator's
+Krylov-vector gather is asynchronous (:func:`all_gather_start`), so its
+owned-column product runs while the gather is in flight.
 
 The JAX f32 solver reduced its node partials and dot partials with
 ``lax.psum``; these helpers all-gather the partials into a ``(D, ...)``
@@ -24,9 +27,13 @@ import torch.distributed as dist
 
 from two_pass_lanczos_tpu_torch.ops.df import DF, df_add
 from two_pass_lanczos_tpu_torch.parallel.mesh import Mesh
-from two_pass_lanczos_tpu_torch.utils.collectives import record_call
+from two_pass_lanczos_tpu_torch.utils.collectives import (
+    record_call,
+    record_event,
+)
 
-__all__ = ["all_gather", "gather_fold", "df_gather_fold", "all_gather_arcs"]
+__all__ = ["all_gather", "all_gather_start", "PendingGather", "gather_fold",
+           "df_gather_fold", "all_gather_arcs"]
 
 # one flat all-gather into a preallocated buffer (gloo takes it flat):
 # all_gather_single, or its older name where PyTorch predates it
@@ -42,6 +49,35 @@ def all_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     _gather_flat(out.view(-1), t.view(-1), group=mesh.group)
     record_call("all-gather", out.dtype, out.shape)
     return out
+
+
+class PendingGather:
+    """An all-gather in flight (:func:`all_gather_start`). :meth:`wait`
+    returns its ``(D, *shape)`` buffer once the gather has landed; on a CUDA
+    mesh the wait orders the current stream after NCCL's, without a host
+    sync, so work queued before it may overlap the gather."""
+
+    def __init__(self, out: torch.Tensor, work):
+        self._out, self._work = out, work
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        record_event("all-gather-done")
+        return self._out
+
+
+def all_gather_start(t: torch.Tensor, mesh: Mesh) -> PendingGather:
+    """Issue the all-gather of :func:`all_gather` with ``async_op=True``
+    and return at once; recorded as ``"all-gather-start"``, its wait as
+    ``"all-gather-done"``. The O(n) Krylov-vector gather of the row-sharded
+    operator (``parallel/sharded.py``)."""
+    t = t.contiguous()
+    out = torch.empty((mesh.size,) + tuple(t.shape), dtype=t.dtype,
+                      device=t.device)
+    work = _gather_flat(out.view(-1), t.view(-1), group=mesh.group,
+                        async_op=True)
+    record_call("all-gather-start", out.dtype, out.shape)
+    return PendingGather(out, work)
 
 
 def gather_fold(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -1,0 +1,37 @@
+"""The K14 micro-kernels: the Pallas probes' questions asked of the port's
+layout on Hopper.
+
+Counterpart of the JAX package's TPU probes (``scripts/probe_gather.py``
+and ``scripts/probe/``), which measured the TPU's gather and streaming
+levers. Each probe here is a hand-written CUDA kernel (``csrc/probe_*.cu``)
+with a plain PyTorch version in its module and a launch counter in
+``ops/kkt_fused.LAUNCHES``:
+
+* :mod:`.gather` (K14a): ``g = tab[idx]`` from shared memory, through
+  ``__ldg`` or a plain load; int32, int16, uint8 and two-level indices;
+* :mod:`.stream` (K14b): the arc stream of K7 without its gathers, over
+  block shapes, four planes or one interleaved record;
+* :mod:`.stages` (K14c): K7 with each stage switched, plus extra ALU or
+  gather work per arc;
+* :mod:`.pipeline` (K14d): K7 with its arc part fed by a double-buffered
+  ``cp.async`` pipeline, bitwise K7.
+
+:mod:`.bench` checks every variant against its plain version and times it
+warm and cold-L2 on the card; ``python -m two_pass_lanczos_tpu_torch.probes
+{gather,stream,stages,pipeline} [--arcs N]`` prints one JSON record per
+variant.
+"""
+
+from two_pass_lanczos_tpu_torch.probes.bench import (
+    RUNS,
+    Timer,
+    run,
+    stage_split,
+)
+from two_pass_lanczos_tpu_torch.probes.gather import gather
+from two_pass_lanczos_tpu_torch.probes.pipeline import pipeline
+from two_pass_lanczos_tpu_torch.probes.stages import stages
+from two_pass_lanczos_tpu_torch.probes.stream import stream, stream_records
+
+__all__ = ["RUNS", "Timer", "run", "stage_split", "gather", "stream",
+           "stream_records", "stages", "pipeline"]

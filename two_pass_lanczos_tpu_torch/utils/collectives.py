@@ -11,8 +11,16 @@ each per-step collective k times (pass one) or k − 1 times (pass two), and
 the final gather of x once.
 
 ``CollectiveOp`` and :func:`collective_bytes` keep the JAX package's names
-and units: ``kind`` is XLA's (``"all-gather"``), ``dtype`` its short name
-(``"f32"``), ``shape`` the gathered output with the rank axis first.
+and units: ``kind`` is XLA's (``"all-gather"``, or ``"all-gather-start"``
+for an asynchronous gather), ``dtype`` its short name (``"f32"``),
+``shape`` the gathered output with the rank axis first.
+
+Besides the calls, a log keeps ``events``, the order of everything reported
+to it: each call's kind, and markers that carry no bytes
+(:func:`record_event`): an asynchronous gather's ``"all-gather-done"`` (its
+``wait()``) and the sharded matvec's ``"owned-spmv"`` and ``"remote-spmv"``.
+That order shows what a step computes while its gather is in flight, the
+counterpart of the JAX package's check on the traced program's data flow.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Iterator, List
 import torch
 
 __all__ = ["CollectiveOp", "CollectiveLog", "record_collectives",
-           "record_call", "collective_bytes"]
+           "record_call", "record_event", "collective_bytes"]
 
 _DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "bf16": 2, "f16": 2, "s16": 2,
                 "u16": 2, "f32": 4, "s32": 4, "u32": 4, "f64": 8, "s64": 8,
@@ -56,6 +64,8 @@ class CollectiveLog:
     def __init__(self):
         #: ``(kind, dtype, shape)`` of every call, in call order
         self.calls: List[tuple] = []
+        #: the kind of every call and marker, in order
+        self.events: List[str] = []
 
     def ops(self) -> List[CollectiveOp]:
         """The calls grouped by ``(kind, dtype, shape)``, with their counts,
@@ -93,6 +103,14 @@ def record_call(kind: str, dtype: torch.dtype, shape) -> None:
         key = (kind, _DTYPE_NAMES.get(dtype, str(dtype)), tuple(shape))
         for log in _open:
             log.calls.append(key)
+            log.events.append(kind)
+
+
+def record_event(kind: str) -> None:
+    """Report a marker that moves no bytes (a gather's wait, a local
+    product) to every open :func:`record_collectives`, in order."""
+    for log in _open:
+        log.events.append(kind)
 
 
 def collective_bytes(ops: List[CollectiveOp], kinds=None) -> int:

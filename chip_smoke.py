@@ -9,19 +9,27 @@ Phases (each one raises on failure, so the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA kernels from ``two_pass_lanczos_tpu_torch/csrc``;
+   print the registers and spills ``ptxas`` reports and the cooperative
+   grid (resident blocks per SM x SMs) of the persistent K2 and K3;
 3. K1, the KKT matvec, against its plain PyTorch version on the headline
    instance ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
    (m = 500,000 arcs, p = 1,155 nodes, n = 501,155);
 4. K2, pass one, against the plain ``pass_one_scan`` at k = 20;
-5. K3, pass two, against the plain ``pass_two_scan`` on K2's decomposition;
+5. K3, pass two, against the plain ``pass_two_scan`` on K2's decomposition,
+   and bitwise that plain pass two run on K1's matvec (the two launches a
+   step that K3 replaced);
 6. the main path ``FusedKKTSolver.solve(b, k=500, f="inv")`` with ``b`` on
-   the card, with the launch counters reset just before it: every kernel
-   must have launched, x must be finite, pass two must regenerate pass
-   one's v_s bit for bit, and a small instance must agree with the CPU f64
-   oracle;
+   the card, with the launch counters reset just before it: K2 and K3 once
+   each, 2k - 1 = 999 matvec phases inside them (``kkt_matvec_in_pass``)
+   and nothing else, no K1 launch; x must be finite, pass two must
+   regenerate pass one's v_s bit for bit, and a small instance must agree
+   with the CPU f64 oracle;
 7. wall times of k = 500 and k = 1000 solves, of the one-pass, callback
    (never stopping, chunk 64) and compensated solves at k = 500, and of
-   each kernel, beside the plain PyTorch versions on the same card;
+   each kernel, beside the plain PyTorch versions on the same card; K2 and
+   K3 per pass and per step beside the per-step launches they replaced (K5
+   as one chunk of k steps), timed by events and as one CUDA-graph replay,
+   which shows what the launches alone cost;
 8. K4, pass one with the basis: alpha, beta and steps bitwise K2's at
    k = 500, basis row s-1 bitwise pass one's and pass two's v_s, the basis
    within 1e-5 of the plain ``pass_one_scan(emit_basis=True)`` at k = 20,
@@ -110,9 +118,13 @@ Phases (each one raises on failure, so the exit code is non-zero):
     small f64 instance within rel 1e-9 of one device.
 
 Every kernel's entry of the JSON line carries its launches on its main
-path, its max_abs_err against its plain version, its time (``ms``), the
-plain version's (``plain_ms``), ``bound_ms`` (the larger of the bytes the
-function must move, each input read once and each output written once,
+path (K1's: 0, since K2 and K3 launch no K1; its entry alone also carries
+``in_pass_matvecs``, the matvec phases its routines ran inside them,
+whose time no row measures), its max_abs_err against its plain version,
+its time
+(``ms``), the plain version's (``plain_ms``), ``bound_ms`` (the larger of
+the bytes the function must move, each input read once and each output
+written once,
 over 3.35 TB/s and its f32 operations (a double-float operation counted as
 the f32 operations it is made of) over 67 TFLOP/s, the H100 SXM's
 peaks, counted from this run's shapes and steps; ``bound_by`` names the
@@ -953,11 +965,14 @@ def main() -> int:
     from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
         LAUNCHES,
+        PassOneBuffers,
         eft_check_cuda,
         kkt_matvec_cuda,
         pass_one_basis_cuda,
+        pass_one_chunk_cuda,
         pass_one_cuda,
         pass_two_cuda,
+        persistent_grid,
         reset_launches,
     )
     from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
@@ -991,10 +1006,16 @@ def main() -> int:
             regs.append(int(used.group(1)))
         elif stores and int(stores.group(1)):
             spills.append(f"{name}: {line.strip()}")
+        if "persistent" in name and (used or "spill stores" in line):
+            print(f"    ptxas {name}: {line.strip()}")
     print(f"    ptxas: {entries} kernel instances, registers <= "
           f"{max(regs, default=0)} a thread, {len(spills)} with spills")
     for line in spills:
         print("    spills: " + line)
+    grids = persistent_grid()
+    print("    cooperative grids: " + ", ".join(
+        f"{k_} {per_sm} blocks/SM x {sms} SMs = {per_sm * sms} blocks of 256"
+        for k_, (per_sm, sms) in grids.items()))
 
     # the headline instance, on the card
     inst = generate_mcf_instance(**HEADLINE)
@@ -1053,11 +1074,14 @@ def main() -> int:
     y20 = padded_f_e1(dec, "inv") * dec.b_norm
     x3 = pass_two_cuda(lay, b, dec, y20, solver.ztol)
     x3_ref, _ = pass_two_scan(plain_mv, b, dec, y20)
+    x3_k1, _ = pass_two_scan(lambda z: kkt_matvec_cuda(lay, z), b, dec, y20)
     torch.cuda.synchronize()
     rel3 = float(torch.linalg.norm(x3 - x3_ref) / torch.linalg.norm(x3_ref))
     check(rel3 < 1e-5, f"K3 rel {rel3:.3e} >= 1e-5")
+    check(torch.equal(x3, x3_k1), "K3 differs from pass two on K1's matvec")
     err_k3 = float((x3 - x3_ref).abs().max())
-    print(f"[5] K3 ok: rel {rel3:.3e} < 1e-5, max_abs_err {err_k3:.3e}")
+    print(f"[5] K3 ok: rel {rel3:.3e} < 1e-5, max_abs_err {err_k3:.3e}; "
+          f"bitwise the plain pass two on K1's matvec")
 
     # 6. the main path, through the kernels only
     reset_launches()
@@ -1066,14 +1090,20 @@ def main() -> int:
     x_main, dec_main = solver.solve(b, k=K, f="inv", raw=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    main_launches = {name: c for name, c in LAUNCHES.items() if c}
+    check(main_launches == {"lanczos_pass_one": 1, "lanczos_pass_two": 1,
+                            "kkt_matvec_in_pass": 2 * K - 1},
+          f"launches {main_launches}")
+    # K1 launched no time: its routines ran as the passes' matvec phases,
+    # which K1's row reports apart (``in_pass_matvecs``)
     launches = {name: LAUNCHES[name] for name in
                 ("kkt_matvec", "lanczos_pass_one", "lanczos_pass_two")}
-    check(all(launches.values()), f"launches {dict(LAUNCHES)}")
+    in_pass_matvecs = LAUNCHES["kkt_matvec_in_pass"]
     check(tuple(x_main.shape) == (n,) and x_main.is_cuda, "x shape/device")
     check(bool(torch.isfinite(x_main).all()), "x is not finite")
     steps = dec_main.steps()
     print(f"[6] solve(k={K}, f='inv') first call {first_s:.4f} s, "
-          f"steps_taken {steps}, launches {launches}")
+          f"steps_taken {steps}, launches {main_launches}")
     st1 = torch.empty(2, n, device=dev)
     st2 = torch.empty(2, n, device=dev)
     dec1 = solver.pass_one(b, K, state=st1)
@@ -1083,13 +1113,19 @@ def main() -> int:
     keep = torch.arange(K, device=dev) < dec1.steps_taken
     y_full = torch.where(keep, padded_f_e1(dec1, "inv") * dec1.b_norm, 0.0)
     x_rep = solver.pass_two(b, dec1, y_full, state=st2)
+    st_k1 = torch.empty(2, n, device=dev)
+    x_k1, _ = pass_two_scan(lambda z: kkt_matvec_cuda(lay, z), b, dec1,
+                            y_full, state=st_k1)
     torch.cuda.synchronize()
     check(torch.equal(pass_one_last_vector(dec1, st1), st2[1]),
           f"pass two's v_{steps} differs from pass one's")
+    check(torch.equal(x_rep, x_k1) and torch.equal(st2, st_k1),
+          f"K3's x or state at k={K} differs from pass two on K1's matvec")
     resid = float(torch.linalg.norm(solver.matvec(x_main) - b)
                   / torch.linalg.norm(b))
     print(f"    bitwise replay ok: pass two's v_{steps} == pass one's "
-          f"(n={n}); x repeat bitwise equal: {torch.equal(x_rep, x_main)}; "
+          f"(n={n}); K3's x and state bitwise pass two on K1's matvec; "
+          f"x repeat bitwise equal: {torch.equal(x_rep, x_main)}; "
           f"||Ax-b||/||b|| = {resid:.4e}")
     # small instance: the card's solve against the CPU f64 plain oracle
     srng = np.random.default_rng(42)
@@ -1178,6 +1214,17 @@ def main() -> int:
         "eft_check": device_ms(lambda: eft_check_plain(ea, eb), 200),
     }
     k1_call_ms = event_ms(lambda: kkt_matvec_cuda(lay, x), 200)
+    # the per-step launches K2 replaced: K5 as one chunk of K steps from b
+    bufs6 = PassOneBuffers.alloc(lay, K)
+
+    def six_launch():
+        pass_one_chunk_cuda(lay, bufs6, b, 0, K, solver.tol, solver.ztol)
+
+    six_ms = event_ms(six_launch, 3)
+    six_graph_ms = device_ms(six_launch, 1)
+    check(torch.equal(bufs6.alphas, dec1.alphas)
+          and torch.equal(bufs6.betas, dec1.betas),
+          "the per-step launches differ from K2")
 
     print(f"[7] on {card}:")
     print(f"    solve k={K}: {runs(t500)}")
@@ -1193,6 +1240,14 @@ def main() -> int:
               f"{plain_ms[name]:.4f} ms")
     print(f"    kkt_matvec per call from Python (CUDA events, 200 calls): "
           f"{k1_call_ms:.4f} ms")
+    print(f"    K2, one cooperative launch: {ms['lanczos_pass_one']:.4f} ms a "
+          f"pass, {1e3 * ms['lanczos_pass_one'] / K:.3f} us a step; the "
+          f"per-step launches (K5, one chunk of {K}): {six_ms:.4f} ms a pass, "
+          f"{1e3 * six_ms / K:.3f} us a step, as one CUDA-graph replay "
+          f"{six_graph_ms:.4f} ms, {1e3 * six_graph_ms / K:.3f} us a step")
+    print(f"    K3, one cooperative launch: {ms['lanczos_pass_two']:.4f} ms a "
+          f"pass, {1e3 * ms['lanczos_pass_two'] / max(steps - 1, 1):.3f} us "
+          f"a step ({steps - 1} steps)")
 
     # 8. K4: pass one with the basis
     dec4, basis = solver.pass_one_with_basis(b, K)
@@ -1899,6 +1954,8 @@ def main() -> int:
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
              "library_ms": library.get(name)}
             for name, (src, rep) in KERNELS.items()]
+    next(r for r in rows if r["name"] == "kkt_matvec")[
+        "in_pass_matvecs"] = in_pass_matvecs
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     check(not below, f"timed below their bound (a bound of the wrong "
                      f"memory level): {below}")

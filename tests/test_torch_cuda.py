@@ -55,10 +55,13 @@ from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     LAUNCHES,
     KKTLayout,
+    PassOneBuffers,
     eft_check_cuda,
     kkt_matvec_cuda,
     kkt_shard_matvec,
     kkt_shard_matvec_cuda,
+    pass_one_chunk_cuda,
+    persistent_grid,
     reset_launches,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
@@ -169,7 +172,10 @@ def test_kernels_match_plain_on_card(problem, cuda_device):
     assert torch.equal(pass_one_last_vector(dec, st1), st2[1])
     assert LAUNCHES["lanczos_pass_one"] == before["lanczos_pass_one"] + 1
     assert LAUNCHES["lanczos_pass_two"] == before["lanczos_pass_two"] + 1
-    assert LAUNCHES["kkt_matvec"] == before["kkt_matvec"] + 2 * k - 1
+    # the matvecs run as phases of the two persistent launches: no K1 launch
+    assert (LAUNCHES["kkt_matvec_in_pass"]
+            == before["kkt_matvec_in_pass"] + 2 * k - 1)
+    assert LAUNCHES["kkt_matvec"] == before["kkt_matvec"]
 
 
 def test_solve_on_card_matches_cpu(problem, cuda_device):
@@ -180,10 +186,104 @@ def test_solve_on_card_matches_cpu(problem, cuda_device):
     reset_launches()
     x, dec = s.solve(torch.from_numpy(b).to(cuda_device), k=k, raw=True)
     torch.cuda.synchronize()
-    assert all(LAUNCHES[name] > 0 for name in
-               ("kkt_matvec", "lanczos_pass_one", "lanczos_pass_two"))
+    assert LAUNCHES["lanczos_pass_one"] == LAUNCHES["lanczos_pass_two"] == 1
+    assert LAUNCHES["kkt_matvec_in_pass"] == 2 * k - 1
+    assert sum(LAUNCHES.values()) == 2 * k + 1  # no K1, no other kernel
     assert dec.steps() == k
     assert _rel(x.cpu().numpy(), x_cpu) < 1e-4
+
+
+def _six_launch_pass_one(s, bt, k):
+    """Pass one as the per-step launches: K5 as one chunk of k steps from
+    j0 = 0, with its buffers."""
+    bufs = PassOneBuffers.alloc(s.layout, k)
+    pass_one_chunk_cuda(s.layout, bufs, bt, 0, k, s.tol, s.ztol)
+    return bufs
+
+
+@pytest.mark.parametrize("k", [20, 500])
+def test_persistent_pass_one_bitwise_six_launch_on_card(problem, cuda_device,
+                                                        k):
+    d, u, v, p, b = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    state = torch.empty(2, s.n, device=cuda_device)
+    reset_launches()
+    dec = s.pass_one(bt, k, state=state)
+    assert LAUNCHES["lanczos_pass_one"] == 1 and LAUNCHES["kkt_matvec"] == 0
+    assert LAUNCHES["kkt_matvec_in_pass"] == k
+    ref = _six_launch_pass_one(s, bt, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["lanczos_pass_one_chunk"] == 1
+    assert LAUNCHES["kkt_matvec"] == k
+    assert dec.steps() == int(ref.steps[0])
+    assert torch.equal(dec.alphas, ref.alphas)
+    assert torch.equal(dec.betas, ref.betas)
+    assert torch.equal(dec.b_norm.reshape(1), ref.bnorm)
+    assert torch.equal(state, ref.state)  # v_prev and v_curr
+    # the persistent pass is reproducible run to run, whatever the grid
+    again = s.pass_one(bt, k)
+    assert torch.equal(again.alphas, dec.alphas)
+    grids = persistent_grid()
+    assert all(per_sm >= 1 and sms >= 1 for per_sm, sms in grids.values())
+
+
+@pytest.mark.parametrize("k", [20, 500])
+def test_persistent_pass_two_bitwise_k1_replay_on_card(problem, cuda_device,
+                                                       k):
+    # the plain pass two on K1's matvec rounds as the two launches a step
+    # that K3 replaced (K1, then the update): K3 must give its bits
+    d, u, v, p, b = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    dec = s.pass_one(bt, k)
+    y = torch.from_numpy(_y_full(dec, 2, seed=3)).to(cuda_device)
+    state = torch.empty(2, s.n, device=cuda_device)
+    reset_launches()
+    x = s.pass_two(bt, dec, y, state=state)
+    assert LAUNCHES["lanczos_pass_two"] == 1 and LAUNCHES["kkt_matvec"] == 0
+    assert LAUNCHES["kkt_matvec_in_pass"] == k - 1
+    ref_state = torch.empty_like(state)
+    x_ref, _ = pass_two_scan(lambda z: kkt_matvec_cuda(s.layout, z), bt, dec,
+                             y, state=ref_state)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x_ref)
+    assert torch.equal(state, ref_state)
+
+
+def test_persistent_passes_breakdown_and_zero_b_on_card(cuda_device):
+    d, u, v, p, b = breakdown_kkt()
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    k = 12
+    state = torch.empty(2, s.n, device=cuda_device)
+    dec = s.pass_one(bt, k, state=state)
+    steps = dec.steps()
+    cpu = FusedKKTSolver(d, u, v, p, device=CPU)
+    assert 0 < steps < k and steps == cpu.pass_one(b, k).steps()
+    # the breakdown step writes alpha, not beta, and leaves the state
+    ref = _six_launch_pass_one(s, bt, k)
+    assert steps == int(ref.steps[0]) and int(ref.flags[0]) == 0
+    assert torch.equal(dec.alphas, ref.alphas)
+    assert torch.equal(dec.betas, ref.betas)
+    assert torch.equal(state, ref.state)
+    # K3 on the truncated decomposition: no hang, v_steps replayed
+    reset_launches()
+    x, dec2 = s.solve(bt, k=k, raw=True)
+    torch.cuda.synchronize()
+    assert dec2.steps() == steps and bool(torch.isfinite(x).all())
+    assert LAUNCHES["lanczos_pass_two"] == 1
+    x_cpu, _ = cpu.solve(b, k=k)
+    assert _rel(x.cpu().numpy(), x_cpu) < 1e-4
+    st2 = torch.empty(2, s.n, device=cuda_device)
+    y = torch.zeros(k, device=cuda_device)
+    s.pass_two(bt, dec, y, state=st2)
+    assert torch.equal(pass_one_last_vector(dec, state), st2[1])
+    # a zero b and a subnormal one: 0 steps and x = 0 through K2 and K3
+    for b0 in (np.zeros(s.n, np.float32), np.full(s.n, 1e-42, np.float32)):
+        x0, dec0 = s.solve(b0, k=8)
+        assert dec0.steps() == 0 and float(dec0.b_norm) <= s.ztol
+        np.testing.assert_array_equal(x0, 0.0)
 
 
 # --- K4: pass one with the basis -------------------------------------------

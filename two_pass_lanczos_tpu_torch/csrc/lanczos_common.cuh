@@ -1,6 +1,7 @@
 // Shared device code of the port's Lanczos kernels (kkt_matvec.cu,
 // kkt_shard_matvec.cu, lanczos_pass_one.cu, lanczos_pass_two.cu,
-// eft_check.cu), built together into one shared library by
+// eft_check.cu; lanczos_persistent.cuh builds the persistent passes on it),
+// built together into one shared library by
 // two_pass_lanczos_tpu_torch/ops/_build.py.
 //
 // Bitwise replay. Pass two regenerates pass one's basis from the stored
@@ -70,6 +71,28 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
 
+// How a shared routine reads a vector element: straight (every standalone
+// kernel, where the compiler may take the read-only path for a const
+// __restrict__ input), or with an explicit ld.global.ca (the persistent
+// passes, lanczos_persistent.cuh), for vectors that other blocks wrote
+// earlier in the same launch. Such a load may never take the read-only
+// (.nc) path, which is only for data no thread writes during the kernel;
+// through the L1 it sees the other blocks' stores, because the grid
+// barrier's acquire fence invalidates the L1. Either way the value, and so
+// the arithmetic, is the same.
+struct DirectLoad {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p) const {
+    return *p;
+  }
+};
+struct CachedLoad {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p) const {
+    return __ldca(p);
+  }
+};
+
 // Fixed-order block sum over kThreads threads; every thread must call it.
 // Returns the total in every thread.
 template <typename T>
@@ -98,17 +121,17 @@ __device__ __forceinline__ T kkt_arc_row(T d, T x, T gu, T gv) {
 // Node row: the sum of +-x_a over the node's CSR segment ptr/ent (entry ~a
 // is arc a with sign -1), walked in a fixed strided order and folded with
 // block_sum: deterministic, no atomics. Every thread of the block must call
-// it; returns the sum in every thread.
-template <typename T>
+// it; returns the sum in every thread. x_a is read through `load`.
+template <typename T, typename Load = DirectLoad>
 __device__ __forceinline__ T kkt_node_row(const int* __restrict__ ptr,
                                           const int* __restrict__ ent,
                                           const T* __restrict__ xa, int node,
-                                          T* sh) {
+                                          T* sh, Load load = Load()) {
   const int end = ptr[node + 1];
   T acc = T(0);
   for (int q = ptr[node] + threadIdx.x; q < end; q += kThreads) {
     const int a = ent[q];
-    acc = a >= 0 ? add_rn(acc, xa[a]) : sub_rn(acc, xa[~a]);
+    acc = a >= 0 ? add_rn(acc, load(xa + a)) : sub_rn(acc, load(xa + ~a));
   }
   return block_sum(acc, sh);
 }

@@ -4,8 +4,32 @@
 // Replaces the TPU kernels _pass_one_kernel (two_pass_lanczos_tpu/ops/
 // kkt_fused.py:581), _pass_one_basis_kernel (:752) and
 // _pass_one_chunk_kernel (:647), and their comp=True builds (:567). The TPU
-// ran all k steps inside one launch with the whole state in VMEM. A Hopper
-// grid cannot carry a sum from one block to the next, so each step here is a
+// ran all k steps inside one launch with the whole state in VMEM.
+//
+// K2 (comp == 0) does the same on the H100: pass_one_persistent_kernel runs
+// the start from b and all k steps in ONE cooperative launch
+// (lanczos_persistent.cuh). A step has the two grid barriers its two dots
+// need, and no launch:
+//   phase 1  the node rows of w = A v, each published by a release store;
+//            then the first dot's virtual blocks: an arc element rotates
+//            (v_prev = v; v = w_last * (1/beta), the previous step's
+//            rotate) and forms its arc row, a node element waits for its
+//            published row; w -= beta_prev * v_prev; partials of <v, w>
+//   phase 2  every block folds the alpha partials; w -= alpha * v;
+//            partials of <w, w>
+//   then     every block folds the beta partials (breakdown, steps)
+// The matvec gathers v as w_last * (1/beta) (ScaledLoad) from the other
+// half of a two-half w, so no block writes what another gathers. The dots
+// walk the g = reduction_blocks(n) virtual blocks of the per-step launches
+// below and fold their partials with the same fold_partials, so alpha,
+// beta, steps, ||b|| and the final v_prev, v_curr are bitwise those of the
+// per-step launches (K5 as one chunk of k steps is that sequence:
+// chip_smoke.py phases 7 to 9 hold K2, K4 and K5 to each other).
+// alpha and beta stay in registers; every block takes the same breakdown
+// decision from the same folded beta, so all blocks leave the loop
+// together (a block that left alone would deadlock the next barrier).
+//
+// K4, K5 and K6 (comp != 0) keep the per-step launches: each step is a
 // short, fixed sequence of launches that one C++ routine (enqueue_step)
 // enqueues on the caller's stream, with no host synchronisation:
 //   1. the K1 matvec               w = A v
@@ -38,16 +62,17 @@
 // partials do the same, and the result is hi + lo.
 //
 // What bounds it on the H100: each step moves ~30 MB through the 50 MB L2
-// (the matvec plus three passes over the (n,) vectors) and issues six
-// launches of a few microseconds each, so at the headline size the pass is
-// bound by launch latency and L2 bandwidth, not by HBM. K4 adds a 2 MB
-// store per step that leaves the L2 for HBM (1 GB at k = 500). This first
-// version keeps each launch simple and fuses what it can (axpy with its
-// dot, the rotate with the normalisation and the basis store); a persistent
-// grid-synced kernel or a CUDA graph of the step is the next step (ROADMAP).
+// (the matvec plus three passes over the (n,) vectors), so at the headline
+// size a step is bound by the L2, by the node rows' scattered x_a gathers
+// and by its synchronisation: two grid barriers in K2, six launches of a
+// few microseconds each on the per-step path, over 500 dependent steps. K4
+// adds a 2 MB store per step that leaves the L2 for HBM (1 GB at k = 500).
+// The per-step path keeps each launch simple and fuses what it can (axpy
+// with its dot, the rotate with the normalisation and the basis store); K4,
+// K5 and K6 onto the persistent form is the next step (ROADMAP).
 #include <cstddef>
 
-#include "lanczos_common.cuh"
+#include "lanczos_persistent.cuh"
 
 namespace tpl {
 namespace {
@@ -67,37 +92,40 @@ __device__ __forceinline__ float2 accumulate(float2 acc, float x, float y) {
   }
 }
 
-// Block total of the threads' sums, stored by thread 0 as this block's
-// partial (hi in plane 0, lo in plane 1).
+// Block total of the threads' sums, stored by thread 0 as the partial of
+// block `slot` (hi in plane 0, lo in plane 1).
 template <bool Comp>
 __device__ __forceinline__ void store_partial(float2 acc, float* sh,
-                                              float* sl, float* partials) {
+                                              float* sl, float* partials,
+                                              int slot) {
   if constexpr (Comp) {
     const float2 s = block_sum2(acc, sh, sl);
     if (threadIdx.x == 0) {
-      partials[blockIdx.x] = s.x;
-      partials[kMaxPartials + blockIdx.x] = s.y;
+      partials[slot] = s.x;
+      partials[kMaxPartials + slot] = s.y;
     }
   } else {
     const float s = block_sum(acc.x, sh);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+    if (threadIdx.x == 0) partials[slot] = s;
   }
 }
 
 // The fold of g block partials, in one block; every thread gets the total.
-template <bool Comp>
+template <bool Comp, typename Load = DirectLoad>
 __device__ __forceinline__ float fold_partials(const float* partials, int g,
-                                               float* sh, float* sl) {
+                                               float* sh, float* sl,
+                                               Load load = Load()) {
   if constexpr (Comp) {
     float2 acc = make_float2(0.0f, 0.0f);
     for (int i = threadIdx.x; i < g; i += kThreads)
-      acc = df_add2(acc.x, acc.y, partials[i], partials[kMaxPartials + i]);
+      acc = df_add2(acc.x, acc.y, load(partials + i),
+                    load(partials + kMaxPartials + i));
     const float2 t = block_sum2(acc, sh, sl);
     return __fadd_rn(t.x, t.y);
   } else {
     float acc = 0.0f;
     for (int i = threadIdx.x; i < g; i += kThreads)
-      acc = __fadd_rn(acc, partials[i]);
+      acc = __fadd_rn(acc, load(partials + i));
     return block_sum(acc, sh);
   }
 }
@@ -112,7 +140,7 @@ sq_partials_kernel(const float* __restrict__ b, int n,
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
        i += gridDim.x * kThreads)
     acc = accumulate<Comp>(acc, b[i], b[i]);
-  store_partial<Comp>(acc, sh, sl, partials);
+  store_partial<Comp>(acc, sh, sl, partials, blockIdx.x);
 }
 
 template <bool Comp>
@@ -171,7 +199,7 @@ sub_dot_kernel(float* __restrict__ w, const float* __restrict__ x,
     w[i] = wi;
     acc = accumulate<Comp>(acc, partner != nullptr ? partner[i] : wi, wi);
   }
-  store_partial<Comp>(acc, sh, sl, partials);
+  store_partial<Comp>(acc, sh, sl, partials, blockIdx.x);
 }
 
 template <bool Comp>
@@ -254,6 +282,163 @@ struct PassOne {
   float* basis;  // (k, n) rows v_{j+1}, or nullptr
 };
 
+// K2's one launch: the start and k steps of the per-step path's
+// uncompensated kernels, on one resident grid (see the top of the file).
+struct Persistent {
+  PassOne s;
+  const float* b;
+  int g;  // reduction_blocks(n): the dots' virtual blocks
+};
+
+// Virtual blocks [0, g) of a reduction of stride g * kThreads: virtual block
+// vb folds body(acc, i) over the elements that block vb of sub_dot_kernel
+// (or sq_partials_kernel) walks, in the same order, and stores its partial
+// at partials[vb].
+template <typename Body>
+__device__ __forceinline__ void reduce_phase(int g, int n, float* partials,
+                                             float* sh, Body body) {
+  const Share mine = share_of(g);
+  for (int vb = mine.begin; vb < mine.end; ++vb) {
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int i = vb * kThreads + threadIdx.x; i < n; i += g * kThreads)
+      acc = body(acc, i);
+    store_partial<false>(acc, sh, nullptr, partials, vb);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+pass_one_persistent_kernel(Persistent a) {
+  __shared__ float sh[kThreads];
+  const PassOne& s = a.s;
+  const CachedLoad ld;
+  const int m = s.m, n = s.n, g = a.g;
+  float* const w = s.w;  // 2n: this step's w in one half, the last's in
+                         // the other
+  float* const vp = s.vp;
+  float* const vc = s.vc;
+  int* const ready = s.flags + 1;  // p: the step whose node row is in w
+  // plane 0 holds the ||b||^2 and <v, w> partials, plane 1 the <w, w> ones:
+  // a block may start the beta dot while another still folds alpha's
+  float* const pa = s.partials;
+  float* const pb = s.partials + kMaxPartials;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+
+  // the start: sq_partials_kernel, init_kernel, init_vectors_kernel
+  reduce_phase(g, n, pa, sh, [&](float2 acc, int i) {
+    return accumulate<false>(acc, a.b[i], a.b[i]);
+  });
+  for (int i = first; i < s.k; i += stride) {
+    s.alphas[i] = 0.0f;
+    s.betas[i] = 0.0f;
+  }
+  for (int i = first; i < s.p; i += stride) ready[i] = 0;
+  grid_sync();
+  const float nb = __fsqrt_rn(fold_partials<false>(pa, g, sh, nullptr, ld));
+  const bool zero_b = nb <= s.ztol;
+  float inv_b = zero_b ? 0.0f : lanczos_inverse(nb);
+  for (int i = first; i < n; i += stride) {
+    vc[i] = normalise(a.b[i], inv_b);
+    vp[i] = 0.0f;
+  }
+  // no barrier: before its first barrier, step 0 reads b, not v_prev or
+  // v_curr
+
+  float beta_prev = 0.0f, alpha = 0.0f;
+  int steps = 0;
+  bool live = !zero_b;
+  const float* src = a.b;  // this step's v is src * inv_b
+  for (int j = 0; live && j < s.k; ++j) {
+    // step 0's v = b * (1/||b||) is already in v_curr; a later step's v is
+    // w * (1/beta_prev), and the step does the previous step's rotate
+    // (rotate_kernel) element by element, where it first reads the element
+    const bool rotate = j > 0;
+    float* const wn = w + (j & 1) * n;  // src is the other half
+    // 1. one phase for w = A v and the first sub_dot. First this block's
+    //    node rows (K1's node blocks, gathering v from src): thread 0
+    //    rotates the node's element, leaves the row in wn and publishes it
+    const Share nodes = share_of(s.p);
+    for (int node = nodes.begin; node < nodes.end; ++node) {
+      const float total = kkt_node_row(s.ptr, s.ent, src, node, sh,
+                                       ScaledLoad{inv_b});
+      if (threadIdx.x == 0) {
+        const int i = m + node;
+        if (rotate) {
+          vp[i] = ld(vc + i);
+          vc[i] = normalise(ld(src + i), inv_b);
+        }
+        wn[i] = total;
+        publish(ready + node, j + 1);
+      }
+    }
+    //    Then its share of the dot's virtual blocks, in sub_dot's order: an
+    //    arc element rotates and forms its row (K1's arc row, x_n gathered
+    //    from src), a node element waits for its row; then w -= beta_prev
+    //    v_prev, and v * w joins the sum. A block waits only after its own
+    //    node rows, so every awaited row is being computed: no deadlock.
+    reduce_phase(g, n, pa, sh, [&](float2 acc, int i) {
+      float y, vpi, vci;
+      if (i < m) {
+        vci = normalise(ld(src + i), inv_b);
+        vpi = rotate ? ld(vc + i) : 0.0f;
+        if (rotate) {
+          vp[i] = vpi;
+          vc[i] = vci;
+        }
+        y = kkt_arc_row(s.d[i], vci, normalise(ld(src + m + s.u[i]), inv_b),
+                        normalise(ld(src + m + s.v[i]), inv_b));
+      } else {
+        wait_for(ready + (i - m), j + 1);
+        vpi = rotate ? ld(vp + i) : 0.0f;
+        vci = rotate ? ld(vc + i) : normalise(ld(src + i), inv_b);
+        y = ld(wn + i);
+      }
+      const float wi = sub_scaled(y, beta_prev, vpi);
+      wn[i] = wi;
+      return accumulate<false>(acc, vci, wi);
+    });
+    grid_sync();
+    // 2. every block folds alpha (finalize_alpha_kernel); the second sub_dot
+    alpha = fold_partials<false>(pa, g, sh, nullptr, ld);
+    if (lead) s.alphas[j] = alpha;
+    reduce_phase(g, n, pb, sh, [&](float2 acc, int i) {
+      const float wi = sub_scaled(ld(wn + i), alpha, ld(vc + i));
+      wn[i] = wi;
+      return accumulate<false>(acc, wi, wi);
+    });
+    grid_sync();
+    // 3. every block folds beta (finalize_beta_kernel) and takes the same
+    //    breakdown decision
+    const float beta = __fsqrt_rn(fold_partials<false>(pb, g, sh, nullptr,
+                                                       ld));
+    steps = j + 1;
+    if (beta <= s.tol) {  // breakdown: this step counts, nothing advances
+      live = false;
+      break;
+    }
+    if (lead) s.betas[j] = beta;
+    beta_prev = beta;
+    inv_b = lanczos_inverse(beta);
+    src = wn;
+  }
+  if (live) {  // the last step's rotate
+    for (int i = first; i < n; i += stride) {
+      const float vn = normalise(ld(src + i), inv_b);
+      vp[i] = ld(vc + i);
+      vc[i] = vn;
+    }
+  }
+  if (lead) {  // the scalars the per-step path leaves behind
+    s.bnorm[0] = nb;
+    s.steps[0] = steps;
+    s.flags[0] = live ? 1 : 0;
+    s.scal[0] = beta_prev;
+    s.scal[1] = alpha;
+    s.scal[2] = inv_b;
+  }
+}
+
 template <bool Comp>
 cudaError_t enqueue_start(const PassOne& s, const float* b,
                           cudaStream_t stream) {
@@ -323,10 +508,11 @@ int run(const PassOne& s, int comp, const float* b, int j0, int count,
 // arguments: the layout (d, u, v, ptr, ent; m arcs, p nodes, n = m + p), b
 // (n), k, the breakdown and zero-b tolerances, comp (1: compensated
 // reductions). Outputs: alphas, betas (k), bnorm (1), steps (1). Scratch:
-// v_prev, v_curr, w (n each), partials (2 * tpl::kMaxPartials), scal (3
-// floats), flags (1 int); on return v_prev and v_curr hold the state after
-// the last enqueued step. Each entry point allocates nothing and does not
-// synchronise; it returns cudaGetLastError() of its launches.
+// v_prev, v_curr (n each), w (n; 2n for K2), partials
+// (2 * tpl::kMaxPartials), scal (3 floats), flags (1 int; 1 + p for K2);
+// on return v_prev and v_curr hold the state after the last enqueued step.
+// Each entry point allocates nothing and does not synchronise; it returns
+// the error of its launches.
 #define TPL_PASS_ONE_ARGS                                                    \
   const float *d, const int *u, const int *v, const int *ptr,               \
       const int *ent, int m, int p, const float *b, int k, float tol,       \
@@ -339,11 +525,27 @@ int run(const PassOne& s, int comp, const float* b, int j0, int count,
         steps, v_prev, v_curr, w, partials, scal, flags, basis               \
   }
 
-// K2: k steps from b, scalars only.
+// K2: k steps from b, scalars only. Uncompensated, one cooperative launch,
+// and *matvec_launches counts the k matvec phases inside it; compensated
+// (K6), the per-step launches.
 extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, int* matvec_launches,
                                     cudaStream_t stream) {
-  return tpl::run(TPL_PASS_ONE_STATE(nullptr), comp, b, 0, k,
-                  matvec_launches, stream);
+  if (comp)
+    return tpl::run(TPL_PASS_ONE_STATE(nullptr), comp, b, 0, k,
+                    matvec_launches, stream);
+  *matvec_launches = 0;
+  const tpl::Persistent args{TPL_PASS_ONE_STATE(nullptr), b,
+                             tpl::reduction_blocks(m + p)};
+  const cudaError_t err = tpl::launch_persistent(
+      tpl::pass_one_persistent_kernel, args, stream);
+  if (err == cudaSuccess) *matvec_launches = k;
+  return static_cast<int>(err);
+}
+
+// K2's cooperative grid: resident blocks per SM and SMs.
+extern "C" int tpl_lanczos_pass_one_grid(int* blocks_per_sm, int* sms) {
+  return static_cast<int>(tpl::persistent_grid(
+      tpl::pass_one_persistent_kernel, blocks_per_sm, sms));
 }
 
 // K4: k steps from b; row j of basis (k x n, zeroed by the caller) becomes

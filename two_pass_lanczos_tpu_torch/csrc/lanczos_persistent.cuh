@@ -1,0 +1,126 @@
+// The persistent form of the fused passes: one cooperative launch runs a
+// whole pass (K2 in lanczos_pass_one.cu, K3 in lanczos_pass_two.cu), with
+// grid barriers between the phases of each step.
+//
+// Why. The TPU kernels (_pass_one_kernel, two_pass_lanczos_tpu/ops/
+// kkt_fused.py:581; _pass_two_kernel, :841) ran all k steps in one launch
+// with the state in VMEM. As separate launches a Hopper step pays one
+// launch boundary per phase, each a drain of the whole card, plus one-block
+// folds that leave 131 of 132 SMs idle. Here the grid stays resident: it is
+// launched with cudaLaunchCooperativeKernel, and cooperative_groups' grid
+// sync orders the phases. A card that refuses the launch makes the entry
+// point return the error: there is no fallback to the per-step launches.
+//
+// Bits. Every phase walks VIRTUAL blocks: the blocks of the launch it
+// replaces, numbered as that launch numbered them, each resident block
+// taking an even, contiguous share of them (share_of). A virtual block
+// computes exactly what the block of the same number did (same elements,
+// same per-thread order, the same block_sum tree, its partial stored at its
+// own number), so the result does not depend on how many blocks are
+// resident, and the passes are bitwise the launches they replace. Vectors
+// that another block wrote earlier in the launch are read with CachedLoad
+// (never the read-only path); data that no block writes (the layout, b,
+// alpha, beta, y) is read straight.
+//
+// What bounds it on the H100: at the headline size (n = 501,155) one step
+// moves ~30 MB through the 50 MB L2 (the matvec and the passes over the
+// (n,) vectors), and the matvec's node rows gather x_a from all over it, so
+// a step is bound by the L2 and by its grid barriers (~1-2 us each, every
+// resident block a round trip through the L2), repeated over 500 dependent
+// steps. The design removes the launches and the one-block folds (every
+// block folds the block partials itself, in the same order, so alpha and
+// beta stay in registers), and fuses phases until a step has as few
+// barriers as its dependencies allow: two in pass one (the two dots), one
+// in pass two.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "lanczos_common.cuh"
+
+namespace tpl {
+
+// Resident blocks per SM, at most. Fewer than the occupancy allows (8 for
+// K2, 6 for K3 at kThreads) is faster on the H100: grids of 3 to 8 blocks an
+// SM were tried and 5 was fastest for both passes. The sums do not depend
+// on it.
+constexpr int kPersistentBlocksPerSM = 5;
+
+__device__ __forceinline__ void grid_sync() {
+  cooperative_groups::this_grid().sync();
+}
+
+// The virtual blocks [begin, end) of `count` that this block runs: an even,
+// contiguous share, so that the blocks with work spread over the whole grid
+// whatever the count.
+struct Share {
+  int begin, end;
+};
+__device__ __forceinline__ Share share_of(int count) {
+  const long long b = blockIdx.x, g = gridDim.x;
+  return {static_cast<int>(b * count / g),
+          static_cast<int>((b + 1) * count / g)};
+}
+
+// A hand-over from one thread to another inside a phase, with no atomic:
+// the producer's earlier stores are visible to a consumer that has seen
+// `tag` (a release store; relaxed loads, then the consumer's acquire fence).
+__device__ __forceinline__ void publish(int* flag, int tag) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(flag), "r"(tag)
+               : "memory");
+}
+__device__ __forceinline__ void wait_for(const int* flag, int tag) {
+  for (;;) {
+    int seen;
+    asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];"
+                 : "=r"(seen)
+                 : "l"(flag)
+                 : "memory");
+    if (seen == tag) break;
+    __nanosleep(32);
+  }
+  __threadfence();
+}
+
+// x[i] * scale, read as CachedLoad reads x[i]: a gather of the normalised
+// v = w * (1/beta) straight from w, bitwise what normalise would store.
+struct ScaledLoad {
+  float scale;
+  __device__ __forceinline__ float operator()(const float* p) const {
+    return normalise(__ldca(p), scale);
+  }
+};
+
+// The cooperative grid of `kernel`: blocks per SM and SMs.
+template <typename P>
+cudaError_t persistent_grid(void (*kernel)(P), int* blocks_per_sm,
+                            int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                      kThreads, 0);
+  if (*blocks_per_sm > kPersistentBlocksPerSM)
+    *blocks_per_sm = kPersistentBlocksPerSM;
+  return err;
+}
+
+// Launch `kernel(params)` on `stream` as one cooperative grid of
+// persistent_grid's blocks; returns the launch's error, if any.
+template <typename P>
+cudaError_t launch_persistent(void (*kernel)(P), P params,
+                              cudaStream_t stream) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = persistent_grid(kernel, &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&params};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(per_sm * sms), dim3(kThreads), args,
+                                    0, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace tpl

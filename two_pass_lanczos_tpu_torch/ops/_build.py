@@ -38,7 +38,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of every exported C entry point; all return cudaError_t as int
+# argtypes of every exported C entry point; all but tpl_error_string
+# return cudaError_t as int
 # the arguments every pass-one entry point starts with (csrc/
 # lanczos_pass_one.cu): d, u, v, ptr, ent, m, p, b, k, tol, ztol, comp,
 # alphas, betas, bnorm, steps, v_prev, v_curr, w, partials, scal, flags
@@ -58,10 +59,13 @@ _SIGNATURES = {
     "tpl_lanczos_pass_one_chunk": [*_PASS_ONE, _I, _I, ctypes.POINTER(_I),
                                    _P],
     # d, u, v, ptr, ent, m, p, b, k, ztol, alphas, betas, y, nf, bnorm,
-    # steps, x, v_prev, v_curr, w, *matvec_launches, stream
+    # steps, x, v_prev, v_curr, *matvec_launches, stream
     "tpl_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
-                             _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _P, _P, _P, _P, _P,
                              ctypes.POINTER(_I), _P],
+    # the persistent passes' cooperative grids: *blocks_per_sm, *sms
+    "tpl_lanczos_pass_one_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "tpl_lanczos_pass_two_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     # a, b, n, out (6 x n), stream
     "tpl_eft_check": [_P, _P, _I, _P, _P],
     # the double-float kernels (csrc/df_*.cu): d2, u, v, ptr, ent, m, p, ...
@@ -89,6 +93,8 @@ _SIGNATURES = {
                          _P],
     # K7's arguments, then with_nodes, stream
     "tpl_probe_pipeline": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
+    # code (returns the message, a const char*)
+    "tpl_error_string": [_I],
 }
 
 _lock = threading.Lock()
@@ -174,9 +180,8 @@ def load_library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.tpl_error_string.argtypes = [_I]
-            lib.tpl_error_string.restype = ctypes.c_char_p
+                fn.restype = (ctypes.c_char_p if name == "tpl_error_string"
+                              else ctypes.c_int)
             _lib = lib
         return _lib
 

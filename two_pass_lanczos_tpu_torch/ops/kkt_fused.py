@@ -13,8 +13,10 @@ is chosen for Hopper:
 * the Krylov vectors are plain ``(n,)`` tensors, so the TPU's
   ``pack``/``unpack`` become a device copy and a no-op.
 
-The kernels (``csrc/``): K1 the matvec, K2 pass one, K3 pass two, K4 pass
-one with the basis (``method="one_pass"``), K5 the resumable pass one
+The kernels (``csrc/``): K1 the matvec, K2 pass one, K3 pass two (each one
+persistent cooperative launch, ``csrc/lanczos_persistent.cuh``, that runs
+K1's matvec as a phase of every step), K4 pass one with the basis
+(``method="one_pass"``), K5 the resumable pass one
 (``callback=``, :meth:`FusedKKTSolver.pass_one_chunked`), K6 the compensated
 builds of K2, K4 and K5 (``compensated=True``) and K13 the tripwire of their
 error-free transformations; K7, one shard's matvec with a node partial,
@@ -57,7 +59,9 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
            "kkt_shard_matvec", "kkt_shard_matvec_cuda"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`; a
-#: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``,
+#: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``;
+#: the matvec phases inside the persistent K2 (k a pass) and K3 (k - 1, each
+#: gated on ``steps_taken``) as ``kkt_matvec_in_pass``, which launch no K1;
 #: and K8, the matvec of the generic KKT operators (``ops/spmv_kernel.py``),
 #: as ``kkt_operator_matvec``; K11, K9 and K10, the double-float kernels
 #: (``ops/kkt_fused_df.py``), as ``df_kkt_matvec``, ``df_lanczos_pass_one``
@@ -66,7 +70,8 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
 #: ``df_kkt_streaming_matvec``, the names of the TPU kernels' wrappers; the
 #: K14 micro-kernels (``probes/``) as ``probe_gather``, ``probe_stream``,
 #: ``probe_stages`` and ``probe_pipeline``
-LAUNCHES = {"kkt_matvec": 0, "lanczos_pass_one": 0, "lanczos_pass_two": 0,
+LAUNCHES = {"kkt_matvec": 0, "kkt_matvec_in_pass": 0,
+            "lanczos_pass_one": 0, "lanczos_pass_two": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
             "lanczos_pass_one_comp": 0, "eft_check": 0,
             "kkt_streaming_matvec": 0, "kkt_operator_matvec": 0,
@@ -217,14 +222,18 @@ class PassOneBuffers:
     bnorm: torch.Tensor  # (1,) f32
     steps: torch.Tensor  # (1,) int32
     state: torch.Tensor  # (2, n) f32: v_prev, v_curr
-    w: torch.Tensor  # (n,) f32
+    w: torch.Tensor  # (n,) f32; (2, n) for K2, which alternates the two
     partials: torch.Tensor  # (2 * MAX_PARTIALS,) f32
     scal: torch.Tensor  # (3,) f32: beta_prev, alpha, 1/beta
-    flags: torch.Tensor  # (1,) int32: live
+    flags: torch.Tensor  # (1,) int32: live; (1 + p,) for K2: node-row tags
 
     @classmethod
     def alloc(cls, lay: KKTLayout, k: int,
-              state: Optional[torch.Tensor] = None) -> "PassOneBuffers":
+              state: Optional[torch.Tensor] = None,
+              persistent: bool = False) -> "PassOneBuffers":
+        """``persistent``: the scratch of the persistent K2, w of (2, n) and
+        flags of 1 + p; the per-step launches (K4, K5, K6) need (n,) and
+        (1,)."""
         dev = lay.d.device
         f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
         i32 = functools.partial(torch.empty, dtype=torch.int32, device=dev)
@@ -232,8 +241,9 @@ class PassOneBuffers:
             state = f32((2, lay.n))
         _need(state, (2, lay.n), torch.float32, dev, "state")
         return cls(alphas=f32(k), betas=f32(k), bnorm=f32(1), steps=i32(1),
-                   state=state, w=f32(lay.n), partials=f32(2 * MAX_PARTIALS),
-                   scal=f32(3), flags=i32(1))
+                   state=state, w=f32((2, lay.n) if persistent else lay.n),
+                   partials=f32(2 * MAX_PARTIALS), scal=f32(3),
+                   flags=i32(1 + lay.p if persistent else 1))
 
     def decomposition(self) -> LanczosDecomposition:
         return LanczosDecomposition(alphas=self.alphas, betas=self.betas,
@@ -243,9 +253,11 @@ class PassOneBuffers:
 
 def _launch_pass_one(entry: str, name: str, lay: KKTLayout,
                      bufs: PassOneBuffers, b: torch.Tensor, tol: float,
-                     ztol: float, compensated: bool, *extra) -> None:
+                     ztol: float, compensated: bool, *extra,
+                     matvecs: str = "kkt_matvec") -> None:
     """Call the pass-one entry point ``entry`` (``csrc/lanczos_pass_one.cu``)
-    and count it as ``name``, or as ``lanczos_pass_one_comp``."""
+    and count it as ``name``, or as ``lanczos_pass_one_comp``, and its
+    matvecs as ``matvecs``."""
     _need(b, (lay.n,), torch.float32, lay.d.device, "b")
     lib = load_library()
     mv = ctypes.c_int(0)
@@ -256,7 +268,7 @@ def _launch_pass_one(entry: str, name: str, lay: KKTLayout,
         _ptr(bufs.state[1]), _ptr(bufs.w), _ptr(bufs.partials),
         _ptr(bufs.scal), _ptr(bufs.flags), *extra, ctypes.byref(mv),
         _stream())
-    LAUNCHES["kkt_matvec"] += mv.value
+    LAUNCHES[matvecs] += mv.value
     _check(lib, code, entry)
     LAUNCHES["lanczos_pass_one_comp" if compensated else name] += 1
 
@@ -264,11 +276,14 @@ def _launch_pass_one(entry: str, name: str, lay: KKTLayout,
 def pass_one_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                   ztol: float, state: Optional[torch.Tensor] = None,
                   compensated: bool = False) -> LanczosDecomposition:
-    """K2 (``csrc/lanczos_pass_one.cu``): k masked steps from b; the final
+    """K2 (``csrc/lanczos_pass_one.cu``): k masked steps from b in one
+    cooperative launch (compensated: K6, launches per step); the final
     ``(v_prev, v_curr)`` land in ``state`` when it is given."""
-    bufs = PassOneBuffers.alloc(lay, k, state)
+    bufs = PassOneBuffers.alloc(lay, k, state, persistent=not compensated)
     _launch_pass_one("tpl_lanczos_pass_one", "lanczos_pass_one", lay, bufs, b,
-                     tol, ztol, compensated)
+                     tol, ztol, compensated,
+                     matvecs="kkt_matvec" if compensated
+                     else "kkt_matvec_in_pass")
     return bufs.decomposition()
 
 
@@ -299,6 +314,20 @@ def pass_one_chunk_cuda(lay: KKTLayout, bufs: PassOneBuffers,
                      lay, bufs, b, tol, ztol, compensated, j0, count)
 
 
+def persistent_grid() -> dict:
+    """The cooperative grids of the persistent K2 and K3 on the current card:
+    ``{"lanczos_pass_one": (blocks per SM, SMs), "lanczos_pass_two": ...}``.
+    The passes' sums do not depend on it (``csrc/lanczos_persistent.cuh``)."""
+    lib = load_library()
+    grids = {}
+    for name, entry in (("lanczos_pass_one", lib.tpl_lanczos_pass_one_grid),
+                        ("lanczos_pass_two", lib.tpl_lanczos_pass_two_grid)):
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        _check(lib, entry(ctypes.byref(per_sm), ctypes.byref(sms)), name)
+        grids[name] = (per_sm.value, sms.value)
+    return grids
+
+
 def eft_check_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K13 (``csrc/eft_check.cu``): the ``(6, n)`` stack of
     ``ops/eft.eft_check_plain``, computed by the header's helpers."""
@@ -322,7 +351,8 @@ def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
                   ztol: float, state: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """K3 (``csrc/lanczos_pass_two.cu``): replay and accumulate for a
-    ``(k,)`` or ``(nf, k)`` y; returns ``(n,)`` or ``(nf, n)``."""
+    ``(k,)`` or ``(nf, k)`` y in one cooperative launch; returns ``(n,)``
+    or ``(nf, n)``."""
     dev = lay.d.device
     k = decomp.k_max
     _need(b, (lay.n,), torch.float32, dev, "b")
@@ -339,13 +369,12 @@ def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
     _need(state, (2, lay.n), torch.float32, dev, "state")
     lib = load_library()
     x = torch.empty((nf, lay.n), dtype=torch.float32, device=dev)
-    w = torch.empty(lay.n, dtype=torch.float32, device=dev)
     mv = ctypes.c_int(0)
     code = lib.tpl_lanczos_pass_two(
         *_layout_args(lay), _ptr(b), k, ztol, _ptr(alphas), _ptr(betas),
         _ptr(y2), nf, _ptr(bnorm), _ptr(steps), _ptr(x), _ptr(state[0]),
-        _ptr(state[1]), _ptr(w), ctypes.byref(mv), _stream())
-    LAUNCHES["kkt_matvec"] += mv.value
+        _ptr(state[1]), ctypes.byref(mv), _stream())
+    LAUNCHES["kkt_matvec_in_pass"] += mv.value
     _check(lib, code, "lanczos_pass_two")
     LAUNCHES["lanczos_pass_two"] += 1
     return x if y_full.dim() == 2 else x[0]

@@ -29,7 +29,15 @@ Phases (each one raises on failure, so the exit code is non-zero):
    each kernel, beside the plain PyTorch versions on the same card; K2 and
    K3 per pass and per step beside the per-step launches they replaced (K5
    as one chunk of k steps), timed by events and as one CUDA-graph replay,
-   which shows what the launches alone cost;
+   which shows what the launches alone cost; the phase split of a K2 and a
+   K3 step (the passes' phase timer, ``ops/kkt_fused.phase_clock``: every
+   resident block's time in each phase of 8 steps from k/2, max, median
+   and mean over the blocks), which checks that the timer changes no bit;
+7b. the fused solver on ``generate_mcf_instance(5_000_000, rho=3,
+   instance_id=1)``: K2 bitwise the per-step launches and K3 bitwise the
+   plain pass two on K1's matvec at k = 20; ``solve(b, k=500)`` through K2
+   and K3 only, x finite, the median of 3 solves, K2 and K3 per pass and per
+   step, and the phase split;
 8. K4, pass one with the basis: alpha, beta and steps bitwise K2's at
    k = 500, basis row s-1 bitwise pass one's and pass two's v_s, the basis
    within 1e-5 of the plain ``pass_one_scan(emit_basis=True)`` at k = 20,
@@ -119,8 +127,12 @@ Phases (each one raises on failure, so the exit code is non-zero):
 
 Every kernel's entry of the JSON line carries its launches on its main
 path (K1's: 0, since K2 and K3 launch no K1; its entry alone also carries
-``in_pass_matvecs``, the matvec phases its routines ran inside them,
-whose time no row measures), its max_abs_err against its plain version,
+``in_pass_matvecs``, the matvec phases its routines ran inside them, and
+``in_pass_us``, the phase timer's µs of one such phase a step in K2 and
+in K3, from the step's start to the slowest block's first barrier: the
+node and arc rows with the elementwise work fused into them, in K2
+w -= beta_prev v_prev and <v, w>, in K3 the update of v_next and x),
+its max_abs_err against its plain version,
 its time
 (``ms``), the plain version's (``plain_ms``), ``bound_ms`` (the larger of
 the bytes the function must move, each input read once and each output
@@ -336,6 +348,113 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
         "probe_stages": matvec,
         "probe_pipeline": matvec,
     }
+
+
+def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
+    """K2 and K3 once more on ``dec``'s run, with the phase timer: every
+    resident block stamps each phase end of TIMED_STEPS steps from step
+    K // 2. Checks that the timer changed no bit (against ``dec`` and K3's
+    ``x_ref``), prints the split and returns ``phase_split`` of each pass."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        PHASES,
+        TIMED_STEPS,
+        pass_one_cuda,
+        pass_two_cuda,
+        phase_clock,
+        phase_split,
+    )
+    dev = b.device
+    clk1 = phase_clock("lanczos_pass_one", dev)
+    clk2 = phase_clock("lanczos_pass_two", dev)
+    dec_t = pass_one_cuda(lay, b, dec.k_max, solver.tol, solver.ztol,
+                          phase_clock=clk1)
+    x_t = pass_two_cuda(lay, b, dec, y_full, solver.ztol, phase_clock=clk2)
+    torch.cuda.synchronize()
+    check(torch.equal(dec_t.alphas, dec.alphas)
+          and torch.equal(x_t, x_ref), "the phase timer changed the passes")
+    check(bool((clk1 > 0).all()) and bool((clk2 > 0).all()),
+          "the phase timer left a stamp unwritten")
+    split = {name: phase_split(clk, name) for name, clk in
+             (("lanczos_pass_one", clk1), ("lanczos_pass_two", clk2))}
+    first = dec.k_max // 2
+    for name, got in split.items():
+        print(f"    {name} phase split, us a step (steps {first}.."
+              f"{first + TIMED_STEPS - 1}, {clk1.shape[1]} blocks; max / "
+              f"median / mean over blocks; timer tick <= {got['tick_ns']} "
+              f"ns):")
+        for ph in (*PHASES[name], "matvec phase", "step"):
+            print(f"      {ph:>18}: {got[ph]['max_us']:8.3f} "
+                  f"{got[ph]['median_us']:8.3f} {got[ph]['mean_us']:8.3f}")
+    return split
+
+
+def fused_big_phase(card, dev, big) -> None:
+    """Phase 7b: the fused two-pass solver on the 5M-arc instance, whose
+    layout (100 MB) and (n,) vectors leave the L2. At
+    k = K_CHECK, K2 bitwise the per-step launches (K5 as one chunk) and K3
+    bitwise the plain pass two on K1's matvec; at k = K, the solve through
+    K2 and K3 only, their times per pass and per step, the phase split, and
+    the median of 3 solves."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch import FusedKKTSolver, padded_f_e1
+    from two_pass_lanczos_tpu_torch.algorithms.core import pass_two_scan
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        PassOneBuffers,
+        kkt_matvec_cuda,
+        pass_one_chunk_cuda,
+        pass_one_cuda,
+        pass_two_cuda,
+        reset_launches,
+    )
+    s = FusedKKTSolver(big.quad_costs, big.arc_u, big.arc_v, big.num_nodes,
+                       device=dev)
+    lay, n = s.layout, s.n
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).to(dev)
+
+    def y_of(dec):
+        keep = torch.arange(dec.k_max, device=dev) < dec.steps_taken
+        return torch.where(keep, padded_f_e1(dec, "inv") * dec.b_norm, 0.0)
+
+    st, st_ref = torch.empty(2, n, device=dev), torch.empty(2, n, device=dev)
+    dec = pass_one_cuda(lay, b, K_CHECK, s.tol, s.ztol, state=st)
+    bufs = PassOneBuffers.alloc(lay, K_CHECK)
+    pass_one_chunk_cuda(lay, bufs, b, 0, K_CHECK, s.tol, s.ztol)
+    torch.cuda.synchronize()
+    check(torch.equal(dec.alphas, bufs.alphas)
+          and torch.equal(dec.betas, bufs.betas)
+          and torch.equal(st, bufs.state),
+          f"5M: K2 differs from the per-step launches at k={K_CHECK}")
+    y = y_of(dec)
+    x3 = pass_two_cuda(lay, b, dec, y, s.ztol, state=st)
+    x3_ref, _ = pass_two_scan(lambda z: kkt_matvec_cuda(lay, z), b, dec, y,
+                              state=st_ref)
+    torch.cuda.synchronize()
+    check(torch.equal(x3, x3_ref) and torch.equal(st, st_ref),
+          f"5M: K3 differs from pass two on K1's matvec at k={K_CHECK}")
+    del bufs
+    reset_launches()
+    x, dec = s.solve(b, k=K, f="inv", raw=True)
+    torch.cuda.synchronize()
+    got = {name: c for name, c in LAUNCHES.items() if c}
+    check(got == {"lanczos_pass_one": 1, "lanczos_pass_two": 1,
+                  "kkt_matvec_in_pass": 2 * K - 1}, f"5M launches {got}")
+    check(bool(torch.isfinite(x).all()), "5M x is not finite")
+    steps = dec.steps()
+    y = y_of(dec)
+    k2 = event_ms(lambda: pass_one_cuda(lay, b, K, s.tol, s.ztol), 3)
+    k3 = event_ms(lambda: pass_two_cuda(lay, b, dec, y, s.ztol), 3)
+    t = wall_s(lambda: s.solve(b, k=K, f="inv", raw=True), 3)
+    print(f"[7b] 5M fused solver on {card}: m={lay.m} p={lay.p}: K2 bitwise "
+          f"the per-step launches and K3 bitwise pass two on K1's matvec at "
+          f"k={K_CHECK}; solve(k={K}) launches {got}, steps {steps}")
+    print(f"    solve k={K}: {runs(t)}")
+    print(f"    K2 {k2:.4f} ms a pass, {1e3 * k2 / K:.3f} us a step; K3 "
+          f"{k3:.4f} ms a pass, {1e3 * k3 / max(steps - 1, 1):.3f} us a step")
+    timed_split(lay, b, s, dec, y, pass_two_cuda(lay, b, dec, y, s.ztol))
 
 
 def wall_s(fn, reps: int) -> list:
@@ -1248,6 +1367,17 @@ def main() -> int:
     print(f"    K3, one cooperative launch: {ms['lanczos_pass_two']:.4f} ms a "
           f"pass, {1e3 * ms['lanczos_pass_two'] / max(steps - 1, 1):.3f} us "
           f"a step ({steps - 1} steps)")
+    split = timed_split(lay, b, solver, dec1, y_full, x_rep)
+    in_pass_us = {name: got["matvec phase"]["max_us"]
+                  for name, got in split.items()}
+
+    # 7b. the fused solver at 5M arcs
+    t0 = time.perf_counter()
+    big = generate_mcf_instance(**BIG)
+    print(f"     5M instance m={big.num_arcs} p={big.num_nodes} generated in "
+          f"{time.perf_counter() - t0:.3f} s")
+    fused_big_phase(card, dev, big)
+    torch.cuda.empty_cache()
 
     # 8. K4: pass one with the basis
     dec4, basis = solver.pass_one_with_basis(b, K)
@@ -1910,10 +2040,6 @@ def main() -> int:
     #        two ranks on one card), at the headline and at 5M arcs
     from two_pass_lanczos_tpu_torch.parallel import make_mesh
 
-    t0 = time.perf_counter()
-    big = generate_mcf_instance(**BIG)
-    print(f"     5M instance m={big.num_arcs} p={big.num_nodes} generated in "
-          f"{time.perf_counter() - t0:.3f} s")
     mesh = make_mesh(1, device=dev)
     check(mesh.size == 1 and mesh.backend == "nccl"
           and torch.distributed.get_backend(mesh.group) == "nccl",
@@ -1954,8 +2080,9 @@ def main() -> int:
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
              "library_ms": library.get(name)}
             for name, (src, rep) in KERNELS.items()]
-    next(r for r in rows if r["name"] == "kkt_matvec")[
-        "in_pass_matvecs"] = in_pass_matvecs
+    k1_row = next(r for r in rows if r["name"] == "kkt_matvec")
+    k1_row["in_pass_matvecs"] = in_pass_matvecs
+    k1_row["in_pass_us"] = in_pass_us
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     check(not below, f"timed below their bound (a bound of the wrong "
                      f"memory level): {below}")

@@ -19,7 +19,9 @@ import torch
 from torch_cases import (  # noqa: F401
     CASES,
     CPU,
+    NODE_WALK_CASES,
     breakdown_kkt,
+    node_rows_in_kernel_order,
     cuda_device,
     random_kkt,
 )
@@ -54,6 +56,7 @@ from two_pass_lanczos_tpu_torch.ops.df import DF, df_add, df_from_f64
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     LAUNCHES,
+    PHASES,
     KKTLayout,
     PassOneBuffers,
     eft_check_cuda,
@@ -61,7 +64,11 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     kkt_shard_matvec,
     kkt_shard_matvec_cuda,
     pass_one_chunk_cuda,
+    pass_one_cuda,
+    pass_two_cuda,
     persistent_grid,
+    phase_clock,
+    phase_split,
     reset_launches,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
@@ -193,6 +200,55 @@ def test_solve_on_card_matches_cpu(problem, cuda_device):
     assert _rel(x.cpu().numpy(), x_cpu) < 1e-4
 
 
+def _walk_problem(case):
+    """An instance of the node walk's cases and its b; "random" is the
+    module's ``problem``."""
+    rng = np.random.default_rng(42)
+    d, u, v, p = NODE_WALK_CASES[case](rng)
+    return d, u, v, p, rng.standard_normal(len(d) + p).astype(np.float32)
+
+
+#: the edges of the node walk besides the random instance: a node past
+#: 4·256 entries (more than four a thread) and arcs with u == v (both
+#: entries of an arc in one node's segment)
+WALK_CASES = ["random", "wide_hub", "self_loop"]
+
+
+@pytest.mark.parametrize("case", sorted(NODE_WALK_CASES))
+def test_k1_node_rows_walk_in_the_emulated_order_on_card(cuda_device, case):
+    # kkt_node_row's order (256 strided partials, then the fixed tree), which
+    # K2 and K3 run as their matvec phase, is the emulation's, bit for bit
+    d, u, v, p, x = _walk_problem(case)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    y = kkt_matvec_cuda(lay, torch.from_numpy(x).to(cuda_device)).cpu()
+    want = node_rows_in_kernel_order(lay.ptr.cpu(), lay.ent.cpu(),
+                                     torch.from_numpy(x[:len(d)]))
+    assert torch.equal(y[len(d):].view(torch.int32), want.view(torch.int32))
+
+
+def test_phase_timer_stamps_without_changing_a_bit_on_card(cuda_device):
+    d, u, v, p, b = _walk_problem("wide_hub")
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    lay, k = s.layout, 40
+    bt = torch.from_numpy(b).to(cuda_device)
+    dec = s.pass_one(bt, k)
+    y = torch.from_numpy(_y_full(dec, 2, seed=4)).to(cuda_device)
+    x = s.pass_two(bt, dec, y)
+    clocks = {name: phase_clock(name, cuda_device) for name in PHASES}
+    dec_t = pass_one_cuda(lay, bt, k, s.tol, s.ztol,
+                          phase_clock=clocks["lanczos_pass_one"])
+    x_t = pass_two_cuda(lay, bt, dec, y, s.ztol,
+                        phase_clock=clocks["lanczos_pass_two"])
+    torch.cuda.synchronize()
+    assert torch.equal(dec_t.alphas, dec.alphas)
+    assert torch.equal(dec_t.betas, dec.betas) and torch.equal(x_t, x)
+    for name, clk in clocks.items():
+        assert bool((clk > 0).all())  # every block stamped every phase
+        assert bool((clk.diff(dim=2) >= 0).all())  # in order
+        split = phase_split(clk, name)
+        assert split["step"]["max_us"] > 0
+
+
 def _six_launch_pass_one(s, bt, k):
     """Pass one as the per-step launches: K5 as one chunk of k steps from
     j0 = 0, with its buffers."""
@@ -201,10 +257,10 @@ def _six_launch_pass_one(s, bt, k):
     return bufs
 
 
+@pytest.mark.parametrize("case", WALK_CASES)
 @pytest.mark.parametrize("k", [20, 500])
-def test_persistent_pass_one_bitwise_six_launch_on_card(problem, cuda_device,
-                                                        k):
-    d, u, v, p, b = problem
+def test_persistent_pass_one_bitwise_six_launch_on_card(cuda_device, k, case):
+    d, u, v, p, b = _walk_problem(case)
     s = FusedKKTSolver(d, u, v, p, device=cuda_device)
     bt = torch.from_numpy(b).to(cuda_device)
     state = torch.empty(2, s.n, device=cuda_device)
@@ -228,12 +284,12 @@ def test_persistent_pass_one_bitwise_six_launch_on_card(problem, cuda_device,
     assert all(per_sm >= 1 and sms >= 1 for per_sm, sms in grids.values())
 
 
+@pytest.mark.parametrize("case", WALK_CASES)
 @pytest.mark.parametrize("k", [20, 500])
-def test_persistent_pass_two_bitwise_k1_replay_on_card(problem, cuda_device,
-                                                       k):
+def test_persistent_pass_two_bitwise_k1_replay_on_card(cuda_device, k, case):
     # the plain pass two on K1's matvec rounds as the two launches a step
     # that K3 replaced (K1, then the update): K3 must give its bits
-    d, u, v, p, b = problem
+    d, u, v, p, b = _walk_problem(case)
     s = FusedKKTSolver(d, u, v, p, device=cuda_device)
     bt = torch.from_numpy(b).to(cuda_device)
     dec = s.pass_one(bt, k)
@@ -279,6 +335,35 @@ def test_persistent_passes_breakdown_and_zero_b_on_card(cuda_device):
     y = torch.zeros(k, device=cuda_device)
     s.pass_two(bt, dec, y, state=st2)
     assert torch.equal(pass_one_last_vector(dec, state), st2[1])
+    # K3 stops mid-run on the truncated decomposition, bitwise pass two on
+    # K1's matvec
+    yk = torch.from_numpy(_y_full(dec, 2, seed=5)).to(cuda_device)
+    st3, st_ref = torch.empty_like(state), torch.empty_like(state)
+    x3 = s.pass_two(bt, dec, yk, state=st3)
+    x3_ref, _ = pass_two_scan(lambda z: kkt_matvec_cuda(s.layout, z), bt, dec,
+                              yk, state=st_ref)
+    assert torch.equal(x3, x3_ref) and torch.equal(st3, st_ref)
+    # a b that is zero on every arc (node rows of +0 and -0 terms) and
+    # nonzero on its nodes only, through K2 and K3, bitwise the launches
+    # they replaced
+    rng = np.random.default_rng(9)
+    dr, ur, vr, pr = random_kkt(rng, m=300, p=40)
+    sr = FusedKKTSolver(dr, ur, vr, pr, device=cuda_device)
+    bz = np.zeros(sr.n, np.float32)
+    bz[len(dr):] = rng.standard_normal(pr)
+    bz_t = torch.from_numpy(bz).to(cuda_device)
+    stz = torch.empty(2, sr.n, device=cuda_device)
+    decz = sr.pass_one(bz_t, 20, state=stz)
+    refz = _six_launch_pass_one(sr, bz_t, 20)
+    assert decz.steps() == int(refz.steps[0]) > 0
+    assert torch.equal(decz.alphas, refz.alphas)
+    assert torch.equal(decz.betas, refz.betas)
+    assert torch.equal(stz, refz.state)
+    yz = torch.from_numpy(_y_full(decz, 1, seed=6)).to(cuda_device)
+    assert torch.equal(
+        sr.pass_two(bz_t, decz, yz),
+        pass_two_scan(lambda z: kkt_matvec_cuda(sr.layout, z), bz_t, decz,
+                      yz)[0])
     # a zero b and a subnormal one: 0 steps and x = 0 through K2 and K3
     for b0 in (np.zeros(s.n, np.float32), np.full(s.n, 1e-42, np.float32)):
         x0, dec0 = s.solve(b0, k=8)

@@ -7,7 +7,9 @@ pass a 64-bit pointer as a 32-bit int: the kernel gets a cut address and no
 error is raised. The sources must also keep the rules of bitwise replay: no
 atomic reduction on a float and no fast-math build flag; and the persistent
 passes (K2, K3) launch cooperatively with no fallback to per-step launches,
-and only K2 gets the larger pass-one scratch its C interface asks for.
+and only K2 gets the larger pass-one scratch its C interface asks for; the
+persistent passes' phase timer stamps one time per phase that
+``ops/kkt_fused.PHASES`` names.
 """
 
 import ctypes
@@ -21,6 +23,7 @@ from tests.torch_cases import CPU, random_kkt
 from two_pass_lanczos_tpu_torch.ops import _build
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     FusedKKTSolver,
+    PHASES,
     PassOneBuffers,
 )
 
@@ -88,9 +91,9 @@ def test_entry_point_signature_matches_its_argtypes(name):
 
 def test_signature_parser_reads_macros_and_pointers():
     # K2's parameters come from the TPL_PASS_ONE_ARGS macro: 22 of them,
-    # then the host counter and the stream
+    # then the phase clock, the host counter and the stream
     _, decls = ENTRIES["tpl_lanczos_pass_one"]
-    assert len(decls) == 24
+    assert len(decls) == 25
     assert decls[0] == "const float *d" and decls[-1] == "cudaStream_t stream"
     assert [_kind(d) for d in decls[5:12]] == [
         "int", "int", "pointer", "int", "float", "float", "int"]
@@ -144,3 +147,27 @@ def test_pass_one_scratch_is_what_the_entry_point_needs(persistent):
     assert tuple(bufs.state.shape) == (2, lay.n)
     assert bufs.alphas.shape == bufs.betas.shape == (7,)
     assert "2n for K2" in (CSRC / "lanczos_pass_one.cu").read_text()
+
+
+def _kernel_body(code: str, name: str) -> str:
+    body = code[code.index(name + "("):]
+    return body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("path,kernel,name", [
+    ("lanczos_pass_one.cu", "pass_one_persistent_kernel", "lanczos_pass_one"),
+    ("lanczos_pass_two.cu", "pass_two_persistent_kernel", "lanczos_pass_two")])
+def test_phase_timer_stamps_every_phase_once(path, kernel, name):
+    # a step stamps its start and the end of each phase of PHASES, in order,
+    # and the entry point sizes the clock for as many stamps: phase_split
+    # reads stamp e + 1 - stamp e as phase e
+    code = _code(CSRC / path)
+    stamps = [int(e) for e in re.findall(
+        r"a\.clock\.stamp\(j, (\d+)\)", _kernel_body(code, kernel))]
+    assert stamps == list(range(len(PHASES[name]) + 1))
+    assert f"PhaseClock{{clock, k / 2, {len(stamps)}}}" in code
+    # a null clock returns before the stamp's __syncthreads: a solve pays
+    # one uniform branch a stamp
+    header = _code(CSRC / "lanczos_persistent.cuh")
+    stamp = _kernel_body(header, "void stamp")
+    assert stamp.index("clock == nullptr") < stamp.index("__syncthreads")

@@ -37,6 +37,60 @@ def hub_kkt(rng, m=900, p=150):
 CASES = {"random": random_kkt, "degree_zero": degree_zero_kkt, "hub": hub_kkt}
 
 
+def wide_hub_kkt(rng, m=1500, p=100):
+    """Node 0 is the tail of ~80 % of the arcs: a degree past 4·256, so
+    each thread of its node row folds more than four entries."""
+    u = np.where(rng.random(m) < 0.8, 0, rng.integers(0, p, m)).astype(np.int32)
+    v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
+    d = rng.uniform(0.5, 4.0, m).astype(np.float32)
+    return d, u, v, p
+
+
+def self_loop_kkt(rng, m=700, p=300):
+    """random_kkt with every 7th arc a loop, u == v: its two incidence
+    entries, + and -, lie in one node's segment."""
+    d, u, v, p = random_kkt(rng, m, p)
+    v[::7] = u[::7]
+    return d, u, v, p
+
+
+#: the instances of the node walk's tests (tests/test_torch_node_walk.py and
+#: the persistent passes' card tests)
+NODE_WALK_CASES = {"random": random_kkt, "degree_zero": degree_zero_kkt,
+                   "wide_hub": wide_hub_kkt, "self_loop": self_loop_kkt}
+
+#: threads of a node row's block (``tpl::kThreads``)
+NODE_ROW_THREADS = 256
+
+
+def node_rows_in_kernel_order(ptr, ent, x_a, scale=None):
+    """``y_n = E·x_a`` rounded as ``kkt_node_row`` (``csrc/lanczos_common.cuh``)
+    rounds it, in ``x_a``'s dtype: thread t of a node's block folds the
+    node's entries ``ptr[i] + t``, ``+ 256``, ... in turn, adding ``x_a[a]``
+    for entry ``a`` and subtracting ``x_a[~a]`` for ``~a`` (each times
+    ``scale`` first, as K2's ``ScaledLoad``); then block_sum's fixed tree adds
+    ``sh[t + s]`` into ``sh[t]`` for s = 128, 64, ..., 1."""
+    ptr, ent = ptr.long(), ent.long()
+    start, deg = ptr[:-1], ptr[1:] - ptr[:-1]
+    p, threads = deg.numel(), NODE_ROW_THREADS
+    acc = torch.zeros((p, threads), dtype=x_a.dtype)
+    t = torch.arange(threads)
+    rounds = -(-int(deg.max()) // threads) if p else 0
+    for r in range(rounds):
+        off = r * threads + t
+        live = off[None, :] < deg[:, None]
+        a = ent[torch.where(live, start[:, None] + off[None, :], 0)]
+        x = x_a[torch.where(a >= 0, a, ~a)]
+        if scale is not None:
+            x = x * torch.as_tensor(scale, dtype=x_a.dtype)
+        acc = torch.where(live, torch.where(a >= 0, acc + x, acc - x), acc)
+    s = threads // 2
+    while s:
+        acc = acc[:, :s] + acc[:, s:2 * s]
+        s //= 2
+    return acc[:, 0]
+
+
 def breakdown_kkt():
     """All arcs share their endpoints, so the Krylov space of b = e_1 is
     tiny and pass one breaks down after a few steps: (d, u, v, p, b)."""

@@ -288,6 +288,7 @@ struct Persistent {
   PassOne s;
   const float* b;
   int g;  // reduction_blocks(n): the dots' virtual blocks
+  PhaseClock clock;  // 6 stamps a step (see the loop), or clock == nullptr
 };
 
 // Virtual blocks [0, g) of a reduction of stride g * kThreads: virtual block
@@ -355,6 +356,7 @@ pass_one_persistent_kernel(Persistent a) {
     // (rotate_kernel) element by element, where it first reads the element
     const bool rotate = j > 0;
     float* const wn = w + (j & 1) * n;  // src is the other half
+    a.clock.stamp(j, 0);
     // 1. one phase for w = A v and the first sub_dot. First this block's
     //    node rows (K1's node blocks, gathering v from src): thread 0
     //    rotates the node's element, leaves the row in wn and publishes it
@@ -372,6 +374,7 @@ pass_one_persistent_kernel(Persistent a) {
         publish(ready + node, j + 1);
       }
     }
+    a.clock.stamp(j, 1);
     //    Then its share of the dot's virtual blocks, in sub_dot's order: an
     //    arc element rotates and forms its row (K1's arc row, x_n gathered
     //    from src), a node element waits for its row; then w -= beta_prev
@@ -398,7 +401,9 @@ pass_one_persistent_kernel(Persistent a) {
       wn[i] = wi;
       return accumulate<false>(acc, vci, wi);
     });
+    a.clock.stamp(j, 2);
     grid_sync();
+    a.clock.stamp(j, 3);
     // 2. every block folds alpha (finalize_alpha_kernel); the second sub_dot
     alpha = fold_partials<false>(pa, g, sh, nullptr, ld);
     if (lead) s.alphas[j] = alpha;
@@ -407,7 +412,9 @@ pass_one_persistent_kernel(Persistent a) {
       wn[i] = wi;
       return accumulate<false>(acc, wi, wi);
     });
+    a.clock.stamp(j, 4);
     grid_sync();
+    a.clock.stamp(j, 5);
     // 3. every block folds beta (finalize_beta_kernel) and takes the same
     //    breakdown decision
     const float beta = __fsqrt_rn(fold_partials<false>(pb, g, sh, nullptr,
@@ -527,15 +534,18 @@ int run(const PassOne& s, int comp, const float* b, int j0, int count,
 
 // K2: k steps from b, scalars only. Uncompensated, one cooperative launch,
 // and *matvec_launches counts the k matvec phases inside it; compensated
-// (K6), the per-step launches.
-extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, int* matvec_launches,
+// (K6), the per-step launches, which ignore clock: the phase timer's stamps
+// ((8, grid, 6) int64, tpl::PhaseClock) or nullptr.
+extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, long long* clock,
+                                    int* matvec_launches,
                                     cudaStream_t stream) {
   if (comp)
     return tpl::run(TPL_PASS_ONE_STATE(nullptr), comp, b, 0, k,
                     matvec_launches, stream);
   *matvec_launches = 0;
   const tpl::Persistent args{TPL_PASS_ONE_STATE(nullptr), b,
-                             tpl::reduction_blocks(m + p)};
+                             tpl::reduction_blocks(m + p),
+                             tpl::PhaseClock{clock, k / 2, 6}};
   const cudaError_t err = tpl::launch_persistent(
       tpl::pass_one_persistent_kernel, args, stream);
   if (err == cudaSuccess) *matvec_launches = k;

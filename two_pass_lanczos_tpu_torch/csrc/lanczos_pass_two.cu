@@ -49,6 +49,7 @@ struct PassTwo {
   float* x;             // (nf, n)
   float* vp;
   float* vc;
+  PhaseClock clock;     // 4 stamps a step (see the loop), or nullptr
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -80,6 +81,7 @@ pass_two_persistent_kernel(PassTwo a) {
     const float beta_prev = j > 0 ? a.betas[j - 1] : 0.0f;
     const float beta_j = a.betas[j];
     const float inv_b = lanczos_inverse(beta_j > 0.0f ? beta_j : 1.0f);
+    a.clock.stamp(j, 0);
     // step_kernel's update of element i, given row i of w = A v
     const auto update = [&](int i, float wi) {
       const float v = ld(cur + i);
@@ -99,6 +101,7 @@ pass_two_persistent_kernel(PassTwo a) {
       const float total = kkt_node_row(a.ptr, a.ent, cur, node, sh, ld);
       if (threadIdx.x == 0) update(m + node, total);
     }
+    a.clock.stamp(j, 1);
     const Share arcs = share_of(a.arc_blocks);
     for (int ab = arcs.begin; ab < arcs.end; ++ab) {
       const int i = ab * kThreads + threadIdx.x;
@@ -106,7 +109,9 @@ pass_two_persistent_kernel(PassTwo a) {
         update(i, kkt_arc_row(a.d[i], ld(cur + i), ld(cur + m + a.u[i]),
                               ld(cur + m + a.v[i])));
     }
+    a.clock.stamp(j, 2);
     grid_sync();
+    a.clock.stamp(j, 3);
     float* const t = prev;
     prev = cur;
     cur = t;
@@ -126,7 +131,8 @@ pass_two_persistent_kernel(PassTwo a) {
 // All pointers are device pointers except matvec_launches (host). Inputs:
 // b (n), alphas, betas (k), y (nf x k, row-major, zero beyond steps_taken,
 // scaled by ||b||), bnorm (1), steps (1). Output: x (nf x n). Scratch:
-// v_prev, v_curr (n each); on return v_curr holds v_{steps_taken}.
+// v_prev, v_curr (n each); on return v_curr holds v_{steps_taken}. clock:
+// the phase timer's stamps ((8, grid, 4) int64, tpl::PhaseClock) or nullptr.
 // *matvec_launches counts the k - 1 matvec phases of the launch, each gated
 // on steps_taken.
 // Allocates nothing and does not synchronise; returns the cooperative
@@ -136,11 +142,13 @@ extern "C" int tpl_lanczos_pass_two(
     const int* ent, int m, int p, const float* b, int k, float ztol,
     const float* alphas, const float* betas, const float* y, int nf,
     const float* bnorm, const int* steps, float* x, float* v_prev,
-    float* v_curr, int* matvec_launches, cudaStream_t stream) {
+    float* v_curr, long long* clock, int* matvec_launches,
+    cudaStream_t stream) {
   *matvec_launches = 0;
   const tpl::PassTwo args{d, u, v, ptr, ent, m, p, m + p, k, nf,
                           (m + tpl::kThreads - 1) / tpl::kThreads, ztol, b,
-                          alphas, betas, y, bnorm, steps, x, v_prev, v_curr};
+                          alphas, betas, y, bnorm, steps, x, v_prev, v_curr,
+                          tpl::PhaseClock{clock, k / 2, 4}};
   const cudaError_t err = tpl::launch_persistent(
       tpl::pass_two_persistent_kernel, args, stream);
   if (err == cudaSuccess) *matvec_launches = k - 1;

@@ -82,6 +82,29 @@ __device__ __forceinline__ void wait_for(const int* flag, int tag) {
   __threadfence();
 }
 
+// The phase timer of the persistent passes (chip_smoke.py phase 7 prints
+// what it records). Every solve passes clock == nullptr, and then it does
+// nothing. Otherwise, for the kTimedSteps steps from step `first`, every
+// resident block stamps %globaltimer (ns) at the end of each phase:
+// thread 0 writes clock[(s * gridDim.x + blockIdx.x) * stamps + e] for
+// sampled step s and stamp e, after a __syncthreads so that the whole
+// block has finished the phase. It changes no value the pass computes.
+constexpr int kTimedSteps = 8;
+struct PhaseClock {
+  long long* clock;
+  int first, stamps;
+  __device__ __forceinline__ void stamp(int j, int e) const {
+    if (clock == nullptr || j < first || j >= first + kTimedSteps) return;
+    __syncthreads();  // j is the same in every thread: no divergence
+    if (threadIdx.x == 0) {
+      long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      clock[(static_cast<long long>(j - first) * gridDim.x + blockIdx.x) *
+                stamps + e] = t;
+    }
+  }
+};
+
 // x[i] * scale, read as CachedLoad reads x[i]: a gather of the normalised
 // v = w * (1/beta) straight from w, bitwise what normalise would store.
 struct ScaledLoad {

@@ -51,17 +51,17 @@ _SIGNATURES = {
     "tpl_kkt_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # one shard's layout (d, u, v, ptr, ent, m, p), e_scale, x, y, stream
     "tpl_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
-    # *_PASS_ONE, *matvec_launches, stream
-    "tpl_lanczos_pass_one": [*_PASS_ONE, ctypes.POINTER(_I), _P],
+    # *_PASS_ONE, clock, *matvec_launches, stream
+    "tpl_lanczos_pass_one": [*_PASS_ONE, _P, ctypes.POINTER(_I), _P],
     # *_PASS_ONE, basis, *matvec_launches, stream
     "tpl_lanczos_pass_one_basis": [*_PASS_ONE, _P, ctypes.POINTER(_I), _P],
     # *_PASS_ONE, j0, count, *matvec_launches, stream
     "tpl_lanczos_pass_one_chunk": [*_PASS_ONE, _I, _I, ctypes.POINTER(_I),
                                    _P],
     # d, u, v, ptr, ent, m, p, b, k, ztol, alphas, betas, y, nf, bnorm,
-    # steps, x, v_prev, v_curr, *matvec_launches, stream
+    # steps, x, v_prev, v_curr, clock, *matvec_launches, stream
     "tpl_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
-                             _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                              ctypes.POINTER(_I), _P],
     # the persistent passes' cooperative grids: *blocks_per_sm, *sms
     "tpl_lanczos_pass_one_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],

@@ -15,7 +15,9 @@ is chosen for Hopper:
 
 The kernels (``csrc/``): K1 the matvec, K2 pass one, K3 pass two (each one
 persistent cooperative launch, ``csrc/lanczos_persistent.cuh``, that runs
-K1's matvec as a phase of every step), K4 pass one with the basis
+K1's matvec as a phase of every step, with a phase timer that only
+``chip_smoke.py`` switches on: :func:`phase_clock`, :func:`phase_split`),
+K4 pass one with the basis
 (``method="one_pass"``), K5 the resumable pass one
 (``callback=``, :meth:`FusedKKTSolver.pass_one_chunked`), K6 the compensated
 builds of K2, K4 and K5 (``compensated=True``) and K13 the tripwire of their
@@ -273,15 +275,30 @@ def _launch_pass_one(entry: str, name: str, lay: KKTLayout,
     LAUNCHES["lanczos_pass_one_comp" if compensated else name] += 1
 
 
+def _clock_ptr(clock: Optional[torch.Tensor], name: str) -> ctypes.c_void_p:
+    """The phase timer's buffer for pass ``name`` as the kernel takes it:
+    nullptr for none, else a :func:`phase_clock` of this card's grid."""
+    if clock is None:
+        return ctypes.c_void_p(None)
+    per_sm, sms = persistent_grid()[name]
+    _need(clock, (TIMED_STEPS, per_sm * sms, len(PHASES[name]) + 1),
+          torch.int64, clock.device, "phase_clock")
+    return _ptr(clock)
+
+
 def pass_one_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                   ztol: float, state: Optional[torch.Tensor] = None,
-                  compensated: bool = False) -> LanczosDecomposition:
+                  compensated: bool = False,
+                  phase_clock: Optional[torch.Tensor] = None
+                  ) -> LanczosDecomposition:
     """K2 (``csrc/lanczos_pass_one.cu``): k masked steps from b in one
     cooperative launch (compensated: K6, launches per step); the final
-    ``(v_prev, v_curr)`` land in ``state`` when it is given."""
+    ``(v_prev, v_curr)`` land in ``state`` when it is given. A
+    ``phase_clock`` (K2 only) receives the stamps of :func:`phase_split`."""
     bufs = PassOneBuffers.alloc(lay, k, state, persistent=not compensated)
     _launch_pass_one("tpl_lanczos_pass_one", "lanczos_pass_one", lay, bufs, b,
                      tol, ztol, compensated,
+                     _clock_ptr(phase_clock, "lanczos_pass_one"),
                      matvecs="kkt_matvec" if compensated
                      else "kkt_matvec_in_pass")
     return bufs.decomposition()
@@ -312,6 +329,50 @@ def pass_one_chunk_cuda(lay: KKTLayout, bufs: PassOneBuffers,
         raise ValueError(f"chunk [{j0}, {j0 + count}) outside [0, {k})")
     _launch_pass_one("tpl_lanczos_pass_one_chunk", "lanczos_pass_one_chunk",
                      lay, bufs, b, tol, ztol, compensated, j0, count)
+
+
+#: steps the phase timer samples, from step k // 2 (``tpl::kTimedSteps``)
+TIMED_STEPS = 8
+#: the phases of one step of each persistent pass, in order: the timer stamps
+#: the step's start and the end of each
+PHASES = {"lanczos_pass_one": ("node rows", "arc rows + <v,w>", "barrier 1",
+                               "alpha + <w,w>", "barrier 2"),
+          "lanczos_pass_two": ("node rows", "arc rows", "barrier")}
+
+
+def phase_clock(name: str, device) -> torch.Tensor:
+    """A zeroed stamp buffer for the phase timer of pass ``name`` (a key of
+    :data:`PHASES`) on the current card's cooperative grid: (TIMED_STEPS,
+    blocks, phases + 1) int64 nanoseconds."""
+    per_sm, sms = persistent_grid()[name]
+    return torch.zeros((TIMED_STEPS, per_sm * sms, len(PHASES[name]) + 1),
+                       dtype=torch.int64, device=device)
+
+
+def phase_split(clock, name: str) -> dict:
+    """The phases of pass ``name`` from a filled :func:`phase_clock`: for
+    each phase, the matvec phase and the whole step (start to last stamp),
+    the max, median and mean over the resident blocks in µs, each averaged
+    over the sampled steps; ``tick_ns`` is the smallest step between two
+    stamps seen (the timer's resolution, at most)."""
+    t = torch.as_tensor(clock).cpu().numpy().astype(np.int64)
+    spans = {ph: np.diff(t, axis=2)[:, :, e] for e, ph in
+             enumerate(PHASES[name])}
+    # the matvec phase, from the step's start to the block's arrival at its
+    # first barrier: the node and arc rows of A·v with the elementwise work
+    # fused into them, in K2 w -= beta_prev·v_prev and <v, w>, in K3 the
+    # update of v_next and x (the same matvec, each pass with its own
+    # epilogue)
+    spans["matvec phase"] = t[:, :, 2] - t[:, :, 0]
+    spans["step"] = t[:, :, -1] - t[:, :, 0]
+    out = {ph: {"max_us": float(d.max(axis=1).mean() / 1e3),
+                "median_us": float(np.median(d, axis=1).mean() / 1e3),
+                "mean_us": float(d.mean() / 1e3)}
+           for ph, d in spans.items()}
+    seen = np.unique(t)
+    gaps = np.diff(seen)
+    out["tick_ns"] = int(gaps.min()) if gaps.size else 0
+    return out
 
 
 def persistent_grid() -> dict:
@@ -348,11 +409,12 @@ def eft_check_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
                   decomp: LanczosDecomposition, y_full: torch.Tensor,
-                  ztol: float, state: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  ztol: float, state: Optional[torch.Tensor] = None,
+                  phase_clock: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3 (``csrc/lanczos_pass_two.cu``): replay and accumulate for a
     ``(k,)`` or ``(nf, k)`` y in one cooperative launch; returns ``(n,)``
-    or ``(nf, n)``."""
+    or ``(nf, n)``. A ``phase_clock`` receives the stamps of
+    :func:`phase_split`."""
     dev = lay.d.device
     k = decomp.k_max
     _need(b, (lay.n,), torch.float32, dev, "b")
@@ -373,7 +435,8 @@ def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
     code = lib.tpl_lanczos_pass_two(
         *_layout_args(lay), _ptr(b), k, ztol, _ptr(alphas), _ptr(betas),
         _ptr(y2), nf, _ptr(bnorm), _ptr(steps), _ptr(x), _ptr(state[0]),
-        _ptr(state[1]), ctypes.byref(mv), _stream())
+        _ptr(state[1]), _clock_ptr(phase_clock, "lanczos_pass_two"),
+        ctypes.byref(mv), _stream())
     LAUNCHES["kkt_matvec_in_pass"] += mv.value
     _check(lib, code, "lanczos_pass_two")
     LAUNCHES["lanczos_pass_two"] += 1

@@ -10,7 +10,8 @@ Phases (each one raises on failure, so the exit code is non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA kernels from ``two_pass_lanczos_tpu_torch/csrc``;
    print the registers and spills ``ptxas`` reports and the cooperative
-   grid (resident blocks per SM x SMs) of the persistent K2 and K3;
+   grid (resident blocks per SM x SMs) of the persistent K2, K3, K9 and
+   K10;
 3. K1, the KKT matvec, against its plain PyTorch version on the headline
    instance ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
    (m = 500,000 arcs, p = 1,155 nodes, n = 501,155);
@@ -83,14 +84,20 @@ Phases (each one raises on failure, so the exit code is non-zero):
     f64 costs: arc part bitwise its plain version in both planes, node part
     within 8·(deg+1)·2⁻⁴⁸·Σ|x|, rel 1e-13 of K8's f64 instance, and its
     time beside the plain version's and a cuSPARSE f64 CSR SpMV's;
-16. K9 and K10, the double-float passes, and the df main path
-    ``DFFusedKKTSolver(d64, u, v, p).solve(b64, k=500, f="inv")`` with b on
-    the card and the counters reset: K9 and K10 once each with 2k - 1 = 999
-    K11 launches inside them and no plain df op; x finite; pass two's hi
-    and lo v_s bitwise pass one's; α, β at k = 20 within 1e-11·max|α| of
-    the f64 generic pass one (K8 f64) and of the plain df pass one; a
-    small instance against the CPU f64 oracle; max|Δα| against the f64
-    run at k = 100/200/500; the median of 5 df solves;
+16. K9 and K10, the double-float passes (each one persistent cooperative
+    launch), and the df main path ``DFFusedKKTSolver(d64, u, v,
+    p).solve(b64, k=500, f="inv")`` with b on the card and the counters
+    reset: K9 and K10 once each with 2k - 1 = 999 K11 phases inside them
+    (``df_kkt_matvec_in_pass``), no K11 launch and no plain df op; x
+    finite; pass two's hi and lo v_s bitwise pass one's; K9's α, β (hi and
+    lo), ‖b‖, steps and final state and K10's x and state bitwise the
+    per-step launches they replaced at k = 20 and k = 500; α, β at k = 20
+    within 1e-11·max|α| of the f64 generic pass one (K8 f64) and of the
+    plain df pass one; a small instance against the CPU f64 oracle;
+    max|Δα| against the f64 run at k = 100/200/500; the medians of 5 df
+    solves on K9/K10 and on the per-step launches (the same x bit for
+    bit), K9 and K10 per pass and per step beside the per-step launches,
+    and their phase split (which checks that the timer changes no bit);
 17. K7, one shard's matvec, and the f32 sharded main path
     ``ShardedFusedKKTSolver(d, u, v, p, make_mesh(1)).solve(b, k=500,
     f="inv")`` on a one-rank NCCL group, at the headline and at the
@@ -126,12 +133,13 @@ Phases (each one raises on failure, so the exit code is non-zero):
     small f64 instance within rel 1e-9 of one device.
 
 Every kernel's entry of the JSON line carries its launches on its main
-path (K1's: 0, since K2 and K3 launch no K1; its entry alone also carries
+path (K1's: 0, since K2 and K3 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside them, and
 ``in_pass_us``, the phase timer's µs of one such phase a step in K2 and
 in K3, from the step's start to the slowest block's first barrier: the
 node and arc rows with the elementwise work fused into them, in K2
-w -= beta_prev v_prev and <v, w>, in K3 the update of v_next and x),
+w -= beta_prev v_prev and <v, w>, in K3 the update of v_next and x; K11's
+likewise: 0 launches, and its phases inside K9 and K10),
 its max_abs_err against its plain version,
 its time
 (``ms``), the plain version's (``plain_ms``), ``bound_ms`` (the larger of
@@ -357,8 +365,6 @@ def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
     ``x_ref``), prints the split and returns ``phase_split`` of each pass."""
     import torch
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
-        PHASES,
-        TIMED_STEPS,
         pass_one_cuda,
         pass_two_cuda,
         phase_clock,
@@ -377,15 +383,87 @@ def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
           "the phase timer left a stamp unwritten")
     split = {name: phase_split(clk, name) for name, clk in
              (("lanczos_pass_one", clk1), ("lanczos_pass_two", clk2))}
-    first = dec.k_max // 2
+    print_split(split, dec.k_max // 2, clk1.shape[1])
+    return split
+
+
+def print_split(split: dict, first: int, blocks: int) -> None:
+    """Print ``phase_split`` of each pass in ``split`` (name -> split)."""
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import PHASES, TIMED_STEPS
     for name, got in split.items():
         print(f"    {name} phase split, us a step (steps {first}.."
-              f"{first + TIMED_STEPS - 1}, {clk1.shape[1]} blocks; max / "
+              f"{first + TIMED_STEPS - 1}, {blocks} blocks; max / "
               f"median / mean over blocks; timer tick <= {got['tick_ns']} "
               f"ns):")
         for ph in (*PHASES[name], "matvec phase", "step"):
             print(f"      {ph:>18}: {got[ph]['max_us']:8.3f} "
                   f"{got[ph]['median_us']:8.3f} {got[ph]['mean_us']:8.3f}")
+
+
+def df_routes(sdf, b2, k: int) -> None:
+    """K9 and K10, then the per-step launches they replaced, on one (2, n)
+    b and one seeded y (zero beyond steps_taken). Fails unless the two
+    routes' coefficients, ||b||, steps, final states and x agree bit for
+    bit."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+        df_pass_one_cuda,
+        df_pass_one_steps_cuda,
+        df_pass_two_cuda,
+        df_pass_two_steps_cuda,
+    )
+    out = []
+    for one, two in ((df_pass_one_cuda, df_pass_two_cuda),
+                     (df_pass_one_steps_cuda, df_pass_two_steps_cuda)):
+        st1 = torch.empty(2, 2, sdf.n, device=b2.device)
+        c = one(sdf.layout, sdf.d2, b2, k, sdf.tol, sdf.ztol, state=st1)
+        if not out:
+            y = np.random.default_rng(k).standard_normal((2, k))
+            y[:, int(c[5][0]):] = 0.0
+            y2 = torch.from_numpy(y.astype(np.float32)).to(b2.device)
+        st2 = torch.empty_like(st1)
+        out.append((c, st1, two(sdf.layout, sdf.d2, b2, c, y2, sdf.ztol,
+                                state=st2), st2))
+    torch.cuda.synchronize()
+    (c, st1, x2, st2), (cr, st1r, x2r, st2r) = out
+    check(all(torch.equal(a, r) for a, r in zip(c, cr))
+          and torch.equal(st1, st1r),
+          f"K9's alpha, beta, ||b||, steps or state differ from the per-step "
+          f"launches at k={k}")
+    check(torch.equal(x2, x2r) and torch.equal(st2, st2r),
+          f"K10's x or state differs from the per-step launches at k={k}")
+
+
+def df_timed_split(sdf, b2, coeffs, y2, x2_ref) -> dict:
+    """K9 and K10 once more on ``coeffs``' run with the phase timer; checks
+    that the timer changed no bit, prints the split and returns
+    ``phase_split`` of each pass."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        phase_clock,
+        phase_split,
+    )
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+        df_pass_one_cuda,
+        df_pass_two_cuda,
+    )
+    dev = b2.device
+    k = int(coeffs[0].shape[0])
+    clk1 = phase_clock("df_lanczos_pass_one", dev)
+    clk2 = phase_clock("df_lanczos_pass_two", dev)
+    c_t = df_pass_one_cuda(sdf.layout, sdf.d2, b2, k, sdf.tol, sdf.ztol,
+                           phase_clock=clk1)
+    x_t = df_pass_two_cuda(sdf.layout, sdf.d2, b2, coeffs, y2, sdf.ztol,
+                           phase_clock=clk2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, r) for a, r in zip(c_t, coeffs))
+          and torch.equal(x_t, x2_ref), "the phase timer changed K9 or K10")
+    check(bool((clk1 > 0).all()) and bool((clk2 > 0).all()),
+          "the phase timer left a stamp of K9 or K10 unwritten")
+    split = {"df_lanczos_pass_one": phase_split(clk1, "df_lanczos_pass_one"),
+             "df_lanczos_pass_two": phase_split(clk2, "df_lanczos_pass_two")}
+    print_split(split, k // 2, clk1.shape[1])
     return split
 
 
@@ -1913,9 +1991,13 @@ def main() -> int:
     for name in ("df_kkt_matvec", "df_lanczos_pass_one",
                  "df_lanczos_pass_two"):
         launches[name] = df_launches[name]
+    # K11 launched no time: its rows ran as the phases of K9 and K10, which
+    # K11's row reports apart (``in_pass_matvecs``)
+    df_in_pass_matvecs = df_launches["df_kkt_matvec_in_pass"]
     check(df_launches["df_lanczos_pass_one"] == 1
           and df_launches["df_lanczos_pass_two"] == 1
-          and df_launches["df_kkt_matvec"] == 2 * K - 1
+          and df_launches["df_kkt_matvec"] == 0
+          and df_in_pass_matvecs == 2 * K - 1
           and sum(df_launches.values()) == 2 * K + 1 and not plain_df,
           f"df launches {df_launches}, plain df calls {plain_df}")
     check(tuple(x_df.shape) == (n,) and x_df.dtype == torch.float64
@@ -1940,6 +2022,9 @@ def main() -> int:
     check(torch.equal(df_pass_one_last_vector(coeffs, st1), st2[1]),
           f"df pass two's v_{steps_df} differs from pass one's (hi or lo)")
     check(torch.equal(sdf.unpack64(x2_rep), x_df), "df x not reproducible")
+    # K9 and K10 bitwise the per-step launches they replaced
+    for kk in (K_CHECK, K):
+        df_routes(sdf, b2, kk)
     # k = 20 against the f64 generic pass one (K8 f64) and the plain df one
     dec64_20 = tpl.lanczos_pass_one(op64, b64, K_CHECK)
     c20 = sdf.pass_one(b2, K_CHECK)
@@ -1997,9 +2082,13 @@ def main() -> int:
                          > tol * scale_a)[0]
         return int(far[0]) + 1 if len(far) else None
     print(f"[16] df solve(k={K}, f='inv') first call {df_first:.4f} s, "
-          f"steps_taken {steps_df}, launches {df_launches}, plain df calls "
-          f"{len(plain_df)}; pass two's v_{steps_df} bitwise pass one's in "
-          f"hi and lo (n={n}); alpha, beta at k={K_CHECK} vs f64 (K8) "
+          f"steps_taken {steps_df}, launches "
+          f"{ {k_: c for k_, c in df_launches.items() if c} }, plain df "
+          f"calls {len(plain_df)}; pass two's v_{steps_df} bitwise pass "
+          f"one's in hi and lo (n={n}); K9's alpha, beta (hi, lo), ||b||, "
+          f"steps and state and K10's x and state bitwise the per-step "
+          f"launches at k={K_CHECK} and k={K}; alpha, beta at k={K_CHECK} "
+          f"vs f64 (K8) "
           f"{da64:.3e} / {db64:.3e} <= 1e-11·max|alpha| {atol20:.3e}; K9 vs "
           f"plain df {err_k9:.3e}; K10 vs plain df rel {rel_k10:.3e}; small "
           f"instance vs CPU f64 oracle rel {rel_small_df:.3e}")
@@ -2011,6 +2100,23 @@ def main() -> int:
                       f"{onset(a32_k, tol)}" for tol in (1e-12, 1e-6, 1e-2)))
 
     t_df = wall_s(lambda: sdf.solve(b64, k=K, f="inv"), 5)
+    # the same solve on the per-step launches K9 and K10 replaced: the
+    # solver's passes pointed at the reference routes for these runs only
+    swapped = [(kkt_fused_df, "df_pass_one_cuda",
+                kkt_fused_df.df_pass_one_steps_cuda),
+               (kkt_fused_df, "df_pass_two_cuda",
+                kkt_fused_df.df_pass_two_steps_cuda)]
+    kept = [getattr(o, a) for o, a, _ in swapped]
+    for o, a, fn in swapped:
+        setattr(o, a, fn)
+    try:
+        x_steps, _ = sdf.solve(b64, k=K, f="inv")
+        t_df_steps = wall_s(lambda: sdf.solve(b64, k=K, f="inv"), 5)
+    finally:
+        for (o, a, _), fn in zip(swapped, kept):
+            setattr(o, a, fn)
+    check(torch.equal(x_steps, x_df),
+          "the df solve on the per-step launches differs from K9/K10's")
     ms["df_kkt_matvec"] = device_ms(
         lambda: df_kkt_matvec_cuda(dlay, dfop.d2, x2), 200)
     plain_ms["df_kkt_matvec"] = device_ms(
@@ -2019,6 +2125,14 @@ def main() -> int:
     ms["df_lanczos_pass_one"] = event_ms(lambda: sdf.pass_one(b2, K), 3)
     ms["df_lanczos_pass_two"] = event_ms(
         lambda: sdf.pass_two(b2, coeffs, y_h, y_l), 3)
+    y2_solve = torch.stack([y_h, y_l])
+    steps_route_ms = {
+        "df_lanczos_pass_one": event_ms(
+            lambda: kkt_fused_df.df_pass_one_steps_cuda(
+                sdf.layout, sdf.d2, b2, K, sdf.tol, sdf.ztol), 3),
+        "df_lanczos_pass_two": event_ms(
+            lambda: kkt_fused_df.df_pass_two_steps_cuda(
+                sdf.layout, sdf.d2, b2, coeffs, y2_solve, sdf.ztol), 3)}
     dec_k = kkt_fused_df.DFDecomposition(
         alphas=DF(coeffs[0], coeffs[1]), betas=DF(coeffs[2], coeffs[3]),
         steps_taken=coeffs[5].reshape(()),
@@ -2029,12 +2143,23 @@ def main() -> int:
     plain_ms["df_lanczos_pass_two"] = event_ms(
         lambda: kkt_fused_df._pass_two_df(dfop, bdf, dec_k, DF(y_h, y_l),
                                           False), 1)
-    print(f"    on {card}: df two-pass solve k={K}: {runs(t_df)}")
+    print(f"    on {card}: df two-pass solve k={K}: {runs(t_df)}; on the "
+          f"per-step launches K9 and K10 replaced: {runs(t_df_steps)}")
     for name in ("df_kkt_matvec", "df_lanczos_pass_one",
                  "df_lanczos_pass_two"):
         print(f"    {name}: kernel {ms[name]:.5f} ms, plain "
               f"{plain_ms[name]:.5f} ms")
+    for name, label, nsteps in (("df_lanczos_pass_one", "K9", K),
+                                ("df_lanczos_pass_two", "K10",
+                                 max(steps_df - 1, 1))):
+        print(f"    {label}, one cooperative launch: {ms[name]:.4f} ms a "
+              f"pass, {1e3 * ms[name] / nsteps:.3f} us a step; the per-step "
+              f"launches: {steps_route_ms[name]:.4f} ms a pass, "
+              f"{1e3 * steps_route_ms[name] / nsteps:.3f} us a step")
     print(f"    cuSPARSE f64 CSR SpMV (nnz {coo64.nnz}) {lib64_ms:.5f} ms")
+    df_split = df_timed_split(sdf, b2, coeffs, y2_solve, x2_rep)
+    df_in_pass_us = {name: got["matvec phase"]["max_us"]
+                     for name, got in df_split.items()}
 
     # 17-18. the sharded solvers on a one-rank NCCL group (NCCL refuses
     #        two ranks on one card), at the headline and at 5M arcs
@@ -2083,6 +2208,9 @@ def main() -> int:
     k1_row = next(r for r in rows if r["name"] == "kkt_matvec")
     k1_row["in_pass_matvecs"] = in_pass_matvecs
     k1_row["in_pass_us"] = in_pass_us
+    k11_row = next(r for r in rows if r["name"] == "df_kkt_matvec")
+    k11_row["in_pass_matvecs"] = df_in_pass_matvecs
+    k11_row["in_pass_us"] = df_in_pass_us
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     check(not below, f"timed below their bound (a bound of the wrong "
                      f"memory level): {below}")

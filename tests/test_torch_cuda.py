@@ -10,6 +10,8 @@ only PyTorch for CUDA is set up::
 ``chip_smoke.py`` checks the same kernels at the headline size.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from two_pass_lanczos_tpu_torch import (
     FusedKKTSolver,
     KKTOperator,
     SparseOperator,
+    generate_mcf_instance,
     lanczos_pass_one_df,
     lanczos_pass_two_with_basis,
     lanczos_standard,
@@ -56,7 +59,6 @@ from two_pass_lanczos_tpu_torch.ops.df import DF, df_add, df_from_f64
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     LAUNCHES,
-    PHASES,
     KKTLayout,
     PassOneBuffers,
     eft_check_cuda,
@@ -75,7 +77,11 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
     df_kkt_matvec_cuda,
     df_kkt_shard_matvec,
     df_kkt_shard_matvec_cuda,
+    df_pass_one_cuda,
     df_pass_one_last_vector,
+    df_pass_one_steps_cuda,
+    df_pass_two_cuda,
+    df_pass_two_steps_cuda,
 )
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
 from two_pass_lanczos_tpu_torch.parallel import (
@@ -234,7 +240,8 @@ def test_phase_timer_stamps_without_changing_a_bit_on_card(cuda_device):
     dec = s.pass_one(bt, k)
     y = torch.from_numpy(_y_full(dec, 2, seed=4)).to(cuda_device)
     x = s.pass_two(bt, dec, y)
-    clocks = {name: phase_clock(name, cuda_device) for name in PHASES}
+    clocks = {name: phase_clock(name, cuda_device)
+              for name in ("lanczos_pass_one", "lanczos_pass_two")}
     dec_t = pass_one_cuda(lay, bt, k, s.tol, s.ztol,
                           phase_clock=clocks["lanczos_pass_one"])
     x_t = pass_two_cuda(lay, bt, dec, y, s.ztol,
@@ -709,8 +716,10 @@ def test_df_pass_kernels_match_plain_on_card(cuda_device):
     st1 = torch.empty(2, 2, s.n, device=cuda_device)
     coeffs = s.pass_one(b2, k, state=st1)
     torch.cuda.synchronize()
+    # the matvecs run as phases of the persistent K9: no K11 launch
     assert LAUNCHES["df_lanczos_pass_one"] == 1
-    assert LAUNCHES["df_kkt_matvec"] == k
+    assert LAUNCHES["df_kkt_matvec_in_pass"] == k
+    assert LAUNCHES["df_kkt_matvec"] == 0
     ah, al, bh, bl, bn2, steps = coeffs
     assert int(steps[0]) == k
     ref = lanczos_pass_one_df(DFKKTOperator.from_f64(d, u, v, p, device=CPU),
@@ -729,13 +738,133 @@ def test_df_pass_kernels_match_plain_on_card(cuda_device):
     s.pass_two(b2, coeffs, y[0], y[1], state=st2)
     torch.cuda.synchronize()
     assert LAUNCHES["df_lanczos_pass_two"] == 1
-    assert LAUNCHES["df_kkt_matvec"] == 2 * k - 1
+    assert LAUNCHES["df_kkt_matvec_in_pass"] == 2 * k - 1
+    assert LAUNCHES["df_kkt_matvec"] == 0
     assert torch.equal(df_pass_one_last_vector(coeffs, st1), st2[1])
     # the whole solve against the plain one on the CPU
     x, (al64, be64, st) = s.solve(b, k=k, f="inv")
     x_cpu, _ = DFFusedKKTSolver(d, u, v, p, device=CPU).solve(b, k=k)
     assert x.dtype == torch.float64 and x.is_cuda and st == k
     assert _rel(x.cpu().numpy(), x_cpu.numpy()) < 1e-10
+
+
+@functools.lru_cache(maxsize=None)
+def _df_walk_problem(case):
+    """A df instance (f64 costs) and its f64 b: the headline,
+    ``generate_mcf_instance(500_000, rho=3, instance_id=1)``, or one of the
+    node walk's cases."""
+    rng = np.random.default_rng(7)
+    if case == "headline":
+        inst = generate_mcf_instance(500_000, rho=3, instance_id=1)
+        d, u, v, p = (inst.quad_costs, inst.arc_u, inst.arc_v,
+                      inst.num_nodes)
+    else:
+        d, u, v, p = NODE_WALK_CASES[case](rng)
+        d = d.astype(np.float64) * (1.0 + rng.uniform(0, 1e-7, len(d)))
+    return d, u, v, p, rng.standard_normal(len(d) + p)
+
+
+def _df_steps_solve(s, b2, k, seed):
+    """K9 and K10 and their per-step references on one b: (coeffs, state,
+    x) of each route, with the same y (zero beyond steps_taken)."""
+    out = []
+    for one, two in ((df_pass_one_cuda, df_pass_two_cuda),
+                     (df_pass_one_steps_cuda, df_pass_two_steps_cuda)):
+        st1 = torch.empty(2, 2, s.n, device=b2.device)
+        c = one(s.layout, s.d2, b2, k, s.tol, s.ztol, state=st1)
+        if not out:
+            y = np.random.default_rng(seed).standard_normal((2, k))
+            y[:, int(c[5][0]):] = 0.0
+            y2 = torch.from_numpy(y.astype(np.float32)).to(b2.device)
+        st2 = torch.empty_like(st1)
+        x2 = two(s.layout, s.d2, b2, c, y2, s.ztol, state=st2)
+        out.append((c, st1, x2, st2))
+    torch.cuda.synchronize()
+    return out
+
+
+def _assert_df_routes_equal(got, ref):
+    (c, st1, x2, st2), (c_ref, st1_ref, x2_ref, st2_ref) = got, ref
+    for a, b in zip(c, c_ref):  # alpha, beta hi and lo, ||b||, steps
+        assert torch.equal(a, b)
+    assert torch.equal(st1, st1_ref)  # v_prev and v_curr, hi and lo
+    assert torch.equal(x2, x2_ref) and torch.equal(st2, st2_ref)
+
+
+DF_WALK_CASES = ["headline", "wide_hub", "self_loop"]
+
+
+@pytest.mark.parametrize("case", DF_WALK_CASES)
+@pytest.mark.parametrize("k", [20, 500])
+def test_persistent_df_pass_one_bitwise_per_step_on_card(cuda_device, k,
+                                                         case):
+    d, u, v, p, b = _df_walk_problem(case)
+    s = DFFusedKKTSolver(d, u, v, p, device=cuda_device)
+    b2 = s.pack(torch.from_numpy(b).to(cuda_device))
+    reset_launches()
+    st = torch.empty(2, 2, s.n, device=cuda_device)
+    c = s.pass_one(b2, k, state=st)
+    assert LAUNCHES["df_lanczos_pass_one"] == 1
+    assert LAUNCHES["df_kkt_matvec_in_pass"] == k
+    assert LAUNCHES["df_kkt_matvec"] == 0
+    st_ref = torch.empty_like(st)
+    c_ref = df_pass_one_steps_cuda(s.layout, s.d2, b2, k, s.tol, s.ztol,
+                                   state=st_ref)
+    torch.cuda.synchronize()
+    assert LAUNCHES["df_lanczos_pass_one_steps"] == 1
+    assert LAUNCHES["df_kkt_matvec"] == k
+    for a, r in zip(c, c_ref):  # alpha, beta hi and lo, ||b||, steps
+        assert torch.equal(a, r)
+    assert torch.equal(st, st_ref)  # v_prev and v_curr, hi and lo
+    # reproducible run to run, whatever the grid
+    again = s.pass_one(b2, k)
+    assert torch.equal(again[0], c[0]) and torch.equal(again[3], c[3])
+    grids = persistent_grid()
+    assert all(grids[name][0] >= 1 for name in
+               ("df_lanczos_pass_one", "df_lanczos_pass_two"))
+
+
+@pytest.mark.parametrize("case", DF_WALK_CASES)
+@pytest.mark.parametrize("k", [20, 500])
+def test_persistent_df_pass_two_bitwise_per_step_on_card(cuda_device, k,
+                                                         case):
+    d, u, v, p, b = _df_walk_problem(case)
+    s = DFFusedKKTSolver(d, u, v, p, device=cuda_device)
+    b2 = s.pack(torch.from_numpy(b).to(cuda_device))
+    reset_launches()
+    got, ref = _df_steps_solve(s, b2, k, seed=3)
+    assert LAUNCHES["df_lanczos_pass_two"] == 1
+    assert LAUNCHES["df_lanczos_pass_two_steps"] == 1
+    assert LAUNCHES["df_kkt_matvec_in_pass"] == 2 * k - 1
+    assert LAUNCHES["df_kkt_matvec"] == 2 * k - 1  # the references' K11
+    _assert_df_routes_equal(got, ref)
+    # pass two's hi and lo v_s are pass one's
+    c, st1, _, st2 = got
+    assert torch.equal(df_pass_one_last_vector(c, st1), st2[1])
+
+
+def test_df_phase_timer_stamps_without_changing_a_bit_on_card(cuda_device):
+    d, u, v, p, b = _df_walk_problem("wide_hub")
+    s = DFFusedKKTSolver(d, u, v, p, device=cuda_device)
+    b2 = s.pack(torch.from_numpy(b).to(cuda_device))
+    k = 40
+    c = s.pass_one(b2, k)
+    y2 = torch.from_numpy(np.random.default_rng(4).standard_normal((2, k))
+                          .astype(np.float32)).to(cuda_device)
+    x2 = s.pass_two(b2, c, y2[0], y2[1])
+    clocks = {name: phase_clock(name, cuda_device)
+              for name in ("df_lanczos_pass_one", "df_lanczos_pass_two")}
+    c_t = df_pass_one_cuda(s.layout, s.d2, b2, k, s.tol, s.ztol,
+                           phase_clock=clocks["df_lanczos_pass_one"])
+    x_t = df_pass_two_cuda(s.layout, s.d2, b2, c, y2, s.ztol,
+                           phase_clock=clocks["df_lanczos_pass_two"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(c_t, c))
+    assert torch.equal(x_t, x2)
+    for name, clk in clocks.items():
+        assert bool((clk > 0).all())  # every block stamped every phase
+        assert bool((clk.diff(dim=2) >= 0).all())  # in order
+        assert phase_split(clk, name)["step"]["max_us"] > 0
 
 
 def test_df_breakdown_and_zero_b_on_card(cuda_device):
@@ -762,6 +891,18 @@ def test_df_breakdown_and_zero_b_on_card(cuda_device):
     zero = torch.zeros(4, device=cuda_device)
     x_sub = s.pass_two(b_sub, c_sub, zero, zero)
     assert bool(torch.isfinite(x_sub).all()) and bool((x_sub == 0).all())
+    # the persistent K9 and K10 bitwise their per-step references: through
+    # the breakdown (every block leaves the loop at the step that breaks
+    # down, which writes alpha, not beta, and leaves the state), on a b
+    # that is zero on every arc, on a zero and a subnormal b
+    bz = np.zeros(n)
+    bz[len(d):] = np.random.default_rng(9).standard_normal(p)
+    for bb, k in ((b.astype(np.float64), 12), (bz, 20), (np.zeros(n), 5),
+                  (np.full(n, 1e-42), 4)):
+        got, ref = _df_steps_solve(s, s.pack(bb), k, seed=5)
+        _assert_df_routes_equal(got, ref)
+        assert bool(torch.isfinite(got[2]).all())
+    assert int(got[0][5][0]) == 0 and bool((got[2] == 0).all())
 
 
 # --- K7, K12: the shard matvecs of the sharded solvers --------------------

@@ -7,6 +7,8 @@ The JAX interpret kernel takes several seconds per call, so each JAX result
 is computed once in a module-scoped fixture (four kernel calls in all).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
 from two_pass_lanczos_tpu_torch.algorithms.df import DFKKTOperator
 from two_pass_lanczos_tpu_torch.convert import df_solver_from_jax
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
+from two_pass_lanczos_tpu_torch.ops import kkt_fused_df
 from two_pass_lanczos_tpu_torch.ops.df import DF
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
     DF_BREAKDOWN_TOL,
@@ -208,6 +211,51 @@ def test_df_fused_exp():
     lam, q = np.linalg.eigh(a_dense)
     x_true = q @ (np.exp(lam) * (q.T @ b))
     assert np.linalg.norm(x - x_true) / np.linalg.norm(x_true) < 1e-2
+
+
+def test_df_solver_reaches_only_the_persistent_passes(monkeypatch):
+    # on the card DFFusedKKTSolver's passes are K9 and K10, one cooperative
+    # launch each; the per-step launches they replaced (*_steps_cuda) are
+    # their reference, which no method of the solver reaches. The card's
+    # branch is driven here with the wrappers stood in by the plain passes
+    # of a CPU twin
+    rng = np.random.default_rng(11)
+    m, p = 600, 100
+    d, u, v = _kkt(rng, m, p)
+    b = rng.standard_normal(m + p)
+    s = DFFusedKKTSolver(d, u, v, p, device=CPU)
+    twin = DFFusedKKTSolver(d, u, v, p, device=CPU)
+    calls = []
+
+    def pass_one(lay, d2, b2, k, tol, ztol, state=None, phase_clock=None):
+        assert lay is s.layout and d2 is s.d2 and phase_clock is None
+        calls.append("K9")
+        return twin.pass_one(b2, k, state)
+
+    def pass_two(lay, d2, b2, coeffs, y2, ztol, state=None,
+                 phase_clock=None):
+        assert lay is s.layout and d2 is s.d2 and phase_clock is None
+        calls.append("K10")
+        return twin.pass_two(b2, coeffs, y2[0], y2[1], state)
+
+    def per_step(*args, **kwargs):
+        pytest.fail("a solver method reached the per-step reference")
+
+    monkeypatch.setattr(DFFusedKKTSolver, "_cuda",
+                        property(lambda self: self is s))
+    monkeypatch.setattr(kkt_fused_df, "df_pass_one_cuda", pass_one)
+    monkeypatch.setattr(kkt_fused_df, "df_pass_two_cuda", pass_two)
+    monkeypatch.setattr(kkt_fused_df, "df_pass_one_steps_cuda", per_step)
+    monkeypatch.setattr(kkt_fused_df, "df_pass_two_steps_cuda", per_step)
+    x, (a64, _, steps) = s.solve(b, k=12, f="inv")
+    assert calls == ["K9", "K10"] and steps == 12
+    x_ref, (a_ref, _, _) = twin.solve(b, k=12, f="inv")
+    assert torch.equal(x, x_ref) and np.array_equal(a64, a_ref)
+    calls.clear()
+    s.pass_two(b, s.pass_one(b, 5), torch.zeros(5), torch.zeros(5))
+    assert calls == ["K9", "K10"]
+    source = inspect.getsource(DFFusedKKTSolver)
+    assert "steps_cuda" not in source and "_steps" not in source
 
 
 def test_df_pass_two_direct_subnormal_b_yields_zeros():

@@ -1,7 +1,7 @@
 // Shared device code of the double-float (df) kernels: K11 the df matvec
 // (df_kkt_matvec.cu), K12 one shard's df matvec (df_kkt_shard_matvec.cu),
 // K9 df pass one (df_lanczos_pass_one.cu) and K10 df pass two
-// (df_lanczos_pass_two.cu).
+// (df_lanczos_pass_two.cu), which run K11's rows as a phase of every step.
 //
 // A df value is the unevaluated sum hi + lo of two floats; a df vector of
 // length n is one contiguous (2, n) array, hi plane first. The routines
@@ -88,15 +88,47 @@ __device__ __forceinline__ float2 df_scalar_recip(float yh, float yl) {
 }
 
 // The df fold of g block partials (hi in partials[0..g), lo in
-// partials[kMaxPartials..]), in one block; every thread gets the pair.
+// partials[kMaxPartials..]), in one block; every thread gets the pair. The
+// partials are read through `load` (CachedLoad in the persistent K9, whose
+// other blocks wrote them earlier in the launch).
+template <typename Load = DirectLoad>
 __device__ __forceinline__ float2 df_fold_partials(const float* partials,
                                                    int g, float* sh,
-                                                   float* sl) {
+                                                   float* sl,
+                                                   Load load = Load()) {
   float2 acc = make_float2(0.0f, 0.0f);
   for (int i = threadIdx.x; i < g; i += kThreads)
-    acc = df_add2(acc.x, acc.y, partials[i], partials[kMaxPartials + i]);
+    acc = df_add2(acc.x, acc.y, load(partials + i),
+                  load(partials + kMaxPartials + i));
   return block_sum2(acc, sh, sl);
 }
+
+// How a df routine reads element i of a (hi, lo) vector, as a pair: straight
+// (K11, K12, where the compiler may take the read-only path), with
+// ld.global.ca for a vector that other blocks wrote earlier in the same
+// launch (the persistent K9 and K10; see CachedLoad), or as the normalised
+// v = w (x) (1/beta) of df_scale, read straight from w (K9's matvec phase:
+// bitwise what the per-step path's rotate stores, see ScaledLoad). The
+// value, and so the arithmetic, does not depend on the load.
+struct DFDirectLoad {
+  __device__ __forceinline__ float2 operator()(const float* xh,
+                                               const float* xl, int i) const {
+    return make_float2(xh[i], xl[i]);
+  }
+};
+struct DFCachedLoad {
+  __device__ __forceinline__ float2 operator()(const float* xh,
+                                               const float* xl, int i) const {
+    return make_float2(__ldca(xh + i), __ldca(xl + i));
+  }
+};
+struct DFScaledLoad {
+  float sh, sl;  // 1/beta (or 1/||b||) as a df pair
+  __device__ __forceinline__ float2 operator()(const float* xh,
+                                               const float* xl, int i) const {
+    return df_scale(__ldca(xh + i), __ldca(xl + i), sh, sl);
+  }
+};
 
 // The two parts of one df KKT matvec, shared by K11 (df_kkt_matvec.cu) and
 // K12 (df_kkt_shard_matvec.cu) so that both round alike.
@@ -114,19 +146,23 @@ __device__ __forceinline__ float2 df_kkt_arc_row(float dh, float dl, float xh,
 
 // Node row: the node's CSR segment of +-x_a pairs, each thread folding its
 // strided share with df_add2, then the fixed tree of block_sum2. Every
-// thread of the block must call it; returns the pair in every thread.
+// thread of the block must call it; returns the pair in every thread. x_a
+// is read through `load` (a DF*Load above).
+template <typename Load = DFDirectLoad>
 __device__ __forceinline__ float2 df_kkt_node_row(const int* __restrict__ ptr,
                                                   const int* __restrict__ ent,
                                                   const float* __restrict__ xh,
                                                   const float* __restrict__ xl,
                                                   int node, float* sh,
-                                                  float* sl) {
+                                                  float* sl,
+                                                  Load load = Load()) {
   const int end = ptr[node + 1];
   float2 acc = make_float2(0.0f, 0.0f);
   for (int q = ptr[node] + threadIdx.x; q < end; q += kThreads) {
     const int a = ent[q];
-    acc = a >= 0 ? df_add2(acc.x, acc.y, xh[a], xl[a])
-                 : df_add2(acc.x, acc.y, -xh[~a], -xl[~a]);
+    const float2 x = load(xh, xl, a >= 0 ? a : ~a);
+    acc = a >= 0 ? df_add2(acc.x, acc.y, x.x, x.y)
+                 : df_add2(acc.x, acc.y, -x.x, -x.y);
   }
   return block_sum2(acc, sh, sl);
 }

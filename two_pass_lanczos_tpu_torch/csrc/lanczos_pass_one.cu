@@ -318,8 +318,10 @@ pass_one_persistent_kernel(Persistent a) {
   float* const vp = s.vp;
   float* const vc = s.vc;
   int* const ready = s.flags + 1;  // p: the step whose node row is in w
-  // plane 0 holds the ||b||^2 and <v, w> partials, plane 1 the <w, w> ones:
-  // a block may start the beta dot while another still folds alpha's
+  // plane 0 holds the <v, w> partials, plane 1 the ||b||^2 and <w, w> ones:
+  // a block may start the beta dot while another still folds alpha's, and
+  // step 0 may store its first partials while another block still folds
+  // ||b||^2
   float* const pa = s.partials;
   float* const pb = s.partials + kMaxPartials;
   const int first = blockIdx.x * kThreads + threadIdx.x;
@@ -327,7 +329,7 @@ pass_one_persistent_kernel(Persistent a) {
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
 
   // the start: sq_partials_kernel, init_kernel, init_vectors_kernel
-  reduce_phase(g, n, pa, sh, [&](float2 acc, int i) {
+  reduce_phase(g, n, pb, sh, [&](float2 acc, int i) {
     return accumulate<false>(acc, a.b[i], a.b[i]);
   });
   for (int i = first; i < s.k; i += stride) {
@@ -336,7 +338,7 @@ pass_one_persistent_kernel(Persistent a) {
   }
   for (int i = first; i < s.p; i += stride) ready[i] = 0;
   grid_sync();
-  const float nb = __fsqrt_rn(fold_partials<false>(pa, g, sh, nullptr, ld));
+  const float nb = __fsqrt_rn(fold_partials<false>(pb, g, sh, nullptr, ld));
   const bool zero_b = nb <= s.ztol;
   float inv_b = zero_b ? 0.0f : lanczos_inverse(nb);
   for (int i = first; i < n; i += stride) {

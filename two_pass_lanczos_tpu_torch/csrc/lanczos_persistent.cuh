@@ -1,6 +1,8 @@
 // The persistent form of the fused passes: one cooperative launch runs a
-// whole pass (K2 in lanczos_pass_one.cu, K3 in lanczos_pass_two.cu), with
-// grid barriers between the phases of each step.
+// whole pass (K2 in lanczos_pass_one.cu, K3 in lanczos_pass_two.cu, and
+// their double-float counterparts K9 in df_lanczos_pass_one.cu, K10 in
+// df_lanczos_pass_two.cu), with grid barriers between the phases of each
+// step.
 //
 // Why. The TPU kernels (_pass_one_kernel, two_pass_lanczos_tpu/ops/
 // kkt_fused.py:581; _pass_two_kernel, :841) ran all k steps in one launch
@@ -45,6 +47,10 @@ namespace tpl {
 // SM were tried and 5 was fastest for both passes. The sums do not depend
 // on it.
 constexpr int kPersistentBlocksPerSM = 5;
+// The df passes' own cap (K9, K10). Their kernels are built with it as
+// __launch_bounds__' minimum blocks per SM, so that every build of them
+// (with and without the phase timer) reaches it and runs on the same grid.
+constexpr int kDFPersistentBlocksPerSM = 5;
 
 __device__ __forceinline__ void grid_sync() {
   cooperative_groups::this_grid().sync();
@@ -105,6 +111,13 @@ struct PhaseClock {
   }
 };
 
+// A phase timer that records nothing. The df passes (K9, K10) are built once
+// with it, for the solves, and once with PhaseClock, for the timer, so a
+// solve carries none of the timer's code or registers.
+struct NoClock {
+  __device__ __forceinline__ void stamp(int, int) const {}
+};
+
 // x[i] * scale, read as CachedLoad reads x[i]: a gather of the normalised
 // v = w * (1/beta) straight from w, bitwise what normalise would store.
 struct ScaledLoad {
@@ -114,10 +127,10 @@ struct ScaledLoad {
   }
 };
 
-// The cooperative grid of `kernel`: blocks per SM and SMs.
+// The cooperative grid of `kernel`: blocks per SM (at most `cap`) and SMs.
 template <typename P>
-cudaError_t persistent_grid(void (*kernel)(P), int* blocks_per_sm,
-                            int* sms) {
+cudaError_t persistent_grid(void (*kernel)(P), int* blocks_per_sm, int* sms,
+                            int cap = kPersistentBlocksPerSM) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -125,8 +138,7 @@ cudaError_t persistent_grid(void (*kernel)(P), int* blocks_per_sm,
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
                                                       kThreads, 0);
-  if (*blocks_per_sm > kPersistentBlocksPerSM)
-    *blocks_per_sm = kPersistentBlocksPerSM;
+  if (*blocks_per_sm > cap) *blocks_per_sm = cap;
   return err;
 }
 
@@ -134,9 +146,10 @@ cudaError_t persistent_grid(void (*kernel)(P), int* blocks_per_sm,
 // persistent_grid's blocks; returns the launch's error, if any.
 template <typename P>
 cudaError_t launch_persistent(void (*kernel)(P), P params,
-                              cudaStream_t stream) {
+                              cudaStream_t stream,
+                              int cap = kPersistentBlocksPerSM) {
   int per_sm = 0, sms = 0;
-  cudaError_t err = persistent_grid(kernel, &per_sm, &sms);
+  cudaError_t err = persistent_grid(kernel, &per_sm, &sms, cap);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&params};

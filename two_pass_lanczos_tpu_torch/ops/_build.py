@@ -74,15 +74,28 @@ _SIGNATURES = {
     # the same arguments over one shard's layout and local pairs
     "tpl_df_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # ... b2, k, tol, ztol, coeffs, bnorm2, steps, v_prev2, v_curr2, w2,
-    # partials, scal, flags, *matvec_launches, stream
+    # partials, flags, clock, *matvec_launches, stream (K9, persistent)
     "tpl_df_lanczos_pass_one": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 ctypes.POINTER(_I), _P],
-    # ... b2, k, ztol, coeffs, y2, bnorm2, steps, x2, v_prev2, v_curr2, w2,
-    # *matvec_launches, stream
+    # ... b2, k, tol, ztol, coeffs, bnorm2, steps, v_prev2, v_curr2, w2,
+    # partials, scal, flags, *matvec_launches, stream (the per-step launches)
+    "tpl_df_lanczos_pass_one_steps": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
+                                      _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      ctypes.POINTER(_I), _P],
+    # ... b2, k, ztol, coeffs, y2, bnorm2, steps, x2, v_prev2, v_curr2,
+    # clock, *matvec_launches, stream (K10, persistent)
     "tpl_df_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
                                 _P, _P, _P, _P, _P, _P, _P, _P,
                                 ctypes.POINTER(_I), _P],
+    # ... b2, k, ztol, coeffs, y2, bnorm2, steps, x2, v_prev2, v_curr2, w2,
+    # *matvec_launches, stream (the per-step launches)
+    "tpl_df_lanczos_pass_two_steps": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
+                                      _P, _P, _P, _P, _P, _P, _P, _P,
+                                      ctypes.POINTER(_I), _P],
+    # K9's and K10's cooperative grids: *blocks_per_sm, *sms
+    "tpl_df_lanczos_pass_one_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "tpl_df_lanczos_pass_two_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     # the K14 probes (csrc/probe_*.cu): tab, ntab, idx, idx_type, hi, n,
     # mode, g, stream
     "tpl_probe_gather": [_P, _I, _P, _I, _P, _I, _I, _P, _P],

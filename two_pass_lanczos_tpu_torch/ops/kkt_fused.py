@@ -67,7 +67,11 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
 #: and K8, the matvec of the generic KKT operators (``ops/spmv_kernel.py``),
 #: as ``kkt_operator_matvec``; K11, K9 and K10, the double-float kernels
 #: (``ops/kkt_fused_df.py``), as ``df_kkt_matvec``, ``df_lanczos_pass_one``
-#: and ``df_lanczos_pass_two``; K7 and K12, the shard matvecs of the sharded
+#: and ``df_lanczos_pass_two``, the K11 phases inside the persistent K9 (k a
+#: pass) and K10 (k - 1) as ``df_kkt_matvec_in_pass``, and the per-step
+#: launches K9 and K10 replaced (their reference, which launches K11) as
+#: ``df_lanczos_pass_one_steps`` and ``df_lanczos_pass_two_steps``; K7 and
+#: K12, the shard matvecs of the sharded
 #: solvers (``parallel/``), as ``kkt_streaming_matvec`` and
 #: ``df_kkt_streaming_matvec``, the names of the TPU kernels' wrappers; the
 #: K14 micro-kernels (``probes/``) as ``probe_gather``, ``probe_stream``,
@@ -77,8 +81,10 @@ LAUNCHES = {"kkt_matvec": 0, "kkt_matvec_in_pass": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
             "lanczos_pass_one_comp": 0, "eft_check": 0,
             "kkt_streaming_matvec": 0, "kkt_operator_matvec": 0,
-            "df_kkt_matvec": 0, "df_lanczos_pass_one": 0,
-            "df_lanczos_pass_two": 0, "df_kkt_streaming_matvec": 0,
+            "df_kkt_matvec": 0, "df_kkt_matvec_in_pass": 0,
+            "df_lanczos_pass_one": 0, "df_lanczos_pass_two": 0,
+            "df_lanczos_pass_one_steps": 0, "df_lanczos_pass_two_steps": 0,
+            "df_kkt_streaming_matvec": 0,
             "probe_gather": 0, "probe_stream": 0, "probe_stages": 0,
             "probe_pipeline": 0}
 #: size of one plane of pass one's block-partials scratch
@@ -338,6 +344,9 @@ TIMED_STEPS = 8
 PHASES = {"lanczos_pass_one": ("node rows", "arc rows + <v,w>", "barrier 1",
                                "alpha + <w,w>", "barrier 2"),
           "lanczos_pass_two": ("node rows", "arc rows", "barrier")}
+# K9 and K10 (``ops/kkt_fused_df.py``) step as K2 and K3 do
+PHASES["df_lanczos_pass_one"] = PHASES["lanczos_pass_one"]
+PHASES["df_lanczos_pass_two"] = PHASES["lanczos_pass_two"]
 
 
 def phase_clock(name: str, device) -> torch.Tensor:
@@ -376,14 +385,15 @@ def phase_split(clock, name: str) -> dict:
 
 
 def persistent_grid() -> dict:
-    """The cooperative grids of the persistent K2 and K3 on the current card:
-    ``{"lanczos_pass_one": (blocks per SM, SMs), "lanczos_pass_two": ...}``.
-    The passes' sums do not depend on it (``csrc/lanczos_persistent.cuh``)."""
+    """The cooperative grids of the persistent passes on the current card,
+    K2, K3, K9 and K10 by the names of :data:`PHASES`:
+    ``{"lanczos_pass_one": (blocks per SM, SMs), ...}``. The passes' sums do
+    not depend on it (``csrc/lanczos_persistent.cuh``)."""
     lib = load_library()
     grids = {}
-    for name, entry in (("lanczos_pass_one", lib.tpl_lanczos_pass_one_grid),
-                        ("lanczos_pass_two", lib.tpl_lanczos_pass_two_grid)):
+    for name in PHASES:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        entry = getattr(lib, f"tpl_{name}_grid")
         _check(lib, entry(ctypes.byref(per_sm), ctypes.byref(sms)), name)
         grids[name] = (per_sm.value, sms.value)
     return grids

@@ -23,11 +23,19 @@ tensor, hi plane first. The kernels (``csrc/df_*.cu``):
   partial (:func:`df_kkt_shard_matvec`), for the sharded df solver
   (``parallel/fused_sharded_df.py``).
 
+K9 and K10 are each ONE persistent cooperative launch
+(``csrc/lanczos_persistent.cuh``, as K2 and K3) that runs K11's rows as a
+phase of every step. The per-step launches they replaced stay as their
+bitwise reference, :func:`df_pass_one_steps_cuda` and
+:func:`df_pass_two_steps_cuda`, which only ``chip_smoke.py`` and the card
+tests call: no solve reaches them, and a refused cooperative launch raises.
+
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 does not take; on the CPU the solver runs the plain versions,
 ``algorithms/df.py``'s passes over ``DFKKTOperator.plain_matvec_df``.
 ``LAUNCHES`` (``ops/kkt_fused.py``) counts each kernel's launches; K9 and
-K10 add their in-pass K11 launches to ``df_kkt_matvec``.
+K10 count their matvec phases as ``df_kkt_matvec_in_pass`` (they launch no
+K11), the per-step reference its K11 launches as ``df_kkt_matvec``.
 
 Not ported, as for the f32 solver: the VMEM admission (``MAX_ARCS``,
 ``VMEM_BUDGET``, ``pass_vmem_bytes``), ``windowed``, ``interpret`` and the
@@ -37,6 +45,8 @@ TPU's transfer batching (``pack_flat``, ``_p1_flat``, ``_p2_flat``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -58,6 +68,7 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     MAX_PARTIALS,
     KKTLayout,
     _check,
+    _clock_ptr,
     _need,
     _ptr,
     _stream,
@@ -66,7 +77,9 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
 __all__ = ["DFFusedKKTSolver", "DF_BREAKDOWN_TOL", "df_kkt_matvec",
            "df_kkt_matvec_cuda", "df_kkt_shard_matvec",
            "df_kkt_shard_matvec_cuda", "df_pass_one_cuda",
-           "df_pass_two_cuda", "df_pass_one_last_vector"]
+           "df_pass_two_cuda", "df_pass_one_steps_cuda",
+           "df_pass_two_steps_cuda", "DFPassOneScratch",
+           "df_pass_one_last_vector"]
 
 #: breakdown tolerance at double-float working precision (1000 · 2⁻⁴⁹).
 DF_BREAKDOWN_TOL = 1000.0 * 2.0 ** -49
@@ -140,45 +153,91 @@ def df_kkt_shard_matvec(op: DFKKTOperator, x2: torch.Tensor) -> torch.Tensor:
     return torch.stack([y.hi, y.lo])
 
 
-def df_pass_one_cuda(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
-                     k: int, tol: float, ztol: float,
-                     state: Optional[torch.Tensor] = None) -> Coeffs:
-    """K9 (``csrc/df_lanczos_pass_one.cu``): k masked df steps from the
-    (2, n) b. A ``(2, 2, n)`` ``state`` receives the final ``(v_prev,
-    v_curr)`` pairs."""
+@dataclasses.dataclass(frozen=True)
+class DFPassOneScratch:
+    """Pass one's scratch, as its entry point takes it
+    (``csrc/df_lanczos_pass_one.cu``)."""
+
+    w2: torch.Tensor  # (2, n); (2, 2, n) for K9: this step's w, the last's
+    partials: torch.Tensor  # (2 * MAX_PARTIALS,); K9: (4 * MAX_PARTIALS,)
+    flags: torch.Tensor  # (1,) int32: live; (1 + p,) for K9: node-row tags
+    scal: Optional[torch.Tensor]  # (6,) f32 per-step only: β, α, 1/β pairs
+
+    @classmethod
+    def alloc(cls, lay: KKTLayout, persistent: bool) -> "DFPassOneScratch":
+        """``persistent``: K9's scratch, two halves of w, α's and β's df
+        partial planes apart, and the node rows' hand-over tags; the
+        per-step launches need one w, one pair of planes, the scalars and
+        the live flag."""
+        dev = lay.d.device
+        f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+        halves = (2,) if persistent else ()
+        return cls(w2=f32((*halves, 2, lay.n)),
+                   partials=f32((4 if persistent else 2) * MAX_PARTIALS),
+                   flags=torch.empty(1 + lay.p if persistent else 1,
+                                     dtype=torch.int32, device=dev),
+                   scal=None if persistent else f32(6))
+
+
+def _df_pass_one(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor, k: int,
+                 tol: float, ztol: float, state: Optional[torch.Tensor],
+                 persistent: bool,
+                 clock: Optional[torch.Tensor] = None) -> Coeffs:
     args = _df_layout_args(lay, d2)
     dev = lay.d.device
-    n = lay.n
-    _need(b2, (2, n), torch.float32, dev, "b2")
+    _need(b2, (2, lay.n), torch.float32, dev, "b2")
     if state is None:
-        state = torch.empty((2, 2, n), dtype=torch.float32, device=dev)
-    _need(state, (2, 2, n), torch.float32, dev, "state")
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    coeffs, bnorm2, w2 = f32(4, k), f32(2), f32(2, n)
-    partials, scal = f32(2 * MAX_PARTIALS), f32(6)
+        state = torch.empty((2, 2, lay.n), dtype=torch.float32, device=dev)
+    _need(state, (2, 2, lay.n), torch.float32, dev, "state")
+    coeffs = torch.empty((4, k), dtype=torch.float32, device=dev)
+    bnorm2 = torch.empty(2, dtype=torch.float32, device=dev)
     steps = torch.empty(1, dtype=torch.int32, device=dev)
-    flags = torch.empty(1, dtype=torch.int32, device=dev)
+    sc = DFPassOneScratch.alloc(lay, persistent)
     lib = load_library()
     mv = ctypes.c_int(0)
-    code = lib.tpl_df_lanczos_pass_one(
-        *args, _ptr(b2), k, tol, ztol, _ptr(coeffs), _ptr(bnorm2),
-        _ptr(steps), _ptr(state[0]), _ptr(state[1]), _ptr(w2),
-        _ptr(partials), _ptr(scal), _ptr(flags), ctypes.byref(mv), _stream())
-    LAUNCHES["df_kkt_matvec"] += mv.value
-    _check(lib, code, "df_lanczos_pass_one")
-    LAUNCHES["df_lanczos_pass_one"] += 1
+    head = (*args, _ptr(b2), k, tol, ztol, _ptr(coeffs), _ptr(bnorm2),
+            _ptr(steps), _ptr(state[0]), _ptr(state[1]), _ptr(sc.w2),
+            _ptr(sc.partials))
+    if persistent:
+        code = lib.tpl_df_lanczos_pass_one(
+            *head, _ptr(sc.flags), _clock_ptr(clock, "df_lanczos_pass_one"),
+            ctypes.byref(mv), _stream())
+        name, matvecs = "df_lanczos_pass_one", "df_kkt_matvec_in_pass"
+    else:
+        code = lib.tpl_df_lanczos_pass_one_steps(
+            *head, _ptr(sc.scal), _ptr(sc.flags), ctypes.byref(mv), _stream())
+        name, matvecs = "df_lanczos_pass_one_steps", "df_kkt_matvec"
+    LAUNCHES[matvecs] += mv.value
+    _check(lib, code, name)
+    LAUNCHES[name] += 1
     return coeffs[0], coeffs[1], coeffs[2], coeffs[3], bnorm2, steps
 
 
-def df_pass_two_cuda(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
-                     coeffs: Coeffs, y2: torch.Tensor, ztol: float,
-                     state: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K10 (``csrc/df_lanczos_pass_two.cu``): the replay from pass one's
-    ``coeffs`` and x = Σ y_j v_j for a (2, k) hi/lo y (zero beyond
-    ``steps_taken``, scaled by ‖b‖); returns x as (2, n)."""
+def df_pass_one_cuda(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
+                     k: int, tol: float, ztol: float,
+                     state: Optional[torch.Tensor] = None,
+                     phase_clock: Optional[torch.Tensor] = None) -> Coeffs:
+    """K9 (``csrc/df_lanczos_pass_one.cu``): k masked df steps from the
+    (2, n) b in one cooperative launch. A ``(2, 2, n)`` ``state`` receives
+    the final ``(v_prev, v_curr)`` pairs; a ``phase_clock``
+    (``ops/kkt_fused.phase_clock("df_lanczos_pass_one", ...)``) the stamps
+    of ``phase_split``."""
+    return _df_pass_one(lay, d2, b2, k, tol, ztol, state, True, phase_clock)
+
+
+def df_pass_one_steps_cuda(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
+                           k: int, tol: float, ztol: float,
+                           state: Optional[torch.Tensor] = None) -> Coeffs:
+    """The per-step launches K9 replaced (six a step, K11 the first), K9's
+    bitwise reference for ``chip_smoke.py`` and the card tests; no solve
+    calls it. Arguments and outputs as :func:`df_pass_one_cuda`."""
+    return _df_pass_one(lay, d2, b2, k, tol, ztol, state, False)
+
+
+def _df_pass_two(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
+                 coeffs: Coeffs, y2: torch.Tensor, ztol: float,
+                 state: Optional[torch.Tensor], persistent: bool,
+                 clock: Optional[torch.Tensor] = None) -> torch.Tensor:
     args = _df_layout_args(lay, d2)
     dev = lay.d.device
     n = lay.n
@@ -195,17 +254,47 @@ def df_pass_two_cuda(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
         state = torch.empty((2, 2, n), dtype=torch.float32, device=dev)
     _need(state, (2, 2, n), torch.float32, dev, "state")
     x2 = torch.empty((2, n), dtype=torch.float32, device=dev)
-    w2 = torch.empty((2, n), dtype=torch.float32, device=dev)
     lib = load_library()
     mv = ctypes.c_int(0)
-    code = lib.tpl_df_lanczos_pass_two(
-        *args, _ptr(b2), k, ztol, _ptr(c4), _ptr(y2), _ptr(bnorm2),
-        _ptr(steps), _ptr(x2), _ptr(state[0]), _ptr(state[1]), _ptr(w2),
-        ctypes.byref(mv), _stream())
-    LAUNCHES["df_kkt_matvec"] += mv.value
-    _check(lib, code, "df_lanczos_pass_two")
-    LAUNCHES["df_lanczos_pass_two"] += 1
+    head = (*args, _ptr(b2), k, ztol, _ptr(c4), _ptr(y2), _ptr(bnorm2),
+            _ptr(steps), _ptr(x2), _ptr(state[0]), _ptr(state[1]))
+    if persistent:
+        code = lib.tpl_df_lanczos_pass_two(
+            *head, _clock_ptr(clock, "df_lanczos_pass_two"), ctypes.byref(mv),
+            _stream())
+        name, matvecs = "df_lanczos_pass_two", "df_kkt_matvec_in_pass"
+    else:
+        w2 = torch.empty((2, n), dtype=torch.float32, device=dev)
+        code = lib.tpl_df_lanczos_pass_two_steps(*head, _ptr(w2),
+                                                 ctypes.byref(mv), _stream())
+        name, matvecs = "df_lanczos_pass_two_steps", "df_kkt_matvec"
+    LAUNCHES[matvecs] += mv.value
+    _check(lib, code, name)
+    LAUNCHES[name] += 1
     return x2
+
+
+def df_pass_two_cuda(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
+                     coeffs: Coeffs, y2: torch.Tensor, ztol: float,
+                     state: Optional[torch.Tensor] = None,
+                     phase_clock: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """K10 (``csrc/df_lanczos_pass_two.cu``): the replay from pass one's
+    ``coeffs`` and x = Σ y_j v_j for a (2, k) hi/lo y (zero beyond
+    ``steps_taken``, scaled by ‖b‖) in one cooperative launch; returns x as
+    (2, n). A ``phase_clock`` receives the stamps of ``phase_split``."""
+    return _df_pass_two(lay, d2, b2, coeffs, y2, ztol, state, True,
+                        phase_clock)
+
+
+def df_pass_two_steps_cuda(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
+                           coeffs: Coeffs, y2: torch.Tensor, ztol: float,
+                           state: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The two launches a step that K10 replaced (K11, then the update),
+    K10's bitwise reference for ``chip_smoke.py`` and the card tests; no
+    solve calls it. Arguments and output as :func:`df_pass_two_cuda`."""
+    return _df_pass_two(lay, d2, b2, coeffs, y2, ztol, state, False)
 
 
 def df_pass_one_last_vector(coeffs: Coeffs,

@@ -9,9 +9,10 @@ Phases (each one raises on failure, so the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA kernels from ``two_pass_lanczos_tpu_torch/csrc``;
-   print the registers and spills ``ptxas`` reports and the cooperative
-   grid (resident blocks per SM x SMs) of the persistent K2, K3, K9 and
-   K10;
+   print the registers and spills ``ptxas`` reports for every instance of
+   the persistent kernels (K2, K4, K5, K3, K9 and K10, those with the
+   phase timer too) and their
+   cooperative grids (resident blocks per SM x SMs);
 3. K1, the KKT matvec, against its plain PyTorch version on the headline
    instance ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
    (m = 500,000 arcs, p = 1,155 nodes, n = 501,155);
@@ -28,26 +29,39 @@ Phases (each one raises on failure, so the exit code is non-zero):
 7. wall times of k = 500 and k = 1000 solves, of the one-pass, callback
    (never stopping, chunk 64) and compensated solves at k = 500, and of
    each kernel, beside the plain PyTorch versions on the same card; K2 and
-   K3 per pass and per step beside the per-step launches they replaced (K5
-   as one chunk of k steps), timed by events and as one CUDA-graph replay,
-   which shows what the launches alone cost; the phase split of a K2 and a
-   K3 step (the passes' phase timer, ``ops/kkt_fused.phase_clock``: every
-   resident block's time in each phase of 8 steps from k/2, max, median
-   and mean over the blocks), which checks that the timer changes no bit;
+   K3 per pass and per step beside the per-step launches they replaced
+   (``pass_one_steps_cuda``, k steps in one call), timed by events and as
+   one CUDA-graph replay, which shows what the launches alone cost; K4
+   and K5's chunk loop (chunks of 64, one read back each) per pass and per
+   step beside the per-step launches
+   with the basis rows and in the same chunk loop, in turns; the phase
+   split of a K2 and a K3 step (the passes' phase timer,
+   ``ops/kkt_fused.phase_clock``: every resident block's time in each
+   phase of 8 steps from k/2, max, median and mean over the blocks), which
+   checks that the timer changes no bit;
 7b. the fused solver on ``generate_mcf_instance(5_000_000, rho=3,
-   instance_id=1)``: K2 bitwise the per-step launches and K3 bitwise the
-   plain pass two on K1's matvec at k = 20; ``solve(b, k=500)`` through K2
+   instance_id=1)``: K2, K4 (every basis row too) and K5 (chunks of 7)
+   bitwise the per-step launches and K3 bitwise the plain pass two on K1's
+   matvec at k = 20; ``solve(b, k=500)`` through K2
    and K3 only, x finite, the median of 3 solves, K2 and K3 per pass and per
    step, and the phase split;
-8. K4, pass one with the basis: alpha, beta and steps bitwise K2's at
-   k = 500, basis row s-1 bitwise pass one's and pass two's v_s, the basis
-   within 1e-5 of the plain ``pass_one_scan(emit_basis=True)`` at k = 20,
-   rows past a breakdown zero, and the main path
-   ``solve(b, 500, method="one_pass")`` within rel 1e-4 of the two-pass x;
-9. K5, the resumable pass one: ``pass_one_chunked(b, 500, chunk=64)``
-   bitwise K2's, a callback stop at s = 100 after at most 128 matvecs with
-   K2's alpha prefix, agreement with the plain ``pass_one_chunk_scan`` at
-   k = 20, chunk 8, and the main path ``solve(b, 500, callback=...)``;
+8. K4, pass one with the basis (one cooperative launch): alpha, beta,
+   ||b||, steps, the final state and every basis row bitwise the per-step
+   launches at k = 20 and 500, alpha, beta
+   and steps bitwise K2's at k = 500, basis row s-1 bitwise pass one's and
+   pass two's v_s, the basis within 1e-5 of the plain
+   ``pass_one_scan(emit_basis=True)`` at k = 20, rows past a breakdown
+   zero, and the main path ``solve(b, 500, method="one_pass")`` with the
+   counters reset: K4 once, 500 matvec phases inside it, no K1 launch, x
+   within rel 1e-4 of the two-pass x;
+9. K5, the resumable pass one (one cooperative launch a chunk): alpha,
+   beta, ||b||, steps, the live flag and the state bitwise the per-step
+   launches at k = 20 (chunks of 7) and 500 (chunks of 64),
+   ``pass_one_chunked(b, 500, chunk=64)`` bitwise K2's, a callback stop
+   at s = 100 after at most 128 matvec phases with K2's alpha prefix,
+   agreement with the plain ``pass_one_chunk_scan`` at k = 20, chunk 8,
+   and the main path ``solve(b, 500, callback=...)`` with the counters
+   reset: K5 8 times, K3 once, 999 matvec phases, no K1 launch;
 10. K6, the compensated builds: within rtol 1e-5 of the plain f64-dot pass
     one at k = 20 and at most 0.25x plain K2's distance from it, alpha
     strictly closer than plain K2's to the f64 oracle at k = 6 on the
@@ -133,13 +147,16 @@ Phases (each one raises on failure, so the exit code is non-zero):
     small f64 instance within rel 1e-9 of one device.
 
 Every kernel's entry of the JSON line carries its launches on its main
-path (K1's: 0, since K2 and K3 launch no K1; its entry also carries
-``in_pass_matvecs``, the matvec phases its routines ran inside them, and
-``in_pass_us``, the phase timer's µs of one such phase a step in K2 and
+path (K1's: 0, since K2-K5 launch no K1; its entry also carries
+``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
+on the main path, K4 in the one-pass solve and K5 in the callback solve,
+and ``in_pass_us``, the phase timer's µs of one such phase a step in K2 and
 in K3, from the step's start to the slowest block's first barrier: the
 node and arc rows with the elementwise work fused into them, in K2
 w -= beta_prev v_prev and <v, w>, in K3 the update of v_next and x; K11's
-likewise: 0 launches, and its phases inside K9 and K10),
+likewise: 0 launches, and its phases inside K9 and K10; K4's and K5's
+entries carry their own ``in_pass_matvecs`` and ``step_us``, their
+``ms`` over k),
 its max_abs_err against its plain version,
 its time
 (``ms``), the plain version's (``plain_ms``), ``bound_ms`` (the larger of
@@ -467,13 +484,87 @@ def df_timed_split(sdf, b2, coeffs, y2, x2_ref) -> dict:
     return split
 
 
+#: the persistent kernels' instances, by a part of their mangled names (the
+#: df pass one's first: it contains pass one's name)
+PERSISTENT_INSTANCES = (
+    ("df_pass_one_persistent_kernelINS_10PhaseClock", "K9 (timer build)"),
+    ("df_pass_one_persistent_kernelINS_7NoClock", "K9"),
+    ("df_pass_two_persistent_kernelINS_10PhaseClock", "K10 (timer build)"),
+    ("df_pass_two_persistent_kernelINS_7NoClock", "K10"),
+    ("pass_one_persistent_kernelILb0ELb0E", "K2"),
+    ("pass_one_persistent_kernelILb1ELb0E", "K4"),
+    ("pass_one_persistent_kernelILb0ELb1E", "K5"),
+    ("pass_two_persistent_kernel", "K3"))
+
+
+def persistent_instance(mangled: str) -> str:
+    """The kernel a persistent instance's mangled name is, or the name."""
+    return next((label for part, label in PERSISTENT_INSTANCES
+                 if part in mangled), mangled)
+
+
+def k4_routes(lay, b, k: int, tol: float, ztol: float):
+    """K4 (one cooperative launch) and the per-step launches it replaced,
+    with their basis rows, on one b. Fails unless alpha, beta, ||b||,
+    steps, the final (v_prev, v_curr) and every basis row agree bit for
+    bit; returns K4's decomposition, basis and state."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        PassOneBuffers,
+        pass_one_basis_cuda,
+        pass_one_steps_cuda,
+    )
+    state = torch.empty(2, lay.n, device=b.device)
+    dec, basis = pass_one_basis_cuda(lay, b, k, tol, ztol, state=state)
+    ref = PassOneBuffers.alloc(lay, k)
+    rows = torch.zeros_like(basis)
+    pass_one_steps_cuda(lay, ref, b, 0, k, tol, ztol, basis=rows)
+    torch.cuda.synchronize()
+    check(dec.steps() == int(ref.steps[0])
+          and torch.equal(dec.alphas, ref.alphas)
+          and torch.equal(dec.betas, ref.betas)
+          and torch.equal(dec.b_norm.reshape(1), ref.bnorm)
+          and torch.equal(state, ref.state),
+          f"K4's alpha, beta, ||b||, steps or state differ from the per-step "
+          f"launches at k={k}")
+    check(torch.equal(basis, rows),
+          f"K4's basis rows differ from the per-step launches' at k={k}")
+    return dec, basis, state
+
+
+def k5_routes(lay, b, k: int, chunk: int, tol: float, ztol: float):
+    """K5, one cooperative launch a chunk of ``chunk`` steps on one set of
+    carried buffers, and the per-step launches it replaced in the same
+    chunks. Fails unless alpha, beta, ||b||, steps, the live flag and the
+    final (v_prev, v_curr) agree bit for bit; returns K5's buffers."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        PassOneBuffers,
+        pass_one_chunk_cuda,
+        pass_one_steps_cuda,
+    )
+    bufs = PassOneBuffers.alloc(lay, k, persistent=True)
+    ref = PassOneBuffers.alloc(lay, k)
+    for j0 in range(0, k, chunk):
+        c = min(chunk, k - j0)
+        pass_one_chunk_cuda(lay, bufs, b, j0, c, tol, ztol)
+        pass_one_steps_cuda(lay, ref, b, j0, c, tol, ztol)
+    torch.cuda.synchronize()
+    check(all(torch.equal(getattr(bufs, f), getattr(ref, f))
+              for f in ("alphas", "betas", "bnorm", "steps", "state"))
+          and torch.equal(bufs.flags[:1], ref.flags),
+          f"K5's alpha, beta, ||b||, steps, live flag or state differ from "
+          f"the per-step launches at k={k}, chunk {chunk}")
+    return bufs
+
+
 def fused_big_phase(card, dev, big) -> None:
     """Phase 7b: the fused two-pass solver on the 5M-arc instance, whose
-    layout (100 MB) and (n,) vectors leave the L2. At
-    k = K_CHECK, K2 bitwise the per-step launches (K5 as one chunk) and K3
-    bitwise the plain pass two on K1's matvec; at k = K, the solve through
-    K2 and K3 only, their times per pass and per step, the phase split, and
-    the median of 3 solves."""
+    layout (100 MB) and (n,) vectors leave the L2. At k = K_CHECK, K2, K4
+    (with its basis) and K5 (chunks of 7) bitwise the per-step launches they
+    replaced and K3 bitwise the plain pass two on K1's matvec; at k = K, the
+    solve through K2 and K3 only, their times per pass and per step, the
+    phase split, and the median of 3 solves."""
     import numpy as np
     import torch
     from two_pass_lanczos_tpu_torch import FusedKKTSolver, padded_f_e1
@@ -482,8 +573,8 @@ def fused_big_phase(card, dev, big) -> None:
         LAUNCHES,
         PassOneBuffers,
         kkt_matvec_cuda,
-        pass_one_chunk_cuda,
         pass_one_cuda,
+        pass_one_steps_cuda,
         pass_two_cuda,
         reset_launches,
     )
@@ -500,7 +591,7 @@ def fused_big_phase(card, dev, big) -> None:
     st, st_ref = torch.empty(2, n, device=dev), torch.empty(2, n, device=dev)
     dec = pass_one_cuda(lay, b, K_CHECK, s.tol, s.ztol, state=st)
     bufs = PassOneBuffers.alloc(lay, K_CHECK)
-    pass_one_chunk_cuda(lay, bufs, b, 0, K_CHECK, s.tol, s.ztol)
+    pass_one_steps_cuda(lay, bufs, b, 0, K_CHECK, s.tol, s.ztol)
     torch.cuda.synchronize()
     check(torch.equal(dec.alphas, bufs.alphas)
           and torch.equal(dec.betas, bufs.betas)
@@ -514,6 +605,8 @@ def fused_big_phase(card, dev, big) -> None:
     check(torch.equal(x3, x3_ref) and torch.equal(st, st_ref),
           f"5M: K3 differs from pass two on K1's matvec at k={K_CHECK}")
     del bufs
+    k4_routes(lay, b, K_CHECK, s.tol, s.ztol)
+    k5_routes(lay, b, K_CHECK, 7, s.tol, s.ztol)
     reset_launches()
     x, dec = s.solve(b, k=K, f="inv", raw=True)
     torch.cuda.synchronize()
@@ -526,9 +619,10 @@ def fused_big_phase(card, dev, big) -> None:
     k2 = event_ms(lambda: pass_one_cuda(lay, b, K, s.tol, s.ztol), 3)
     k3 = event_ms(lambda: pass_two_cuda(lay, b, dec, y, s.ztol), 3)
     t = wall_s(lambda: s.solve(b, k=K, f="inv", raw=True), 3)
-    print(f"[7b] 5M fused solver on {card}: m={lay.m} p={lay.p}: K2 bitwise "
-          f"the per-step launches and K3 bitwise pass two on K1's matvec at "
-          f"k={K_CHECK}; solve(k={K}) launches {got}, steps {steps}")
+    print(f"[7b] 5M fused solver on {card}: m={lay.m} p={lay.p}: K2, K4 (its "
+          f"basis rows too) and K5 (chunks of 7) bitwise the per-step "
+          f"launches and K3 bitwise pass two on K1's matvec at k={K_CHECK}; "
+          f"solve(k={K}) launches {got}, steps {steps}")
     print(f"    solve k={K}: {runs(t)}")
     print(f"    K2 {k2:.4f} ms a pass, {1e3 * k2 / K:.3f} us a step; K3 "
           f"{k3:.4f} ms a pass, {1e3 * k3 / max(steps - 1, 1):.3f} us a step")
@@ -1168,6 +1262,7 @@ def main() -> int:
         pass_one_basis_cuda,
         pass_one_chunk_cuda,
         pass_one_cuda,
+        pass_one_steps_cuda,
         pass_two_cuda,
         persistent_grid,
         reset_launches,
@@ -1204,7 +1299,7 @@ def main() -> int:
         elif stores and int(stores.group(1)):
             spills.append(f"{name}: {line.strip()}")
         if "persistent" in name and (used or "spill stores" in line):
-            print(f"    ptxas {name}: {line.strip()}")
+            print(f"    ptxas {persistent_instance(name)}: {line.strip()}")
     print(f"    ptxas: {entries} kernel instances, registers <= "
           f"{max(regs, default=0)} a thread, {len(spills)} with spills")
     for line in spills:
@@ -1411,17 +1506,52 @@ def main() -> int:
         "eft_check": device_ms(lambda: eft_check_plain(ea, eb), 200),
     }
     k1_call_ms = event_ms(lambda: kkt_matvec_cuda(lay, x), 200)
-    # the per-step launches K2 replaced: K5 as one chunk of K steps from b
+    # the per-step launches K2, K4 and K5 replaced (pass_one_steps_cuda):
+    # K steps from b in one call; with K4's basis rows; and in K5's chunks,
+    # each followed by the chunk's one read back, as pass_one_chunked does
     bufs6 = PassOneBuffers.alloc(lay, K)
 
     def six_launch():
-        pass_one_chunk_cuda(lay, bufs6, b, 0, K, solver.tol, solver.ztol)
+        pass_one_steps_cuda(lay, bufs6, b, 0, K, solver.tol, solver.ztol)
+
+    def six_launch_basis():
+        pass_one_steps_cuda(lay, PassOneBuffers.alloc(lay, K), b, 0, K,
+                            solver.tol, solver.ztol,
+                            basis=torch.zeros(K, n, device=dev))
+
+    def chunk_loop(run, bufs):
+        for j0 in range(0, K, CHUNK):
+            c = min(CHUNK, K - j0)
+            run(lay, bufs, b, j0, c, solver.tol, solver.ztol)
+            torch.cat([bufs.alphas[j0:j0 + c], bufs.betas[j0:j0 + c],
+                       bufs.steps.float(), bufs.flags[:1].float(),
+                       bufs.bnorm]).cpu()
 
     six_ms = event_ms(six_launch, 3)
     six_graph_ms = device_ms(six_launch, 1)
     check(torch.equal(bufs6.alphas, dec1.alphas)
           and torch.equal(bufs6.betas, dec1.betas),
           "the per-step launches differ from K2")
+    # K4, K5's chunk loop, and the per-step launches of each, in turns
+    # (route, reference, reference, route): the means of both turns
+    k4_ms = {"K4": [], "per-step": []}
+    k5_ms = {"K5": [], "per-step": []}
+    k5_bufs = PassOneBuffers.alloc(lay, K, persistent=True)
+    for turn in (0, 1):
+        for route in ("K4", "per-step") if turn == 0 else ("per-step", "K4"):
+            k4_ms[route].append(event_ms(
+                six_launch_basis if route == "per-step" else
+                lambda: pass_one_basis_cuda(lay, b, K, solver.tol,
+                                            solver.ztol), 3))
+        for route in ("K5", "per-step") if turn == 0 else ("per-step", "K5"):
+            k5_ms[route].append(event_ms(
+                (lambda: chunk_loop(pass_one_chunk_cuda, k5_bufs))
+                if route == "K5" else
+                (lambda: chunk_loop(pass_one_steps_cuda, bufs6)), 3))
+    k4_ms = {route: statistics.mean(t) for route, t in k4_ms.items()}
+    k5_ms = {route: statistics.mean(t) for route, t in k5_ms.items()}
+    check(torch.equal(k5_bufs.alphas, dec1.alphas),
+          "K5's timed chunks differ from K2")
 
     print(f"[7] on {card}:")
     print(f"    solve k={K}: {runs(t500)}")
@@ -1439,12 +1569,23 @@ def main() -> int:
           f"{k1_call_ms:.4f} ms")
     print(f"    K2, one cooperative launch: {ms['lanczos_pass_one']:.4f} ms a "
           f"pass, {1e3 * ms['lanczos_pass_one'] / K:.3f} us a step; the "
-          f"per-step launches (K5, one chunk of {K}): {six_ms:.4f} ms a pass, "
+          f"per-step launches ({K} steps in one call): {six_ms:.4f} ms a pass, "
           f"{1e3 * six_ms / K:.3f} us a step, as one CUDA-graph replay "
           f"{six_graph_ms:.4f} ms, {1e3 * six_graph_ms / K:.3f} us a step")
     print(f"    K3, one cooperative launch: {ms['lanczos_pass_two']:.4f} ms a "
           f"pass, {1e3 * ms['lanczos_pass_two'] / max(steps - 1, 1):.3f} us "
           f"a step ({steps - 1} steps)")
+    for route, t in k4_ms.items():
+        label = ("K4, one cooperative launch" if route == "K4" else
+                 "the per-step launches with the basis rows")
+        print(f"    {label}: {t:.4f} ms a pass, {1e3 * t / K:.3f} us a step "
+              f"(each call zeroes its 1.0 GB basis)")
+    print(f"    K5's chunk loop (chunks of {CHUNK}, one cooperative launch "
+          f"and one read back each): {k5_ms['K5']:.4f} ms a pass, "
+          f"{1e3 * k5_ms['K5'] / K:.3f} us a step; the per-step launches in "
+          f"the same loop: {k5_ms['per-step']:.4f} ms a pass, "
+          f"{1e3 * k5_ms['per-step'] / K:.3f} us a step; the whole "
+          f"pass_one_chunked {ms['lanczos_pass_one_chunk']:.4f} ms")
     split = timed_split(lay, b, solver, dec1, y_full, x_rep)
     in_pass_us = {name: got["matvec phase"]["max_us"]
                   for name, got in split.items()}
@@ -1457,9 +1598,9 @@ def main() -> int:
     fused_big_phase(card, dev, big)
     torch.cuda.empty_cache()
 
-    # 8. K4: pass one with the basis
-    dec4, basis = solver.pass_one_with_basis(b, K)
-    torch.cuda.synchronize()
+    # 8. K4: pass one with the basis, bitwise the per-step launches it
+    #    replaced (every row), K2 and both passes' v_steps
+    dec4, basis, _ = k4_routes(lay, b, K, solver.tol, solver.ztol)
     check(torch.equal(dec4.alphas, dec1.alphas)
           and torch.equal(dec4.betas, dec1.betas)
           and dec4.steps() == dec1.steps(), "K4 alpha/beta/steps differ from K2")
@@ -1467,7 +1608,7 @@ def main() -> int:
           and torch.equal(basis[steps - 1], st2[1]),
           f"K4 basis row {steps - 1} is not pass one's and pass two's v_{steps}")
     del basis
-    dec4s, basis_s = solver.pass_one_with_basis(b, K_CHECK)
+    dec4s, basis_s, _ = k4_routes(lay, b, K_CHECK, solver.tol, solver.ztol)
     ref4, basis_ref = pass_one_scan(plain_mv, b, K_CHECK, emit_basis=True)
     torch.cuda.synchronize()
     rel4 = float(torch.linalg.norm(basis_s - basis_ref)
@@ -1493,8 +1634,12 @@ def main() -> int:
     reset_launches()
     x_one, dec_one = solver.solve(b, k=K, f="inv", method="one_pass", raw=True)
     torch.cuda.synchronize()
-    launches["lanczos_pass_one_basis"] = LAUNCHES["lanczos_pass_one_basis"]
-    check(launches["lanczos_pass_one_basis"] > 0, f"launches {dict(LAUNCHES)}")
+    one_launches = {name: c for name, c in LAUNCHES.items() if c}
+    check(one_launches == {"lanczos_pass_one_basis": 1,
+                           "kkt_matvec_in_pass": K},
+          f"one-pass launches {one_launches}")
+    launches["lanczos_pass_one_basis"] = 1
+    in_pass = {"lanczos_pass_one_basis": K}
     rel_one = float(torch.linalg.norm(x_one - x_main)
                     / torch.linalg.norm(x_main))
     check(rel_one <= 1e-4, f"one-pass x rel {rel_one:.3e} > 1e-4 vs two-pass")
@@ -1503,14 +1648,19 @@ def main() -> int:
     x_tf32, _ = solver.solve(b, k=K, f="inv", method="one_pass", raw=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     check(torch.equal(x_tf32, x_one), "one-pass x changed under allow_tf32")
-    print(f"[8] K4 ok: alpha, beta, steps bitwise K2's at k={K}; basis row "
-          f"{steps - 1} bitwise v_{steps} of both passes; basis rel {rel4:.3e}"
-          f" vs plain at k={K_CHECK}; rows past the breakdown at step {sb_}"
-          f" zero; one-pass x vs two-pass x rel {rel_one:.3e}, bitwise the "
-          f"same under allow_tf32; launches "
-          f"{dict(LAUNCHES)}")
+    print(f"[8] K4 ok: alpha, beta, ||b||, steps, state and every basis row "
+          f"bitwise the per-step launches at k={K_CHECK} and {K}; alpha, "
+          f"beta, steps bitwise K2's at "
+          f"k={K}; basis row {steps - 1} bitwise v_{steps} of both passes; "
+          f"basis rel {rel4:.3e} vs plain at k={K_CHECK}; rows past the "
+          f"breakdown at step {sb_} zero; one-pass x vs two-pass x rel "
+          f"{rel_one:.3e}, bitwise the same under allow_tf32; one-pass "
+          f"launches {one_launches}")
 
-    # 9. K5: the resumable pass one
+    # 9. K5: the resumable pass one, bitwise the per-step launches it
+    #    replaced, in chunks of 7 at k = K_CHECK and of CHUNK at k = K
+    k5_routes(lay, b, K_CHECK, 7, solver.tol, solver.ztol)
+    k5_routes(lay, b, K, CHUNK, solver.tol, solver.ztol)
     dec5 = solver.pass_one_chunked(b, K, chunk=CHUNK)
     check(torch.equal(dec5.alphas, dec1.alphas)
           and torch.equal(dec5.betas, dec1.betas)
@@ -1518,10 +1668,11 @@ def main() -> int:
     reset_launches()
     dec_stop = solver.pass_one_chunked(
         b, K, callback=lambda s_, v_, t_: s_ < STOP_AT, chunk=CHUNK)
-    stop_mv = LAUNCHES["kkt_matvec"]
+    stop_mv = LAUNCHES["kkt_matvec_in_pass"]
     bound = -(-STOP_AT // CHUNK) * CHUNK
     check(dec_stop.steps() == STOP_AT, f"stopped at {dec_stop.steps()}")
-    check(stop_mv <= bound, f"{stop_mv} pass-one matvecs > {bound}")
+    check(stop_mv <= bound and LAUNCHES["kkt_matvec"] == 0,
+          f"{stop_mv} pass-one matvecs > {bound}, or a K1 launch")
     check(torch.equal(dec_stop.alphas[:STOP_AT], dec1.alphas[:STOP_AT])
           and bool((dec_stop.alphas[STOP_AT:] == 0).all()),
           "K5 alpha prefix differs from K2's")
@@ -1544,17 +1695,23 @@ def main() -> int:
     x_cb, dec_cb = solver.solve(b, k=K, f="inv", raw=True,
                                 callback=never_stop, callback_chunk=CHUNK)
     torch.cuda.synchronize()
-    launches["lanczos_pass_one_chunk"] = LAUNCHES["lanczos_pass_one_chunk"]
-    check(launches["lanczos_pass_one_chunk"] == -(-K // CHUNK),
-          f"launches {dict(LAUNCHES)}")
+    cb_launches = {name: c for name, c in LAUNCHES.items() if c}
+    check(cb_launches == {"lanczos_pass_one_chunk": -(-K // CHUNK),
+                          "lanczos_pass_two": 1,
+                          "kkt_matvec_in_pass": 2 * K - 1},
+          f"callback solve launches {cb_launches}")
+    launches["lanczos_pass_one_chunk"] = -(-K // CHUNK)
+    in_pass["lanczos_pass_one_chunk"] = K
     rel_cb = float(torch.linalg.norm(x_cb - x_main) / torch.linalg.norm(x_main))
     check(rel_cb <= 1e-6, f"callback solve x rel {rel_cb:.3e} vs two-pass")
-    print(f"[9] K5 ok: chunk {CHUNK} bitwise K2 at k={K}; stop at "
-          f"{STOP_AT} after {stop_mv} <= {bound} matvecs, alpha prefix "
-          f"bitwise; rtol 1e-4 vs plain at k={K_CHECK}, chunk 8 (max_abs_err "
-          f"{err_k5:.3e}); never-stopping callback solve x vs two-pass x "
-          f"rel {rel_cb:.3e} (bitwise: {torch.equal(x_cb, x_main)}); "
-          f"launches {dict(LAUNCHES)}")
+    print(f"[9] K5 ok: alpha, beta, ||b||, steps, live flag and state "
+          f"bitwise the per-step launches at k={K_CHECK} (chunks of 7) and "
+          f"k={K} (chunks of {CHUNK}); chunk {CHUNK} bitwise K2 at k={K}; "
+          f"stop at {STOP_AT} after {stop_mv} <= {bound} matvecs, alpha "
+          f"prefix bitwise; rtol 1e-4 vs plain at k={K_CHECK}, chunk 8 "
+          f"(max_abs_err {err_k5:.3e}); never-stopping callback solve x vs "
+          f"two-pass x rel {rel_cb:.3e} (bitwise: "
+          f"{torch.equal(x_cb, x_main)}); launches {cb_launches}")
 
     # 10. K6: the compensated builds
     reset_launches()
@@ -2206,8 +2363,14 @@ def main() -> int:
              "library_ms": library.get(name)}
             for name, (src, rep) in KERNELS.items()]
     k1_row = next(r for r in rows if r["name"] == "kkt_matvec")
-    k1_row["in_pass_matvecs"] = in_pass_matvecs
+    # K1's rows ran as phases inside K2 and K3 (the main path), K4 (the
+    # one-pass solve) and K5 (the callback solve's pass one)
+    k1_row["in_pass_matvecs"] = in_pass_matvecs + sum(in_pass.values())
     k1_row["in_pass_us"] = in_pass_us
+    for r in rows:
+        if r["name"] in in_pass:
+            r["in_pass_matvecs"] = in_pass[r["name"]]
+            r["step_us"] = 1e3 * r["ms"] / K
     k11_row = next(r for r in rows if r["name"] == "df_kkt_matvec")
     k11_row["in_pass_matvecs"] = df_in_pass_matvecs
     k11_row["in_pass_us"] = df_in_pass_us

@@ -65,8 +65,10 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     kkt_matvec_cuda,
     kkt_shard_matvec,
     kkt_shard_matvec_cuda,
+    pass_one_basis_cuda,
     pass_one_chunk_cuda,
     pass_one_cuda,
+    pass_one_steps_cuda,
     pass_two_cuda,
     persistent_grid,
     phase_clock,
@@ -256,11 +258,34 @@ def test_phase_timer_stamps_without_changing_a_bit_on_card(cuda_device):
         assert split["step"]["max_us"] > 0
 
 
-def _six_launch_pass_one(s, bt, k):
-    """Pass one as the per-step launches: K5 as one chunk of k steps from
-    j0 = 0, with its buffers."""
+def _six_launch_pass_one(s, bt, k, chunk=None, basis=None):
+    """Pass one as the per-step launches K2, K4 and K5 replaced
+    (``pass_one_steps_cuda``): k steps from b in chunks of ``chunk`` (one
+    chunk by default), storing K4's rows in ``basis`` when it is given;
+    returns the buffers."""
     bufs = PassOneBuffers.alloc(s.layout, k)
-    pass_one_chunk_cuda(s.layout, bufs, bt, 0, k, s.tol, s.ztol)
+    chunk = chunk or k
+    for j0 in range(0, k, chunk):
+        pass_one_steps_cuda(s.layout, bufs, bt, j0, min(chunk, k - j0),
+                            s.tol, s.ztol, basis=basis)
+    return bufs
+
+
+def _assert_same_run(bufs, ref):
+    """Two pass-one runs' buffers agree bit for bit: alpha, beta, ||b||,
+    steps, the live flag and the final (v_prev, v_curr)."""
+    for name in ("alphas", "betas", "bnorm", "steps", "state"):
+        assert torch.equal(getattr(bufs, name), getattr(ref, name)), name
+    assert int(bufs.flags[0]) == int(ref.flags[0])
+
+
+def _chunked(s, bt, k, chunk):
+    """K5 as ``pass_one_chunked`` runs it: chunks of ``chunk`` steps on one
+    set of persistent buffers."""
+    bufs = PassOneBuffers.alloc(s.layout, k, persistent=True)
+    for j0 in range(0, k, chunk):
+        pass_one_chunk_cuda(s.layout, bufs, bt, j0, min(chunk, k - j0), s.tol,
+                            s.ztol)
     return bufs
 
 
@@ -277,7 +302,7 @@ def test_persistent_pass_one_bitwise_six_launch_on_card(cuda_device, k, case):
     assert LAUNCHES["kkt_matvec_in_pass"] == k
     ref = _six_launch_pass_one(s, bt, k)
     torch.cuda.synchronize()
-    assert LAUNCHES["lanczos_pass_one_chunk"] == 1
+    assert LAUNCHES["lanczos_pass_one_steps"] == 1
     assert LAUNCHES["kkt_matvec"] == k
     assert dec.steps() == int(ref.steps[0])
     assert torch.equal(dec.alphas, ref.alphas)
@@ -388,7 +413,9 @@ def test_basis_kernel_matches_plain_on_card(problem, cuda_device):
     reset_launches()
     dec, basis = s.pass_one_with_basis(bt, k)
     assert LAUNCHES["lanczos_pass_one_basis"] == 1
-    assert LAUNCHES["kkt_matvec"] == k
+    # the matvecs run as phases of the one cooperative launch: no K1 launch
+    assert LAUNCHES["kkt_matvec_in_pass"] == k
+    assert LAUNCHES["kkt_matvec"] == 0
     dec2 = s.pass_one(bt, k)
     assert torch.equal(dec.alphas, dec2.alphas)
     assert torch.equal(dec.betas, dec2.betas)
@@ -454,7 +481,12 @@ def test_chunk_kernel_matches_plain_on_card(problem, cuda_device,
     reset_launches()
     got = s.pass_one_chunked(bt, k, chunk=8)
     name = "lanczos_pass_one_comp" if compensated else "lanczos_pass_one_chunk"
-    assert LAUNCHES[name] == 3 and LAUNCHES["kkt_matvec"] == k
+    assert LAUNCHES[name] == 3
+    # one cooperative launch a chunk with its matvecs inside; compensated
+    # (K6), the per-step launches with a K1 each
+    in_pass = 0 if compensated else k
+    assert LAUNCHES["kkt_matvec_in_pass"] == in_pass
+    assert LAUNCHES["kkt_matvec"] == k - in_pass
     ref = s.pass_one(bt, k)
     assert torch.equal(got.alphas, ref.alphas)
     assert torch.equal(got.betas, ref.betas)
@@ -470,9 +502,18 @@ def test_chunk_kernel_stop_bounds_matvecs_on_card(problem, cuda_device):
     reset_launches()
     dec = s.pass_one_chunked(b, 40, callback=lambda st, V, sc: st < 11,
                              chunk=8)
-    assert dec.steps() == 11 and LAUNCHES["kkt_matvec"] <= 16
+    assert dec.steps() == 11 and LAUNCHES["kkt_matvec_in_pass"] <= 16
+    assert LAUNCHES["kkt_matvec"] == 0
     assert bool((dec.alphas[11:] == 0).all())
     assert bool((dec.betas[10:] == 0).all())
+    # chip_smoke.py's stop: at s = 100 in chunks of 64, at most 128 matvecs
+    reset_launches()
+    dec = s.pass_one_chunked(b, 500, callback=lambda st, V, sc: st < 100,
+                             chunk=64)
+    assert dec.steps() == 100 and LAUNCHES["lanczos_pass_one_chunk"] == 2
+    assert LAUNCHES["kkt_matvec_in_pass"] <= 128
+    assert LAUNCHES["kkt_matvec"] == 0
+    assert torch.equal(dec.alphas[:100], s.pass_one(b, 100).alphas)
     zero = s.pass_one_chunked(np.zeros(s.n, np.float32), 8, chunk=4)
     assert zero.steps() == 0
     e1 = np.eye(4, dtype=np.float32)[0]
@@ -482,6 +523,134 @@ def test_chunk_kernel_stop_bounds_matvecs_on_card(problem, cuda_device):
     got = tiny.pass_one_chunked(e1, 6, chunk=4)
     assert got.steps() == ref.steps() < 6
     assert torch.equal(got.alphas, ref.alphas)
+
+
+# --- K4 and K5 against the per-step launches they replaced ----------------
+
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("k", [20, 500])
+def test_persistent_basis_bitwise_per_step_on_card(cuda_device, k, case):
+    # K4, one cooperative launch, against the per-step launches with their
+    # rows: alpha, beta, ||b||, steps, the final state and every basis row
+    d, u, v, p, b = _walk_problem(case)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    state = torch.empty(2, s.n, device=cuda_device)
+    reset_launches()
+    dec, basis = pass_one_basis_cuda(s.layout, bt, k, s.tol, s.ztol,
+                                     state=state)
+    assert LAUNCHES["lanczos_pass_one_basis"] == 1
+    assert LAUNCHES["kkt_matvec_in_pass"] == k
+    rows = torch.zeros(k, s.n, device=cuda_device)
+    ref = _six_launch_pass_one(s, bt, k, basis=rows)
+    torch.cuda.synchronize()
+    assert dec.steps() == int(ref.steps[0])
+    assert torch.equal(dec.alphas, ref.alphas)
+    assert torch.equal(dec.betas, ref.betas)
+    assert torch.equal(dec.b_norm.reshape(1), ref.bnorm)
+    assert torch.equal(state, ref.state)
+    assert torch.equal(basis, rows)
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("k", [20, 500])
+@pytest.mark.parametrize("chunk", [1, 7, 64, None], ids=str)
+def test_persistent_chunks_bitwise_per_step_on_card(cuda_device, k, case,
+                                                    chunk):
+    # K5, one cooperative launch a chunk on the carried state, against the
+    # per-step launches in the same chunks and in one run of k steps
+    d, u, v, p, b = _walk_problem(case)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    chunk = chunk or k
+    reset_launches()
+    got = _chunked(s, bt, k, chunk)
+    assert LAUNCHES["lanczos_pass_one_chunk"] == -(-k // chunk)
+    assert LAUNCHES["kkt_matvec_in_pass"] == k
+    assert LAUNCHES["kkt_matvec"] == 0
+    ref = _six_launch_pass_one(s, bt, k, chunk=chunk)
+    torch.cuda.synchronize()
+    _assert_same_run(got, ref)
+    _assert_same_run(got, _six_launch_pass_one(s, bt, k))
+    assert torch.equal(got.scal[0], ref.scal[0])  # the carried beta_prev
+    assert torch.equal(got.alphas, s.pass_one(bt, k).alphas)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3, 4, 12])
+def test_persistent_basis_and_chunks_through_breakdown_on_card(cuda_device,
+                                                               chunk):
+    # the run breaks down at step 3 (j = 2): with chunk 3 on a chunk's last
+    # step, with 1 and 2 on a resumed chunk's first step, with 4 and 12
+    # inside the chunk that starts from b; every later chunk starts dead,
+    # returns in every block and changes nothing
+    d, u, v, p, b = breakdown_kkt()
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    k = 12
+    got = _chunked(s, bt, k, chunk)
+    ref = _six_launch_pass_one(s, bt, k, chunk=chunk)
+    torch.cuda.synchronize()
+    assert int(got.steps[0]) == 3 and int(got.flags[0]) == 0
+    _assert_same_run(got, ref)
+    before = [t.clone() for t in (got.alphas, got.betas, got.steps,
+                                  got.state, got.scal)]
+    pass_one_chunk_cuda(s.layout, got, bt, k - 1, 1, s.tol, s.ztol)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, g) for t, g in zip(
+        before, (got.alphas, got.betas, got.steps, got.state, got.scal)))
+    # K4 through the same breakdown: rows past step 3 stay zero
+    state = torch.empty(2, s.n, device=cuda_device)
+    dec, basis = pass_one_basis_cuda(s.layout, bt, k, s.tol, s.ztol,
+                                     state=state)
+    rows = torch.zeros(k, s.n, device=cuda_device)
+    ref4 = _six_launch_pass_one(s, bt, k, basis=rows)
+    assert dec.steps() == 3 and bool((basis[3:] == 0).all())
+    assert torch.equal(basis, rows) and torch.equal(state, ref4.state)
+    assert torch.equal(dec.alphas, ref4.alphas)
+    assert torch.equal(dec.betas, ref4.betas)
+
+
+def test_persistent_basis_and_chunks_zero_b_on_card(cuda_device, problem):
+    # a zero b and a subnormal one: 0 steps, row 0 = b * 0, the state the
+    # per-step launches leave
+    d, u, v, p, _ = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    for b0 in (np.zeros(s.n, np.float32), np.full(s.n, 1e-42, np.float32)):
+        bt = torch.from_numpy(b0).to(cuda_device)
+        got = _chunked(s, bt, 10, 4)
+        ref = _six_launch_pass_one(s, bt, 10, chunk=4)
+        state = torch.empty(2, s.n, device=cuda_device)
+        dec, basis = pass_one_basis_cuda(s.layout, bt, 10, s.tol, s.ztol,
+                                         state=state)
+        rows = torch.zeros(10, s.n, device=cuda_device)
+        ref4 = _six_launch_pass_one(s, bt, 10, basis=rows)
+        torch.cuda.synchronize()
+        assert int(got.steps[0]) == 0 == dec.steps()
+        _assert_same_run(got, ref)
+        assert torch.equal(basis, rows) and torch.equal(state, ref4.state)
+        assert torch.equal(dec.b_norm.reshape(1), ref4.bnorm)
+
+
+def test_one_pass_and_callback_solves_launch_persistently_on_card(
+        problem, cuda_device):
+    # the one-pass solve is one K4 launch, the never-stopping callback solve
+    # one K5 launch a chunk and K3: no K1 launch in either
+    d, u, v, p, b = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    k = 500
+    reset_launches()
+    s.solve(bt, k=k, method="one_pass", raw=True)
+    torch.cuda.synchronize()
+    got = {name: c for name, c in LAUNCHES.items() if c}
+    assert got == {"lanczos_pass_one_basis": 1, "kkt_matvec_in_pass": k}
+    reset_launches()
+    s.solve(bt, k=k, raw=True, callback=lambda st, V, sc: True,
+            callback_chunk=64)
+    torch.cuda.synchronize()
+    got = {name: c for name, c in LAUNCHES.items() if c}
+    assert got == {"lanczos_pass_one_chunk": 8, "lanczos_pass_two": 1,
+                   "kkt_matvec_in_pass": 2 * k - 1}
 
 
 # --- K6: the compensated builds --------------------------------------------

@@ -6,10 +6,12 @@ entry point that is missing there, or has fewer or other types, makes ctypes
 pass a 64-bit pointer as a 32-bit int: the kernel gets a cut address and no
 error is raised. The sources must also keep the rules of bitwise replay: no
 atomic reduction on a float and no fast-math build flag; and the persistent
-passes (K2, K3 and the double-float K9, K10) launch cooperatively with no
+passes (K2-K5 and the double-float K9, K10) launch cooperatively with no
 fallback to per-step launches, read what the launch writes with no
-read-only load, and get the scratch their C interfaces ask for; their phase
-timer stamps one time per phase that ``ops/kkt_fused.PHASES`` names.
+read-only load, and get the scratch their C interfaces ask for (checked
+through the wrappers against a stand-in for the library that records each
+call); their phase timer stamps one time per phase that
+``ops/kkt_fused.PHASES`` names.
 """
 
 import ctypes
@@ -18,14 +20,21 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tests.torch_cases import CPU, random_kkt
-from two_pass_lanczos_tpu_torch.ops import _build
+from two_pass_lanczos_tpu_torch.ops import _build, kkt_fused
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+    LAUNCHES,
     FusedKKTSolver,
     MAX_PARTIALS,
     PHASES,
     PassOneBuffers,
+    pass_one_basis_cuda,
+    pass_one_chunk_cuda,
+    pass_one_cuda,
+    pass_one_steps_cuda,
+    reset_launches,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import DFPassOneScratch
 
@@ -92,13 +101,13 @@ def test_entry_point_signature_matches_its_argtypes(name):
 
 
 def test_signature_parser_reads_macros_and_pointers():
-    # K2's parameters come from the TPL_PASS_ONE_ARGS macro: 22 of them,
+    # K2's parameters come from the TPL_PASS_ONE_ARGS macro: 21 of them,
     # then the phase clock, the host counter and the stream
     _, decls = ENTRIES["tpl_lanczos_pass_one"]
-    assert len(decls) == 25
+    assert len(decls) == 24
     assert decls[0] == "const float *d" and decls[-1] == "cudaStream_t stream"
     assert [_kind(d) for d in decls[5:12]] == [
-        "int", "int", "pointer", "int", "float", "float", "int"]
+        "int", "int", "pointer", "int", "float", "float", "pointer"]
     assert _argkind(ctypes.POINTER(ctypes.c_int)) == "pointer"
 
 
@@ -119,7 +128,14 @@ def test_build_flags_keep_ieee_rounding():
     assert "-rdc" not in flags  # the grid sync needs no device linking
 
 
-def test_persistent_passes_launch_cooperatively_without_fallback():
+#: the persistent pass-one entry points: K2, K4 and K5
+PASS_ONE_ENTRIES = {"K2": "tpl_lanczos_pass_one",
+                    "K4": "tpl_lanczos_pass_one_basis",
+                    "K5": "tpl_lanczos_pass_one_chunk"}
+
+
+@pytest.mark.parametrize("kernel", sorted(PASS_ONE_ENTRIES))
+def test_persistent_passes_launch_cooperatively_without_fallback(kernel):
     header = _code(CSRC / "lanczos_persistent.cuh")
     assert "cudaLaunchCooperativeKernel" in header
     assert "this_grid().sync()" in header
@@ -128,12 +144,24 @@ def test_persistent_passes_launch_cooperatively_without_fallback():
     two = _code(CSRC / "lanczos_pass_two.cu")
     assert "<<<" not in two and "launch_kkt_matvec" not in two
     assert two.count("launch_persistent(") == 1
-    # K2 (uncompensated) returns the cooperative launch's error as it is
+    # K2, K4 and K5 make one cooperative launch of their instance of the
+    # persistent kernel and return its error as it is: none of them takes
+    # comp or reaches the per-step launches
     one = _code(CSRC / "lanczos_pass_one.cu")
-    body = one[one.index("int tpl_lanczos_pass_one("):]
-    body = body[:body.index("\n}\n")]
-    assert "launch_persistent(" in body
-    assert body.count("tpl::run(") == 1 and "if (comp)" in body
+    body = _entry_body(one, PASS_ONE_ENTRIES[kernel])
+    assert body.count("tpl::launch_pass_one(") == 1
+    assert body.count("pass_one_persistent_kernel<") == 1
+    assert "comp" not in body and "tpl::run(" not in body
+    assert "<<<" not in body and "enqueue_" not in body
+    assert one.count("launch_persistent(") == 1
+    launch = _kernel_body(one, "int launch_pass_one")
+    assert "launch_persistent(" in launch and "tpl::run(" not in launch
+    assert "return static_cast<int>(err)" in launch
+    # the per-step launches (the reference, and K6 with comp) have one door
+    steps = _entry_body(one, "tpl_lanczos_pass_one_steps")
+    assert "launch_persistent" not in steps
+    assert "persistent_kernel" not in steps and "tpl::run(" in steps
+    assert one.count("tpl::run(") == 1
 
 
 def _entry_body(code: str, name: str) -> str:
@@ -208,6 +236,13 @@ def test_no_read_only_load_reaches_a_vector_written_in_the_launch(src,
     # (direct) load, which may take the read-only path and see stale data
     body = _kernel_body(_code(CSRC / src), kernel)
     assert "__ldg" not in body and "DirectLoad" not in body
+    if "pass_one" in kernel:
+        # pass one's outputs and carried scalars (a resumed K5 chunk's live
+        # flag, ||b|| and beta_prev) are read through ld as well: a
+        # subscript of them is only ever a store
+        for hit in re.finditer(r"\bs\.(flags|scal|bnorm2?|steps|alphas|"
+                               r"betas|coeffs)\[[^\]]*\]\s*(=(?!=))?", body):
+            assert hit.group(2), hit.group(0)
     called = 0
     for name, nargs in _LOADED.items():
         for args in _call_args(body, name):
@@ -295,19 +330,184 @@ def test_df_pass_one_scratch_is_what_the_entry_point_needs(persistent):
     assert "flags (1 + p ints)" in text
 
 
+class _RecordingLibrary:
+    """Stands in for the kernel library on the CPU: records each pass-one
+    call with its ctypes arguments and leaves behind what the card would
+    for the host to read: the matvec count, and after a K5 chunk the steps
+    done, the live flag and ||b|| (written at the pointers the wrapper
+    passed, into CPU tensors)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.calls.append((entry, args))
+            count = args[8]  # k
+            if entry in ("tpl_lanczos_pass_one_chunk",
+                         "tpl_lanczos_pass_one_steps"):
+                j0, count = args[-4], args[-3]
+                ctypes.c_float.from_address(args[13].value).value = 1.0
+                ctypes.c_int.from_address(args[14].value).value = j0 + count
+                ctypes.c_int.from_address(args[20].value).value = 1
+            args[-2]._obj.value = count  # *matvec_launches
+            return 0
+        return call
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The recording library (and no CUDA stream) in the wrappers' place,
+    and every ``PassOneBuffers`` they allocate."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(kkt_fused, "load_library", lambda: lib)
+    monkeypatch.setattr(kkt_fused, "_stream", lambda: ctypes.c_void_p(None))
+    allocated = []
+    alloc = PassOneBuffers.alloc.__func__
+
+    def recording_alloc(cls, *args, **kwargs):
+        allocated.append(alloc(cls, *args, **kwargs))
+        return allocated[-1]
+
+    monkeypatch.setattr(PassOneBuffers, "alloc", classmethod(recording_alloc))
+    reset_launches()
+    return lib, allocated
+
+
+@pytest.mark.parametrize("kernel", sorted(PASS_ONE_ENTRIES))
 @pytest.mark.parametrize("persistent", [False, True],
                          ids=["per_step", "persistent"])
-def test_pass_one_scratch_is_what_the_entry_point_needs(persistent):
-    # lanczos_pass_one.cu: w (n; 2n for K2), flags (1 int; 1 + p for K2);
-    # K4, K5 and K6 keep the per-step scratch
+def test_pass_one_scratch_is_what_the_entry_point_needs(
+        recorded, monkeypatch, kernel, persistent):
+    # lanczos_pass_one.cu: the persistent K2, K4 and K5 take w (2n) and
+    # flags (1 + p); their compensated builds (K6, the per-step entry point
+    # with comp) w (n) and flags (1). Each wrapper allocates its route's
+    # scratch, calls its route's entry point and counts the route's
+    # matvecs: phases inside the launch, or K1 launches
+    lib, allocated = recorded
+    d, u, v, p = random_kkt(np.random.default_rng(0))
+    solver = FusedKKTSolver(d, u, v, p, compensated=not persistent,
+                            device=CPU)
+    lay, k = solver.layout, 7
+    b = torch.ones(lay.n)
+    if kernel == "K2":
+        pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
+                      compensated=not persistent)
+    elif kernel == "K4":
+        _, basis = pass_one_basis_cuda(lay, b, k, solver.tol, solver.ztol,
+                                       compensated=not persistent)
+        assert tuple(basis.shape) == (k, lay.n) and not basis.any()
+    else:  # the solver's chunk loop, as on a card
+        monkeypatch.setattr(FusedKKTSolver, "_cuda", property(lambda s: True))
+        dec = solver.pass_one_chunked(b, k, chunk=3)
+        # steps, the live flag (flags[:1]) and ||b|| come back in one copy
+        assert dec.steps() == k and float(dec.b_norm) == 1.0
+    entry = (PASS_ONE_ENTRIES[kernel] if persistent else
+             "tpl_lanczos_pass_one_steps")
+    assert [e for e, _ in lib.calls] == [entry] * (3 if kernel == "K5" else 1)
+    for i, (_, args) in enumerate(lib.calls):
+        if not persistent:  # comp, then the basis (K4's) or nullptr
+            assert args[21] == 1
+            assert args[22].value == (basis.data_ptr() if kernel == "K4"
+                                      else None)
+            assert args[23:25] == ((3 * i, min(3, k - 3 * i))
+                                   if kernel == "K5" else (0, k))
+        elif kernel == "K4":
+            assert args[21].value == basis.data_ptr()
+    for bufs in allocated:
+        assert bufs.persistent == persistent
+        assert tuple(bufs.w.shape) == ((2, lay.n) if persistent else (lay.n,))
+        assert tuple(bufs.flags.shape) == ((1 + lay.p,) if persistent
+                                           else (1,))
+        assert tuple(bufs.state.shape) == (2, lay.n)
+        assert bufs.alphas.shape == bufs.betas.shape == (k,)
+    assert len(allocated) == 1
+    name = {"K2": "lanczos_pass_one", "K4": "lanczos_pass_one_basis",
+            "K5": "lanczos_pass_one_chunk"}[kernel]
+    got = {key: c for key, c in LAUNCHES.items() if c}
+    assert got == ({name: len(lib.calls), "kkt_matvec_in_pass": k}
+                   if persistent else
+                   {"lanczos_pass_one_comp": len(lib.calls), "kkt_matvec": k})
+    text = " ".join(re.sub(r"//", " ", (CSRC / "lanczos_pass_one.cu")
+                           .read_text()).split())
+    assert "w (2n for the persistent K2, K4 and K5; n for the per-step" in text
+    assert "flags (1 + p ints for K2, K4 and K5; 1 for the per-step" in text
+
+
+def test_per_step_reference_counts_its_own_launches(recorded):
+    # the reference (tpl_lanczos_pass_one_steps) runs K5's chunks on the
+    # per-step scratch, with K4's rows when a basis is given, and counts its
+    # K1 launches apart from the kernels it is the reference of
+    lib, _ = recorded
     lay = FusedKKTSolver(*random_kkt(np.random.default_rng(0)),
                          device=CPU).layout
-    bufs = PassOneBuffers.alloc(lay, 7, persistent=persistent)
-    assert tuple(bufs.w.shape) == ((2, lay.n) if persistent else (lay.n,))
-    assert tuple(bufs.flags.shape) == ((1 + lay.p,) if persistent else (1,))
-    assert tuple(bufs.state.shape) == (2, lay.n)
-    assert bufs.alphas.shape == bufs.betas.shape == (7,)
-    assert "2n for K2" in (CSRC / "lanczos_pass_one.cu").read_text()
+    bufs = PassOneBuffers.alloc(lay, 9)
+    basis = torch.zeros(9, lay.n)
+    b = torch.ones(lay.n)
+    pass_one_steps_cuda(lay, bufs, b, 0, 4, 1e-3, 1e-30)
+    pass_one_steps_cuda(lay, bufs, b, 4, 5, 1e-3, 1e-30, basis=basis)
+    (e0, a0), (e1, a1) = lib.calls
+    assert e0 == e1 == "tpl_lanczos_pass_one_steps"
+    assert a0[21] == a1[21] == 0  # comp
+    assert a0[22].value is None and a0[23:25] == (0, 4)
+    assert a1[22].value == basis.data_ptr() and a1[23:25] == (4, 5)
+    got = {key: c for key, c in LAUNCHES.items() if c}
+    assert got == {"lanczos_pass_one_steps": 2, "kkt_matvec": 9}
+    with pytest.raises(ValueError, match="basis"):
+        pass_one_steps_cuda(lay, bufs, b, 0, 9, 1e-3, 1e-30,
+                            basis=torch.zeros(8, lay.n))
+
+
+@pytest.mark.parametrize("route", ["chunk", "steps"])
+def test_pass_one_wrappers_refuse_the_other_routes_scratch(route):
+    # K5 runs on the persistent scratch and the reference on the per-step
+    # one: given the other's, the wrapper raises before any launch
+    lay = FusedKKTSolver(*random_kkt(np.random.default_rng(0)),
+                         device=CPU).layout
+    b = torch.ones(lay.n)
+    if route == "chunk":
+        bufs = PassOneBuffers.alloc(lay, 4)
+        with pytest.raises(ValueError, match="persistent scratch"):
+            pass_one_chunk_cuda(lay, bufs, b, 0, 4, 1e-3, 1e-30)
+    else:
+        bufs = PassOneBuffers.alloc(lay, 4, persistent=True)
+        with pytest.raises(ValueError, match="per-step scratch"):
+            pass_one_steps_cuda(lay, bufs, b, 0, 4, 1e-3, 1e-30)
+
+
+@pytest.mark.parametrize("entry,has,lacks", [
+    ("tpl_lanczos_pass_one", ["long long* clock"], ["basis", "j0", "comp"]),
+    ("tpl_lanczos_pass_one_basis", ["float* basis"], ["clock", "j0", "comp"]),
+    ("tpl_lanczos_pass_one_chunk", ["int j0", "int count"],
+     ["clock", "basis", "comp"]),
+    ("tpl_lanczos_pass_one_steps", ["int comp", "float* basis", "int j0",
+                                    "int count"], ["clock"])])
+def test_pass_one_signatures_name_each_routes_arguments(entry, has, lacks):
+    # the per-step entry point takes what K4 and K5 add (a basis, a chunk)
+    # and comp (K6); only K2 takes the phase timer's clock
+    _, decls = ENTRIES[entry]
+    for decl in has:
+        assert decl in decls, (entry, decl)
+    for word in lacks:
+        assert not any(word in d for d in decls), (entry, word)
+    assert decls[-2:] == ["int* matvec_launches", "cudaStream_t stream"]
+
+
+def test_basis_rows_stream_past_the_l2():
+    # K4's rows (1 GB at k = 500) leave with st.global.cs, evict first, so
+    # that they do not push the L2-resident working set out: every row store
+    # of the persistent kernel is a __stcs, and K4's entry point and grid
+    # name the one instance that makes them
+    code = _code(CSRC / "lanczos_pass_one.cu")
+    body = _kernel_body(code, "pass_one_persistent_kernel")
+    stores = re.findall(r"if constexpr \(Basis\) (\w+)\((s\.basis|row) \+ i,",
+                        body)
+    assert len(stores) == 3 and {f for f, _ in stores} == {"__stcs"}
+    assert "row[" not in body and "basis[" not in body
+    for entry in ("tpl_lanczos_pass_one_basis",
+                  "tpl_lanczos_pass_one_basis_grid"):
+        assert "pass_one_persistent_kernel<true, false>" in _entry_body(
+            code, entry)
 
 
 def _kernel_body(code: str, name: str) -> str:

@@ -6,10 +6,10 @@
 // _pass_one_chunk_kernel (:647), and their comp=True builds (:567). The TPU
 // ran all k steps inside one launch with the whole state in VMEM.
 //
-// K2 (comp == 0) does the same on the H100: pass_one_persistent_kernel runs
-// the start from b and all k steps in ONE cooperative launch
-// (lanczos_persistent.cuh). A step has the two grid barriers its two dots
-// need, and no launch:
+// K2, K4 and K5 do the same on the H100: each is ONE cooperative
+// launch of pass_one_persistent_kernel (lanczos_persistent.cuh), an
+// instance of one template, that runs the start from b and the steps. A
+// step has the two grid barriers its two dots need, and no launch:
 //   phase 1  the node rows of w = A v, each published by a release store;
 //            then the first dot's virtual blocks: an arc element rotates
 //            (v_prev = v; v = w_last * (1/beta), the previous step's
@@ -22,40 +22,54 @@
 // half of a two-half w, so no block writes what another gathers. The dots
 // walk the g = reduction_blocks(n) virtual blocks of the per-step launches
 // below and fold their partials with the same fold_partials, so alpha,
-// beta, steps, ||b|| and the final v_prev, v_curr are bitwise those of the
-// per-step launches (K5 as one chunk of k steps is that sequence:
-// chip_smoke.py phases 7 to 9 hold K2, K4 and K5 to each other).
-// alpha and beta stay in registers; every block takes the same breakdown
-// decision from the same folded beta, so all blocks leave the loop
-// together (a block that left alone would deadlock the next barrier).
+// beta, steps, ||b||, the final v_prev, v_curr and K4's basis rows are
+// bitwise those of the per-step launches on any grid. alpha and beta stay
+// in registers; every block takes the same breakdown decision from the
+// same folded beta, so all blocks leave the loop together (a block that
+// left alone would deadlock the next barrier). The three instances differ
+// only in what the template adds:
+//   K2 tpl_lanczos_pass_one        the start from b, then steps 0..k-1;
+//   K4 tpl_lanczos_pass_one_basis  the same, and row j of a (k, n) basis is
+//      v_{j+1}: row 0 is stored by the start, row j by step j's phase 1,
+//      where the rotate of step j - 1 first forms each element (arcs in
+//      the dot's body, nodes by the row's thread 0). A step that does not
+//      advance stores nothing, so the caller must pass a zeroed basis. The
+//      rows (2 MB a step, 1 GB at k = 500) go to HBM with streaming stores
+//      (st.global.cs), so that they do not evict the L2-resident working
+//      set;
+//   K5 tpl_lanczos_pass_one_chunk  steps j0..j0+count-1 on state that the
+//      caller keeps between calls: v_prev and v_curr already rotated,
+//      scal[0] = beta_prev, flags[0] = live, steps, bnorm, the node-row
+//      tags (flags + 1) and the two-half w. The start from b runs only
+//      when j0 == 0; a resumed chunk's first step does no rotate, reads
+//      the carried v_prev and beta_prev, and gathers v from v_curr itself
+//      (ScaledLoad{1}: x * 1 is exact). The tags are the global j + 1 and
+//      rise across chunks; a chunk that starts after a breakdown returns
+//      at once in every block. Each chunk ends as K2 ends: with the last
+//      step's rotate. Only scal[2] (1/beta) may differ from the per-step
+//      launches, after a breakdown in a resumed chunk's first step, where
+//      nothing reads it again.
 //
-// K4, K5 and K6 (comp != 0) keep the per-step launches: each step is a
-// short, fixed sequence of launches that one C++ routine (enqueue_step)
-// enqueues on the caller's stream, with no host synchronisation:
+// The per-step launches they replaced have one entry point,
+// tpl_lanczos_pass_one_steps: with comp == 0 the reference that
+// chip_smoke.py and the card tests hold K2, K4 and K5 to (no solve reaches
+// it), with comp != 0 the compensated builds of all three (K6). Each step
+// is a short, fixed sequence of launches that one C++ routine
+// (enqueue_step) enqueues on the caller's stream, with no host
+// synchronisation:
 //   1. the K1 matvec               w = A v
 //   2. sub_dot                     w -= beta_prev * v_prev; partials of <v,w>
 //   3. finalize_alpha (1 block)    alpha = fold(partials)
 //   4. sub_dot                     w -= alpha * v;          partials of <w,w>
 //   5. finalize_beta (1 block)     beta = sqrt(fold); breakdown; steps
-//   6. rotate                      v_prev = v; v = w * (1/beta)
+//   6. rotate                      v_prev = v; v = w * (1/beta); basis row
 // alpha, beta, the live flag and steps_taken stay on the device. Breakdown
 // (beta <= 1000 eps) clears the live flag and every later launch returns at
 // once: the masked fixed-length loop of algorithms/core.py, where the last
 // executed step still counts and writes alpha but not beta. A zero b
-// (||b|| <= 1000 tiny) starts with the flag cleared: 0 steps.
-//
-// The three entry points differ only in what surrounds that routine, so
-// their alpha and beta are bitwise equal by construction:
-//   K2 tpl_lanczos_pass_one        the start from b, then steps 0..k-1;
-//   K4 tpl_lanczos_pass_one_basis  the same, and row j of a (k, n) basis is
-//      v_{j+1}: row 0 is stored by init_vectors, row j+1 by step j's
-//      rotate (one extra store per element; Hopper needs no async copy to
-//      overlap it). A step that does not advance stores nothing, so the
-//      caller must pass a zeroed basis;
-//   K5 tpl_lanczos_pass_one_chunk  steps j0..j0+count-1 on scratch that the
-//      caller keeps between calls (v_prev, v_curr, scal, flags, steps,
-//      bnorm); the start from b runs only when j0 == 0. Chained chunks
-//      enqueue the same kernels on the same buffers as one K2 call.
+// (||b|| <= 1000 tiny) starts with the flag cleared: 0 steps. The same
+// routine runs steps [j0, j0 + count) with or without basis rows, so one
+// entry point is the per-step form of all three persistent instances.
 // The compensated build (comp != 0) changes only the reductions of steps 2,
 // 4 and of ||b||: each thread folds exact products (two_prod) into a
 // two-float pair with df_add2, the block tree and the fold over the block
@@ -64,12 +78,11 @@
 // What bounds it on the H100: each step moves ~30 MB through the 50 MB L2
 // (the matvec plus three passes over the (n,) vectors), so at the headline
 // size a step is bound by the L2, by the node rows' scattered x_a gathers
-// and by its synchronisation: two grid barriers in K2, six launches of a
-// few microseconds each on the per-step path, over 500 dependent steps. K4
-// adds a 2 MB store per step that leaves the L2 for HBM (1 GB at k = 500).
-// The per-step path keeps each launch simple and fuses what it can (axpy
-// with its dot, the rotate with the normalisation and the basis store); K4,
-// K5 and K6 onto the persistent form is the next step (ROADMAP).
+// and by its synchronisation: two grid barriers in the persistent kernel,
+// six launches of a few microseconds each on the per-step path, over 500
+// dependent steps. K4 adds a 2 MB store per step that leaves the L2 for
+// HBM (1 GB at k = 500, 0.6 us a step at 3.35 TB/s). K6 onto the
+// persistent form is the next step (ROADMAP).
 #include <cstddef>
 
 #include "lanczos_persistent.cuh"
@@ -282,13 +295,15 @@ struct PassOne {
   float* basis;  // (k, n) rows v_{j+1}, or nullptr
 };
 
-// K2's one launch: the start and k steps of the per-step path's
-// uncompensated kernels, on one resident grid (see the top of the file).
+// One launch of K2, K4 or K5: the start and the steps [j0, j0 + count) of
+// the per-step path's uncompensated kernels, on one resident grid (see the
+// top of the file).
 struct Persistent {
   PassOne s;
   const float* b;
   int g;  // reduction_blocks(n): the dots' virtual blocks
   PhaseClock clock;  // 6 stamps a step (see the loop), or clock == nullptr
+  int j0, count;     // K5's chunk; K2 and K4 run [0, k)
 };
 
 // Virtual blocks [0, g) of a reduction of stride g * kThreads: virtual block
@@ -307,8 +322,14 @@ __device__ __forceinline__ void reduce_phase(int g, int n, float* partials,
   }
 }
 
+// The persistent pass one: K2 (from b), K4 (Basis: from b, the rows
+// stored) and K5 (Resume: the chunk [j0, j0 + count)); see the top of the
+// file. K4's rows go out with streaming stores (__stcs, st.global.cs: evict
+// first, so that they do not push the working set out of the L2).
+template <bool Basis, bool Resume>
 __global__ void __launch_bounds__(kThreads)
 pass_one_persistent_kernel(Persistent a) {
+  static_assert(!(Basis && Resume), "K4 runs from b in one launch");
   __shared__ float sh[kThreads];
   const PassOne& s = a.s;
   const CachedLoad ld;
@@ -327,37 +348,59 @@ pass_one_persistent_kernel(Persistent a) {
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const int j0 = Resume ? a.j0 : 0;
+  const int j_end = Resume ? a.j0 + a.count : s.k;
 
-  // the start: sq_partials_kernel, init_kernel, init_vectors_kernel
-  reduce_phase(g, n, pb, sh, [&](float2 acc, int i) {
-    return accumulate<false>(acc, a.b[i], a.b[i]);
-  });
-  for (int i = first; i < s.k; i += stride) {
-    s.alphas[i] = 0.0f;
-    s.betas[i] = 0.0f;
+  float nb, inv_b, beta_prev = 0.0f, alpha = 0.0f;
+  bool live;
+  const float* src;  // this step's v is src * inv_b
+  if (j0 == 0) {
+    // the start: sq_partials_kernel, init_kernel, init_vectors_kernel
+    reduce_phase(g, n, pb, sh, [&](float2 acc, int i) {
+      return accumulate<false>(acc, a.b[i], a.b[i]);
+    });
+    for (int i = first; i < s.k; i += stride) {
+      s.alphas[i] = 0.0f;
+      s.betas[i] = 0.0f;
+    }
+    for (int i = first; i < s.p; i += stride) ready[i] = 0;
+    grid_sync();
+    nb = __fsqrt_rn(fold_partials<false>(pb, g, sh, nullptr, ld));
+    const bool zero_b = nb <= s.ztol;
+    inv_b = zero_b ? 0.0f : lanczos_inverse(nb);
+    for (int i = first; i < n; i += stride) {
+      const float v1 = normalise(a.b[i], inv_b);
+      vc[i] = v1;
+      vp[i] = 0.0f;
+      if constexpr (Basis) __stcs(s.basis + i, v1);  // row 0
+    }
+    // no barrier: before its first barrier, step 0 reads b, not v_prev or
+    // v_curr
+    live = !zero_b;
+    src = a.b;
+  } else {
+    // a resumed chunk (K5): the state the last chunk left, read by every
+    // block before its first barrier and written back by the lead block
+    // after its last, so every block takes the same decision
+    live = ld(s.flags) != 0;
+    if (!live) return;  // after a breakdown: no step, no store
+    nb = ld(s.bnorm);
+    beta_prev = ld(s.scal);
+    inv_b = 1.0f;  // v_curr is already rotated: v = v_curr * 1, exactly
+    src = vc;
   }
-  for (int i = first; i < s.p; i += stride) ready[i] = 0;
-  grid_sync();
-  const float nb = __fsqrt_rn(fold_partials<false>(pb, g, sh, nullptr, ld));
-  const bool zero_b = nb <= s.ztol;
-  float inv_b = zero_b ? 0.0f : lanczos_inverse(nb);
-  for (int i = first; i < n; i += stride) {
-    vc[i] = normalise(a.b[i], inv_b);
-    vp[i] = 0.0f;
-  }
-  // no barrier: before its first barrier, step 0 reads b, not v_prev or
-  // v_curr
 
-  float beta_prev = 0.0f, alpha = 0.0f;
   int steps = 0;
-  bool live = !zero_b;
-  const float* src = a.b;  // this step's v is src * inv_b
-  for (int j = 0; live && j < s.k; ++j) {
+  for (int j = j0; live && j < j_end; ++j) {
     // step 0's v = b * (1/||b||) is already in v_curr; a later step's v is
     // w * (1/beta_prev), and the step does the previous step's rotate
-    // (rotate_kernel) element by element, where it first reads the element
-    const bool rotate = j > 0;
+    // (rotate_kernel) element by element, where it first reads the element.
+    // A resumed chunk's first step does no rotate, but its v_prev is real.
+    const bool rotate = j > j0;
+    const bool resumed = Resume && j > 0 && !rotate;
     float* const wn = w + (j & 1) * n;  // src is the other half
+    float* const row =  // K4's row j: v_{j+1}, formed by this step's rotate
+        Basis ? s.basis + static_cast<size_t>(j) * n : nullptr;
     a.clock.stamp(j, 0);
     // 1. one phase for w = A v and the first sub_dot. First this block's
     //    node rows (K1's node blocks, gathering v from src): thread 0
@@ -370,7 +413,9 @@ pass_one_persistent_kernel(Persistent a) {
         const int i = m + node;
         if (rotate) {
           vp[i] = ld(vc + i);
-          vc[i] = normalise(ld(src + i), inv_b);
+          const float vn = normalise(ld(src + i), inv_b);
+          vc[i] = vn;
+          if constexpr (Basis) __stcs(row + i, vn);
         }
         wn[i] = total;
         publish(ready + node, j + 1);
@@ -386,16 +431,17 @@ pass_one_persistent_kernel(Persistent a) {
       float y, vpi, vci;
       if (i < m) {
         vci = normalise(ld(src + i), inv_b);
-        vpi = rotate ? ld(vc + i) : 0.0f;
+        vpi = rotate ? ld(vc + i) : resumed ? ld(vp + i) : 0.0f;
         if (rotate) {
           vp[i] = vpi;
           vc[i] = vci;
+          if constexpr (Basis) __stcs(row + i, vci);
         }
         y = kkt_arc_row(s.d[i], vci, normalise(ld(src + m + s.u[i]), inv_b),
                         normalise(ld(src + m + s.v[i]), inv_b));
       } else {
         wait_for(ready + (i - m), j + 1);
-        vpi = rotate ? ld(vp + i) : 0.0f;
+        vpi = rotate || resumed ? ld(vp + i) : 0.0f;
         vci = rotate ? ld(vc + i) : normalise(ld(src + i), inv_b);
         y = ld(wn + i);
       }
@@ -431,7 +477,7 @@ pass_one_persistent_kernel(Persistent a) {
     inv_b = lanczos_inverse(beta);
     src = wn;
   }
-  if (live) {  // the last step's rotate
+  if (live) {  // the last step's rotate; K4's row k does not exist
     for (int i = first; i < n; i += stride) {
       const float vn = normalise(ld(src + i), inv_b);
       vp[i] = ld(vc + i);
@@ -515,49 +561,55 @@ int run(const PassOne& s, int comp, const float* b, int j0, int count,
 
 // All pointers are device pointers except matvec_launches (host). Common
 // arguments: the layout (d, u, v, ptr, ent; m arcs, p nodes, n = m + p), b
-// (n), k, the breakdown and zero-b tolerances, comp (1: compensated
-// reductions). Outputs: alphas, betas (k), bnorm (1), steps (1). Scratch:
-// v_prev, v_curr (n each), w (n; 2n for K2), partials
-// (2 * tpl::kMaxPartials), scal (3 floats), flags (1 int; 1 + p for K2);
-// on return v_prev and v_curr hold the state after the last enqueued step.
-// Each entry point allocates nothing and does not synchronise; it returns
-// the error of its launches.
+// (n), k, the breakdown and zero-b tolerances. Outputs: alphas, betas (k),
+// bnorm (1), steps (1). Scratch: v_prev, v_curr (n each), w (2n for the
+// persistent K2, K4 and K5; n for the per-step launches), partials (2 *
+// tpl::kMaxPartials), scal (3 floats), flags (1 + p ints for K2, K4 and K5;
+// 1 for the per-step launches); on return v_prev and v_curr hold the state
+// after the last step. Each entry point allocates nothing and does not
+// synchronise; it returns the error of its launches (a refused cooperative
+// launch included: there is no fallback). K2, K4 and K5 are one cooperative
+// launch each and *matvec_launches counts the matvec phases inside it; the
+// per-step launches (tpl_lanczos_pass_one_steps) count their K1 launches.
 #define TPL_PASS_ONE_ARGS                                                    \
   const float *d, const int *u, const int *v, const int *ptr,               \
       const int *ent, int m, int p, const float *b, int k, float tol,       \
-      float ztol, int comp, float *alphas, float *betas, float *bnorm,      \
-      int *steps, float *v_prev, float *v_curr, float *w, float *partials,  \
-      float *scal, int *flags
+      float ztol, float *alphas, float *betas, float *bnorm, int *steps,    \
+      float *v_prev, float *v_curr, float *w, float *partials, float *scal, \
+      int *flags
 #define TPL_PASS_ONE_STATE(basis)                                            \
   tpl::PassOne {                                                             \
     d, u, v, ptr, ent, m, p, m + p, k, tol, ztol, alphas, betas, bnorm,     \
         steps, v_prev, v_curr, w, partials, scal, flags, basis               \
   }
 
-// K2: k steps from b, scalars only. Uncompensated, one cooperative launch,
-// and *matvec_launches counts the k matvec phases inside it; compensated
-// (K6), the per-step launches, which ignore clock: the phase timer's stamps
-// ((8, grid, 6) int64, tpl::PhaseClock) or nullptr.
-extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, long long* clock,
-                                    int* matvec_launches,
-                                    cudaStream_t stream) {
-  if (comp)
-    return tpl::run(TPL_PASS_ONE_STATE(nullptr), comp, b, 0, k,
-                    matvec_launches, stream);
+namespace tpl {
+namespace {
+
+// One cooperative launch of the persistent instance `kernel` over the steps
+// [j0, j0 + count) of s; *matvec_launches counts its matvec phases.
+int launch_pass_one(void (*kernel)(Persistent), const PassOne& s,
+                    const float* b, PhaseClock clock, int j0, int count,
+                    int* matvec_launches, cudaStream_t stream) {
   *matvec_launches = 0;
-  const tpl::Persistent args{TPL_PASS_ONE_STATE(nullptr), b,
-                             tpl::reduction_blocks(m + p),
-                             tpl::PhaseClock{clock, k / 2, 6}};
-  const cudaError_t err = tpl::launch_persistent(
-      tpl::pass_one_persistent_kernel, args, stream);
-  if (err == cudaSuccess) *matvec_launches = k;
+  const Persistent args{s, b, reduction_blocks(s.n), clock, j0, count};
+  const cudaError_t err = launch_persistent(kernel, args, stream);
+  if (err == cudaSuccess) *matvec_launches = count;
   return static_cast<int>(err);
 }
 
-// K2's cooperative grid: resident blocks per SM and SMs.
-extern "C" int tpl_lanczos_pass_one_grid(int* blocks_per_sm, int* sms) {
-  return static_cast<int>(tpl::persistent_grid(
-      tpl::pass_one_persistent_kernel, blocks_per_sm, sms));
+}  // namespace
+}  // namespace tpl
+
+// K2: k steps from b, scalars only. clock: the phase timer's stamps ((8,
+// grid, 6) int64, tpl::PhaseClock) or nullptr.
+extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, long long* clock,
+                                    int* matvec_launches,
+                                    cudaStream_t stream) {
+  return tpl::launch_pass_one(tpl::pass_one_persistent_kernel<false, false>,
+                              TPL_PASS_ONE_STATE(nullptr), b,
+                              tpl::PhaseClock{clock, k / 2, 6}, 0, k,
+                              matvec_launches, stream);
 }
 
 // K4: k steps from b; row j of basis (k x n, zeroed by the caller) becomes
@@ -565,8 +617,10 @@ extern "C" int tpl_lanczos_pass_one_grid(int* blocks_per_sm, int* sms) {
 extern "C" int tpl_lanczos_pass_one_basis(TPL_PASS_ONE_ARGS, float* basis,
                                           int* matvec_launches,
                                           cudaStream_t stream) {
-  return tpl::run(TPL_PASS_ONE_STATE(basis), comp, b, 0, k, matvec_launches,
-                  stream);
+  return tpl::launch_pass_one(tpl::pass_one_persistent_kernel<true, false>,
+                              TPL_PASS_ONE_STATE(basis), b,
+                              tpl::PhaseClock{nullptr, 0, 6}, 0, k,
+                              matvec_launches, stream);
 }
 
 // K5: steps [j0, j0 + count) of a k-step run (j0 + count <= k) on scratch
@@ -574,6 +628,39 @@ extern "C" int tpl_lanczos_pass_one_basis(TPL_PASS_ONE_ARGS, float* basis,
 extern "C" int tpl_lanczos_pass_one_chunk(TPL_PASS_ONE_ARGS, int j0,
                                           int count, int* matvec_launches,
                                           cudaStream_t stream) {
-  return tpl::run(TPL_PASS_ONE_STATE(nullptr), comp, b, j0, count,
+  return tpl::launch_pass_one(tpl::pass_one_persistent_kernel<false, true>,
+                              TPL_PASS_ONE_STATE(nullptr), b,
+                              tpl::PhaseClock{nullptr, 0, 6}, j0, count,
+                              matvec_launches, stream);
+}
+
+// The per-step launches (see the top of the file): with comp == 0 the
+// reference that K2, K4 and K5 are held to, which no solve calls; with comp
+// != 0 (compensated reductions) K6, the compensated builds of all three.
+// Steps [j0, j0 + count) as K5 runs them (j0 == 0 starts from b), storing
+// K4's basis rows when basis != nullptr (k x n, zeroed by the caller).
+// Scratch: w of n and flags of 1 suffice. *matvec_launches counts its K1
+// launches.
+extern "C" int tpl_lanczos_pass_one_steps(TPL_PASS_ONE_ARGS, int comp,
+                                          float* basis, int j0, int count,
+                                          int* matvec_launches,
+                                          cudaStream_t stream) {
+  return tpl::run(TPL_PASS_ONE_STATE(basis), comp, b, j0, count,
                   matvec_launches, stream);
+}
+
+// The cooperative grids of K2, K4 and K5: resident blocks per SM and SMs.
+extern "C" int tpl_lanczos_pass_one_grid(int* blocks_per_sm, int* sms) {
+  return static_cast<int>(tpl::persistent_grid(
+      tpl::pass_one_persistent_kernel<false, false>, blocks_per_sm, sms));
+}
+extern "C" int tpl_lanczos_pass_one_basis_grid(int* blocks_per_sm,
+                                               int* sms) {
+  return static_cast<int>(tpl::persistent_grid(
+      tpl::pass_one_persistent_kernel<true, false>, blocks_per_sm, sms));
+}
+extern "C" int tpl_lanczos_pass_one_chunk_grid(int* blocks_per_sm,
+                                               int* sms) {
+  return static_cast<int>(tpl::persistent_grid(
+      tpl::pass_one_persistent_kernel<false, true>, blocks_per_sm, sms));
 }

@@ -41,9 +41,9 @@ _F = ctypes.c_float
 # argtypes of every exported C entry point; all but tpl_error_string
 # return cudaError_t as int
 # the arguments every pass-one entry point starts with (csrc/
-# lanczos_pass_one.cu): d, u, v, ptr, ent, m, p, b, k, tol, ztol, comp,
-# alphas, betas, bnorm, steps, v_prev, v_curr, w, partials, scal, flags
-_PASS_ONE = [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F, _I,
+# lanczos_pass_one.cu): d, u, v, ptr, ent, m, p, b, k, tol, ztol, alphas,
+# betas, bnorm, steps, v_prev, v_curr, w, partials, scal, flags
+_PASS_ONE = [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
     # d, u, v, ptr, ent, m, p, x, y, stream (f32 and f64 instances)
@@ -58,6 +58,10 @@ _SIGNATURES = {
     # *_PASS_ONE, j0, count, *matvec_launches, stream
     "tpl_lanczos_pass_one_chunk": [*_PASS_ONE, _I, _I, ctypes.POINTER(_I),
                                    _P],
+    # *_PASS_ONE, comp, basis, j0, count, *matvec_launches, stream (the
+    # per-step launches: the reference of K2, K4 and K5, and K6)
+    "tpl_lanczos_pass_one_steps": [*_PASS_ONE, _I, _P, _I, _I,
+                                   ctypes.POINTER(_I), _P],
     # d, u, v, ptr, ent, m, p, b, k, ztol, alphas, betas, y, nf, bnorm,
     # steps, x, v_prev, v_curr, clock, *matvec_launches, stream
     "tpl_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
@@ -65,6 +69,10 @@ _SIGNATURES = {
                              ctypes.POINTER(_I), _P],
     # the persistent passes' cooperative grids: *blocks_per_sm, *sms
     "tpl_lanczos_pass_one_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "tpl_lanczos_pass_one_basis_grid": [ctypes.POINTER(_I),
+                                        ctypes.POINTER(_I)],
+    "tpl_lanczos_pass_one_chunk_grid": [ctypes.POINTER(_I),
+                                        ctypes.POINTER(_I)],
     "tpl_lanczos_pass_two_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     # a, b, n, out (6 x n), stream
     "tpl_eft_check": [_P, _P, _I, _P, _P],

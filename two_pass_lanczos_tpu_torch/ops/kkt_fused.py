@@ -13,22 +13,24 @@ is chosen for Hopper:
 * the Krylov vectors are plain ``(n,)`` tensors, so the TPU's
   ``pack``/``unpack`` become a device copy and a no-op.
 
-The kernels (``csrc/``): K1 the matvec, K2 pass one, K3 pass two (each one
-persistent cooperative launch, ``csrc/lanczos_persistent.cuh``, that runs
-K1's matvec as a phase of every step, with a phase timer that only
-``chip_smoke.py`` switches on: :func:`phase_clock`, :func:`phase_split`),
-K4 pass one with the basis
-(``method="one_pass"``), K5 the resumable pass one
-(``callback=``, :meth:`FusedKKTSolver.pass_one_chunked`), K6 the compensated
-builds of K2, K4 and K5 (``compensated=True``) and K13 the tripwire of their
-error-free transformations; K7, one shard's matvec with a node partial,
-serves the sharded solver (``parallel/fused_sharded.py``). Each has a
-wrapper here that launches it for CUDA tensors and raises on anything it
-does not take, and a plain PyTorch version (``ops/spmv.kkt_matvec``,
-``algorithms/core.pass_one_scan``, ``pass_one_chunk_scan`` and
-``pass_two_scan``, ``dot_f64`` for the compensated reductions,
-``ops/eft.eft_check_plain``, :func:`kkt_shard_matvec`) that runs for CPU
-tensors. ``LAUNCHES`` counts the kernel launches of each wrapper.
+The kernels (``csrc/``): K1 the matvec, K2 pass one, K3 pass two, K4 pass
+one with the basis (``method="one_pass"``) and K5 the resumable pass one
+(``callback=``, :meth:`FusedKKTSolver.pass_one_chunked`, one launch a
+chunk): each of K2-K5 one persistent cooperative launch
+(``csrc/lanczos_persistent.cuh``) that runs K1's matvec as a phase of every
+step; K2 and K3 carry a phase timer that only ``chip_smoke.py`` switches on
+(:func:`phase_clock`, :func:`phase_split`). The per-step launches that K2,
+K4 and K5 replaced, :func:`pass_one_steps_cuda`, stay as their bitwise
+reference, which only ``chip_smoke.py`` and the card tests call, and as K6,
+the compensated builds of K2, K4 and K5 (``compensated=True``); K13 is the
+tripwire of their error-free transformations; K7, one shard's matvec with
+a node partial, serves the sharded solver (``parallel/fused_sharded.py``).
+Each kernel has a wrapper here that launches it for CUDA tensors and raises
+on anything it does not take, and a plain PyTorch version
+(``ops/spmv.kkt_matvec``, ``algorithms/core.pass_one_scan``,
+``pass_one_chunk_scan`` and ``pass_two_scan``, ``dot_f64`` for the
+compensated reductions, ``ops/eft.eft_check_plain``,
+:func:`kkt_shard_matvec`) that runs for CPU tensors. ``LAUNCHES`` counts the kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -61,11 +63,14 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
            "kkt_shard_matvec", "kkt_shard_matvec_cuda"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`; a
-#: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``;
-#: the matvec phases inside the persistent K2 (k a pass) and K3 (k - 1, each
-#: gated on ``steps_taken``) as ``kkt_matvec_in_pass``, which launch no K1;
-#: and K8, the matvec of the generic KKT operators (``ops/spmv_kernel.py``),
-#: as ``kkt_operator_matvec``; K11, K9 and K10, the double-float kernels
+#: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``
+#: and its per-step K1 launches as ``kkt_matvec``; the matvec phases inside
+#: the persistent K2 and K4 (k a pass), K5 (its count a chunk) and K3
+#: (k - 1, each gated on ``steps_taken``) as ``kkt_matvec_in_pass``, which
+#: launch no K1; the per-step launches K2, K4 and K5 replaced (their
+#: reference, which launches K1) as ``lanczos_pass_one_steps``; K8, the
+#: matvec of the generic KKT operators (``ops/spmv_kernel.py``), as
+#: ``kkt_operator_matvec``; K11, K9 and K10, the double-float kernels
 #: (``ops/kkt_fused_df.py``), as ``df_kkt_matvec``, ``df_lanczos_pass_one``
 #: and ``df_lanczos_pass_two``, the K11 phases inside the persistent K9 (k a
 #: pass) and K10 (k - 1) as ``df_kkt_matvec_in_pass``, and the per-step
@@ -79,7 +84,8 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
 LAUNCHES = {"kkt_matvec": 0, "kkt_matvec_in_pass": 0,
             "lanczos_pass_one": 0, "lanczos_pass_two": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
-            "lanczos_pass_one_comp": 0, "eft_check": 0,
+            "lanczos_pass_one_comp": 0, "lanczos_pass_one_steps": 0,
+            "eft_check": 0,
             "kkt_streaming_matvec": 0, "kkt_operator_matvec": 0,
             "df_kkt_matvec": 0, "df_kkt_matvec_in_pass": 0,
             "df_lanczos_pass_one": 0, "df_lanczos_pass_two": 0,
@@ -223,25 +229,26 @@ def kkt_shard_matvec_cuda(lay: KKTLayout, x: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class PassOneBuffers:
     """Device outputs and scratch of one pass-one run (K2, K4 or K5). K5
-    keeps them between its chunk calls: they are the carried state."""
+    keeps them between its chunk calls: they are the carried state (the
+    node-row tags in ``flags[1:]`` and the two-half ``w`` included)."""
 
     alphas: torch.Tensor  # (k,) f32
     betas: torch.Tensor  # (k,) f32
     bnorm: torch.Tensor  # (1,) f32
     steps: torch.Tensor  # (1,) int32
     state: torch.Tensor  # (2, n) f32: v_prev, v_curr
-    w: torch.Tensor  # (n,) f32; (2, n) for K2, which alternates the two
+    w: torch.Tensor  # (2, n) f32, whose halves K2, K4, K5 alternate; (n,)
     partials: torch.Tensor  # (2 * MAX_PARTIALS,) f32
     scal: torch.Tensor  # (3,) f32: beta_prev, alpha, 1/beta
-    flags: torch.Tensor  # (1,) int32: live; (1 + p,) for K2: node-row tags
+    flags: torch.Tensor  # (1 + p,) int32: live, node-row tags; (1,): live
 
     @classmethod
     def alloc(cls, lay: KKTLayout, k: int,
               state: Optional[torch.Tensor] = None,
               persistent: bool = False) -> "PassOneBuffers":
-        """``persistent``: the scratch of the persistent K2, w of (2, n) and
-        flags of 1 + p; the per-step launches (K4, K5, K6) need (n,) and
-        (1,)."""
+        """``persistent``: the scratch of the persistent K2, K4 and K5, w of
+        (2, n) and flags of 1 + p; the per-step launches (K6 and the
+        reference :func:`pass_one_steps_cuda`) need (n,) and (1,)."""
         dev = lay.d.device
         f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
         i32 = functools.partial(torch.empty, dtype=torch.int32, device=dev)
@@ -253,6 +260,10 @@ class PassOneBuffers:
                    partials=f32(2 * MAX_PARTIALS), scal=f32(3),
                    flags=i32(1 + lay.p if persistent else 1))
 
+    @property
+    def persistent(self) -> bool:
+        return self.w.dim() == 2
+
     def decomposition(self) -> LanczosDecomposition:
         return LanczosDecomposition(alphas=self.alphas, betas=self.betas,
                                     steps_taken=self.steps[0],
@@ -261,24 +272,28 @@ class PassOneBuffers:
 
 def _launch_pass_one(entry: str, name: str, lay: KKTLayout,
                      bufs: PassOneBuffers, b: torch.Tensor, tol: float,
-                     ztol: float, compensated: bool, *extra,
-                     matvecs: str = "kkt_matvec") -> None:
+                     ztol: float, *extra, per_step: bool = False) -> None:
     """Call the pass-one entry point ``entry`` (``csrc/lanczos_pass_one.cu``)
-    and count it as ``name``, or as ``lanczos_pass_one_comp``, and its
-    matvecs as ``matvecs``."""
+    and count it as ``name``. A persistent entry point's matvecs count as
+    ``kkt_matvec_in_pass``, and ``bufs`` must hold its scratch; those of the
+    per-step launches (``per_step``) count as ``kkt_matvec``."""
     _need(b, (lay.n,), torch.float32, lay.d.device, "b")
+    if bufs.persistent == per_step:
+        want = "per-step" if per_step else "persistent"
+        raise ValueError(
+            f"{entry} needs the {want} scratch: "
+            f"PassOneBuffers.alloc(..., persistent={not per_step})")
     lib = load_library()
     mv = ctypes.c_int(0)
     code = getattr(lib, entry)(
         *_layout_args(lay), _ptr(b), bufs.alphas.shape[0], tol, ztol,
-        int(compensated), _ptr(bufs.alphas), _ptr(bufs.betas),
-        _ptr(bufs.bnorm), _ptr(bufs.steps), _ptr(bufs.state[0]),
-        _ptr(bufs.state[1]), _ptr(bufs.w), _ptr(bufs.partials),
-        _ptr(bufs.scal), _ptr(bufs.flags), *extra, ctypes.byref(mv),
-        _stream())
-    LAUNCHES[matvecs] += mv.value
+        _ptr(bufs.alphas), _ptr(bufs.betas), _ptr(bufs.bnorm),
+        _ptr(bufs.steps), _ptr(bufs.state[0]), _ptr(bufs.state[1]),
+        _ptr(bufs.w), _ptr(bufs.partials), _ptr(bufs.scal), _ptr(bufs.flags),
+        *extra, ctypes.byref(mv), _stream())
+    LAUNCHES["kkt_matvec" if per_step else "kkt_matvec_in_pass"] += mv.value
     _check(lib, code, entry)
-    LAUNCHES["lanczos_pass_one_comp" if compensated else name] += 1
+    LAUNCHES[name] += 1
 
 
 def _clock_ptr(clock: Optional[torch.Tensor], name: str) -> ctypes.c_void_p:
@@ -298,43 +313,85 @@ def pass_one_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                   phase_clock: Optional[torch.Tensor] = None
                   ) -> LanczosDecomposition:
     """K2 (``csrc/lanczos_pass_one.cu``): k masked steps from b in one
-    cooperative launch (compensated: K6, launches per step); the final
-    ``(v_prev, v_curr)`` land in ``state`` when it is given. A
+    cooperative launch (compensated: K6, :func:`pass_one_steps_cuda`); the
+    final ``(v_prev, v_curr)`` land in ``state`` when it is given. A
     ``phase_clock`` (K2 only) receives the stamps of :func:`phase_split`."""
     bufs = PassOneBuffers.alloc(lay, k, state, persistent=not compensated)
-    _launch_pass_one("tpl_lanczos_pass_one", "lanczos_pass_one", lay, bufs, b,
-                     tol, ztol, compensated,
-                     _clock_ptr(phase_clock, "lanczos_pass_one"),
-                     matvecs="kkt_matvec" if compensated
-                     else "kkt_matvec_in_pass")
+    if compensated:
+        pass_one_steps_cuda(lay, bufs, b, 0, k, tol, ztol, compensated=True)
+    else:
+        _launch_pass_one("tpl_lanczos_pass_one", "lanczos_pass_one", lay,
+                         bufs, b, tol, ztol,
+                         _clock_ptr(phase_clock, "lanczos_pass_one"))
     return bufs.decomposition()
 
 
 def pass_one_basis_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
-                        ztol: float, compensated: bool = False
+                        ztol: float, compensated: bool = False,
+                        state: Optional[torch.Tensor] = None
                         ) -> Tuple[LanczosDecomposition, torch.Tensor]:
     """K4: K2 that also returns the ``(k, n)`` basis, row ``j`` = v_{j+1}
-    and zero beyond ``steps_taken`` (k·n·4 bytes on the card)."""
-    bufs = PassOneBuffers.alloc(lay, k)
+    and zero beyond ``steps_taken`` (k·n·4 bytes on the card), in one
+    cooperative launch (compensated: K6, :func:`pass_one_steps_cuda`).
+    ``state`` receives the final ``(v_prev, v_curr)``."""
+    bufs = PassOneBuffers.alloc(lay, k, state, persistent=not compensated)
     # zeros, not empty: the kernel stores no row for a step that does not
     # advance, and a garbage row times a zero coefficient is NaN in V·y
     basis = torch.zeros((k, lay.n), dtype=torch.float32, device=lay.d.device)
-    _launch_pass_one("tpl_lanczos_pass_one_basis", "lanczos_pass_one_basis",
-                     lay, bufs, b, tol, ztol, compensated, _ptr(basis))
+    if compensated:
+        pass_one_steps_cuda(lay, bufs, b, 0, k, tol, ztol, basis=basis,
+                            compensated=True)
+    else:
+        _launch_pass_one("tpl_lanczos_pass_one_basis",
+                         "lanczos_pass_one_basis", lay, bufs, b, tol, ztol,
+                         _ptr(basis))
     return bufs.decomposition(), basis
+
+
+def _check_chunk(bufs: PassOneBuffers, j0: int, count: int) -> None:
+    k = bufs.alphas.shape[0]
+    if not (0 <= j0 and 1 <= count and j0 + count <= k):
+        raise ValueError(f"chunk [{j0}, {j0 + count}) outside [0, {k})")
 
 
 def pass_one_chunk_cuda(lay: KKTLayout, bufs: PassOneBuffers,
                         b: torch.Tensor, j0: int, count: int, tol: float,
                         ztol: float, compensated: bool = False) -> None:
     """K5: enqueue steps ``[j0, j0 + count)`` of a ``k``-step run on the
-    carried ``bufs`` (``k = len(bufs.alphas)``); ``j0 == 0`` starts from b.
-    α and β land at their global indices; nothing is read back."""
-    k = bufs.alphas.shape[0]
-    if not (0 <= j0 and 1 <= count and j0 + count <= k):
-        raise ValueError(f"chunk [{j0}, {j0 + count}) outside [0, {k})")
+    carried ``bufs`` (``k = len(bufs.alphas)``; the persistent scratch) in
+    one cooperative launch (compensated: K6, :func:`pass_one_steps_cuda` on
+    the per-step scratch); ``j0 == 0`` starts from b. α and β land at their
+    global indices; nothing is read back."""
+    if compensated:
+        pass_one_steps_cuda(lay, bufs, b, j0, count, tol, ztol,
+                            compensated=True)
+        return
+    _check_chunk(bufs, j0, count)
     _launch_pass_one("tpl_lanczos_pass_one_chunk", "lanczos_pass_one_chunk",
-                     lay, bufs, b, tol, ztol, compensated, j0, count)
+                     lay, bufs, b, tol, ztol, j0, count)
+
+
+def pass_one_steps_cuda(lay: KKTLayout, bufs: PassOneBuffers,
+                        b: torch.Tensor, j0: int, count: int, tol: float,
+                        ztol: float, basis: Optional[torch.Tensor] = None,
+                        compensated: bool = False) -> None:
+    """The per-step launches (six a step, a K1 among them) that K2, K4 and
+    K5 replaced: uncompensated, the reference they are held to bit for bit,
+    which no solve calls (counted as ``lanczos_pass_one_steps``);
+    compensated, K6 (counted as ``lanczos_pass_one_comp``). Steps ``[j0, j0
+    + count)`` on the carried per-step ``bufs`` as K5 runs them (``j0 ==
+    0`` starts from b), storing K4's rows in ``basis`` (a zeroed ``(k, n)``
+    f32 tensor) when it is given."""
+    _check_chunk(bufs, j0, count)
+    k = bufs.alphas.shape[0]
+    if basis is not None:
+        _need(basis, (k, lay.n), torch.float32, lay.d.device, "basis")
+    _launch_pass_one("tpl_lanczos_pass_one_steps",
+                     "lanczos_pass_one_comp" if compensated else
+                     "lanczos_pass_one_steps", lay, bufs, b, tol, ztol,
+                     int(compensated),
+                     ctypes.c_void_p(None) if basis is None else _ptr(basis),
+                     j0, count, per_step=True)
 
 
 #: steps the phase timer samples, from step k // 2 (``tpl::kTimedSteps``)
@@ -386,12 +443,12 @@ def phase_split(clock, name: str) -> dict:
 
 def persistent_grid() -> dict:
     """The cooperative grids of the persistent passes on the current card,
-    K2, K3, K9 and K10 by the names of :data:`PHASES`:
-    ``{"lanczos_pass_one": (blocks per SM, SMs), ...}``. The passes' sums do
-    not depend on it (``csrc/lanczos_persistent.cuh``)."""
+    K2, K3, K9 and K10 by the names of :data:`PHASES`, K4 and K5 by their
+    counters' names: ``{"lanczos_pass_one": (blocks per SM, SMs), ...}``.
+    The passes' sums do not depend on it (``csrc/lanczos_persistent.cuh``)."""
     lib = load_library()
     grids = {}
-    for name in PHASES:
+    for name in (*PHASES, "lanczos_pass_one_basis", "lanczos_pass_one_chunk"):
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         entry = getattr(lib, f"tpl_{name}_grid")
         _check(lib, entry(ctypes.byref(per_sm), ctypes.byref(sms)), name)
@@ -634,14 +691,15 @@ class FusedKKTSolver:
         """
         b = self.pack(b)
         if self._cuda:
-            bufs = PassOneBuffers.alloc(self.layout, k)
+            bufs = PassOneBuffers.alloc(self.layout, k,
+                                        persistent=not self.compensated)
 
             def run(j0, c):
                 pass_one_chunk_cuda(self.layout, bufs, b, j0, c, self.tol,
                                     self.ztol, self.compensated)
                 packed = torch.cat([
                     bufs.alphas[j0:j0 + c], bufs.betas[j0:j0 + c],
-                    bufs.steps.float(), bufs.flags.float(), bufs.bnorm,
+                    bufs.steps.float(), bufs.flags[:1].float(), bufs.bnorm,
                 ]).cpu().numpy()  # the chunk's one device-to-host copy
                 return (packed[:c], packed[c:2 * c], int(packed[2 * c]),
                         bool(packed[2 * c + 1]), packed[2 * c + 2])

@@ -10,8 +10,8 @@ Phases (each one raises on failure, so the exit code is non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA kernels from ``two_pass_lanczos_tpu_torch/csrc``;
    print the registers and spills ``ptxas`` reports for every instance of
-   the persistent kernels (K2, K4, K5, K3, K9 and K10, those with the
-   phase timer too) and their
+   the persistent kernels (K2, K4, K5, K6's instances of those three, K3,
+   K9 and K10, those with the phase timer too) and their
    cooperative grids (resident blocks per SM x SMs);
 3. K1, the KKT matvec, against its plain PyTorch version on the headline
    instance ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
@@ -34,15 +34,19 @@ Phases (each one raises on failure, so the exit code is non-zero):
    one CUDA-graph replay, which shows what the launches alone cost; K4
    and K5's chunk loop (chunks of 64, one read back each) per pass and per
    step beside the per-step launches
-   with the basis rows and in the same chunk loop, in turns; the phase
-   split of a K2 and a K3 step (the passes' phase timer,
+   with the basis rows and in the same chunk loop, in turns; K6 (the
+   compensated K2 instance) beside the compensated per-step launches, in
+   turns; the phase
+   split of a K2, a compensated K2 and a K3 step (the passes' phase timer,
    ``ops/kkt_fused.phase_clock``: every resident block's time in each
    phase of 8 steps from k/2, max, median and mean over the blocks), which
    checks that the timer changes no bit;
 7b. the fused solver on ``generate_mcf_instance(5_000_000, rho=3,
    instance_id=1)``: K2, K4 (every basis row too) and K5 (chunks of 7)
    bitwise the per-step launches and K3 bitwise the plain pass two on K1's
-   matvec at k = 20; ``solve(b, k=500)`` through K2
+   matvec at k = 20, K6's instances of K2, K4 and K5 bitwise the
+   compensated per-step launches at k = 20 and 500; ``solve(b, k=500)``
+   through K2
    and K3 only, x finite, the median of 3 solves, K2 and K3 per pass and per
    step, and the phase split;
 8. K4, pass one with the basis (one cooperative launch): alpha, beta,
@@ -62,13 +66,17 @@ Phases (each one raises on failure, so the exit code is non-zero):
    agreement with the plain ``pass_one_chunk_scan`` at k = 20, chunk 8,
    and the main path ``solve(b, 500, callback=...)`` with the counters
    reset: K5 8 times, K3 once, 999 matvec phases, no K1 launch;
-10. K6, the compensated builds: within rtol 1e-5 of the plain f64-dot pass
-    one at k = 20 and at most 0.25x plain K2's distance from it, alpha
-    strictly closer than plain K2's to the f64 oracle at k = 6 on the
-    instance of the JAX package's test (m = 1200, p = 300), chunked and
-    one-pass bitwise the
-    monolithic run at k = 500, and the main path
-    ``FusedKKTSolver(..., compensated=True).solve(b, 500)``;
+10. K6, the compensated instances of K2, K4 and K5 (one cooperative launch
+    each, a chunk for K5): alpha, beta, ||b||, steps, the state, K4's rows
+    and K5's state after its chunks bitwise the compensated per-step
+    launches at k = 20 (chunks of 7) and 500 (chunks of 64); within rtol
+    1e-5 of the plain f64-dot pass one at k = 20 and at most 0.25x plain
+    K2's distance from it, alpha strictly closer than plain K2's to the f64
+    oracle at k = 6 on the instance of the JAX package's test (m = 1200, p
+    = 300), chunked and one-pass bitwise the monolithic run at k = 500, and
+    the main path ``FusedKKTSolver(..., compensated=True).solve(b, 500)``
+    with the counters reset: K6 once, K3 once, 999 matvec phases, no K1
+    launch;
 11. K13, the error-free transformations: exact values on the card;
 12. K8, the matvec of the generic KKT operators (``make_kkt_operator``):
     the f32 instance against the plain ``kkt_matvec`` on the headline (arc
@@ -147,16 +155,18 @@ Phases (each one raises on failure, so the exit code is non-zero):
     small f64 instance within rel 1e-9 of one device.
 
 Every kernel's entry of the JSON line carries its launches on its main
-path (K1's: 0, since K2-K5 launch no K1; its entry also carries
+path (K1's: 0, since K2-K6 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
-on the main path, K4 in the one-pass solve and K5 in the callback solve,
+on the main path, K4 in the one-pass solve, K5 in the callback solve and
+K6 in the compensated solve,
 and ``in_pass_us``, the phase timer's µs of one such phase a step in K2 and
 in K3, from the step's start to the slowest block's first barrier: the
 node and arc rows with the elementwise work fused into them, in K2
 w -= beta_prev v_prev and <v, w>, in K3 the update of v_next and x; K11's
-likewise: 0 launches, and its phases inside K9 and K10; K4's and K5's
-entries carry their own ``in_pass_matvecs`` and ``step_us``, their
-``ms`` over k),
+likewise: 0 launches, and its phases inside K9 and K10; K4's, K5's and
+K6's entries carry their own ``in_pass_matvecs`` and ``step_us``, their
+``ms`` over k, and K6's ``steps_ms``, the compensated per-step launches'
+time in the same run),
 its max_abs_err against its plain version,
 its time
 (``ms``), the plain version's (``plain_ms``), ``bound_ms`` (the larger of
@@ -376,10 +386,11 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
 
 
 def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
-    """K2 and K3 once more on ``dec``'s run, with the phase timer: every
-    resident block stamps each phase end of TIMED_STEPS steps from step
-    K // 2. Checks that the timer changed no bit (against ``dec`` and K3's
-    ``x_ref``), prints the split and returns ``phase_split`` of each pass."""
+    """K2, K6's K2 instance and K3 once more on ``dec``'s run, with the
+    phase timer: every resident block stamps each phase end of TIMED_STEPS
+    steps from step K // 2. Checks that the timer changed no bit (against
+    ``dec``, an untimed compensated run and K3's ``x_ref``), prints the
+    split and returns ``phase_split`` of each pass."""
     import torch
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
         pass_one_cuda,
@@ -388,19 +399,27 @@ def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
         phase_split,
     )
     dev = b.device
-    clk1 = phase_clock("lanczos_pass_one", dev)
-    clk2 = phase_clock("lanczos_pass_two", dev)
-    dec_t = pass_one_cuda(lay, b, dec.k_max, solver.tol, solver.ztol,
-                          phase_clock=clk1)
-    x_t = pass_two_cuda(lay, b, dec, y_full, solver.ztol, phase_clock=clk2)
+    k = dec.k_max
+    clk = {name: phase_clock(name, dev) for name in (
+        "lanczos_pass_one", "lanczos_pass_one_comp", "lanczos_pass_two")}
+    dec_t = pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
+                          phase_clock=clk["lanczos_pass_one"])
+    dec_c = pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
+                          compensated=True)
+    dec_ct = pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
+                           compensated=True,
+                           phase_clock=clk["lanczos_pass_one_comp"])
+    x_t = pass_two_cuda(lay, b, dec, y_full, solver.ztol,
+                        phase_clock=clk["lanczos_pass_two"])
     torch.cuda.synchronize()
     check(torch.equal(dec_t.alphas, dec.alphas)
+          and torch.equal(dec_ct.alphas, dec_c.alphas)
+          and torch.equal(dec_ct.betas, dec_c.betas)
           and torch.equal(x_t, x_ref), "the phase timer changed the passes")
-    check(bool((clk1 > 0).all()) and bool((clk2 > 0).all()),
+    check(all(bool((c > 0).all()) for c in clk.values()),
           "the phase timer left a stamp unwritten")
-    split = {name: phase_split(clk, name) for name, clk in
-             (("lanczos_pass_one", clk1), ("lanczos_pass_two", clk2))}
-    print_split(split, dec.k_max // 2, clk1.shape[1])
+    split = {name: phase_split(c, name) for name, c in clk.items()}
+    print_split(split, k // 2, clk["lanczos_pass_one"].shape[1])
     return split
 
 
@@ -491,9 +510,12 @@ PERSISTENT_INSTANCES = (
     ("df_pass_one_persistent_kernelINS_7NoClock", "K9"),
     ("df_pass_two_persistent_kernelINS_10PhaseClock", "K10 (timer build)"),
     ("df_pass_two_persistent_kernelINS_7NoClock", "K10"),
-    ("pass_one_persistent_kernelILb0ELb0E", "K2"),
-    ("pass_one_persistent_kernelILb1ELb0E", "K4"),
-    ("pass_one_persistent_kernelILb0ELb1E", "K5"),
+    ("pass_one_persistent_kernelILb0ELb0ELb0E", "K2"),
+    ("pass_one_persistent_kernelILb1ELb0ELb0E", "K4"),
+    ("pass_one_persistent_kernelILb0ELb1ELb0E", "K5"),
+    ("pass_one_persistent_kernelILb0ELb0ELb1E", "K6 (K2's instance)"),
+    ("pass_one_persistent_kernelILb1ELb0ELb1E", "K6 (K4's instance)"),
+    ("pass_one_persistent_kernelILb0ELb1ELb1E", "K6 (K5's instance)"),
     ("pass_two_persistent_kernel", "K3"))
 
 
@@ -503,67 +525,121 @@ def persistent_instance(mangled: str) -> str:
                  if part in mangled), mangled)
 
 
-def k4_routes(lay, b, k: int, tol: float, ztol: float):
-    """K4 (one cooperative launch) and the per-step launches it replaced,
-    with their basis rows, on one b. Fails unless alpha, beta, ||b||,
-    steps, the final (v_prev, v_curr) and every basis row agree bit for
-    bit; returns K4's decomposition, basis and state."""
+def k2_routes(lay, b, k: int, tol: float, ztol: float,
+              compensated: bool = False):
+    """K2 (compensated: K6's K2 instance), one cooperative launch, and the
+    per-step launches it replaced with the same comp, on one b. Fails
+    unless alpha, beta, ||b||, steps and the final (v_prev, v_curr) agree
+    bit for bit; returns K2's decomposition."""
     import torch
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
         PassOneBuffers,
-        pass_one_basis_cuda,
+        pass_one_cuda,
         pass_one_steps_cuda,
     )
+    name = "K6's K2 instance" if compensated else "K2"
     state = torch.empty(2, lay.n, device=b.device)
-    dec, basis = pass_one_basis_cuda(lay, b, k, tol, ztol, state=state)
+    dec = pass_one_cuda(lay, b, k, tol, ztol, state=state,
+                        compensated=compensated)
     ref = PassOneBuffers.alloc(lay, k)
-    rows = torch.zeros_like(basis)
-    pass_one_steps_cuda(lay, ref, b, 0, k, tol, ztol, basis=rows)
+    pass_one_steps_cuda(lay, ref, b, 0, k, tol, ztol, compensated=compensated)
     torch.cuda.synchronize()
     check(dec.steps() == int(ref.steps[0])
           and torch.equal(dec.alphas, ref.alphas)
           and torch.equal(dec.betas, ref.betas)
           and torch.equal(dec.b_norm.reshape(1), ref.bnorm)
           and torch.equal(state, ref.state),
-          f"K4's alpha, beta, ||b||, steps or state differ from the per-step "
-          f"launches at k={k}")
+          f"{name}'s alpha, beta, ||b||, steps or state differ from the "
+          f"per-step launches at k={k}")
+    return dec
+
+
+def k4_routes(lay, b, k: int, tol: float, ztol: float,
+              compensated: bool = False):
+    """K4 (compensated: K6's K4 instance), one cooperative launch, and the
+    per-step launches it replaced with the same comp, with their basis
+    rows, on one b. Fails unless alpha, beta, ||b||, steps, the final
+    (v_prev, v_curr) and every basis row agree bit for bit; returns K4's
+    decomposition, basis and state."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        PassOneBuffers,
+        pass_one_basis_cuda,
+        pass_one_steps_cuda,
+    )
+    name = "K6's K4 instance" if compensated else "K4"
+    state = torch.empty(2, lay.n, device=b.device)
+    dec, basis = pass_one_basis_cuda(lay, b, k, tol, ztol,
+                                     compensated=compensated, state=state)
+    ref = PassOneBuffers.alloc(lay, k)
+    rows = torch.zeros_like(basis)
+    pass_one_steps_cuda(lay, ref, b, 0, k, tol, ztol, basis=rows,
+                        compensated=compensated)
+    torch.cuda.synchronize()
+    check(dec.steps() == int(ref.steps[0])
+          and torch.equal(dec.alphas, ref.alphas)
+          and torch.equal(dec.betas, ref.betas)
+          and torch.equal(dec.b_norm.reshape(1), ref.bnorm)
+          and torch.equal(state, ref.state),
+          f"{name}'s alpha, beta, ||b||, steps or state differ from the "
+          f"per-step launches at k={k}")
     check(torch.equal(basis, rows),
-          f"K4's basis rows differ from the per-step launches' at k={k}")
+          f"{name}'s basis rows differ from the per-step launches' at k={k}")
     return dec, basis, state
 
 
-def k5_routes(lay, b, k: int, chunk: int, tol: float, ztol: float):
-    """K5, one cooperative launch a chunk of ``chunk`` steps on one set of
-    carried buffers, and the per-step launches it replaced in the same
-    chunks. Fails unless alpha, beta, ||b||, steps, the live flag and the
-    final (v_prev, v_curr) agree bit for bit; returns K5's buffers."""
+def k5_routes(lay, b, k: int, chunk: int, tol: float, ztol: float,
+              compensated: bool = False):
+    """K5 (compensated: K6's K5 instance), one cooperative launch a chunk
+    of ``chunk`` steps on one set of carried buffers, and the per-step
+    launches it replaced with the same comp in the same chunks. Fails
+    unless alpha, beta, ||b||, steps, the live flag and the (v_prev,
+    v_curr) after each chunk agree bit for bit; returns K5's buffers."""
     import torch
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
         PassOneBuffers,
         pass_one_chunk_cuda,
         pass_one_steps_cuda,
     )
+    name = "K6's K5 instance" if compensated else "K5"
     bufs = PassOneBuffers.alloc(lay, k, persistent=True)
     ref = PassOneBuffers.alloc(lay, k)
     for j0 in range(0, k, chunk):
         c = min(chunk, k - j0)
-        pass_one_chunk_cuda(lay, bufs, b, j0, c, tol, ztol)
-        pass_one_steps_cuda(lay, ref, b, j0, c, tol, ztol)
+        pass_one_chunk_cuda(lay, bufs, b, j0, c, tol, ztol, compensated)
+        pass_one_steps_cuda(lay, ref, b, j0, c, tol, ztol,
+                            compensated=compensated)
+        if compensated:  # K6's state after each chunk
+            torch.cuda.synchronize()
+            check(torch.equal(bufs.state, ref.state)
+                  and torch.equal(bufs.steps, ref.steps),
+                  f"{name}'s state differs from the per-step launches' "
+                  f"after chunk [{j0}, {j0 + c}) at k={k}")
     torch.cuda.synchronize()
     check(all(torch.equal(getattr(bufs, f), getattr(ref, f))
               for f in ("alphas", "betas", "bnorm", "steps", "state"))
           and torch.equal(bufs.flags[:1], ref.flags),
-          f"K5's alpha, beta, ||b||, steps, live flag or state differ from "
-          f"the per-step launches at k={k}, chunk {chunk}")
+          f"{name}'s alpha, beta, ||b||, steps, live flag or state differ "
+          f"from the per-step launches at k={k}, chunk {chunk}")
     return bufs
+
+
+def comp_routes(lay, b, k: int, chunk: int, tol: float, ztol: float) -> None:
+    """K6's instances of K2, K4 and K5 (chunks of ``chunk``), each bitwise
+    the compensated per-step launches at k steps."""
+    k2_routes(lay, b, k, tol, ztol, compensated=True)
+    k4_routes(lay, b, k, tol, ztol, compensated=True)
+    k5_routes(lay, b, k, chunk, tol, ztol, compensated=True)
 
 
 def fused_big_phase(card, dev, big) -> None:
     """Phase 7b: the fused two-pass solver on the 5M-arc instance, whose
     layout (100 MB) and (n,) vectors leave the L2. At k = K_CHECK, K2, K4
     (with its basis) and K5 (chunks of 7) bitwise the per-step launches they
-    replaced and K3 bitwise the plain pass two on K1's matvec; at k = K, the
-    solve through K2 and K3 only, their times per pass and per step, the
+    replaced and K3 bitwise the plain pass two on K1's matvec; K6's
+    instances of K2, K4 and K5 bitwise the compensated per-step launches at
+    k = K_CHECK (chunks of 7) and K (chunks of CHUNK); at k = K, the solve
+    through K2 and K3 only, their times and K6's per pass and per step, the
     phase split, and the median of 3 solves."""
     import numpy as np
     import torch
@@ -571,10 +647,8 @@ def fused_big_phase(card, dev, big) -> None:
     from two_pass_lanczos_tpu_torch.algorithms.core import pass_two_scan
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
         LAUNCHES,
-        PassOneBuffers,
         kkt_matvec_cuda,
         pass_one_cuda,
-        pass_one_steps_cuda,
         pass_two_cuda,
         reset_launches,
     )
@@ -589,14 +663,7 @@ def fused_big_phase(card, dev, big) -> None:
         return torch.where(keep, padded_f_e1(dec, "inv") * dec.b_norm, 0.0)
 
     st, st_ref = torch.empty(2, n, device=dev), torch.empty(2, n, device=dev)
-    dec = pass_one_cuda(lay, b, K_CHECK, s.tol, s.ztol, state=st)
-    bufs = PassOneBuffers.alloc(lay, K_CHECK)
-    pass_one_steps_cuda(lay, bufs, b, 0, K_CHECK, s.tol, s.ztol)
-    torch.cuda.synchronize()
-    check(torch.equal(dec.alphas, bufs.alphas)
-          and torch.equal(dec.betas, bufs.betas)
-          and torch.equal(st, bufs.state),
-          f"5M: K2 differs from the per-step launches at k={K_CHECK}")
+    dec = k2_routes(lay, b, K_CHECK, s.tol, s.ztol)
     y = y_of(dec)
     x3 = pass_two_cuda(lay, b, dec, y, s.ztol, state=st)
     x3_ref, _ = pass_two_scan(lambda z: kkt_matvec_cuda(lay, z), b, dec, y,
@@ -604,9 +671,11 @@ def fused_big_phase(card, dev, big) -> None:
     torch.cuda.synchronize()
     check(torch.equal(x3, x3_ref) and torch.equal(st, st_ref),
           f"5M: K3 differs from pass two on K1's matvec at k={K_CHECK}")
-    del bufs
     k4_routes(lay, b, K_CHECK, s.tol, s.ztol)
     k5_routes(lay, b, K_CHECK, 7, s.tol, s.ztol)
+    comp_routes(lay, b, K_CHECK, 7, s.tol, s.ztol)
+    comp_routes(lay, b, K, CHUNK, s.tol, s.ztol)
+    torch.cuda.empty_cache()
     reset_launches()
     x, dec = s.solve(b, k=K, f="inv", raw=True)
     torch.cuda.synchronize()
@@ -618,14 +687,20 @@ def fused_big_phase(card, dev, big) -> None:
     y = y_of(dec)
     k2 = event_ms(lambda: pass_one_cuda(lay, b, K, s.tol, s.ztol), 3)
     k3 = event_ms(lambda: pass_two_cuda(lay, b, dec, y, s.ztol), 3)
+    k6 = event_ms(lambda: pass_one_cuda(lay, b, K, s.tol, s.ztol,
+                                        compensated=True), 3)
     t = wall_s(lambda: s.solve(b, k=K, f="inv", raw=True), 3)
     print(f"[7b] 5M fused solver on {card}: m={lay.m} p={lay.p}: K2, K4 (its "
           f"basis rows too) and K5 (chunks of 7) bitwise the per-step "
           f"launches and K3 bitwise pass two on K1's matvec at k={K_CHECK}; "
-          f"solve(k={K}) launches {got}, steps {steps}")
+          f"K6's K2, K4 (rows too) and K5 (chunks of 7 and {CHUNK}) "
+          f"instances bitwise the compensated per-step launches at "
+          f"k={K_CHECK} and {K}; solve(k={K}) launches {got}, steps {steps}")
     print(f"    solve k={K}: {runs(t)}")
     print(f"    K2 {k2:.4f} ms a pass, {1e3 * k2 / K:.3f} us a step; K3 "
-          f"{k3:.4f} ms a pass, {1e3 * k3 / max(steps - 1, 1):.3f} us a step")
+          f"{k3:.4f} ms a pass, {1e3 * k3 / max(steps - 1, 1):.3f} us a "
+          f"step; K6 (K2's instance) {k6:.4f} ms a pass, "
+          f"{1e3 * k6 / K:.3f} us a step")
     timed_split(lay, b, s, dec, y, pass_two_cuda(lay, b, dec, y, s.ztol))
 
 
@@ -1532,11 +1607,19 @@ def main() -> int:
     check(torch.equal(bufs6.alphas, dec1.alphas)
           and torch.equal(bufs6.betas, dec1.betas),
           "the per-step launches differ from K2")
-    # K4, K5's chunk loop, and the per-step launches of each, in turns
-    # (route, reference, reference, route): the means of both turns
+    # K4, K5's chunk loop, K6 (its K2 instance), and the per-step launches
+    # of each, in turns (route, reference, reference, route): the means of
+    # both turns
     k4_ms = {"K4": [], "per-step": []}
     k5_ms = {"K5": [], "per-step": []}
+    k6_ms = {"K6": [], "per-step": []}
     k5_bufs = PassOneBuffers.alloc(lay, K, persistent=True)
+    bufs6c = PassOneBuffers.alloc(lay, K)
+
+    def six_launch_comp():
+        pass_one_steps_cuda(lay, bufs6c, b, 0, K, solver.tol, solver.ztol,
+                            compensated=True)
+
     for turn in (0, 1):
         for route in ("K4", "per-step") if turn == 0 else ("per-step", "K4"):
             k4_ms[route].append(event_ms(
@@ -1548,10 +1631,22 @@ def main() -> int:
                 (lambda: chunk_loop(pass_one_chunk_cuda, k5_bufs))
                 if route == "K5" else
                 (lambda: chunk_loop(pass_one_steps_cuda, bufs6)), 3))
+        for route in ("K6", "per-step") if turn == 0 else ("per-step", "K6"):
+            k6_ms[route].append(event_ms(
+                six_launch_comp if route == "per-step" else
+                lambda: pass_one_cuda(lay, b, K, solver.tol, solver.ztol,
+                                      compensated=True), 3))
     k4_ms = {route: statistics.mean(t) for route, t in k4_ms.items()}
     k5_ms = {route: statistics.mean(t) for route, t in k5_ms.items()}
+    k6_ms = {route: statistics.mean(t) for route, t in k6_ms.items()}
     check(torch.equal(k5_bufs.alphas, dec1.alphas),
           "K5's timed chunks differ from K2")
+    dec6c = pass_one_cuda(lay, b, K, solver.tol, solver.ztol,
+                          compensated=True)
+    torch.cuda.synchronize()
+    check(torch.equal(bufs6c.alphas, dec6c.alphas)
+          and torch.equal(bufs6c.betas, dec6c.betas),
+          "K6's timed per-step launches differ from K6")
 
     print(f"[7] on {card}:")
     print(f"    solve k={K}: {runs(t500)}")
@@ -1586,6 +1681,11 @@ def main() -> int:
           f"the same loop: {k5_ms['per-step']:.4f} ms a pass, "
           f"{1e3 * k5_ms['per-step'] / K:.3f} us a step; the whole "
           f"pass_one_chunked {ms['lanczos_pass_one_chunk']:.4f} ms")
+    for route, t in k6_ms.items():
+        label = ("K6 (the compensated K2 instance), one cooperative launch"
+                 if route == "K6" else "the compensated per-step launches")
+        print(f"    {label}: {t:.4f} ms a pass, {1e3 * t / K:.3f} us a step "
+              f"(in turns)")
     split = timed_split(lay, b, solver, dec1, y_full, x_rep)
     in_pass_us = {name: got["matvec phase"]["max_us"]
                   for name, got in split.items()}
@@ -1713,18 +1813,26 @@ def main() -> int:
           f"two-pass x rel {rel_cb:.3e} (bitwise: "
           f"{torch.equal(x_cb, x_main)}); launches {cb_launches}")
 
-    # 10. K6: the compensated builds
+    # 10. K6: the compensated instances of K2, K4 and K5, bitwise the
+    #     compensated per-step launches, and the compensated main path
+    comp_routes(lay, b, K_CHECK, 7, solver.tol, solver.ztol)
+    comp_routes(lay, b, K, CHUNK, solver.tol, solver.ztol)
     reset_launches()
     sc = FusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
                         inst.num_nodes, device=dev, compensated=True)
+    launches["eft_check"] = LAUNCHES["eft_check"]
+    check(launches["eft_check"] == 1, f"launches {dict(LAUNCHES)}")
+    reset_launches()
     x_c, dec_c = sc.solve(b, k=K, f="inv", raw=True)
     torch.cuda.synchronize()
-    launches["lanczos_pass_one_comp"] = LAUNCHES["lanczos_pass_one_comp"]
-    launches["eft_check"] = LAUNCHES["eft_check"]
-    check(launches["lanczos_pass_one_comp"] > 0 and launches["eft_check"] > 0
-          and LAUNCHES["lanczos_pass_one"] == 0, f"launches {dict(LAUNCHES)}")
+    comp_launches = {name: c for name, c in LAUNCHES.items() if c}
+    check(comp_launches == {"lanczos_pass_one_comp": 1, "lanczos_pass_two": 1,
+                            "kkt_matvec_in_pass": 2 * K - 1}
+          and LAUNCHES["kkt_matvec"] == 0,
+          f"compensated solve launches {comp_launches}")
+    launches["lanczos_pass_one_comp"] = 1
+    in_pass["lanczos_pass_one_comp"] = K
     check(bool(torch.isfinite(x_c).all()), "compensated x is not finite")
-    comp_launches = dict(LAUNCHES)
     dec6 = sc.pass_one(b, K_CHECK)
     ref6, _ = pass_one_scan(plain_mv, b, K_CHECK, dot=dot_f64)
     torch.cuda.synchronize()
@@ -1766,15 +1874,24 @@ def main() -> int:
     err_c = float(np.abs(a_c.alphas.cpu().numpy().astype(np.float64) - a64).max())
     check(err_c < err_p, f"compensated alpha err {err_c:.3e} not below "
           f"plain K2's {err_p:.3e}")
+    reset_launches()
     dec_cc = sc.pass_one_chunked(b, K, chunk=CHUNK)
     dec_c1, basis_c = sc.pass_one_with_basis(b, K)
     torch.cuda.synchronize()
+    other_launches = {name: c for name, c in LAUNCHES.items() if c}
+    check(other_launches == {"lanczos_pass_one_comp": -(-K // CHUNK) + 1,
+                             "kkt_matvec_in_pass": 2 * K},
+          f"compensated chunked and one-pass launches {other_launches}")
     for name, dd in (("chunked", dec_cc), ("one-pass", dec_c1)):
         check(torch.equal(dd.alphas, dec_c.alphas)
               and torch.equal(dd.betas, dec_c.betas),
               f"compensated {name} differs from compensated monolithic")
     del basis_c
-    print(f"[10] K6 ok: launches {comp_launches}; rtol {rtol6:.3e} <= 1e-5 "
+    print(f"[10] K6 ok: its K2, K4 (rows too) and K5 instances bitwise the "
+          f"compensated per-step launches at k={K_CHECK} (chunks of 7) and "
+          f"{K} (chunks of {CHUNK}); solve launches {comp_launches}, no K1; "
+          f"chunked (chunk {CHUNK}) and one-pass launches {other_launches}; "
+          f"rtol {rtol6:.3e} <= 1e-5 "
           f"vs plain f64-dot pass one at k={K_CHECK} (max_abs_err "
           f"{err_k6:.3e} <= 0.25x plain K2's {err_k2_f64:.3e}); m={cm}, "
           f"p={cp}, k={k6}: max|alpha - alpha_f64| compensated {err_c:.3e} "
@@ -2364,13 +2481,17 @@ def main() -> int:
             for name, (src, rep) in KERNELS.items()]
     k1_row = next(r for r in rows if r["name"] == "kkt_matvec")
     # K1's rows ran as phases inside K2 and K3 (the main path), K4 (the
-    # one-pass solve) and K5 (the callback solve's pass one)
+    # one-pass solve), K5 (the callback solve's pass one) and K6 (the
+    # compensated solve's)
     k1_row["in_pass_matvecs"] = in_pass_matvecs + sum(in_pass.values())
     k1_row["in_pass_us"] = in_pass_us
     for r in rows:
         if r["name"] in in_pass:
             r["in_pass_matvecs"] = in_pass[r["name"]]
             r["step_us"] = 1e3 * r["ms"] / K
+    # K6 beside the compensated per-step launches it replaced, in turns
+    next(r for r in rows if r["name"] == "lanczos_pass_one_comp")[
+        "steps_ms"] = k6_ms["per-step"]
     k11_row = next(r for r in rows if r["name"] == "df_kkt_matvec")
     k11_row["in_pass_matvecs"] = df_in_pass_matvecs
     k11_row["in_pass_us"] = df_in_pass_us

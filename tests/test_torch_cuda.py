@@ -259,7 +259,8 @@ def test_phase_timer_stamps_without_changing_a_bit_on_card(cuda_device):
 
 
 def _six_launch_pass_one(s, bt, k, chunk=None, basis=None):
-    """Pass one as the per-step launches K2, K4 and K5 replaced
+    """Pass one as the per-step launches K2, K4 and K5 (with
+    ``s.compensated``: their K6 instances) replaced
     (``pass_one_steps_cuda``): k steps from b in chunks of ``chunk`` (one
     chunk by default), storing K4's rows in ``basis`` when it is given;
     returns the buffers."""
@@ -267,7 +268,8 @@ def _six_launch_pass_one(s, bt, k, chunk=None, basis=None):
     chunk = chunk or k
     for j0 in range(0, k, chunk):
         pass_one_steps_cuda(s.layout, bufs, bt, j0, min(chunk, k - j0),
-                            s.tol, s.ztol, basis=basis)
+                            s.tol, s.ztol, basis=basis,
+                            compensated=s.compensated)
     return bufs
 
 
@@ -280,25 +282,39 @@ def _assert_same_run(bufs, ref):
 
 
 def _chunked(s, bt, k, chunk):
-    """K5 as ``pass_one_chunked`` runs it: chunks of ``chunk`` steps on one
-    set of persistent buffers."""
+    """K5 (with ``s.compensated``: its K6 instance) as ``pass_one_chunked``
+    runs it: chunks of ``chunk`` steps on one set of persistent buffers."""
     bufs = PassOneBuffers.alloc(s.layout, k, persistent=True)
     for j0 in range(0, k, chunk):
         pass_one_chunk_cuda(s.layout, bufs, bt, j0, min(chunk, k - j0), s.tol,
-                            s.ztol)
+                            s.ztol, compensated=s.compensated)
     return bufs
 
 
+#: the persistent pass one's instances: K2, K4, K5 and, compensated, K6
+COMP = pytest.mark.parametrize("comp", [False, True], ids=["plain", "comp"])
+
+
+def _name(comp, name):
+    """The counter of a pass-one launch: K6's for a compensated one."""
+    return "lanczos_pass_one_comp" if comp else name
+
+
+@COMP
 @pytest.mark.parametrize("case", WALK_CASES)
 @pytest.mark.parametrize("k", [20, 500])
-def test_persistent_pass_one_bitwise_six_launch_on_card(cuda_device, k, case):
+def test_persistent_pass_one_bitwise_six_launch_on_card(cuda_device, k, case,
+                                                        comp):
+    # K2 (comp: its K6 instance), one cooperative launch, against the
+    # per-step launches with the same comp
     d, u, v, p, b = _walk_problem(case)
-    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=comp)
     bt = torch.from_numpy(b).to(cuda_device)
     state = torch.empty(2, s.n, device=cuda_device)
     reset_launches()
     dec = s.pass_one(bt, k, state=state)
-    assert LAUNCHES["lanczos_pass_one"] == 1 and LAUNCHES["kkt_matvec"] == 0
+    assert LAUNCHES[_name(comp, "lanczos_pass_one")] == 1
+    assert LAUNCHES["kkt_matvec"] == 0
     assert LAUNCHES["kkt_matvec_in_pass"] == k
     ref = _six_launch_pass_one(s, bt, k)
     torch.cuda.synchronize()
@@ -482,9 +498,9 @@ def test_chunk_kernel_matches_plain_on_card(problem, cuda_device,
     got = s.pass_one_chunked(bt, k, chunk=8)
     name = "lanczos_pass_one_comp" if compensated else "lanczos_pass_one_chunk"
     assert LAUNCHES[name] == 3
-    # one cooperative launch a chunk with its matvecs inside; compensated
-    # (K6), the per-step launches with a K1 each
-    in_pass = 0 if compensated else k
+    # one cooperative launch a chunk with its matvecs inside, compensated
+    # (K6's instance) or not
+    in_pass = k
     assert LAUNCHES["kkt_matvec_in_pass"] == in_pass
     assert LAUNCHES["kkt_matvec"] == k - in_pass
     ref = s.pass_one(bt, k)
@@ -527,20 +543,24 @@ def test_chunk_kernel_stop_bounds_matvecs_on_card(problem, cuda_device):
 
 # --- K4 and K5 against the per-step launches they replaced ----------------
 
+@COMP
 @pytest.mark.parametrize("case", WALK_CASES)
 @pytest.mark.parametrize("k", [20, 500])
-def test_persistent_basis_bitwise_per_step_on_card(cuda_device, k, case):
-    # K4, one cooperative launch, against the per-step launches with their
-    # rows: alpha, beta, ||b||, steps, the final state and every basis row
+def test_persistent_basis_bitwise_per_step_on_card(cuda_device, k, case,
+                                                   comp):
+    # K4 (comp: its K6 instance), one cooperative launch, against the
+    # per-step launches with their rows and the same comp: alpha, beta,
+    # ||b||, steps, the final state and every basis row
     d, u, v, p, b = _walk_problem(case)
-    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=comp)
     bt = torch.from_numpy(b).to(cuda_device)
     state = torch.empty(2, s.n, device=cuda_device)
     reset_launches()
     dec, basis = pass_one_basis_cuda(s.layout, bt, k, s.tol, s.ztol,
-                                     state=state)
-    assert LAUNCHES["lanczos_pass_one_basis"] == 1
+                                     compensated=comp, state=state)
+    assert LAUNCHES[_name(comp, "lanczos_pass_one_basis")] == 1
     assert LAUNCHES["kkt_matvec_in_pass"] == k
+    assert LAUNCHES["kkt_matvec"] == 0
     rows = torch.zeros(k, s.n, device=cuda_device)
     ref = _six_launch_pass_one(s, bt, k, basis=rows)
     torch.cuda.synchronize()
@@ -552,20 +572,22 @@ def test_persistent_basis_bitwise_per_step_on_card(cuda_device, k, case):
     assert torch.equal(basis, rows)
 
 
+@COMP
 @pytest.mark.parametrize("case", WALK_CASES)
 @pytest.mark.parametrize("k", [20, 500])
 @pytest.mark.parametrize("chunk", [1, 7, 64, None], ids=str)
 def test_persistent_chunks_bitwise_per_step_on_card(cuda_device, k, case,
-                                                    chunk):
-    # K5, one cooperative launch a chunk on the carried state, against the
-    # per-step launches in the same chunks and in one run of k steps
+                                                    chunk, comp):
+    # K5 (comp: its K6 instance), one cooperative launch a chunk on the
+    # carried state, against the per-step launches with the same comp in
+    # the same chunks and in one run of k steps
     d, u, v, p, b = _walk_problem(case)
-    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=comp)
     bt = torch.from_numpy(b).to(cuda_device)
     chunk = chunk or k
     reset_launches()
     got = _chunked(s, bt, k, chunk)
-    assert LAUNCHES["lanczos_pass_one_chunk"] == -(-k // chunk)
+    assert LAUNCHES[_name(comp, "lanczos_pass_one_chunk")] == -(-k // chunk)
     assert LAUNCHES["kkt_matvec_in_pass"] == k
     assert LAUNCHES["kkt_matvec"] == 0
     ref = _six_launch_pass_one(s, bt, k, chunk=chunk)
@@ -576,15 +598,17 @@ def test_persistent_chunks_bitwise_per_step_on_card(cuda_device, k, case,
     assert torch.equal(got.alphas, s.pass_one(bt, k).alphas)
 
 
+@COMP
 @pytest.mark.parametrize("chunk", [1, 2, 3, 4, 12])
 def test_persistent_basis_and_chunks_through_breakdown_on_card(cuda_device,
-                                                               chunk):
+                                                               chunk, comp):
     # the run breaks down at step 3 (j = 2): with chunk 3 on a chunk's last
     # step, with 1 and 2 on a resumed chunk's first step, with 4 and 12
     # inside the chunk that starts from b; every later chunk starts dead,
-    # returns in every block and changes nothing
+    # returns in every block and changes nothing (comp: K6's instances
+    # against the compensated per-step launches)
     d, u, v, p, b = breakdown_kkt()
-    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=comp)
     bt = torch.from_numpy(b).to(cuda_device)
     k = 12
     got = _chunked(s, bt, k, chunk)
@@ -594,34 +618,43 @@ def test_persistent_basis_and_chunks_through_breakdown_on_card(cuda_device,
     _assert_same_run(got, ref)
     before = [t.clone() for t in (got.alphas, got.betas, got.steps,
                                   got.state, got.scal)]
-    pass_one_chunk_cuda(s.layout, got, bt, k - 1, 1, s.tol, s.ztol)
+    pass_one_chunk_cuda(s.layout, got, bt, k - 1, 1, s.tol, s.ztol,
+                        compensated=comp)
     torch.cuda.synchronize()
     assert all(torch.equal(t, g) for t, g in zip(
         before, (got.alphas, got.betas, got.steps, got.state, got.scal)))
     # K4 through the same breakdown: rows past step 3 stay zero
     state = torch.empty(2, s.n, device=cuda_device)
     dec, basis = pass_one_basis_cuda(s.layout, bt, k, s.tol, s.ztol,
-                                     state=state)
+                                     compensated=comp, state=state)
     rows = torch.zeros(k, s.n, device=cuda_device)
     ref4 = _six_launch_pass_one(s, bt, k, basis=rows)
     assert dec.steps() == 3 and bool((basis[3:] == 0).all())
     assert torch.equal(basis, rows) and torch.equal(state, ref4.state)
     assert torch.equal(dec.alphas, ref4.alphas)
     assert torch.equal(dec.betas, ref4.betas)
+    # and K2 through it
+    dec2 = s.pass_one(bt, k, state=state)
+    assert dec2.steps() == 3 and torch.equal(state, ref4.state)
+    assert torch.equal(dec2.alphas, ref4.alphas)
+    assert torch.equal(dec2.betas, ref4.betas)
 
 
-def test_persistent_basis_and_chunks_zero_b_on_card(cuda_device, problem):
+@COMP
+def test_persistent_basis_and_chunks_zero_b_on_card(cuda_device, problem,
+                                                    comp):
     # a zero b and a subnormal one: 0 steps, row 0 = b * 0, the state the
-    # per-step launches leave
+    # per-step launches leave (comp: K6's instances, whose ||b||^2 is
+    # compensated, against the compensated per-step launches)
     d, u, v, p, _ = problem
-    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=comp)
     for b0 in (np.zeros(s.n, np.float32), np.full(s.n, 1e-42, np.float32)):
         bt = torch.from_numpy(b0).to(cuda_device)
         got = _chunked(s, bt, 10, 4)
         ref = _six_launch_pass_one(s, bt, 10, chunk=4)
         state = torch.empty(2, s.n, device=cuda_device)
         dec, basis = pass_one_basis_cuda(s.layout, bt, 10, s.tol, s.ztol,
-                                         state=state)
+                                         compensated=comp, state=state)
         rows = torch.zeros(10, s.n, device=cuda_device)
         ref4 = _six_launch_pass_one(s, bt, 10, basis=rows)
         torch.cuda.synchronize()
@@ -653,7 +686,32 @@ def test_one_pass_and_callback_solves_launch_persistently_on_card(
                    "kkt_matvec_in_pass": 2 * k - 1}
 
 
-# --- K6: the compensated builds --------------------------------------------
+# --- K6: the compensated instances -----------------------------------------
+
+def test_compensated_solves_launch_persistently_on_card(problem,
+                                                        cuda_device):
+    # K6's instances of K2, K4 and K5: the two-pass, one-pass and callback
+    # solves launch one cooperative kernel a pass (a chunk), no K1 and no
+    # per-step launch
+    d, u, v, p, b = problem
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device, compensated=True)
+    bt = torch.from_numpy(b).to(cuda_device)
+    k = 500
+    for kwargs, want in (
+            ({}, {"lanczos_pass_one_comp": 1, "lanczos_pass_two": 1,
+                  "kkt_matvec_in_pass": 2 * k - 1}),
+            ({"method": "one_pass"}, {"lanczos_pass_one_comp": 1,
+                                      "kkt_matvec_in_pass": k}),
+            ({"callback": lambda st, V, sc: True, "callback_chunk": 64},
+             {"lanczos_pass_one_comp": 8, "lanczos_pass_two": 1,
+              "kkt_matvec_in_pass": 2 * k - 1})):
+        reset_launches()
+        x, dec = s.solve(bt, k=k, raw=True, **kwargs)
+        torch.cuda.synchronize()
+        got = {name: c for name, c in LAUNCHES.items() if c}
+        assert got == want, kwargs
+        assert dec.steps() == k and bool(torch.isfinite(x).all())
+
 
 def test_compensated_kernel_matches_plain_on_card(cuda_device):
     # long reductions (n = 202,000), so that plain K2's f32 dots sit
@@ -667,7 +725,8 @@ def test_compensated_kernel_matches_plain_on_card(cuda_device):
     reset_launches()
     dec = s.pass_one(bt, k)
     assert LAUNCHES["lanczos_pass_one_comp"] == 1
-    assert LAUNCHES["lanczos_pass_one"] == 0
+    assert LAUNCHES["lanczos_pass_one"] == LAUNCHES["kkt_matvec"] == 0
+    assert LAUNCHES["kkt_matvec_in_pass"] == k
     # the reference runs K1's matvec, so that only the reductions differ
     ref, _ = pass_one_scan(lambda x: kkt_matvec_cuda(s.layout, x), bt, k,
                            dot=dot_f64)

@@ -102,9 +102,9 @@ def test_entry_point_signature_matches_its_argtypes(name):
 
 def test_signature_parser_reads_macros_and_pointers():
     # K2's parameters come from the TPL_PASS_ONE_ARGS macro: 21 of them,
-    # then the phase clock, the host counter and the stream
+    # then comp, the phase clock, the host counter and the stream
     _, decls = ENTRIES["tpl_lanczos_pass_one"]
-    assert len(decls) == 24
+    assert len(decls) == 25
     assert decls[0] == "const float *d" and decls[-1] == "cudaStream_t stream"
     assert [_kind(d) for d in decls[5:12]] == [
         "int", "int", "pointer", "int", "float", "float", "pointer"]
@@ -145,19 +145,23 @@ def test_persistent_passes_launch_cooperatively_without_fallback(kernel):
     assert "<<<" not in two and "launch_kkt_matvec" not in two
     assert two.count("launch_persistent(") == 1
     # K2, K4 and K5 make one cooperative launch of their instance of the
-    # persistent kernel and return its error as it is: none of them takes
-    # comp or reaches the per-step launches
+    # persistent kernel, comp choosing the compensated one (K6), and return
+    # its error as it is: none of them reaches the per-step launches
     one = _code(CSRC / "lanczos_pass_one.cu")
     body = _entry_body(one, PASS_ONE_ENTRIES[kernel])
     assert body.count("tpl::launch_pass_one(") == 1
-    assert body.count("pass_one_persistent_kernel<") == 1
-    assert "comp" not in body and "tpl::run(" not in body
+    assert body.count("tpl::pass_one_instance<") == 1
+    assert body.count("(comp)") == 1 and "tpl::run(" not in body
     assert "<<<" not in body and "enqueue_" not in body
+    instance = _kernel_body(one, "PersistentKernel pass_one_instance")
+    assert re.findall(r"pass_one_persistent_kernel<Basis, Resume, (\w+)>",
+                      instance) == ["true", "false"]
+    assert "tpl::run(" not in instance and "enqueue_" not in instance
     assert one.count("launch_persistent(") == 1
     launch = _kernel_body(one, "int launch_pass_one")
     assert "launch_persistent(" in launch and "tpl::run(" not in launch
     assert "return static_cast<int>(err)" in launch
-    # the per-step launches (the reference, and K6 with comp) have one door
+    # the per-step launches (the reference, with either comp) have one door
     steps = _entry_body(one, "tpl_lanczos_pass_one_steps")
     assert "launch_persistent" not in steps
     assert "persistent_kernel" not in steps and "tpl::run(" in steps
@@ -260,6 +264,14 @@ def test_no_read_only_load_reaches_a_vector_written_in_the_launch(src,
                                    common).start():]
         routine = routine[:routine.index("\n}\n")]
         assert "__ldg" not in routine and "load(" in routine, name
+    # nor do the routines of the compensated reductions (K6's Comp
+    # instances) read anything but their arguments
+    for name in ("accumulate", "store_partial", "reduce_phase", "block_sum2",
+                 "two_prod", "df_add2"):
+        routine = common[re.search(rf"__forceinline__ \w+ {name}\(",
+                                   common).start():]
+        routine = routine[:routine.index("\n}\n")]
+        assert "__ldg" not in routine and "DirectLoad" not in routine, name
     for loader in ("CachedLoad", "ScaledLoad", "DFCachedLoad",
                    "DFScaledLoad"):
         struct = common[common.index(f"struct {loader} {{"):]
@@ -283,6 +295,65 @@ def test_start_partials_avoid_the_first_dots_plane(src, kernel, reduce):
     assert start != first_dot and start == beta_dot
     fold = re.search(rf"fold_partials(<\w+>)?\({start},", body)
     assert fold and fold.start() < body.index("for (int j")
+    # nor the first dot's lo plane, where a partial is a (hi, lo) pair: the
+    # compensated instances of K2, K4 and K5 (Comp) and K9
+    for comp in (False, True):
+        offset = {name: _plane_offset(body, name, comp)
+                  for name in (start, first_dot)}
+        pair = 2 if comp or src.startswith("df_") else 1
+        assert offset[start] >= offset[first_dot] + pair, (comp, offset)
+        assert offset[start] + pair <= 4  # the persistent scratch's planes
+
+
+def _plane_offset(body: str, name: str, comp: bool) -> int:
+    """The first plane of partials pointer ``name`` in a persistent pass
+    one (``s.partials + c * kMaxPartials``), in planes, for an instance
+    with or without Comp."""
+    expr = re.search(rf"float\* const {name} = s\.partials([^;]*);",
+                     body).group(1).strip()
+    if not expr:
+        return 0
+    planes = re.fullmatch(r"\+ (\d+|\(Comp \? (\d+) : (\d+)\)) \* "
+                          r"kMaxPartials", expr)
+    assert planes, expr
+    if planes.group(2):
+        return int(planes.group(2) if comp else planes.group(3))
+    return int(planes.group(1))
+
+
+def test_comp_instances_compensate_every_reduction():
+    # K6 is the Comp instances of the template: every reduction of the
+    # kernel (the start's ||b||^2, <v, w>, <w, w> and their folds) is
+    # instantiated on Comp, none on a fixed build, and a compensated block
+    # partial is a (hi, lo) pair, lo at kMaxPartials + slot of the plane
+    # pair the reduction names
+    code = _code(CSRC / "lanczos_pass_one.cu")
+    body = _kernel_body(code, "pass_one_persistent_kernel")
+    assert "template <bool Basis, bool Resume, bool Comp>" in code
+    assert "__shared__ float sl[Comp ? kThreads : 1];" in body
+    for name, count in (("reduce_phase", 3), ("accumulate", 3),
+                        ("fold_partials", 3)):
+        calls = re.findall(rf"\b{name}(<\w+>)?\(", body)
+        assert calls == ["<Comp>"] * count, (name, calls)
+    for args in _call_args(body, "fold_partials"):
+        assert args[3] == "sl", args  # the lo parts' shared array
+    reduce = _kernel_body(code, "void reduce_phase")
+    assert re.findall(r"store_partial(<\w+>)?\(", reduce) == ["<Comp>"]
+    store = _kernel_body(code, "void store_partial")
+    comp_branch = store[store.index("if constexpr (Comp)"):
+                        store.index("} else {")]
+    assert "partials[slot] = s.x;" in comp_branch
+    assert "partials[kMaxPartials + slot] = s.y;" in comp_branch
+
+
+@pytest.mark.parametrize("entry", sorted(
+    name for name, (src, _) in ENTRIES.items()
+    if src == "lanczos_pass_one.cu"))
+def test_only_the_per_step_entry_point_reaches_the_per_step_launches(entry):
+    # K2, K4, K5 and their K6 instances launch the persistent kernel; the
+    # per-step launches (tpl::run) are the reference's alone
+    body = _entry_body(_code(CSRC / "lanczos_pass_one.cu"), entry)
+    assert ("tpl::run(" in body) == (entry == "tpl_lanczos_pass_one_steps")
 
 
 @pytest.mark.parametrize("entry,has,lacks", [
@@ -375,84 +446,85 @@ def recorded(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", sorted(PASS_ONE_ENTRIES))
-@pytest.mark.parametrize("persistent", [False, True],
-                         ids=["per_step", "persistent"])
+@pytest.mark.parametrize("compensated", [True, False],
+                         ids=["compensated", "persistent"])
 def test_pass_one_scratch_is_what_the_entry_point_needs(
-        recorded, monkeypatch, kernel, persistent):
-    # lanczos_pass_one.cu: the persistent K2, K4 and K5 take w (2n) and
-    # flags (1 + p); their compensated builds (K6, the per-step entry point
-    # with comp) w (n) and flags (1). Each wrapper allocates its route's
-    # scratch, calls its route's entry point and counts the route's
-    # matvecs: phases inside the launch, or K1 launches
+        recorded, monkeypatch, kernel, compensated):
+    # lanczos_pass_one.cu: the persistent K2, K4 and K5 and their
+    # compensated instances (K6: the same entry points with comp) take w
+    # (2n), partials (4 planes: K6's two dots, a hi and a lo plane each) and
+    # flags (1 + p). Each wrapper allocates that scratch, calls its entry
+    # point with its comp and counts its matvecs as phases inside the
+    # launch: no K1 launch on either route
     lib, allocated = recorded
     d, u, v, p = random_kkt(np.random.default_rng(0))
-    solver = FusedKKTSolver(d, u, v, p, compensated=not persistent,
-                            device=CPU)
+    solver = FusedKKTSolver(d, u, v, p, compensated=compensated, device=CPU)
     lay, k = solver.layout, 7
     b = torch.ones(lay.n)
     if kernel == "K2":
         pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
-                      compensated=not persistent)
+                      compensated=compensated)
     elif kernel == "K4":
         _, basis = pass_one_basis_cuda(lay, b, k, solver.tol, solver.ztol,
-                                       compensated=not persistent)
+                                       compensated=compensated)
         assert tuple(basis.shape) == (k, lay.n) and not basis.any()
     else:  # the solver's chunk loop, as on a card
         monkeypatch.setattr(FusedKKTSolver, "_cuda", property(lambda s: True))
         dec = solver.pass_one_chunked(b, k, chunk=3)
         # steps, the live flag (flags[:1]) and ||b|| come back in one copy
         assert dec.steps() == k and float(dec.b_norm) == 1.0
-    entry = (PASS_ONE_ENTRIES[kernel] if persistent else
-             "tpl_lanczos_pass_one_steps")
+    entry = PASS_ONE_ENTRIES[kernel]
     assert [e for e, _ in lib.calls] == [entry] * (3 if kernel == "K5" else 1)
     for i, (_, args) in enumerate(lib.calls):
-        if not persistent:  # comp, then the basis (K4's) or nullptr
-            assert args[21] == 1
-            assert args[22].value == (basis.data_ptr() if kernel == "K4"
-                                      else None)
-            assert args[23:25] == ((3 * i, min(3, k - 3 * i))
-                                   if kernel == "K5" else (0, k))
-        elif kernel == "K4":
-            assert args[21].value == basis.data_ptr()
+        assert args[21] == int(compensated)  # comp, then the route's own
+        if kernel == "K4":
+            assert args[22].value == basis.data_ptr()
+        elif kernel == "K5":
+            assert args[22:24] == (3 * i, min(3, k - 3 * i))
     for bufs in allocated:
-        assert bufs.persistent == persistent
-        assert tuple(bufs.w.shape) == ((2, lay.n) if persistent else (lay.n,))
-        assert tuple(bufs.flags.shape) == ((1 + lay.p,) if persistent
-                                           else (1,))
+        assert bufs.persistent
+        assert tuple(bufs.w.shape) == (2, lay.n)
+        assert tuple(bufs.partials.shape) == (4 * MAX_PARTIALS,)
+        assert tuple(bufs.flags.shape) == (1 + lay.p,)
         assert tuple(bufs.state.shape) == (2, lay.n)
         assert bufs.alphas.shape == bufs.betas.shape == (k,)
     assert len(allocated) == 1
-    name = {"K2": "lanczos_pass_one", "K4": "lanczos_pass_one_basis",
-            "K5": "lanczos_pass_one_chunk"}[kernel]
+    name = ("lanczos_pass_one_comp" if compensated else
+            {"K2": "lanczos_pass_one", "K4": "lanczos_pass_one_basis",
+             "K5": "lanczos_pass_one_chunk"}[kernel])
     got = {key: c for key, c in LAUNCHES.items() if c}
-    assert got == ({name: len(lib.calls), "kkt_matvec_in_pass": k}
-                   if persistent else
-                   {"lanczos_pass_one_comp": len(lib.calls), "kkt_matvec": k})
+    assert got == {name: len(lib.calls), "kkt_matvec_in_pass": k}
     text = " ".join(re.sub(r"//", " ", (CSRC / "lanczos_pass_one.cu")
                            .read_text()).split())
     assert "w (2n for the persistent K2, K4 and K5; n for the per-step" in text
+    assert ("partials (4 * tpl::kMaxPartials for K2, K4 and K5, whose "
+            "compensated instances use all four planes; 2 * "
+            "tpl::kMaxPartials for the per-step launches)") in text
     assert "flags (1 + p ints for K2, K4 and K5; 1 for the per-step" in text
 
 
 def test_per_step_reference_counts_its_own_launches(recorded):
     # the reference (tpl_lanczos_pass_one_steps) runs K5's chunks on the
-    # per-step scratch, with K4's rows when a basis is given, and counts its
-    # K1 launches apart from the kernels it is the reference of
+    # per-step scratch (2 planes of partials), with K4's rows when a basis
+    # is given, compensated (K6's reference) or not, and counts its K1
+    # launches apart from the kernels it is the reference of
     lib, _ = recorded
     lay = FusedKKTSolver(*random_kkt(np.random.default_rng(0)),
                          device=CPU).layout
     bufs = PassOneBuffers.alloc(lay, 9)
+    assert tuple(bufs.partials.shape) == (2 * MAX_PARTIALS,)
     basis = torch.zeros(9, lay.n)
     b = torch.ones(lay.n)
     pass_one_steps_cuda(lay, bufs, b, 0, 4, 1e-3, 1e-30)
     pass_one_steps_cuda(lay, bufs, b, 4, 5, 1e-3, 1e-30, basis=basis)
-    (e0, a0), (e1, a1) = lib.calls
-    assert e0 == e1 == "tpl_lanczos_pass_one_steps"
-    assert a0[21] == a1[21] == 0  # comp
+    pass_one_steps_cuda(lay, bufs, b, 0, 9, 1e-3, 1e-30, compensated=True)
+    (e0, a0), (e1, a1), (e2, a2) = lib.calls
+    assert e0 == e1 == e2 == "tpl_lanczos_pass_one_steps"
+    assert a0[21] == a1[21] == 0 and a2[21] == 1  # comp
     assert a0[22].value is None and a0[23:25] == (0, 4)
     assert a1[22].value == basis.data_ptr() and a1[23:25] == (4, 5)
     got = {key: c for key, c in LAUNCHES.items() if c}
-    assert got == {"lanczos_pass_one_steps": 2, "kkt_matvec": 9}
+    assert got == {"lanczos_pass_one_steps": 3, "kkt_matvec": 18}
     with pytest.raises(ValueError, match="basis"):
         pass_one_steps_cuda(lay, bufs, b, 0, 9, 1e-3, 1e-30,
                             basis=torch.zeros(8, lay.n))
@@ -476,15 +548,18 @@ def test_pass_one_wrappers_refuse_the_other_routes_scratch(route):
 
 
 @pytest.mark.parametrize("entry,has,lacks", [
-    ("tpl_lanczos_pass_one", ["long long* clock"], ["basis", "j0", "comp"]),
-    ("tpl_lanczos_pass_one_basis", ["float* basis"], ["clock", "j0", "comp"]),
-    ("tpl_lanczos_pass_one_chunk", ["int j0", "int count"],
-     ["clock", "basis", "comp"]),
+    ("tpl_lanczos_pass_one", ["int comp", "long long* clock"],
+     ["basis", "j0"]),
+    ("tpl_lanczos_pass_one_basis", ["int comp", "float* basis"],
+     ["clock", "j0"]),
+    ("tpl_lanczos_pass_one_chunk", ["int comp", "int j0", "int count"],
+     ["clock", "basis"]),
     ("tpl_lanczos_pass_one_steps", ["int comp", "float* basis", "int j0",
                                     "int count"], ["clock"])])
 def test_pass_one_signatures_name_each_routes_arguments(entry, has, lacks):
-    # the per-step entry point takes what K4 and K5 add (a basis, a chunk)
-    # and comp (K6); only K2 takes the phase timer's clock
+    # every pass-one entry point takes comp (K6: the compensated instance);
+    # the per-step entry point takes what K4 and K5 add (a basis, a chunk);
+    # only K2 (either instance) takes the phase timer's clock
     _, decls = ENTRIES[entry]
     for decl in has:
         assert decl in decls, (entry, decl)
@@ -506,7 +581,7 @@ def test_basis_rows_stream_past_the_l2():
     assert "row[" not in body and "basis[" not in body
     for entry in ("tpl_lanczos_pass_one_basis",
                   "tpl_lanczos_pass_one_basis_grid"):
-        assert "pass_one_persistent_kernel<true, false>" in _entry_body(
+        assert "pass_one_instance<true, false>(comp)" in _entry_body(
             code, entry)
 
 

@@ -2,6 +2,7 @@
 silent CPU fallback, and the rules its CUDA sources keep."""
 
 import ast
+import importlib
 import importlib.util
 import os
 import re
@@ -85,7 +86,7 @@ def test_import_leaves_jax_out():
 
 
 #: names of the JAX package's ``__all__`` the port does not have yet: the
-#: capability layer (ROADMAP Queue 1 item 6); ``PallasKKTOperator``'s
+#: capability layer (ROADMAP Queue 1 item 2); ``PallasKKTOperator``'s
 #: counterpart is ``CudaKKTOperator``
 NOT_PORTED = {
     "PallasKKTOperator",
@@ -107,6 +108,24 @@ def test_port_exports_the_jax_names():
     assert set(jtpl.__all__) - set(port.__all__) == NOT_PORTED
     assert all(hasattr(port, name) for name in port.__all__)
     assert "CudaKKTOperator" in port.__all__
+
+
+#: names of each JAX subpackage's ``__all__`` the port does not have: the
+#: TPU layout (ROADMAP "Not ported") and ``utils/perf.py`` (ROADMAP Queue 1
+#: item 4)
+SUB_NOT_PORTED = {
+    "algorithms": set(),
+    "ops": {"SortedKKTLayout"},
+    "utils": {"get_peak_rss_kb", "device_memory_stats", "Timer"},
+}
+
+
+@pytest.mark.parametrize("sub", sorted(SUB_NOT_PORTED))
+def test_subpackages_export_the_jax_names(sub):
+    jax_sub = importlib.import_module(f"two_pass_lanczos_tpu.{sub}")
+    port_sub = importlib.import_module(f"two_pass_lanczos_tpu_torch.{sub}")
+    assert set(jax_sub.__all__) - set(port_sub.__all__) == SUB_NOT_PORTED[sub]
+    assert all(hasattr(port_sub, name) for name in port_sub.__all__)
 
 
 @pytest.mark.parametrize("arcs,rho,iid", [

@@ -1,1 +1,29 @@
 """The Lanczos recurrence in plain PyTorch."""
+
+from two_pass_lanczos_tpu_torch.algorithms.core import (
+    LanczosDecomposition,
+    breakdown_tolerance,
+    lanczos_recurrence_step,
+)
+from two_pass_lanczos_tpu_torch.algorithms.chunked import (
+    lanczos_pass_one_chunked,
+    lanczos_standard_chunked,
+)
+from two_pass_lanczos_tpu_torch.algorithms.one_pass import lanczos_standard
+from two_pass_lanczos_tpu_torch.algorithms.two_pass import (
+    lanczos_pass_one,
+    lanczos_pass_two,
+    lanczos_pass_two_with_basis,
+)
+
+__all__ = [
+    "LanczosDecomposition",
+    "breakdown_tolerance",
+    "lanczos_recurrence_step",
+    "lanczos_standard",
+    "lanczos_standard_chunked",
+    "lanczos_pass_one",
+    "lanczos_pass_one_chunked",
+    "lanczos_pass_two",
+    "lanczos_pass_two_with_basis",
+]

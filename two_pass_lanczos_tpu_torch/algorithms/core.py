@@ -17,10 +17,11 @@ steps with no host synchronisation (the flags stay tensors). Pass two
 with the same arithmetic, so its regenerated basis is bit-identical to pass
 one's.
 
-One step is written once (:func:`_step`): :func:`pass_one_scan` runs ``k``
-of them from ``b``, :func:`pass_one_chunk_scan` runs ``chunk`` of them from
-a carried :class:`ChunkCarry`, so chained chunks give α and β bitwise equal
-to one monolithic pass. The inner products go through ``dot``: ``torch.dot``,
+One step is written once (:func:`lanczos_recurrence_step`, masked by
+:func:`_step`): :func:`pass_one_scan` runs ``k`` of them from ``b``,
+:func:`pass_one_chunk_scan` runs ``chunk`` of them from a carried
+:class:`ChunkCarry`, so chained chunks give α and β bitwise equal to one
+monolithic pass. The inner products go through ``dot``: ``torch.dot``,
 or :func:`dot_f64` as the plain version of the compensated (two-float)
 kernel reductions.
 
@@ -48,6 +49,8 @@ __all__ = [
     "ChunkCarry",
     "dot_f64",
     "basis_product",
+    "l2_norm",
+    "lanczos_recurrence_step",
     "pass_one_scan",
     "pass_one_chunk_scan",
     "pass_two_scan",
@@ -130,8 +133,9 @@ def _inner(dot: Dot, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.vdot(x, y).real if x.is_complex() else dot(x, y)
 
 
-def _norm(dot: Dot, x: torch.Tensor) -> torch.Tensor:
-    """‖x‖: ``√dot(x, x)`` for real x, ``√Σ Re(x·x̄)`` for complex x."""
+def l2_norm(x: torch.Tensor, dot: Dot = torch.dot) -> torch.Tensor:
+    """‖x‖ in the real dtype of x: ``√dot(x, x)`` for real x, ``√Σ Re(x·x̄)``
+    for complex x."""
     if x.is_complex():
         return torch.sqrt(torch.sum((x * x.conj()).real))
     return torch.sqrt(dot(x, x))
@@ -169,7 +173,7 @@ def _init_v1(b: torch.Tensor, b_norm: torch.Tensor):
 
 def _start(b: torch.Tensor, dot: Dot) -> ChunkCarry:
     """‖b‖, v₁ = b·(1/‖b‖), v₀ = 0; a zero b starts done (0 steps)."""
-    b_norm = _norm(dot, b)
+    b_norm = l2_norm(b, dot)
     v, zero_b = _init_v1(b, b_norm)
     return ChunkCarry(
         v_prev=torch.zeros_like(b), v_curr=v,
@@ -179,6 +183,20 @@ def _start(b: torch.Tensor, dot: Dot) -> ChunkCarry:
         b_norm=b_norm)
 
 
+def lanczos_recurrence_step(
+        matvec, v_curr: torch.Tensor, v_prev: torch.Tensor,
+        beta_prev: torch.Tensor, dot: Dot = torch.dot
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One unmasked recurrence step, steps 1-5 of the module docstring in the
+    reference's order: ``(α, β, w)`` with ``w`` the unnormalised next
+    vector."""
+    w = matvec(v_curr)
+    w = w - beta_prev * v_prev
+    alpha = _inner(dot, v_curr, w)
+    w = w - alpha * v_curr
+    return alpha, l2_norm(w, dot), w
+
+
 def _step(matvec, c: ChunkCarry, executed: torch.Tensor, tol: float,
           dot: Dot) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
     """One masked recurrence step. Returns the step's stored α (0 unless
@@ -186,11 +204,8 @@ def _step(matvec, c: ChunkCarry, executed: torch.Tensor, tol: float,
     zero = torch.zeros((), dtype=real_dtype(c.v_curr.dtype),
                        device=c.v_curr.device)
     v, v_prev = c.v_curr, c.v_prev
-    w = matvec(v)
-    w = w - c.beta_prev * v_prev
-    alpha = _inner(dot, v, w)
-    w = w - alpha * v
-    beta = _norm(dot, w)
+    alpha, beta, w = lanczos_recurrence_step(matvec, v, v_prev, c.beta_prev,
+                                             dot)
     breakdown = beta <= tol
     advance = executed & ~breakdown
     inv_b = torch.where(advance, 1.0 / beta, zero)

@@ -26,7 +26,8 @@ namespace tpl {
 constexpr int kThreads = 256;       // every kernel of the library
 // Block partials of one reduction: plane 0 holds the sums (the hi parts in
 // the compensated build), plane 1 the lo parts; the wrapper's partials
-// buffer holds 2 * kMaxPartials floats.
+// buffer holds 2 * kMaxPartials floats (4 * for the persistent passes one,
+// whose two dots keep their partials apart).
 constexpr int kMaxPartials = 1024;
 
 // w - c * x, rounded after the product and after the difference.

@@ -1,5 +1,5 @@
 // Lanczos pass one: K2 (scalars only), K4 (with the basis), K5 (resumable
-// chunks), each with a compensated build (K6).
+// chunks), each with a compensated instance (K6).
 //
 // Replaces the TPU kernels _pass_one_kernel (two_pass_lanczos_tpu/ops/
 // kkt_fused.py:581), _pass_one_basis_kernel (:752) and
@@ -8,7 +8,8 @@
 //
 // K2, K4 and K5 do the same on the H100: each is ONE cooperative
 // launch of pass_one_persistent_kernel (lanczos_persistent.cuh), an
-// instance of one template, that runs the start from b and the steps. A
+// instance of one template, that runs the start from b and the steps; K6
+// is their compensated instances (Comp), chosen by the entry points' comp. A
 // step has the two grid barriers its two dots need, and no launch:
 //   phase 1  the node rows of w = A v, each published by a release store;
 //            then the first dot's virtual blocks: an arc element rotates
@@ -26,8 +27,8 @@
 // bitwise those of the per-step launches on any grid. alpha and beta stay
 // in registers; every block takes the same breakdown decision from the
 // same folded beta, so all blocks leave the loop together (a block that
-// left alone would deadlock the next barrier). The three instances differ
-// only in what the template adds:
+// left alone would deadlock the next barrier). The instances differ only
+// in what the template adds:
 //   K2 tpl_lanczos_pass_one        the start from b, then steps 0..k-1;
 //   K4 tpl_lanczos_pass_one_basis  the same, and row j of a (k, n) basis is
 //      v_{j+1}: row 0 is stored by the start, row j by step j's phase 1,
@@ -48,12 +49,19 @@
 //      at once in every block. Each chunk ends as K2 ends: with the last
 //      step's rotate. Only scal[2] (1/beta) may differ from the per-step
 //      launches, after a breakdown in a resumed chunk's first step, where
-//      nothing reads it again.
+//      nothing reads it again;
+//   K6 Comp, the compensated instance of each of the three: only the
+//      reductions (the start's ||b||^2 and the two dots) change, each
+//      thread folding exact products (two_prod) into a two-float pair with
+//      df_add2, the block tree and the fold doing the same, the result
+//      hi + lo. A block partial is then a pair, hi at slot and lo at
+//      kMaxPartials + slot, so the two dots' partials take four planes:
+//      <v, w>'s hi and lo, then ||b||^2's and <w, w>'s.
 //
 // The per-step launches they replaced have one entry point,
-// tpl_lanczos_pass_one_steps: with comp == 0 the reference that
-// chip_smoke.py and the card tests hold K2, K4 and K5 to (no solve reaches
-// it), with comp != 0 the compensated builds of all three (K6). Each step
+// tpl_lanczos_pass_one_steps, which no solve reaches: the reference that
+// chip_smoke.py and the card tests hold K2, K4 and K5 to (comp == 0) and
+// their compensated instances (comp != 0) bit for bit. Each step
 // is a short, fixed sequence of launches that one C++ routine
 // (enqueue_step) enqueues on the caller's stream, with no host
 // synchronisation:
@@ -70,10 +78,9 @@
 // (||b|| <= 1000 tiny) starts with the flag cleared: 0 steps. The same
 // routine runs steps [j0, j0 + count) with or without basis rows, so one
 // entry point is the per-step form of all three persistent instances.
-// The compensated build (comp != 0) changes only the reductions of steps 2,
-// 4 and of ||b||: each thread folds exact products (two_prod) into a
-// two-float pair with df_add2, the block tree and the fold over the block
-// partials do the same, and the result is hi + lo.
+// With comp != 0 they change only the reductions of steps 2, 4 and of
+// ||b||, as K6 does, through the same accumulate, store_partial and
+// fold_partials.
 //
 // What bounds it on the H100: each step moves ~30 MB through the 50 MB L2
 // (the matvec plus three passes over the (n,) vectors), so at the headline
@@ -81,8 +88,9 @@
 // and by its synchronisation: two grid barriers in the persistent kernel,
 // six launches of a few microseconds each on the per-step path, over 500
 // dependent steps. K4 adds a 2 MB store per step that leaves the L2 for
-// HBM (1 GB at k = 500, 0.6 us a step at 3.35 TB/s). K6 onto the
-// persistent form is the next step (ROADMAP).
+// HBM (1 GB at k = 500, 0.6 us a step at 3.35 TB/s). K6's compensated
+// reductions add operations (a df_add2 of 11 flops and a two_prod per
+// element of each dot), not bytes: its step has the same two barriers.
 #include <cstddef>
 
 #include "lanczos_persistent.cuh"
@@ -295,9 +303,9 @@ struct PassOne {
   float* basis;  // (k, n) rows v_{j+1}, or nullptr
 };
 
-// One launch of K2, K4 or K5: the start and the steps [j0, j0 + count) of
-// the per-step path's uncompensated kernels, on one resident grid (see the
-// top of the file).
+// One launch of K2, K4 or K5 (or K6, their compensated instances): the
+// start and the steps [j0, j0 + count) of the per-step path's kernels, on
+// one resident grid (see the top of the file).
 struct Persistent {
   PassOne s;
   const float* b;
@@ -309,28 +317,32 @@ struct Persistent {
 // Virtual blocks [0, g) of a reduction of stride g * kThreads: virtual block
 // vb folds body(acc, i) over the elements that block vb of sub_dot_kernel
 // (or sq_partials_kernel) walks, in the same order, and stores its partial
-// at partials[vb].
-template <typename Body>
+// as store_partial<Comp> does: at partials[vb], and with Comp its lo part
+// at partials[kMaxPartials + vb].
+template <bool Comp, typename Body>
 __device__ __forceinline__ void reduce_phase(int g, int n, float* partials,
-                                             float* sh, Body body) {
+                                             float* sh, float* sl,
+                                             Body body) {
   const Share mine = share_of(g);
   for (int vb = mine.begin; vb < mine.end; ++vb) {
     float2 acc = make_float2(0.0f, 0.0f);
     for (int i = vb * kThreads + threadIdx.x; i < n; i += g * kThreads)
       acc = body(acc, i);
-    store_partial<false>(acc, sh, nullptr, partials, vb);
+    store_partial<Comp>(acc, sh, sl, partials, vb);
   }
 }
 
 // The persistent pass one: K2 (from b), K4 (Basis: from b, the rows
-// stored) and K5 (Resume: the chunk [j0, j0 + count)); see the top of the
-// file. K4's rows go out with streaming stores (__stcs, st.global.cs: evict
-// first, so that they do not push the working set out of the L2).
-template <bool Basis, bool Resume>
+// stored) and K5 (Resume: the chunk [j0, j0 + count)), each with its
+// compensated instance (Comp: K6); see the top of the file. K4's rows go
+// out with streaming stores (__stcs, st.global.cs: evict first, so that
+// they do not push the working set out of the L2).
+template <bool Basis, bool Resume, bool Comp>
 __global__ void __launch_bounds__(kThreads)
 pass_one_persistent_kernel(Persistent a) {
   static_assert(!(Basis && Resume), "K4 runs from b in one launch");
   __shared__ float sh[kThreads];
+  __shared__ float sl[Comp ? kThreads : 1];  // the lo parts (Comp)
   const PassOne& s = a.s;
   const CachedLoad ld;
   const int m = s.m, n = s.n, g = a.g;
@@ -339,12 +351,12 @@ pass_one_persistent_kernel(Persistent a) {
   float* const vp = s.vp;
   float* const vc = s.vc;
   int* const ready = s.flags + 1;  // p: the step whose node row is in w
-  // plane 0 holds the <v, w> partials, plane 1 the ||b||^2 and <w, w> ones:
-  // a block may start the beta dot while another still folds alpha's, and
-  // step 0 may store its first partials while another block still folds
-  // ||b||^2
+  // the <v, w> partials in pa, the ||b||^2 and <w, w> ones in pb, each one
+  // plane (a hi and a lo plane with Comp): a block may start the beta dot
+  // while another still folds alpha's, and step 0 may store its first
+  // partials while another block still folds ||b||^2
   float* const pa = s.partials;
-  float* const pb = s.partials + kMaxPartials;
+  float* const pb = s.partials + (Comp ? 2 : 1) * kMaxPartials;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
@@ -356,8 +368,8 @@ pass_one_persistent_kernel(Persistent a) {
   const float* src;  // this step's v is src * inv_b
   if (j0 == 0) {
     // the start: sq_partials_kernel, init_kernel, init_vectors_kernel
-    reduce_phase(g, n, pb, sh, [&](float2 acc, int i) {
-      return accumulate<false>(acc, a.b[i], a.b[i]);
+    reduce_phase<Comp>(g, n, pb, sh, sl, [&](float2 acc, int i) {
+      return accumulate<Comp>(acc, a.b[i], a.b[i]);
     });
     for (int i = first; i < s.k; i += stride) {
       s.alphas[i] = 0.0f;
@@ -365,7 +377,7 @@ pass_one_persistent_kernel(Persistent a) {
     }
     for (int i = first; i < s.p; i += stride) ready[i] = 0;
     grid_sync();
-    nb = __fsqrt_rn(fold_partials<false>(pb, g, sh, nullptr, ld));
+    nb = __fsqrt_rn(fold_partials<Comp>(pb, g, sh, sl, ld));
     const bool zero_b = nb <= s.ztol;
     inv_b = zero_b ? 0.0f : lanczos_inverse(nb);
     for (int i = first; i < n; i += stride) {
@@ -427,7 +439,7 @@ pass_one_persistent_kernel(Persistent a) {
     //    from src), a node element waits for its row; then w -= beta_prev
     //    v_prev, and v * w joins the sum. A block waits only after its own
     //    node rows, so every awaited row is being computed: no deadlock.
-    reduce_phase(g, n, pa, sh, [&](float2 acc, int i) {
+    reduce_phase<Comp>(g, n, pa, sh, sl, [&](float2 acc, int i) {
       float y, vpi, vci;
       if (i < m) {
         vci = normalise(ld(src + i), inv_b);
@@ -447,26 +459,25 @@ pass_one_persistent_kernel(Persistent a) {
       }
       const float wi = sub_scaled(y, beta_prev, vpi);
       wn[i] = wi;
-      return accumulate<false>(acc, vci, wi);
+      return accumulate<Comp>(acc, vci, wi);
     });
     a.clock.stamp(j, 2);
     grid_sync();
     a.clock.stamp(j, 3);
     // 2. every block folds alpha (finalize_alpha_kernel); the second sub_dot
-    alpha = fold_partials<false>(pa, g, sh, nullptr, ld);
+    alpha = fold_partials<Comp>(pa, g, sh, sl, ld);
     if (lead) s.alphas[j] = alpha;
-    reduce_phase(g, n, pb, sh, [&](float2 acc, int i) {
+    reduce_phase<Comp>(g, n, pb, sh, sl, [&](float2 acc, int i) {
       const float wi = sub_scaled(ld(wn + i), alpha, ld(vc + i));
       wn[i] = wi;
-      return accumulate<false>(acc, wi, wi);
+      return accumulate<Comp>(acc, wi, wi);
     });
     a.clock.stamp(j, 4);
     grid_sync();
     a.clock.stamp(j, 5);
     // 3. every block folds beta (finalize_beta_kernel) and takes the same
     //    breakdown decision
-    const float beta = __fsqrt_rn(fold_partials<false>(pb, g, sh, nullptr,
-                                                       ld));
+    const float beta = __fsqrt_rn(fold_partials<Comp>(pb, g, sh, sl, ld));
     steps = j + 1;
     if (beta <= s.tol) {  // breakdown: this step counts, nothing advances
       live = false;
@@ -563,14 +574,17 @@ int run(const PassOne& s, int comp, const float* b, int j0, int count,
 // arguments: the layout (d, u, v, ptr, ent; m arcs, p nodes, n = m + p), b
 // (n), k, the breakdown and zero-b tolerances. Outputs: alphas, betas (k),
 // bnorm (1), steps (1). Scratch: v_prev, v_curr (n each), w (2n for the
-// persistent K2, K4 and K5; n for the per-step launches), partials (2 *
-// tpl::kMaxPartials), scal (3 floats), flags (1 + p ints for K2, K4 and K5;
-// 1 for the per-step launches); on return v_prev and v_curr hold the state
-// after the last step. Each entry point allocates nothing and does not
-// synchronise; it returns the error of its launches (a refused cooperative
-// launch included: there is no fallback). K2, K4 and K5 are one cooperative
-// launch each and *matvec_launches counts the matvec phases inside it; the
-// per-step launches (tpl_lanczos_pass_one_steps) count their K1 launches.
+// persistent K2, K4 and K5; n for the per-step launches), partials (4 *
+// tpl::kMaxPartials for K2, K4 and K5, whose compensated instances use all
+// four planes; 2 * tpl::kMaxPartials for the per-step launches), scal (3
+// floats), flags (1 + p ints for K2, K4 and K5; 1 for the per-step
+// launches); on return v_prev and v_curr hold the state after the last
+// step. Each entry point allocates nothing and does not synchronise; it
+// returns the error of its launches (a refused cooperative launch included:
+// there is no fallback). K2, K4 and K5 (comp selects the instance) are one
+// cooperative launch each and *matvec_launches counts the matvec phases
+// inside it; the per-step launches (tpl_lanczos_pass_one_steps) count
+// their K1 launches.
 #define TPL_PASS_ONE_ARGS                                                    \
   const float *d, const int *u, const int *v, const int *ptr,               \
       const int *ent, int m, int p, const float *b, int k, float tol,       \
@@ -586,9 +600,19 @@ int run(const PassOne& s, int comp, const float* b, int j0, int count,
 namespace tpl {
 namespace {
 
+using PersistentKernel = void (*)(Persistent);
+
+// The instance of the persistent kernel that an entry point launches: the
+// compensated one (K6) when comp != 0.
+template <bool Basis, bool Resume>
+PersistentKernel pass_one_instance(int comp) {
+  return comp ? pass_one_persistent_kernel<Basis, Resume, true>
+              : pass_one_persistent_kernel<Basis, Resume, false>;
+}
+
 // One cooperative launch of the persistent instance `kernel` over the steps
 // [j0, j0 + count) of s; *matvec_launches counts its matvec phases.
-int launch_pass_one(void (*kernel)(Persistent), const PassOne& s,
+int launch_pass_one(PersistentKernel kernel, const PassOne& s,
                     const float* b, PhaseClock clock, int j0, int count,
                     int* matvec_launches, cudaStream_t stream) {
   *matvec_launches = 0;
@@ -601,45 +625,48 @@ int launch_pass_one(void (*kernel)(Persistent), const PassOne& s,
 }  // namespace
 }  // namespace tpl
 
-// K2: k steps from b, scalars only. clock: the phase timer's stamps ((8,
-// grid, 6) int64, tpl::PhaseClock) or nullptr.
-extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, long long* clock,
-                                    int* matvec_launches,
+// K2: k steps from b, scalars only (comp != 0: its compensated instance).
+// clock: the phase timer's stamps ((8, grid, 6) int64, tpl::PhaseClock) or
+// nullptr.
+extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, int comp,
+                                    long long* clock, int* matvec_launches,
                                     cudaStream_t stream) {
-  return tpl::launch_pass_one(tpl::pass_one_persistent_kernel<false, false>,
+  return tpl::launch_pass_one(tpl::pass_one_instance<false, false>(comp),
                               TPL_PASS_ONE_STATE(nullptr), b,
                               tpl::PhaseClock{clock, k / 2, 6}, 0, k,
                               matvec_launches, stream);
 }
 
 // K4: k steps from b; row j of basis (k x n, zeroed by the caller) becomes
-// v_{j+1} for every executed step j.
-extern "C" int tpl_lanczos_pass_one_basis(TPL_PASS_ONE_ARGS, float* basis,
-                                          int* matvec_launches,
+// v_{j+1} for every executed step j (comp != 0: the compensated instance).
+extern "C" int tpl_lanczos_pass_one_basis(TPL_PASS_ONE_ARGS, int comp,
+                                          float* basis, int* matvec_launches,
                                           cudaStream_t stream) {
-  return tpl::launch_pass_one(tpl::pass_one_persistent_kernel<true, false>,
+  return tpl::launch_pass_one(tpl::pass_one_instance<true, false>(comp),
                               TPL_PASS_ONE_STATE(basis), b,
                               tpl::PhaseClock{nullptr, 0, 6}, 0, k,
                               matvec_launches, stream);
 }
 
 // K5: steps [j0, j0 + count) of a k-step run (j0 + count <= k) on scratch
-// and outputs kept by the caller between calls; j0 == 0 starts from b.
-extern "C" int tpl_lanczos_pass_one_chunk(TPL_PASS_ONE_ARGS, int j0,
-                                          int count, int* matvec_launches,
+// and outputs kept by the caller between calls; j0 == 0 starts from b
+// (comp != 0: the compensated instance, on the scratch of its own runs).
+extern "C" int tpl_lanczos_pass_one_chunk(TPL_PASS_ONE_ARGS, int comp,
+                                          int j0, int count,
+                                          int* matvec_launches,
                                           cudaStream_t stream) {
-  return tpl::launch_pass_one(tpl::pass_one_persistent_kernel<false, true>,
+  return tpl::launch_pass_one(tpl::pass_one_instance<false, true>(comp),
                               TPL_PASS_ONE_STATE(nullptr), b,
                               tpl::PhaseClock{nullptr, 0, 6}, j0, count,
                               matvec_launches, stream);
 }
 
-// The per-step launches (see the top of the file): with comp == 0 the
-// reference that K2, K4 and K5 are held to, which no solve calls; with comp
-// != 0 (compensated reductions) K6, the compensated builds of all three.
-// Steps [j0, j0 + count) as K5 runs them (j0 == 0 starts from b), storing
-// K4's basis rows when basis != nullptr (k x n, zeroed by the caller).
-// Scratch: w of n and flags of 1 suffice. *matvec_launches counts its K1
+// The per-step launches (see the top of the file), which no solve calls:
+// the reference that K2, K4 and K5 are held to bit for bit (comp == 0),
+// and their compensated instances (comp != 0). Steps [j0, j0 + count) as K5
+// runs them (j0 == 0 starts from b), storing K4's basis rows when basis !=
+// nullptr (k x n, zeroed by the caller). Scratch: w of n, partials of 2 *
+// tpl::kMaxPartials and flags of 1 suffice. *matvec_launches counts its K1
 // launches.
 extern "C" int tpl_lanczos_pass_one_steps(TPL_PASS_ONE_ARGS, int comp,
                                           float* basis, int j0, int count,
@@ -649,18 +676,20 @@ extern "C" int tpl_lanczos_pass_one_steps(TPL_PASS_ONE_ARGS, int comp,
                   matvec_launches, stream);
 }
 
-// The cooperative grids of K2, K4 and K5: resident blocks per SM and SMs.
-extern "C" int tpl_lanczos_pass_one_grid(int* blocks_per_sm, int* sms) {
+// The cooperative grids of K2, K4 and K5 (comp != 0: of their compensated
+// instances): resident blocks per SM and SMs.
+extern "C" int tpl_lanczos_pass_one_grid(int comp, int* blocks_per_sm,
+                                         int* sms) {
   return static_cast<int>(tpl::persistent_grid(
-      tpl::pass_one_persistent_kernel<false, false>, blocks_per_sm, sms));
+      tpl::pass_one_instance<false, false>(comp), blocks_per_sm, sms));
 }
-extern "C" int tpl_lanczos_pass_one_basis_grid(int* blocks_per_sm,
+extern "C" int tpl_lanczos_pass_one_basis_grid(int comp, int* blocks_per_sm,
                                                int* sms) {
   return static_cast<int>(tpl::persistent_grid(
-      tpl::pass_one_persistent_kernel<true, false>, blocks_per_sm, sms));
+      tpl::pass_one_instance<true, false>(comp), blocks_per_sm, sms));
 }
-extern "C" int tpl_lanczos_pass_one_chunk_grid(int* blocks_per_sm,
+extern "C" int tpl_lanczos_pass_one_chunk_grid(int comp, int* blocks_per_sm,
                                                int* sms) {
   return static_cast<int>(tpl::persistent_grid(
-      tpl::pass_one_persistent_kernel<false, true>, blocks_per_sm, sms));
+      tpl::pass_one_instance<false, true>(comp), blocks_per_sm, sms));
 }

@@ -51,15 +51,16 @@ _SIGNATURES = {
     "tpl_kkt_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # one shard's layout (d, u, v, ptr, ent, m, p), e_scale, x, y, stream
     "tpl_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
-    # *_PASS_ONE, clock, *matvec_launches, stream
-    "tpl_lanczos_pass_one": [*_PASS_ONE, _P, ctypes.POINTER(_I), _P],
-    # *_PASS_ONE, basis, *matvec_launches, stream
-    "tpl_lanczos_pass_one_basis": [*_PASS_ONE, _P, ctypes.POINTER(_I), _P],
-    # *_PASS_ONE, j0, count, *matvec_launches, stream
-    "tpl_lanczos_pass_one_chunk": [*_PASS_ONE, _I, _I, ctypes.POINTER(_I),
+    # *_PASS_ONE, comp, clock, *matvec_launches, stream
+    "tpl_lanczos_pass_one": [*_PASS_ONE, _I, _P, ctypes.POINTER(_I), _P],
+    # *_PASS_ONE, comp, basis, *matvec_launches, stream
+    "tpl_lanczos_pass_one_basis": [*_PASS_ONE, _I, _P, ctypes.POINTER(_I),
                                    _P],
+    # *_PASS_ONE, comp, j0, count, *matvec_launches, stream
+    "tpl_lanczos_pass_one_chunk": [*_PASS_ONE, _I, _I, _I,
+                                   ctypes.POINTER(_I), _P],
     # *_PASS_ONE, comp, basis, j0, count, *matvec_launches, stream (the
-    # per-step launches: the reference of K2, K4 and K5, and K6)
+    # per-step launches: the reference of K2, K4, K5 and of K6)
     "tpl_lanczos_pass_one_steps": [*_PASS_ONE, _I, _P, _I, _I,
                                    ctypes.POINTER(_I), _P],
     # d, u, v, ptr, ent, m, p, b, k, ztol, alphas, betas, y, nf, bnorm,
@@ -67,11 +68,13 @@ _SIGNATURES = {
     "tpl_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
                              _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                              ctypes.POINTER(_I), _P],
-    # the persistent passes' cooperative grids: *blocks_per_sm, *sms
-    "tpl_lanczos_pass_one_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
-    "tpl_lanczos_pass_one_basis_grid": [ctypes.POINTER(_I),
+    # the persistent passes' cooperative grids: (pass one's: comp,)
+    # *blocks_per_sm, *sms
+    "tpl_lanczos_pass_one_grid": [_I, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I)],
+    "tpl_lanczos_pass_one_basis_grid": [_I, ctypes.POINTER(_I),
                                         ctypes.POINTER(_I)],
-    "tpl_lanczos_pass_one_chunk_grid": [ctypes.POINTER(_I),
+    "tpl_lanczos_pass_one_chunk_grid": [_I, ctypes.POINTER(_I),
                                         ctypes.POINTER(_I)],
     "tpl_lanczos_pass_two_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     # a, b, n, out (6 x n), stream

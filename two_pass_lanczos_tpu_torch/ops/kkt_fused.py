@@ -18,12 +18,13 @@ one with the basis (``method="one_pass"``) and K5 the resumable pass one
 (``callback=``, :meth:`FusedKKTSolver.pass_one_chunked`, one launch a
 chunk): each of K2-K5 one persistent cooperative launch
 (``csrc/lanczos_persistent.cuh``) that runs K1's matvec as a phase of every
-step; K2 and K3 carry a phase timer that only ``chip_smoke.py`` switches on
+step; K6 is the compensated instance of each of K2, K4 and K5
+(``compensated=True``), one cooperative launch alike; K2 (both instances)
+and K3 carry a phase timer that only ``chip_smoke.py`` switches on
 (:func:`phase_clock`, :func:`phase_split`). The per-step launches that K2,
-K4 and K5 replaced, :func:`pass_one_steps_cuda`, stay as their bitwise
-reference, which only ``chip_smoke.py`` and the card tests call, and as K6,
-the compensated builds of K2, K4 and K5 (``compensated=True``); K13 is the
-tripwire of their error-free transformations; K7, one shard's matvec with
+K4, K5 and K6 replaced, :func:`pass_one_steps_cuda`, stay as their bitwise
+reference, which only ``chip_smoke.py`` and the card tests call; K13 is the
+tripwire of K6's error-free transformations; K7, one shard's matvec with
 a node partial, serves the sharded solver (``parallel/fused_sharded.py``).
 Each kernel has a wrapper here that launches it for CUDA tensors and raises
 on anything it does not take, and a plain PyTorch version
@@ -43,6 +44,9 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+# the module, not the name: functions.py imports ops.tridiag, and so this
+# package's __init__, which imports this module
+from two_pass_lanczos_tpu_torch import functions
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     LanczosDecomposition,
     basis_product,
@@ -54,7 +58,6 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     zero_tolerance,
 )
 from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
-from two_pass_lanczos_tpu_torch.functions import padded_f_e1
 from two_pass_lanczos_tpu_torch.ops._build import load_library
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
@@ -63,12 +66,12 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
            "kkt_shard_matvec", "kkt_shard_matvec_cuda"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`; a
-#: compensated launch of K2, K4 or K5 counts as ``lanczos_pass_one_comp``
-#: and its per-step K1 launches as ``kkt_matvec``; the matvec phases inside
-#: the persistent K2 and K4 (k a pass), K5 (its count a chunk) and K3
-#: (k - 1, each gated on ``steps_taken``) as ``kkt_matvec_in_pass``, which
-#: launch no K1; the per-step launches K2, K4 and K5 replaced (their
-#: reference, which launches K1) as ``lanczos_pass_one_steps``; K8, the
+#: launch of K6, the compensated instance of K2, K4 or K5, counts as
+#: ``lanczos_pass_one_comp``; the matvec phases inside the persistent K2, K4
+#: and K6 (k a pass), K5 (its count a chunk) and K3 (k - 1, each gated on
+#: ``steps_taken``) as ``kkt_matvec_in_pass``, which launch no K1; the
+#: per-step launches K2, K4, K5 and K6 replaced (their reference, with
+#: either comp, which launches K1) as ``lanczos_pass_one_steps``; K8, the
 #: matvec of the generic KKT operators (``ops/spmv_kernel.py``), as
 #: ``kkt_operator_matvec``; K11, K9 and K10, the double-float kernels
 #: (``ops/kkt_fused_df.py``), as ``df_kkt_matvec``, ``df_lanczos_pass_one``
@@ -94,7 +97,8 @@ LAUNCHES = {"kkt_matvec": 0, "kkt_matvec_in_pass": 0,
             "probe_gather": 0, "probe_stream": 0, "probe_stages": 0,
             "probe_pipeline": 0}
 #: size of one plane of pass one's block-partials scratch
-#: (``tpl::kMaxPartials``); the scratch holds two planes
+#: (``tpl::kMaxPartials``); the per-step scratch holds two planes, the
+#: persistent one four (K6's two dots, a hi and a lo plane each)
 MAX_PARTIALS = 1024
 
 
@@ -228,8 +232,8 @@ def kkt_shard_matvec_cuda(lay: KKTLayout, x: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class PassOneBuffers:
-    """Device outputs and scratch of one pass-one run (K2, K4 or K5). K5
-    keeps them between its chunk calls: they are the carried state (the
+    """Device outputs and scratch of one pass-one run (K2, K4, K5 or K6).
+    K5 keeps them between its chunk calls: they are the carried state (the
     node-row tags in ``flags[1:]`` and the two-half ``w`` included)."""
 
     alphas: torch.Tensor  # (k,) f32
@@ -238,7 +242,7 @@ class PassOneBuffers:
     steps: torch.Tensor  # (1,) int32
     state: torch.Tensor  # (2, n) f32: v_prev, v_curr
     w: torch.Tensor  # (2, n) f32, whose halves K2, K4, K5 alternate; (n,)
-    partials: torch.Tensor  # (2 * MAX_PARTIALS,) f32
+    partials: torch.Tensor  # (4 * MAX_PARTIALS,) f32; (2 * MAX_PARTIALS,)
     scal: torch.Tensor  # (3,) f32: beta_prev, alpha, 1/beta
     flags: torch.Tensor  # (1 + p,) int32: live, node-row tags; (1,): live
 
@@ -246,9 +250,10 @@ class PassOneBuffers:
     def alloc(cls, lay: KKTLayout, k: int,
               state: Optional[torch.Tensor] = None,
               persistent: bool = False) -> "PassOneBuffers":
-        """``persistent``: the scratch of the persistent K2, K4 and K5, w of
-        (2, n) and flags of 1 + p; the per-step launches (K6 and the
-        reference :func:`pass_one_steps_cuda`) need (n,) and (1,)."""
+        """``persistent``: the scratch of the persistent K2, K4, K5 and
+        K6, w of (2, n), partials of 4 planes and flags of 1 + p; the
+        per-step launches (the reference :func:`pass_one_steps_cuda`) need
+        (n,), 2 planes and (1,)."""
         dev = lay.d.device
         f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
         i32 = functools.partial(torch.empty, dtype=torch.int32, device=dev)
@@ -257,7 +262,8 @@ class PassOneBuffers:
         _need(state, (2, lay.n), torch.float32, dev, "state")
         return cls(alphas=f32(k), betas=f32(k), bnorm=f32(1), steps=i32(1),
                    state=state, w=f32((2, lay.n) if persistent else lay.n),
-                   partials=f32(2 * MAX_PARTIALS), scal=f32(3),
+                   partials=f32((4 if persistent else 2) * MAX_PARTIALS),
+                   scal=f32(3),
                    flags=i32(1 + lay.p if persistent else 1))
 
     @property
@@ -307,22 +313,24 @@ def _clock_ptr(clock: Optional[torch.Tensor], name: str) -> ctypes.c_void_p:
     return _ptr(clock)
 
 
+def _comp(name: str, compensated: bool) -> str:
+    """The counter of a pass-one launch: K6's for a compensated instance."""
+    return "lanczos_pass_one_comp" if compensated else name
+
+
 def pass_one_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                   ztol: float, state: Optional[torch.Tensor] = None,
                   compensated: bool = False,
                   phase_clock: Optional[torch.Tensor] = None
                   ) -> LanczosDecomposition:
-    """K2 (``csrc/lanczos_pass_one.cu``): k masked steps from b in one
-    cooperative launch (compensated: K6, :func:`pass_one_steps_cuda`); the
-    final ``(v_prev, v_curr)`` land in ``state`` when it is given. A
-    ``phase_clock`` (K2 only) receives the stamps of :func:`phase_split`."""
-    bufs = PassOneBuffers.alloc(lay, k, state, persistent=not compensated)
-    if compensated:
-        pass_one_steps_cuda(lay, bufs, b, 0, k, tol, ztol, compensated=True)
-    else:
-        _launch_pass_one("tpl_lanczos_pass_one", "lanczos_pass_one", lay,
-                         bufs, b, tol, ztol,
-                         _clock_ptr(phase_clock, "lanczos_pass_one"))
+    """K2 (``csrc/lanczos_pass_one.cu``; compensated: its K6 instance): k
+    masked steps from b in one cooperative launch; the final ``(v_prev,
+    v_curr)`` land in ``state`` when it is given. A ``phase_clock`` of the
+    instance's grid receives the stamps of :func:`phase_split`."""
+    bufs = PassOneBuffers.alloc(lay, k, state, persistent=True)
+    name = _comp("lanczos_pass_one", compensated)
+    _launch_pass_one("tpl_lanczos_pass_one", name, lay, bufs, b, tol, ztol,
+                     int(compensated), _clock_ptr(phase_clock, name))
     return bufs.decomposition()
 
 
@@ -330,21 +338,17 @@ def pass_one_basis_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                         ztol: float, compensated: bool = False,
                         state: Optional[torch.Tensor] = None
                         ) -> Tuple[LanczosDecomposition, torch.Tensor]:
-    """K4: K2 that also returns the ``(k, n)`` basis, row ``j`` = v_{j+1}
-    and zero beyond ``steps_taken`` (k·n·4 bytes on the card), in one
-    cooperative launch (compensated: K6, :func:`pass_one_steps_cuda`).
-    ``state`` receives the final ``(v_prev, v_curr)``."""
-    bufs = PassOneBuffers.alloc(lay, k, state, persistent=not compensated)
+    """K4 (compensated: its K6 instance): K2 that also returns the ``(k,
+    n)`` basis, row ``j`` = v_{j+1} and zero beyond ``steps_taken`` (k·n·4
+    bytes on the card), in one cooperative launch. ``state`` receives the
+    final ``(v_prev, v_curr)``."""
+    bufs = PassOneBuffers.alloc(lay, k, state, persistent=True)
     # zeros, not empty: the kernel stores no row for a step that does not
     # advance, and a garbage row times a zero coefficient is NaN in V·y
     basis = torch.zeros((k, lay.n), dtype=torch.float32, device=lay.d.device)
-    if compensated:
-        pass_one_steps_cuda(lay, bufs, b, 0, k, tol, ztol, basis=basis,
-                            compensated=True)
-    else:
-        _launch_pass_one("tpl_lanczos_pass_one_basis",
-                         "lanczos_pass_one_basis", lay, bufs, b, tol, ztol,
-                         _ptr(basis))
+    _launch_pass_one("tpl_lanczos_pass_one_basis",
+                     _comp("lanczos_pass_one_basis", compensated), lay, bufs,
+                     b, tol, ztol, int(compensated), _ptr(basis))
     return bufs.decomposition(), basis
 
 
@@ -357,18 +361,15 @@ def _check_chunk(bufs: PassOneBuffers, j0: int, count: int) -> None:
 def pass_one_chunk_cuda(lay: KKTLayout, bufs: PassOneBuffers,
                         b: torch.Tensor, j0: int, count: int, tol: float,
                         ztol: float, compensated: bool = False) -> None:
-    """K5: enqueue steps ``[j0, j0 + count)`` of a ``k``-step run on the
-    carried ``bufs`` (``k = len(bufs.alphas)``; the persistent scratch) in
-    one cooperative launch (compensated: K6, :func:`pass_one_steps_cuda` on
-    the per-step scratch); ``j0 == 0`` starts from b. α and β land at their
-    global indices; nothing is read back."""
-    if compensated:
-        pass_one_steps_cuda(lay, bufs, b, j0, count, tol, ztol,
-                            compensated=True)
-        return
+    """K5 (compensated: its K6 instance): enqueue steps ``[j0, j0 +
+    count)`` of a ``k``-step run on the carried ``bufs`` (``k =
+    len(bufs.alphas)``; the persistent scratch) in one cooperative launch;
+    ``j0 == 0`` starts from b. α and β land at their global indices;
+    nothing is read back."""
     _check_chunk(bufs, j0, count)
-    _launch_pass_one("tpl_lanczos_pass_one_chunk", "lanczos_pass_one_chunk",
-                     lay, bufs, b, tol, ztol, j0, count)
+    _launch_pass_one("tpl_lanczos_pass_one_chunk",
+                     _comp("lanczos_pass_one_chunk", compensated), lay, bufs,
+                     b, tol, ztol, int(compensated), j0, count)
 
 
 def pass_one_steps_cuda(lay: KKTLayout, bufs: PassOneBuffers,
@@ -376,20 +377,18 @@ def pass_one_steps_cuda(lay: KKTLayout, bufs: PassOneBuffers,
                         ztol: float, basis: Optional[torch.Tensor] = None,
                         compensated: bool = False) -> None:
     """The per-step launches (six a step, a K1 among them) that K2, K4 and
-    K5 replaced: uncompensated, the reference they are held to bit for bit,
-    which no solve calls (counted as ``lanczos_pass_one_steps``);
-    compensated, K6 (counted as ``lanczos_pass_one_comp``). Steps ``[j0, j0
-    + count)`` on the carried per-step ``bufs`` as K5 runs them (``j0 ==
+    K5 (``compensated``: their K6 instances) replaced: the reference they
+    are held to bit for bit, which no solve calls (counted as
+    ``lanczos_pass_one_steps`` with either ``compensated``). Steps ``[j0,
+    j0 + count)`` on the carried per-step ``bufs`` as K5 runs them (``j0 ==
     0`` starts from b), storing K4's rows in ``basis`` (a zeroed ``(k, n)``
     f32 tensor) when it is given."""
     _check_chunk(bufs, j0, count)
     k = bufs.alphas.shape[0]
     if basis is not None:
         _need(basis, (k, lay.n), torch.float32, lay.d.device, "basis")
-    _launch_pass_one("tpl_lanczos_pass_one_steps",
-                     "lanczos_pass_one_comp" if compensated else
-                     "lanczos_pass_one_steps", lay, bufs, b, tol, ztol,
-                     int(compensated),
+    _launch_pass_one("tpl_lanczos_pass_one_steps", "lanczos_pass_one_steps",
+                     lay, bufs, b, tol, ztol, int(compensated),
                      ctypes.c_void_p(None) if basis is None else _ptr(basis),
                      j0, count, per_step=True)
 
@@ -401,7 +400,8 @@ TIMED_STEPS = 8
 PHASES = {"lanczos_pass_one": ("node rows", "arc rows + <v,w>", "barrier 1",
                                "alpha + <w,w>", "barrier 2"),
           "lanczos_pass_two": ("node rows", "arc rows", "barrier")}
-# K9 and K10 (``ops/kkt_fused_df.py``) step as K2 and K3 do
+# K6's K2 instance, K9 and K10 (``ops/kkt_fused_df.py``) step as K2 and K3
+PHASES["lanczos_pass_one_comp"] = PHASES["lanczos_pass_one"]
 PHASES["df_lanczos_pass_one"] = PHASES["lanczos_pass_one"]
 PHASES["df_lanczos_pass_two"] = PHASES["lanczos_pass_two"]
 
@@ -444,14 +444,23 @@ def phase_split(clock, name: str) -> dict:
 def persistent_grid() -> dict:
     """The cooperative grids of the persistent passes on the current card,
     K2, K3, K9 and K10 by the names of :data:`PHASES`, K4 and K5 by their
-    counters' names: ``{"lanczos_pass_one": (blocks per SM, SMs), ...}``.
+    counters' names, and K6's instances of K2, K4 and K5 by those names
+    with ``_comp``: ``{"lanczos_pass_one": (blocks per SM, SMs), ...}``
+    (``"lanczos_pass_one_comp"``: K6's K2 instance, as in :data:`PHASES`).
     The passes' sums do not depend on it (``csrc/lanczos_persistent.cuh``)."""
     lib = load_library()
+    queries = {name: (name, ()) for name in (
+        "lanczos_pass_two", "df_lanczos_pass_one", "df_lanczos_pass_two")}
+    for name in ("lanczos_pass_one", "lanczos_pass_one_basis",
+                 "lanczos_pass_one_chunk"):
+        queries[name] = (name, (0,))
+        queries[name + "_comp"] = (name, (1,))
     grids = {}
-    for name in (*PHASES, "lanczos_pass_one_basis", "lanczos_pass_one_chunk"):
+    for name, (entry, comp) in queries.items():
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-        entry = getattr(lib, f"tpl_{name}_grid")
-        _check(lib, entry(ctypes.byref(per_sm), ctypes.byref(sms)), name)
+        code = getattr(lib, f"tpl_{entry}_grid")(
+            *comp, ctypes.byref(per_sm), ctypes.byref(sms))
+        _check(lib, code, name)
         grids[name] = (per_sm.value, sms.value)
     return grids
 
@@ -525,7 +534,7 @@ def scaled_y(decomp: LanczosDecomposition, f, k: int) -> torch.Tensor:
     for one function spec and ``(nf, k)`` for a tuple of them."""
     multi = isinstance(f, tuple)
     fs = f if multi else (f,)
-    y = torch.stack([padded_f_e1(decomp, fi) for fi in fs])
+    y = torch.stack([functions.padded_f_e1(decomp, fi) for fi in fs])
     keep = torch.arange(k, device=y.device) < decomp.steps_taken
     y_full = torch.where(keep, y * decomp.b_norm, torch.zeros_like(y))
     return y_full if multi else y_full[0]
@@ -588,9 +597,11 @@ class FusedKKTSolver:
     (``slq_*``, ``estimate_interval``, ``chebyshev_fAb``) raise
     ``NotImplementedError`` until ROADMAP Queue 1 item 2 step 7.
     ``compensated=True`` takes the α, β and ‖b‖ reductions as exact products
-    folded in two-float pairs (the plain version: f64-accumulated dots); on
-    the card the constructor first checks the compiled error-free
-    transformations (K13) and raises if one is not exact.
+    folded in two-float pairs (the plain version: f64-accumulated dots),
+    on the card in K6, the compensated instances of K2, K4 and K5, each
+    one cooperative launch as theirs; the constructor first checks the
+    compiled error-free transformations (K13) and raises if one is not
+    exact.
     """
 
     def __init__(self, quad_costs, arc_u, arc_v, num_nodes,
@@ -649,8 +660,9 @@ class FusedKKTSolver:
 
     def pass_one(self, b, k: int, state: Optional[torch.Tensor] = None
                  ) -> LanczosDecomposition:
-        """Pass one: ``k`` masked steps, scalars only (K2 on CUDA). A
-        ``(2, n)`` ``state`` receives the final ``(v_prev, v_curr)``."""
+        """Pass one: ``k`` masked steps, scalars only (K2 on CUDA, or its
+        compensated K6 instance). A ``(2, n)`` ``state`` receives the final
+        ``(v_prev, v_curr)``."""
         if k < 1:
             raise ValueError("k must be >= 1")
         b = self.pack(b)
@@ -663,9 +675,10 @@ class FusedKKTSolver:
 
     def pass_one_with_basis(self, b, k: int
                             ) -> Tuple[LanczosDecomposition, torch.Tensor]:
-        """The O(n·k) pass one (K4 on CUDA): the decomposition and the
-        ``(k, n)`` basis, row ``j`` = v_{j+1}, zero beyond ``steps_taken``.
-        α and β are bitwise those of :meth:`pass_one`."""
+        """The O(n·k) pass one (K4 on CUDA, or its K6 instance): the
+        decomposition and the ``(k, n)`` basis, row ``j`` = v_{j+1}, zero
+        beyond ``steps_taken``. α and β are bitwise those of
+        :meth:`pass_one`."""
         if k < 1:
             raise ValueError("k must be >= 1")
         b = self.pack(b)
@@ -677,8 +690,8 @@ class FusedKKTSolver:
 
     def pass_one_chunked(self, b, k: int, callback=None, chunk: int = 64
                          ) -> LanczosDecomposition:
-        """Pass one with a live per-step callback (K5 on CUDA): the
-        reference's in-run ``LanczosCallback`` stop.
+        """Pass one with a live per-step callback (K5 on CUDA, or its K6
+        instance): the reference's in-run ``LanczosCallback`` stop.
 
         Runs ``ceil(k/chunk)`` resumable chunks; after each, the chunk's α,
         β, ``steps``, live flag and ‖b‖ come back in one copy and
@@ -691,8 +704,7 @@ class FusedKKTSolver:
         """
         b = self.pack(b)
         if self._cuda:
-            bufs = PassOneBuffers.alloc(self.layout, k,
-                                        persistent=not self.compensated)
+            bufs = PassOneBuffers.alloc(self.layout, k, persistent=True)
 
             def run(j0, c):
                 pass_one_chunk_cuda(self.layout, bufs, b, j0, c, self.tol,

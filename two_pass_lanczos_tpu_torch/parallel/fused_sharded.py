@@ -29,7 +29,7 @@ common R, a common windowed-gather width with re-clamped windows, arrays
 stacked per device and placed by ``make_array_from_callback``), which VMEM,
 the lanes and the lack of a gather forced; ``interpret``; and the
 capability methods (``slq_*``, ``estimate_interval``, ``chebyshev_fAb``),
-which raise ``NotImplementedError`` until ROADMAP Queue 1 item 6.
+which raise ``NotImplementedError`` until ROADMAP Queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ from two_pass_lanczos_tpu_torch.parallel.mesh import Mesh
 __all__ = ["ShardedFusedKKTSolver"]
 
 _CAPABILITY = ("{} is not ported yet: the capability layer comes with "
-               "ROADMAP Queue 1 item 6")
+               "ROADMAP Queue 1 item 2")
 
 
 def split_arcs(m: int, mesh: Mesh):

@@ -48,7 +48,7 @@ from two_pass_lanczos_tpu_torch.functions import padded_f_e1
 __all__ = ["lanczos", "lanczos_two_pass", "solve_fAb"]
 
 _REORTH = ("reorth= is not ported yet: algorithms/reorth.py comes with the "
-           "capability layer (ROADMAP Queue 1 item 6)")
+           "capability layer (ROADMAP Queue 1 item 2)")
 
 
 def _rhs(operator, b) -> torch.Tensor:

@@ -3,7 +3,7 @@
 Counterpart of ``two_pass_lanczos_tpu/spectrum.py`` (NumPy only, copied so
 the port never imports jax). This slice carries the Gauss–Radau helpers
 that ``convergence.radau_error_bound`` stands on; the Ritz and quadrature
-functions of the JAX module are still to be copied (ROADMAP Queue 1 item 6).
+functions of the JAX module are still to be copied (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations

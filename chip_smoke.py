@@ -11,8 +11,9 @@ Phases (each one raises on failure, so the exit code is non-zero):
 2. build the port's CUDA kernels from ``two_pass_lanczos_tpu_torch/csrc``;
    print the registers and spills ``ptxas`` reports for every instance of
    the persistent kernels (K2, K4, K5, K6's instances of those three, K3,
-   K9 and K10, those with the phase timer too) and their
-   cooperative grids (resident blocks per SM x SMs);
+   K9 and K10, those with the phase timer too), their
+   cooperative grids (resident blocks per SM x SMs) and one digest of the
+   SASS of each source's kernels (``ops/_build.sass_digests``);
 3. K1, the KKT matvec, against its plain PyTorch version on the headline
    instance ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
    (m = 500,000 arcs, p = 1,155 nodes, n = 501,155);
@@ -104,8 +105,10 @@ Phases (each one raises on failure, so the exit code is non-zero):
     k = 500 solves and K8's time beside the plain version's and cuSPARSE's;
 15. K11, the double-float matvec (``DFKKTOperator``), on the headline with
     f64 costs: arc part bitwise its plain version in both planes, node part
-    within 8·(deg+1)·2⁻⁴⁸·Σ|x|, rel 1e-13 of K8's f64 instance, and its
-    time beside the plain version's and a cuSPARSE f64 CSR SpMV's;
+    within 8·(deg+1)·2⁻⁴⁸·Σ|x|, rel 1e-13 of K8's f64 instance, the pair
+    instance (x and y as (hi, lo) pairs, the layout K9 and K10 gather
+    from) bitwise the planar one, and the time of both beside the plain
+    version's and a cuSPARSE f64 CSR SpMV's;
 16. K9 and K10, the double-float passes (each one persistent cooperative
     launch), and the df main path ``DFFusedKKTSolver(d64, u, v,
     p).solve(b64, k=500, f="inv")`` with b on the card and the counters
@@ -120,6 +123,11 @@ Phases (each one raises on failure, so the exit code is non-zero):
     solves on K9/K10 and on the per-step launches (the same x bit for
     bit), K9 and K10 per pass and per step beside the per-step launches,
     and their phase split (which checks that the timer changes no bit);
+    the generic ``solve_fAb_df`` with ``DFKKTOperator`` on the planar and on
+    the pair K11 in turns (the same x bit for bit);
+16b. K9 and K10 on the 5M-arc instance: bitwise the per-step launches at
+    k = 20; ``solve(b64, k=500)`` through K9 and K10 only, x finite, the
+    median of 3 solves, K9 and K10 per pass and per step, the phase split;
 17. K7, one shard's matvec, and the f32 sharded main path
     ``ShardedFusedKKTSolver(d, u, v, p, make_mesh(1)).solve(b, k=500,
     f="inv")`` on a one-rank NCCL group, at the headline and at the
@@ -132,9 +140,10 @@ Phases (each one raises on failure, so the exit code is non-zero):
     pass one's, α, β at k = 20 within rtol 2e-4 of K2; medians of 5 (3 at
     5M) solves, and of one-pass and callback (chunk 64) solves at the
     headline; K7's time beside a cuSPARSE CSR SpMV of the shard's A;
-18. K12, one shard's df matvec, and the df sharded main path
-    ``DFShardedFusedKKTSolver(d64, u, v, p, mesh).solve(b64, k=500)`` on the
-    same group at both sizes: one shard bitwise K11 in both planes, four
+18. K12, one shard's df matvec on (hi, lo) pairs, and the df sharded main
+    path ``DFShardedFusedKKTSolver(d64, u, v, p, mesh).solve(b64, k=500)``
+    on the same group at both sizes: one shard bitwise both K11 instances
+    in both planes, four
     shards folding within 8·(deg+1)·2⁻⁴⁸·Σ|x|; 999 K12 launches and nothing
     else, no plain df op, x finite, hi and lo v_s bitwise, α, β at k = 20
     within 1e-11·max|α| of ``DFFusedKKTSolver``; medians of 3 df solves;
@@ -166,7 +175,8 @@ w -= beta_prev v_prev and <v, w>, in K3 the update of v_next and x; K11's
 likewise: 0 launches, and its phases inside K9 and K10; K4's, K5's and
 K6's entries carry their own ``in_pass_matvecs`` and ``step_us``, their
 ``ms`` over k, and K6's ``steps_ms``, the compensated per-step launches'
-time in the same run),
+time in the same run; K11's ``ms`` is its pair instance's, its
+``planar_ms`` the planar instance's),
 its max_abs_err against its plain version,
 its time
 (``ms``), the plain version's (``plain_ms``), ``bound_ms`` (the larger of
@@ -195,6 +205,7 @@ package beside this file, it prints no result and exits 2.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -501,6 +512,103 @@ def df_timed_split(sdf, b2, coeffs, y2, x2_ref) -> dict:
              "df_lanczos_pass_two": phase_split(clk2, "df_lanczos_pass_two")}
     print_split(split, k // 2, clk1.shape[1])
     return split
+
+
+def generic_df_routes(dfop, b64) -> dict:
+    """Host seconds of ``solve_fAb_df(dfop, b64, k=K)`` with
+    ``DFKKTOperator.matvec_df`` on the planar K11 (its x stacked into
+    planes, y split back) and on the pair K11 (as the operator runs it),
+    three of each in turns; checks that both give the same x bit for
+    bit."""
+    import torch
+    from two_pass_lanczos_tpu_torch import DFKKTOperator, solve_fAb_df
+    from two_pass_lanczos_tpu_torch.ops.df import DF
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+        df_kkt_matvec_cuda,
+    )
+
+    def planar_matvec(self, x):
+        y2 = df_kkt_matvec_cuda(self.layout, self.d2,
+                                torch.stack([x.hi, x.lo]))
+        return DF(y2[0], y2[1])
+
+    pair_matvec = DFKKTOperator.matvec_df
+    out, xs = {"planar": [], "pair": []}, {}
+    try:
+        for _ in range(3):
+            for route, fn in (("planar", planar_matvec),
+                              ("pair", pair_matvec)):
+                DFKKTOperator.matvec_df = fn
+                ts = wall_s(lambda: xs.__setitem__(
+                    route, solve_fAb_df(dfop, b64, k=K, f="inv")), 1)
+                out[route] += ts
+    finally:
+        DFKKTOperator.matvec_df = pair_matvec
+    check(torch.equal(xs["planar"], xs["pair"]),
+          "solve_fAb_df differs between the planar and the pair K11")
+    return out
+
+
+def df_y(coeffs, k: int):
+    """The (2, k) hi/lo y of a df solve (f = inv) from pass one's coeffs,
+    as ``DFFusedKKTSolver.solve`` forms it."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch.functions import host_f_tk_solve
+    c = [t.double().cpu().numpy() for t in coeffs]
+    steps = int(c[5][0])
+    y = np.zeros(k)
+    y[:steps] = host_f_tk_solve((c[0] + c[1])[:steps],
+                                (c[2] + c[3])[:steps - 1], "inv") * (
+                                    c[4][0] + c[4][1])
+    y_h = y.astype(np.float32)
+    y_l = (y - y_h.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(np.stack([y_h, y_l])).to(coeffs[0].device)
+
+
+def df_big_phase(card, dev, big) -> None:
+    """Phase 16b: K9 and K10 on the 5M-arc instance, whose df state and
+    layout leave the L2: bitwise their per-step launches at k = K_CHECK;
+    ``DFFusedKKTSolver.solve(b64, k=K)`` through K9 and K10 only, x
+    finite, the median of 3 solves, K9 and K10 per pass and per step, and
+    their phase split."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch import DFFusedKKTSolver
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+    )
+    sdf = DFFusedKKTSolver(big.quad_costs, big.arc_u, big.arc_v,
+                           big.num_nodes, device=dev)
+    b64 = torch.from_numpy(np.random.default_rng(16).standard_normal(sdf.n)
+                           ).to(dev)
+    b2 = sdf.pack(b64)
+    df_routes(sdf, b2, K_CHECK)
+    torch.cuda.empty_cache()
+    reset_launches()
+    x, (_, _, steps) = sdf.solve(b64, k=K, f="inv")
+    torch.cuda.synchronize()
+    got = {name: c for name, c in LAUNCHES.items() if c}
+    check(got == {"df_lanczos_pass_one": 1, "df_lanczos_pass_two": 1,
+                  "df_kkt_matvec_in_pass": 2 * K - 1},
+          f"5M df launches {got}")
+    check(bool(torch.isfinite(x).all()), "5M df x is not finite")
+    coeffs = sdf.pass_one(b2, K)
+    y2 = df_y(coeffs, K)
+    x2 = sdf.pass_two(b2, coeffs, y2[0], y2[1])
+    k9 = event_ms(lambda: sdf.pass_one(b2, K), 3)
+    k10 = event_ms(lambda: sdf.pass_two(b2, coeffs, y2[0], y2[1]), 3)
+    t = wall_s(lambda: sdf.solve(b64, k=K, f="inv"), 3)
+    print(f"[16b] 5M df solver on {card}: m={sdf.layout.m} p={sdf.layout.p}:"
+          f" K9's alpha, beta (hi, lo), ||b||, steps and state and K10's x "
+          f"and state bitwise the per-step launches at k={K_CHECK}; "
+          f"solve(k={K}) launches {got}, steps {steps}")
+    print(f"    df solve k={K}: {runs(t)}")
+    print(f"    K9 {k9:.4f} ms a pass, {1e3 * k9 / K:.3f} us a step; K10 "
+          f"{k10:.4f} ms a pass, {1e3 * k10 / max(steps - 1, 1):.3f} us a "
+          f"step")
+    df_timed_split(sdf, b2, coeffs, y2, x2)
 
 
 #: the persistent kernels' instances, by a part of their mangled names (the
@@ -911,6 +1019,7 @@ def sharded_df_phase(card, dev, mesh, sizes) -> dict:
     )
     from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
         df_kkt_matvec_cuda,
+        df_kkt_matvec_pairs_cuda,
         df_kkt_shard_matvec_cuda,
         df_pass_one_last_vector,
     )
@@ -929,21 +1038,23 @@ def sharded_df_phase(card, dev, mesh, sizes) -> dict:
         whole = op or DFKKTOperator(ins.quad_costs, ins.arc_u, ins.arc_v, p,
                                     device=dev)
         lay = whole.layout
+        xp = x2.T.contiguous()  # K12 takes (hi, lo) pairs
         y11 = df_kkt_matvec_cuda(lay, whole.d2, x2)
-        y12 = df_kkt_shard_matvec_cuda(lay, whole.d2, x2)
+        y11p = df_kkt_matvec_pairs_cuda(lay, whole.d2, xp)
+        y12 = df_kkt_shard_matvec_cuda(lay, whole.d2, xp)
         bound = df_node_bound(lay, x2)
-        check(torch.equal(y12, y11),
-              f"{label}: one-shard K12 is not bitwise K11 in both planes")
+        check(torch.equal(y12, y11p) and torch.equal(y12.T, y11),
+              f"{label}: one-shard K12 is not bitwise both K11 instances")
         acc = None
         for sl in shard_slices(m, 4):
             sop = DFKKTOperator(ins.quad_costs[sl], ins.arc_u[sl],
                                 ins.arc_v[sl], p, device=dev)
             yl = df_kkt_shard_matvec_cuda(sop.layout, sop.d2,
-                                          torch.cat([x2[:, sl], x2[:, m:]], 1))
+                                          torch.cat([xp[sl], xp[m:]]))
             ms_ = sop.layout.m
-            check(torch.equal(yl[:, :ms_], y11[:, sl]),
+            check(torch.equal(yl[:ms_], y11p[sl]),
                   f"{label}: K12 shard arc part is not K11's slice")
-            part = DF(yl[0, ms_:], yl[1, ms_:])
+            part = DF(yl[ms_:, 0], yl[ms_:, 1])
             acc = part if acc is None else df_add(acc, part)
             del sop, yl
         folded = acc.hi.double() + acc.lo.double()
@@ -955,10 +1066,10 @@ def sharded_df_phase(card, dev, mesh, sizes) -> dict:
         if op is not None:
             y_pl = op.plain_matvec_df(xdf)
             torch.cuda.synchronize()
-            check(torch.equal(y12[0, :m], y_pl.hi[:m])
-                  and torch.equal(y12[1, :m], y_pl.lo[:m]),
+            check(torch.equal(y12[:m, 0], y_pl.hi[:m])
+                  and torch.equal(y12[:m, 1], y_pl.lo[:m]),
                   f"{label}: K12 arc part differs from its plain version")
-            y12_64 = y12[0].double() + y12[1].double()
+            y12_64 = y12[:, 0].double() + y12[:, 1].double()
             pl_64 = y_pl.hi.double() + y_pl.lo.double()
             check(bool(((y12_64[m:] - pl_64[m:]).abs() <= bound).all()),
                   f"{label}: K12 node part outside the bound of its plain "
@@ -972,11 +1083,11 @@ def sharded_df_phase(card, dev, mesh, sizes) -> dict:
                                         size=(n, n))
         del coo
         x_sp = x2[0].double() + x2[1].double()
-        y64 = y12[0].double() + y12[1].double()
+        y64 = y12[:, 0].double() + y12[:, 1].double()
         rel_lib = float(torch.linalg.norm(torch.mv(a_csr, x_sp) - y64)
                         / torch.linalg.norm(y64))
         check(rel_lib < 1e-13, f"{label}: cuSPARSE f64 rel {rel_lib:.3e}")
-        ms = device_ms(lambda: df_kkt_shard_matvec_cuda(lay, whole.d2, x2),
+        ms = device_ms(lambda: df_kkt_shard_matvec_cuda(lay, whole.d2, xp),
                        200)
         lib_ms = device_ms(lambda: torch.mv(a_csr, x_sp), 200)
         del a_csr
@@ -1035,8 +1146,9 @@ def sharded_df_phase(card, dev, mesh, sizes) -> dict:
               and max(da, db) <= atol,
               f"{label}: df sharded alpha/beta at k={K_CHECK} {da:.3e}/"
               f"{db:.3e} from K9, above 1e-11·max|alpha| = {atol:.3e}")
-        print(f"[18] {label} (m={m}, p={p}): K12 one shard bitwise K11 in hi "
-              f"and lo, four shards' arc parts bitwise and df partials within"
+        print(f"[18] {label} (m={m}, p={p}): K12 one shard bitwise both K11 "
+              f"instances in hi and lo, four shards' arc parts bitwise and df "
+              f"partials within"
               f" bound" + (f", vs plain max_abs_err {err:.3e}" if op else "")
               + f"; cuSPARSE f64 rel {rel_lib:.3e}; df sharded solve(k={K}) "
               f"first call {first_s:.4f} s, steps {steps}, launches "
@@ -1383,6 +1495,17 @@ def main() -> int:
     print("    cooperative grids: " + ", ".join(
         f"{k_} {per_sm} blocks/SM x {sms} SMs = {per_sm * sms} blocks of 256"
         for k_, (per_sm, sms) in grids.items()))
+    # one digest of the SASS of each source's kernels (those of namespace
+    # tpl itself, the templates K1 and K8, as "tpl"): equal digests, equal
+    # machine code (_build.sass_digests compares two builds kernel by kernel)
+    sass = {}
+    for key, digest in sorted(_build.sass_digests().items()):
+        src = re.search(r"\{(\w+)_cu\}", key)
+        sass.setdefault(src.group(1) if src else "tpl", []).append(digest)
+    print("    sass digests: " + (", ".join(
+        f"{src} ({len(d)}) "
+        + hashlib.sha256("".join(d).encode()).hexdigest()[:12]
+        for src, d in sass.items()) or "no cuobjdump"))
 
     # the headline instance, on the card
     inst = generate_mcf_instance(**HEADLINE)
@@ -2192,6 +2315,7 @@ def main() -> int:
     from two_pass_lanczos_tpu_torch.ops.df import DF, df_from_f64
     from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
         df_kkt_matvec_cuda,
+        df_kkt_matvec_pairs_cuda,
         df_pass_one_last_vector,
     )
 
@@ -2220,6 +2344,11 @@ def main() -> int:
           "K11 node part outside 8·(deg+1)·2^-48·Σ|x|")
     check(torch.equal(df_kkt_matvec_cuda(dlay, dfop.d2, x2), y2),
           "K11 not bitwise reproducible")
+    # the pair instance: the same values as (hi, lo) pairs, bit for bit
+    xp = x2.T.contiguous()
+    yp = df_kkt_matvec_pairs_cuda(dlay, dfop.d2, xp)
+    torch.cuda.synchronize()
+    check(torch.equal(yp.T, y2), "the pair K11 is not bitwise the planar K11")
     y_k8 = op64.matvec(x_sp)
     rel_k8 = float(torch.linalg.norm(y_df - y_k8) / torch.linalg.norm(y_k8))
     check(rel_k8 < 1e-13, f"K11 vs K8 f64 rel {rel_k8:.3e} >= 1e-13")
@@ -2231,6 +2360,7 @@ def main() -> int:
                       / torch.linalg.norm(y_k8))
     check(rel_lib64 < 1e-13, f"cuSPARSE f64 SpMV rel {rel_lib64:.3e} vs K8")
     print(f"[15] K11 ok: arc part bitwise the plain version in hi and lo, "
+          f"the pair instance bitwise the planar one, "
           f"node part max|err| {float(node_err_df.max()):.3e} within "
           f"8·(deg+1)·2^-48·Σ|x| (min over nodes {float(bound_df.min()):.3e})"
           f", max_abs_err {err_k11:.3e}; vs K8 f64 rel {rel_k8:.3e}; "
@@ -2285,12 +2415,8 @@ def main() -> int:
     check(int(coeffs[5][0]) == steps_df
           and np.array_equal(a_rep[:steps_df], al_df),
           "df pass one not bitwise reproducible")
-    bn_df = float(coeffs[4][0].double() + coeffs[4][1].double())
-    y_solve = np.zeros(K)
-    y_solve[:steps_df] = host_f_tk_solve(al_df, be_df, "inv") * bn_df
-    y_h32 = y_solve.astype(np.float32)
-    y_h = torch.from_numpy(y_h32).to(dev)
-    y_l = torch.from_numpy((y_solve - y_h32).astype(np.float32)).to(dev)
+    y2_solve = df_y(coeffs, K)
+    y_h, y_l = y2_solve
     x2_rep = sdf.pass_two(b2, coeffs, y_h, y_l, state=st2)
     torch.cuda.synchronize()
     check(torch.equal(df_pass_one_last_vector(coeffs, st1), st2[1]),
@@ -2391,7 +2517,11 @@ def main() -> int:
             setattr(o, a, fn)
     check(torch.equal(x_steps, x_df),
           "the df solve on the per-step launches differs from K9/K10's")
+    # K11's ms is the pair instance's (the layout of the rows inside K9 and
+    # K10), planar_ms the planar one's (DFKKTOperator, the references)
     ms["df_kkt_matvec"] = device_ms(
+        lambda: df_kkt_matvec_pairs_cuda(dlay, dfop.d2, xp), 200)
+    k11_planar_ms = device_ms(
         lambda: df_kkt_matvec_cuda(dlay, dfop.d2, x2), 200)
     plain_ms["df_kkt_matvec"] = device_ms(
         lambda: dfop.plain_matvec_df(xdf), 20)
@@ -2399,7 +2529,6 @@ def main() -> int:
     ms["df_lanczos_pass_one"] = event_ms(lambda: sdf.pass_one(b2, K), 3)
     ms["df_lanczos_pass_two"] = event_ms(
         lambda: sdf.pass_two(b2, coeffs, y_h, y_l), 3)
-    y2_solve = torch.stack([y_h, y_l])
     steps_route_ms = {
         "df_lanczos_pass_one": event_ms(
             lambda: kkt_fused_df.df_pass_one_steps_cuda(
@@ -2423,6 +2552,12 @@ def main() -> int:
                  "df_lanczos_pass_two"):
         print(f"    {name}: kernel {ms[name]:.5f} ms, plain "
               f"{plain_ms[name]:.5f} ms")
+    print(f"    df_kkt_matvec: pair instance {ms['df_kkt_matvec']:.5f} ms, "
+          f"planar instance {k11_planar_ms:.5f} ms")
+    t_gen_df = generic_df_routes(dfop, b64)
+    print(f"    generic df solve_fAb_df k={K}, DFKKTOperator on "
+          + "; on ".join(f"the {route} K11: {runs(ts)}"
+                         for route, ts in t_gen_df.items()))
     for name, label, nsteps in (("df_lanczos_pass_one", "K9", K),
                                 ("df_lanczos_pass_two", "K10",
                                  max(steps_df - 1, 1))):
@@ -2434,6 +2569,7 @@ def main() -> int:
     df_split = df_timed_split(sdf, b2, coeffs, y2_solve, x2_rep)
     df_in_pass_us = {name: got["matvec phase"]["max_us"]
                      for name, got in df_split.items()}
+    df_big_phase(card, dev, big)
 
     # 17-18. the sharded solvers on a one-rank NCCL group (NCCL refuses
     #        two ranks on one card), at the headline and at 5M arcs
@@ -2495,6 +2631,7 @@ def main() -> int:
     k11_row = next(r for r in rows if r["name"] == "df_kkt_matvec")
     k11_row["in_pass_matvecs"] = df_in_pass_matvecs
     k11_row["in_pass_us"] = df_in_pass_us
+    k11_row["planar_ms"] = k11_planar_ms
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     check(not below, f"timed below their bound (a bound of the wrong "
                      f"memory level): {below}")

@@ -6,6 +6,7 @@ share.
 Usage, from the root of a checkout, on a machine with one NVIDIA GPU::
 
     python3 profile_port.py [--k 500] [--reps 3] [--out chiprun_out/profile_port.json]
+                            [--paths df_two_pass,two_pass]
 
 Paths, each on ``generate_mcf_instance(500_000, rho=3, instance_id=1)``
 (n = 501,155) with ``b`` from ``default_rng(0)`` already on the card:
@@ -24,7 +25,8 @@ trace's NCCL ranges, and how much of their device time, overlap a compute
 kernel (not a copy) and the owned-column SpMV's row sums, which are queued
 between each gather's start and its wait.
 
-Each path runs twice to warm up, then ``--reps`` times under the profiler,
+``--paths`` traces the named paths only (all by default). Each path runs
+twice to warm up, then ``--reps`` times under the profiler,
 each call ending in ``torch.cuda.synchronize()``. Per call:
 
 - ``wall_ms``: host clock around the profiled calls, divided by ``reps``;
@@ -166,6 +168,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                          / "profile_port.json"))
+    ap.add_argument("--paths", default="",
+                    help="comma-separated paths to trace (default: all)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -230,8 +234,14 @@ def main(argv=None) -> int:
         "sparse_sharded_two_pass": lambda: sop.solve_fAb(b, k=k, f="inv",
                                                          raw=True),
     }
+    chosen = args.paths.split(",") if args.paths else list(paths)
+    unknown = sorted(set(chosen) - set(paths))
+    if unknown:
+        raise SystemExit(f"profile_port: unknown paths {unknown}; known: "
+                         f"{sorted(paths)}")
     out = {}
-    for name, fn in paths.items():
+    for name in chosen:
+        fn = paths[name]
         reps = 1 if name == "df_sharded_two_pass" else args.reps
         r = out[name] = profile(fn, reps,
                                 overlap=name == "sparse_sharded_two_pass")

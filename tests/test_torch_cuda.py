@@ -77,6 +77,7 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
     df_kkt_matvec_cuda,
+    df_kkt_matvec_pairs_cuda,
     df_kkt_shard_matvec,
     df_kkt_shard_matvec_cuda,
     df_pass_one_cuda,
@@ -920,17 +921,48 @@ def test_df_matvec_kernel_matches_plain_on_card(case, cuda_device,
     want = ref.hi[m:].double() + ref.lo[m:].double()
     assert bool(((got - want).abs() <= _df_node_bound(op.layout, x2)).all())
     assert torch.equal(df_kkt_matvec_cuda(op.layout, op.d2, x2), y2)
-    # DFKKTOperator.matvec_df on the card is K11, never the plain fold
+    # DFKKTOperator.matvec_df on the card is the pair K11, never the plain
+    # fold: the planar K11's values
     monkeypatch.setattr(DFKKTOperator, "plain_matvec_df",
                         lambda *a: pytest.fail("plain df matvec on the card"))
     y = op.matvec_df(xdf)
-    assert LAUNCHES["df_kkt_matvec"] == 3
+    assert LAUNCHES["df_kkt_matvec"] == 2
+    assert LAUNCHES["df_kkt_matvec_pairs"] == 1
     assert torch.equal(y.hi, y2[0]) and torch.equal(y.lo, y2[1])
     # and near the f64 truth
     t = torch.from_numpy
     truth = kkt_matvec(t(d64), t(u), t(v), p, t(x64)).numpy()
     y64 = (y2[0].double() + y2[1].double()).cpu().numpy()
     assert np.abs(y64 - truth).max() <= 1e-13 * np.abs(truth).max()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pair_df_matvec_bitwise_planar_on_card(case, cuda_device):
+    # the pair K11 computes the planar K11's values, in both planes, bit for
+    # bit: on a random x, on one with signed zeros and subnormals in both
+    # planes, and on a zero x (y = 0)
+    rng = np.random.default_rng(6)
+    d, u, v, p = CASES[case](rng)
+    n = len(d) + p
+    d64 = d.astype(np.float64) * (1.0 + rng.uniform(0, 1e-7, len(d)))
+    op = DFKKTOperator(d64, u, v, p, device=cuda_device)
+    xdf = df_from_f64(rng.standard_normal(n), cuda_device)
+    odd = torch.stack([xdf.hi, xdf.lo]).clone()
+    odd[:, ::3] = -0.0
+    odd[:, 1::5] = 1e-40
+    odd[1, 2::7] = -1e-42
+    for x2 in (torch.stack([xdf.hi, xdf.lo]), odd,
+               torch.zeros(2, n, device=cuda_device)):
+        reset_launches()
+        y2 = df_kkt_matvec_cuda(op.layout, op.d2, x2)
+        yp = df_kkt_matvec_pairs_cuda(op.layout, op.d2, x2.T.contiguous())
+        torch.cuda.synchronize()
+        assert LAUNCHES["df_kkt_matvec"] == LAUNCHES[
+            "df_kkt_matvec_pairs"] == 1
+        assert tuple(yp.shape) == (n, 2)
+        assert torch.equal(yp.T, y2)
+        assert torch.equal(yp.T.signbit(), y2.signbit())  # -0 stays -0
+    assert not bool(y2.any())
 
 
 def test_df_pass_kernels_match_plain_on_card(cuda_device):
@@ -1186,35 +1218,38 @@ def test_df_shard_matvec_kernel_matches_k11_on_card(case, cuda_device):
     d64 = d.astype(np.float64) * (1.0 + rng.uniform(0, 1e-7, m))
     xdf = df_from_f64(rng.standard_normal(m + p), cuda_device)
     x2 = torch.stack([xdf.hi, xdf.lo])
+    xp = x2.T.contiguous()  # K12 takes (hi, lo) pairs
     whole = DFKKTOperator(d64, u, v, p, device=cuda_device)
     reset_launches()
     y11 = df_kkt_matvec_cuda(whole.layout, whole.d2, x2)
-    y12 = df_kkt_shard_matvec_cuda(whole.layout, whole.d2, x2)
+    y11p = df_kkt_matvec_pairs_cuda(whole.layout, whole.d2, xp)
+    y12 = df_kkt_shard_matvec_cuda(whole.layout, whole.d2, xp)
     torch.cuda.synchronize()
     assert LAUNCHES["df_kkt_streaming_matvec"] == 1
-    assert torch.equal(y12, y11)  # one shard: bitwise K11 in both planes
+    # one shard: bitwise both K11 instances in both planes
+    assert torch.equal(y12, y11p) and torch.equal(y12.T, y11)
     bound = _df_node_bound(whole.layout, x2)
     acc = None
     for ix in np.array_split(np.arange(m), 4):
         op = DFKKTOperator(d64[ix], u[ix], v[ix], p, device=cuda_device)
-        xl = _local(x2, ix, m)
+        xl = _local(x2, ix, m).T.contiguous()
         yl = df_kkt_shard_matvec(op, xl)
         mine = len(ix)
-        assert torch.equal(yl[:, :mine], y11[:, ix[0]:ix[-1] + 1])
-        part = DF(yl[0, mine:], yl[1, mine:])
+        assert torch.equal(yl[:mine], y11p[ix[0]:ix[-1] + 1])
+        part = DF(yl[mine:, 0], yl[mine:, 1])
         acc = part if acc is None else df_add(acc, part)
         # against the plain version (the shard's table fold) on the CPU
         ref = df_kkt_shard_matvec(
             DFKKTOperator(d64[ix], u[ix], v[ix], p, device=CPU), xl.cpu())
-        assert torch.equal(yl[:, :mine].cpu(), ref[:, :mine])
-        got = yl[0, mine:].double() + yl[1, mine:].double()
-        want = ref[0, mine:].double() + ref[1, mine:].double()
+        assert torch.equal(yl[:mine].cpu(), ref[:mine])
+        got = yl[mine:, 0].double() + yl[mine:, 1].double()
+        want = ref[mine:, 0].double() + ref[mine:, 1].double()
         assert bool(((got.cpu() - want).abs() <= bound.cpu()).all())
     folded = acc.hi.double() + acc.lo.double()
     want = y11[0, m:].double() + y11[1, m:].double()
     assert bool(((folded - want).abs() <= bound).all())
     assert LAUNCHES["df_kkt_streaming_matvec"] == 5
-    assert LAUNCHES["df_kkt_matvec"] == 1
+    assert LAUNCHES["df_kkt_matvec"] == LAUNCHES["df_kkt_matvec_pairs"] == 1
 
 
 def test_sharded_solvers_on_a_one_rank_nccl_group_on_card(problem,

@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from tests.torch_cases import CPU, random_kkt
-from two_pass_lanczos_tpu_torch.ops import _build, kkt_fused
+from two_pass_lanczos_tpu_torch import DFFusedKKTSolver
+from two_pass_lanczos_tpu_torch.ops import _build, kkt_fused, kkt_fused_df
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     LAUNCHES,
     FusedKKTSolver,
@@ -201,7 +202,7 @@ def test_df_persistent_passes_launch_cooperatively_without_fallback(
 
 #: the shared routines that read a vector through a trailing ``load``
 #: argument, and the arguments a call passes when it names the load
-_LOADED = {"kkt_node_row": 6, "fold_partials": 5, "df_kkt_node_row": 8,
+_LOADED = {"kkt_node_row": 6, "fold_partials": 5, "df_kkt_node_row": 6,
            "df_fold_partials": 5}
 
 
@@ -272,11 +273,20 @@ def test_no_read_only_load_reaches_a_vector_written_in_the_launch(src,
                                    common).start():]
         routine = routine[:routine.index("\n}\n")]
         assert "__ldg" not in routine and "DirectLoad" not in routine, name
-    for loader in ("CachedLoad", "ScaledLoad", "DFCachedLoad",
-                   "DFScaledLoad"):
+    # every cached or scaled loader, of floats, of planes or of (hi, lo)
+    # pairs: a pair written in the launch is never read through __ldg
+    loaders = re.findall(r"struct (\w*(?:Cached|Scaled)Load) \{", common)
+    assert {"CachedLoad", "ScaledLoad", "DFPairCachedLoad",
+            "DFPairScaledLoad"} <= set(loaders)
+    for loader in loaders:
         struct = common[common.index(f"struct {loader} {{"):]
         struct = struct[:struct.index("\n};")]
         assert "__ldca(" in struct and "__ldg" not in struct, loader
+    # and a pair that the pass gathers or streams is read as one pair, never
+    # through a planar loader, __ldg or the read-only direct loads
+    if kernel.startswith("df_"):
+        assert "DFDirectLoad" not in body and "DFPairDirectLoad" not in body
+        assert "float2*" in body and "__ldca(" in body
 
 
 @pytest.mark.parametrize("src,kernel,reduce", [
@@ -358,16 +368,18 @@ def test_only_the_per_step_entry_point_reaches_the_per_step_launches(entry):
 
 @pytest.mark.parametrize("entry,has,lacks", [
     ("tpl_df_lanczos_pass_one", ["long long* clock", "int* flags",
-                                 "float* w2", "float* partials"],
+                                 "float* w2", "float* pairs",
+                                 "float* partials"],
      ["scal"]),
     ("tpl_df_lanczos_pass_one_steps", ["float* scal", "int* flags",
-                                       "float* w2"], ["clock"]),
-    ("tpl_df_lanczos_pass_two", ["long long* clock"], ["w2"]),
-    ("tpl_df_lanczos_pass_two_steps", ["float* w2"], ["clock"])])
+                                       "float* w2"], ["clock", "pairs"]),
+    ("tpl_df_lanczos_pass_two", ["long long* clock", "float* pairs"],
+     ["w2"]),
+    ("tpl_df_lanczos_pass_two_steps", ["float* w2"], ["clock", "pairs"])])
 def test_df_pass_signatures_name_each_routes_scratch(entry, has, lacks):
-    # K9/K10 take the timer's clock and their own scratch; the per-step
-    # references keep the parent's arguments (pass one's scalars, pass
-    # two's w)
+    # K9/K10 take the timer's clock and their own scratch, their vectors as
+    # (hi, lo) pairs among it; the per-step references keep the parent's
+    # arguments (pass one's scalars, pass two's w) and planes
     _, decls = ENTRIES[entry]
     for decl in has:
         assert decl in decls, (entry, decl)
@@ -379,26 +391,265 @@ def test_df_pass_signatures_name_each_routes_scratch(entry, has, lacks):
 @pytest.mark.parametrize("persistent", [False, True],
                          ids=["per_step", "persistent"])
 def test_df_pass_one_scratch_is_what_the_entry_point_needs(persistent):
-    # df_lanczos_pass_one.cu: K9's w2 (2 x 2 x n), partials (4 *
-    # kMaxPartials), flags (1 + p); the per-step launches' w2 (2 x n),
-    # partials (2 * kMaxPartials), scal (6), flags (1)
+    # df_lanczos_pass_one.cu: K9's w2 (2 x n pairs), pairs (2 x n pairs:
+    # v_prev, v_curr), partials (4 * kMaxPartials), flags (1 + p); the
+    # per-step launches' w2 (2 x n), partials (2 * kMaxPartials), scal (6),
+    # flags (1)
     lay = FusedKKTSolver(*random_kkt(np.random.default_rng(0)),
                          device=CPU).layout
     sc = DFPassOneScratch.alloc(lay, persistent)
     if persistent:
-        assert tuple(sc.w2.shape) == (2, 2, lay.n)
+        assert tuple(sc.w2.shape) == (2, lay.n, 2)
+        assert tuple(sc.pairs.shape) == (2, lay.n, 2)
         assert tuple(sc.partials.shape) == (4 * MAX_PARTIALS,)
         assert tuple(sc.flags.shape) == (1 + lay.p,) and sc.scal is None
     else:
-        assert tuple(sc.w2.shape) == (2, lay.n)
+        assert tuple(sc.w2.shape) == (2, lay.n) and sc.pairs is None
         assert tuple(sc.partials.shape) == (2 * MAX_PARTIALS,)
         assert tuple(sc.flags.shape) == (1,)
         assert tuple(sc.scal.shape) == (6,)
     assert sc.flags.dtype == np.int32 or str(sc.flags.dtype) == "torch.int32"
-    text = (CSRC / "df_lanczos_pass_one.cu").read_text()
-    assert "w2 (2 x 2 x n: two halves)" in text
+    # the entry point's comment, its line breaks and comment marks dropped
+    text = " ".join((CSRC / "df_lanczos_pass_one.cu").read_text()
+                    .replace("//", " ").split())
+    assert "w2 (2 x n pairs: two halves)" in text
+    assert "pairs (2 x n pairs: v_prev, v_curr)" in text
     assert "partials (4 * tpl::kMaxPartials" in text
     assert "flags (1 + p ints)" in text
+
+
+#: the pair loaders of df_common.cuh and the load each issues per entry
+_PAIR_LOADERS = {"DFPairDirectLoad": "__ldg", "DFPairCachedLoad": "__ldca",
+                 "DFPairScaledLoad": "__ldca"}
+
+
+@pytest.mark.parametrize("loader", sorted(_PAIR_LOADERS))
+def test_a_pair_loader_reads_an_entry_with_one_float2_load(loader):
+    # an entry of a (hi, lo) pair vector is one 8-byte load of a const
+    # float2*, never the two planes' 4-byte loads
+    common = _code(CSRC / "df_common.cuh")
+    struct = common[common.index(f"struct {loader} {{"):]
+    struct = struct[:struct.index("\n};")]
+    assert "const float2* x;" in struct
+    loads = re.findall(r"\b(__ldg|__ldca|__ldcs|__ldcg)\(([^)]*)\)", struct)
+    assert loads == [(_PAIR_LOADERS[loader], "x + i")]
+    assert "xh" not in struct and "xl" not in struct
+
+
+def _pair_node_rows():
+    """(where, the load argument) of every df_kkt_node_row call on pairs:
+    the pair K11's and K12's block and the persistent K9 and K10."""
+    common = _code(CSRC / "df_common.cuh")
+    found = [("df_kkt_pair_block", args[-1]) for args in _call_args(
+        _kernel_body(common, "void df_kkt_pair_block"), "df_kkt_node_row")]
+    for src, kernel in (("df_lanczos_pass_one.cu",
+                         "df_pass_one_persistent_kernel"),
+                        ("df_lanczos_pass_two.cu",
+                         "df_pass_two_persistent_kernel")):
+        body = _kernel_body(_code(CSRC / src), kernel)
+        for args in _call_args(body, "df_kkt_node_row"):
+            load = args[-1]
+            if not load.startswith("DF"):  # a named loader: its declaration
+                load = re.search(rf"const (\w+) {load}\{{", body).group(1)
+            found.append((kernel, load))
+    return found
+
+
+def test_every_pair_node_row_loads_an_entry_with_one_float2_load():
+    # every instance of df_kkt_node_row on the pair layout reads x_a
+    # through a pair loader (one float2 load an entry, above), and so do
+    # the arc rows' gathers of x_n beside it
+    rows = _pair_node_rows()
+    assert {where for where, _ in rows} == {
+        "df_kkt_pair_block", "df_pass_one_persistent_kernel",
+        "df_pass_two_persistent_kernel"}
+    for where, load in rows:
+        assert re.match(r"DFPair(Direct|Cached|Scaled)Load\b", load), (
+            where, load)
+    common = _code(CSRC / "df_common.cuh")
+    block = _kernel_body(common, "void df_kkt_pair_block")
+    for name in ("xj", "gu", "gv"):
+        assert re.search(rf"const float2 {name} = __ldg\(x \+ ", block)
+    for src, kernel in (("df_lanczos_pass_one.cu",
+                         "df_pass_one_persistent_kernel"),
+                        ("df_lanczos_pass_two.cu",
+                         "df_pass_two_persistent_kernel")):
+        body = _kernel_body(_code(CSRC / src), kernel)
+        for name in ("gu", "gv"):
+            assert re.search(rf"const float2 {name} = vld\(m \+ s\.[uv]",
+                             body)
+
+
+@pytest.mark.parametrize("src,entry", [
+    ("df_lanczos_pass_one.cu", "tpl_df_lanczos_pass_one_steps"),
+    ("df_lanczos_pass_two.cu", "tpl_df_lanczos_pass_two_steps")])
+def test_df_per_step_references_reach_only_the_planar_instances(src, entry):
+    # the per-step references stay on the planes: their launches are the
+    # planar K11 (with its gate) and their own planar kernels, and no pair
+    # instance or float2 vector reaches them
+    code = _code(CSRC / src)
+    body = _entry_body(code, entry)
+    reached = body
+    if "enqueue_step" in body:
+        reached += _kernel_body(code, "cudaError_t enqueue_start")
+        reached += _kernel_body(code, "cudaError_t enqueue_step")
+    assert "launch_df_kkt_matvec(" in reached
+    assert "_pairs" not in reached and "float2*" not in reached
+    for kernel in re.findall(r"(\w+_kernel)<<<", reached):
+        head = code[code.index(f"{kernel}("):]
+        assert "float2" not in head[:head.index(")")], kernel
+    # the planar K11 they launch reads x through the planes
+    k11 = _code(CSRC / "df_kkt_matvec.cu")
+    planar = _kernel_body(k11, "df_kkt_matvec_kernel")
+    assert "DFDirectLoad{xh, xl}" in planar and "float2*" not in planar[
+        :planar.index("{")]
+    launch = _kernel_body(k11, "cudaError_t launch_df_kkt_matvec")
+    assert "df_kkt_matvec_kernel<<<" in launch and "_pairs" not in launch
+
+
+class _DFRecordingLibrary:
+    """Stands in for the kernel library for the df wrappers on the CPU:
+    records each call with its ctypes arguments and leaves the matvec
+    count the card would (k for pass one, k - 1 for pass two)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.calls.append((entry, args))
+            if entry.startswith("tpl_df_lanczos_pass_"):
+                k = args[8]
+                args[-2]._obj.value = k if "_one" in entry else k - 1
+            return 0
+        return call
+
+
+#: the df routes, by the entry point each wrapper calls
+_DF_ROUTES = {"pair_k11": "tpl_df_kkt_matvec_pairs",
+              "k12": "tpl_df_kkt_shard_matvec",
+              "k9": "tpl_df_lanczos_pass_one",
+              "k9_steps": "tpl_df_lanczos_pass_one_steps",
+              "k10": "tpl_df_lanczos_pass_two",
+              "k10_steps": "tpl_df_lanczos_pass_two_steps"}
+
+
+@pytest.mark.parametrize("route", sorted(_DF_ROUTES))
+def test_df_wrappers_hand_each_entry_point_its_layout(monkeypatch, route):
+    # the pair K11 and K12 take (n, 2) pairs and return them; K9 and K10
+    # get their pair scratch (w's halves and v_prev, v_curr: (2, n, 2);
+    # K10's v_prev, v_curr and x: (3, n, 2)) beside the caller's planar b,
+    # x and state; the per-step references get planes only. Checked with
+    # the recording library in the CPU layout's place
+    lib = _DFRecordingLibrary()
+    monkeypatch.setattr(kkt_fused_df, "load_library", lambda: lib)
+    monkeypatch.setattr(kkt_fused_df, "_stream",
+                        lambda: ctypes.c_void_p(None))
+    monkeypatch.setattr(kkt_fused_df, "_df_layout_args", lambda lay, d2: (
+        *(kkt_fused._ptr(t) for t in (d2, lay.u, lay.v, lay.ptr, lay.ent)),
+        lay.m, lay.p))
+    made = []
+    empty = torch.empty
+
+    def recording_empty(*args, **kwargs):
+        made.append(empty(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    d, u, v, p = random_kkt(np.random.default_rng(0))
+    s = DFFusedKKTSolver(d.astype(np.float64), u, v, p, device=CPU)
+    lay, n, k = s.layout, s.n, 6
+    reset_launches()
+    if route in ("pair_k11", "k12"):
+        fn = (kkt_fused_df.df_kkt_matvec_pairs_cuda if route == "pair_k11"
+              else kkt_fused_df.df_kkt_shard_matvec_cuda)
+        x = torch.ones(n, 2)
+        y = fn(lay, s.d2, x)
+        [(entry, args)] = lib.calls
+        assert entry == _DF_ROUTES[route] and tuple(y.shape) == (n, 2)
+        assert (args[7].value, args[8].value) == (x.data_ptr(),
+                                                  y.data_ptr())
+        with pytest.raises(ValueError, match="x"):
+            fn(lay, s.d2, torch.ones(2, n))  # the planes are refused
+        name = {"pair_k11": "df_kkt_matvec_pairs",
+                "k12": "df_kkt_streaming_matvec"}[route]
+        assert {key: c for key, c in LAUNCHES.items() if c} == {name: 1}
+        return
+    b2 = torch.ones(2, n)
+    steps = route.endswith("_steps")
+    if route.startswith("k9"):
+        fn = (kkt_fused_df.df_pass_one_steps_cuda if steps
+              else kkt_fused_df.df_pass_one_cuda)
+        fn(lay, s.d2, b2, k, s.tol, s.ztol)
+        scratch = {16: (2, n) if steps else (2, n, 2),
+                   17: (2 * MAX_PARTIALS,) if steps else (2, n, 2),
+                   14: (2, 2, n)}
+        pass_name, matvecs = "df_lanczos_pass_one", k
+    else:
+        z = torch.zeros(k)
+        coeffs = (z, z, z, z, torch.ones(2),
+                  torch.tensor([k], dtype=torch.int32))
+        fn = (kkt_fused_df.df_pass_two_steps_cuda if steps
+              else kkt_fused_df.df_pass_two_cuda)
+        x2 = fn(lay, s.d2, b2, coeffs, torch.zeros(2, k), s.ztol)
+        assert tuple(x2.shape) == (2, n)
+        scratch = {17: (2, n) if steps else (3, n, 2), 15: (2, 2, n),
+                   14: (2, n)}
+        pass_name, matvecs = "df_lanczos_pass_two", k - 1
+    [(entry, args)] = lib.calls
+    assert entry == _DF_ROUTES[route]
+    assert args[7].value == b2.data_ptr()
+    shape_at = {t.data_ptr(): tuple(t.shape) for t in made}
+    for i, shape in scratch.items():
+        assert shape_at[args[i].value] == shape, (i, shape)
+    got = {key: c for key, c in LAUNCHES.items() if c}
+    assert got == ({pass_name + "_steps": 1, "df_kkt_matvec": matvecs}
+                   if steps else
+                   {pass_name: 1, "df_kkt_matvec_in_pass": matvecs})
+
+
+_SASS = """
+\t\tFunction : _ZN3tpl45_GLOBAL__N__{ns}_12_eft_check_cu_5c81709d16eft_check_kernelEv
+        /*0000*/  LDC R1, c[0x0][0x28] ;{pad}/* 0x00000a00ff017b82 */
+                  {pad}/* 0x000e220000000800 */
+        /*0010*/  @P0 BRA `(.L_x_{label}) ;{pad}/* 0x0000000000007947 */
+                  {pad}/* 0x000fea0003800000 */
+.L_x_{label}:
+        /*0020*/  CALL.REL.NOINC `(__internal_0_slowpath) ;{pad}/* 0x{call}007944 */
+                  {pad}/* 0x000fea0003c{call2}0 */
+        /*0030*/  EXIT ;{pad}/* 0x{exit}794d */
+                  {pad}/* 0x000fea0003800000 */
+\t\tFunction : _ZN3tpl17kkt_matvec_kernelIfEEvv
+        /*0000*/  EXIT ;{pad}/* 0x000000000000794d */
+"""
+
+
+def test_sass_digests_ignore_what_the_build_moves(tmp_path, monkeypatch):
+    # two builds of the same kernels differ in the source path hashed into
+    # the anonymous namespace, the file-wide label numbers, the column
+    # padding and the offset a call encodes to a shared subroutine: the
+    # digests must not; a changed instruction must change its kernel's
+    tool = tmp_path / "cuobjdump"
+    tool.write_text('#!/bin/sh\ncat "$2"\n')
+    tool.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    fields = dict(ns="57467b44", label=12, pad=" " * 8, call="0000001234",
+                  call2="0000", exit="000000000000")
+    digests = []
+    for change in ({}, dict(ns="b3244c9d", label=40, pad=" " * 30,
+                            call="0000009999", call2="1111"),
+                   dict(exit="000000000001")):
+        listing = tmp_path / f"listing{len(digests)}.txt"
+        listing.write_text(_SASS.format(**{**fields, **change}))
+        digests.append(_build.sass_digests(listing))
+    same, moved, changed = digests
+    assert sorted(same) == ["_ZN3tpl17kkt_matvec_kernelIfEEvv",
+                            "_ZN3tpl{eft_check_cu}16eft_check_kernelEv"]
+    assert moved == same
+    key = "_ZN3tpl{eft_check_cu}16eft_check_kernelEv"
+    assert changed[key] != same[key]
+    del changed[key], same[key]
+    assert changed == same
 
 
 class _RecordingLibrary:

@@ -218,13 +218,15 @@ def test_plain_df_shard_matvecs_fold_to_plain_matvec_df(case, n_shards):
     acc = None
     for ix in np.array_split(np.arange(m), n_shards):
         op = DFKKTOperator(d64[ix], u[ix], v[ix], p, device=CPU)
-        xl = torch.cat([x2[:, ix[0]:ix[-1] + 1], x2[:, m:]], dim=1)
+        # the local vector as K12 takes it: (hi, lo) pairs
+        xl = torch.cat([x2[:, ix[0]:ix[-1] + 1], x2[:, m:]], dim=1).T
         yl = df_kkt_shard_matvec(op, xl)
         mine = len(ix)
-        # the arc part is the whole matvec's slice, in both planes
-        assert torch.equal(yl[0, :mine], y.hi[ix[0]:ix[-1] + 1])
-        assert torch.equal(yl[1, :mine], y.lo[ix[0]:ix[-1] + 1])
-        part = DF(yl[0, mine:], yl[1, mine:])
+        assert tuple(yl.shape) == (mine + p, 2)
+        # the arc part is the whole matvec's slice, in both halves
+        assert torch.equal(yl[:mine, 0], y.hi[ix[0]:ix[-1] + 1])
+        assert torch.equal(yl[:mine, 1], y.lo[ix[0]:ix[-1] + 1])
+        part = DF(yl[mine:, 0], yl[mine:, 1])
         acc = part if acc is None else df_add(acc, part)
     if n_shards == 1:
         assert torch.equal(acc.hi, y.hi[m:]) and torch.equal(acc.lo, y.lo[m:])
@@ -238,4 +240,4 @@ def test_df_shard_kernel_wrapper_refuses_cpu_tensors():
     op = DFKKTOperator(d.astype(np.float64), u, v, p, device=CPU)
     with pytest.raises(ValueError, match="CUDA"):
         df_kkt_shard_matvec_cuda(op.layout, op.d2,
-                                 torch.zeros(2, op.layout.n))
+                                 torch.zeros(op.layout.n, 2))

@@ -186,11 +186,11 @@ class DFKKTOperator:
       endpoint (K the max degree, host-built) and folds it pairwise with
       full df additions; the kernel folds each node's CSR segment.
 
-    ``matvec_df`` runs K11 (``csrc/df_kkt_matvec.cu``) on a card and
-    :meth:`plain_matvec_df`, its plain version, on the CPU. The tables are
-    built at the first plain matvec (the fused solver on a card needs
-    none); :meth:`from_f64` builds them at once, so that a hub-heavy
-    topology is refused there, as in the JAX package.
+    ``matvec_df`` runs K11 (``csrc/df_kkt_matvec.cu``, its pair instance)
+    on a card and :meth:`plain_matvec_df`, its plain version, on the CPU.
+    The tables are built at the first plain matvec (the fused solver on a
+    card needs none); :meth:`from_f64` builds them at once, so that a
+    hub-heavy topology is refused there, as in the JAX package.
     """
 
     def __init__(self, quad_costs, arc_u, arc_v, num_nodes,
@@ -266,11 +266,18 @@ class DFKKTOperator:
         return DF(torch.cat([yah, yn.hi]), torch.cat([yal, yn.lo]))
 
     def matvec_df(self, x: DF) -> DF:
+        """y = A·x: the pair K11 for CUDA planes (x stacked into (hi, lo)
+        pairs, y split back), the plain version for CPU ones."""
+        if not x.hi.is_cuda:
+            return self.plain_matvec_df(x)
         # K11's wrapper sits beside the fused df solver, which imports this
         # module
-        from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import df_kkt_matvec
-        y2 = df_kkt_matvec(self, torch.stack([x.hi, x.lo]))
-        return DF(y2[0], y2[1])
+        from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
+            df_kkt_matvec_pairs_cuda,
+        )
+        y = df_kkt_matvec_pairs_cuda(self.layout, self.d2,
+                                     torch.stack([x.hi, x.lo], -1))
+        return DF(y[:, 0], y[:, 1])
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,17 @@
 // K9 df pass one (df_lanczos_pass_one.cu) and K10 df pass two
 // (df_lanczos_pass_two.cu), which run K11's rows as a phase of every step.
 //
-// A df value is the unevaluated sum hi + lo of two floats; a df vector of
-// length n is one contiguous (2, n) array, hi plane first. The routines
-// below are the counterparts of _df_axpy, _df_scale, _df_scalar_sqrt and
-// _df_scalar_recip in two_pass_lanczos_tpu/ops/kkt_fused_df.py:118-164, in
-// their operation order, on the error-free transformations of
+// A df value is the unevaluated sum hi + lo of two floats. A df vector of
+// length n is stored in one of two layouts: planar, one contiguous (2, n)
+// array, hi plane first (every entry point's arguments, the per-step
+// references and the planar K11 they launch); or pairs, a float2 array
+// whose element i is (hi_i, lo_i) (the vectors that K9, K10, the pair K11
+// and K12 gather from: one 8-byte load, one 32-byte sector an entry, where
+// the planes take two). A layout moves values and rounds none. The
+// routines below are the counterparts of _df_axpy, _df_scale,
+// _df_scalar_sqrt and _df_scalar_recip in
+// two_pass_lanczos_tpu/ops/kkt_fused_df.py:118-164, in their operation
+// order, on the error-free transformations of
 // lanczos_common.cuh (two_sum, two_prod, df_add2, block_sum2), which K13
 // checks as exact on the card. Every operation is an explicit
 // round-to-nearest intrinsic, so nvcc can neither contract a product into a
@@ -103,30 +109,40 @@ __device__ __forceinline__ float2 df_fold_partials(const float* partials,
   return block_sum2(acc, sh, sl);
 }
 
-// How a df routine reads element i of a (hi, lo) vector, as a pair: straight
-// (K11, K12, where the compiler may take the read-only path), with
+// How a df routine reads element i of a df vector, as a pair. Each loader
+// carries its vector. Planar: straight from the two planes (the planar K11,
+// where the compiler may take the read-only path). Pairs: one 8-byte load,
+// straight through the read-only path (__ldg; the pair K11 and K12), with
 // ld.global.ca for a vector that other blocks wrote earlier in the same
 // launch (the persistent K9 and K10; see CachedLoad), or as the normalised
 // v = w (x) (1/beta) of df_scale, read straight from w (K9's matvec phase:
 // bitwise what the per-step path's rotate stores, see ScaledLoad). The
-// value, and so the arithmetic, does not depend on the load.
+// value, and so the arithmetic, depends on neither the layout nor the load.
 struct DFDirectLoad {
-  __device__ __forceinline__ float2 operator()(const float* xh,
-                                               const float* xl, int i) const {
+  const float* xh;
+  const float* xl;
+  __device__ __forceinline__ float2 operator()(int i) const {
     return make_float2(xh[i], xl[i]);
   }
 };
-struct DFCachedLoad {
-  __device__ __forceinline__ float2 operator()(const float* xh,
-                                               const float* xl, int i) const {
-    return make_float2(__ldca(xh + i), __ldca(xl + i));
+struct DFPairDirectLoad {
+  const float2* x;
+  __device__ __forceinline__ float2 operator()(int i) const {
+    return __ldg(x + i);
   }
 };
-struct DFScaledLoad {
+struct DFPairCachedLoad {
+  const float2* x;
+  __device__ __forceinline__ float2 operator()(int i) const {
+    return __ldca(x + i);
+  }
+};
+struct DFPairScaledLoad {
+  const float2* x;
   float sh, sl;  // 1/beta (or 1/||b||) as a df pair
-  __device__ __forceinline__ float2 operator()(const float* xh,
-                                               const float* xl, int i) const {
-    return df_scale(__ldca(xh + i), __ldca(xl + i), sh, sl);
+  __device__ __forceinline__ float2 operator()(int i) const {
+    const float2 w = __ldca(x + i);
+    return df_scale(w.x, w.y, sh, sl);
   }
 };
 
@@ -147,24 +163,48 @@ __device__ __forceinline__ float2 df_kkt_arc_row(float dh, float dl, float xh,
 // Node row: the node's CSR segment of +-x_a pairs, each thread folding its
 // strided share with df_add2, then the fixed tree of block_sum2. Every
 // thread of the block must call it; returns the pair in every thread. x_a
-// is read through `load` (a DF*Load above).
-template <typename Load = DFDirectLoad>
+// is read through `load` (a DF*Load above), in either layout.
+template <typename Load>
 __device__ __forceinline__ float2 df_kkt_node_row(const int* __restrict__ ptr,
                                                   const int* __restrict__ ent,
-                                                  const float* __restrict__ xh,
-                                                  const float* __restrict__ xl,
                                                   int node, float* sh,
-                                                  float* sl,
-                                                  Load load = Load()) {
+                                                  float* sl, Load load) {
   const int end = ptr[node + 1];
   float2 acc = make_float2(0.0f, 0.0f);
   for (int q = ptr[node] + threadIdx.x; q < end; q += kThreads) {
     const int a = ent[q];
-    const float2 x = load(xh, xl, a >= 0 ? a : ~a);
+    const float2 x = load(a >= 0 ? a : ~a);
     acc = a >= 0 ? df_add2(acc.x, acc.y, x.x, x.y)
                  : df_add2(acc.x, acc.y, -x.x, -x.y);
   }
   return block_sum2(acc, sh, sl);
+}
+
+// One block of the df matvec on pairs (the pair K11 and K12): x and y are
+// (m + p) pairs, d2 the planar (2, m) costs, streamed. Blocks below
+// arc_blocks form one arc row a thread; block arc_blocks + i forms node row
+// i. Planar K11 in pairs, bit for bit.
+__device__ __forceinline__ void df_kkt_pair_block(
+    const float* __restrict__ d2, const int* __restrict__ u,
+    const int* __restrict__ v, const int* __restrict__ ptr,
+    const int* __restrict__ ent, int m, int arc_blocks,
+    const float2* __restrict__ x, float2* __restrict__ y, float* sh,
+    float* sl) {
+  if (blockIdx.x < arc_blocks) {
+    const int j = blockIdx.x * kThreads + threadIdx.x;
+    if (j < m) {
+      const float2 xj = __ldg(x + j);
+      const float2 gu = __ldg(x + m + u[j]);
+      const float2 gv = __ldg(x + m + v[j]);
+      y[j] = df_kkt_arc_row(d2[j], d2[m + j], xj.x, xj.y, gu.x, gu.y, gv.x,
+                            gv.y);
+    }
+    return;  // block-uniform: arc blocks never reach block_sum2
+  }
+  const int node = blockIdx.x - arc_blocks;
+  const float2 total =
+      df_kkt_node_row(ptr, ent, node, sh, sl, DFPairDirectLoad{x});
+  if (threadIdx.x == 0) y[m + node] = total;
 }
 
 // Blocks of an elementwise grid-strided launch over n elements.

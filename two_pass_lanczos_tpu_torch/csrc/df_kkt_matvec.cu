@@ -22,12 +22,19 @@
 // product is the exact two_prod of ops/eft.py); the node part folds in
 // another order than the plain pairwise table fold.
 //
+// Two instances, bitwise equal: planar (x and y (2, n); the per-step
+// references of K9 and K10, with the gate) and pairs (x and y float2 (hi,
+// lo) arrays; DFKKTOperator's, df_kkt_pair_block, whose rows also run in
+// K12, and on whose layout K9 and K10 run these rows). The arcs draw both
+// endpoints at random, so every gathered x_a or x_n costs its own 32-byte
+// L2 sector a plane: two sectors an entry on the planes, one on pairs.
+//
 // What bounds it on the H100: at the headline (m = 500,000, p = 1,155) the
 // function moves d, u, v, x and y once, 32 m + 16 p bytes = 16.0 MB, and
 // does ~50 f32 operations per arc; the layout adds the CSR (8 m + 4 p
 // bytes). Everything stays in the 50 MB L2 inside a pass, so it is bound by
-// L2 bandwidth and launch latency; one launch, coalesced arc reads and
-// writes, gathers for the node part.
+// L2 bandwidth (the sectors of the node rows' gathers) and launch latency;
+// one launch, coalesced arc reads and writes, gathers for the node part.
 #include "df_common.cuh"
 
 namespace tpl {
@@ -59,11 +66,27 @@ df_kkt_matvec_kernel(const float* __restrict__ d2, const int* __restrict__ u,
     return;  // block-uniform: arc blocks never reach block_sum2
   }
   const int node = blockIdx.x - arc_blocks;
-  const float2 total = df_kkt_node_row(ptr, ent, xh, xl, node, sh, sl);
+  const float2 total =
+      df_kkt_node_row(ptr, ent, node, sh, sl, DFDirectLoad{xh, xl});
   if (threadIdx.x == 0) {
     y2[m + node] = total.x;
     y2[n + m + node] = total.y;
   }
+}
+
+// The pair instance: the same rows on pairs (df_kkt_pair_block), bitwise
+// the planar kernel above. It has no gate: no per-step reference runs it.
+__global__ void __launch_bounds__(kThreads)
+df_kkt_matvec_pairs_kernel(const float* __restrict__ d2,
+                           const int* __restrict__ u,
+                           const int* __restrict__ v,
+                           const int* __restrict__ ptr,
+                           const int* __restrict__ ent, int m, int arc_blocks,
+                           const float2* __restrict__ x,
+                           float2* __restrict__ y) {
+  __shared__ float sh[kThreads];
+  __shared__ float sl[kThreads];
+  df_kkt_pair_block(d2, u, v, ptr, ent, m, arc_blocks, x, y, sh, sl);
 }
 
 }  // namespace
@@ -90,4 +113,19 @@ extern "C" int tpl_df_kkt_matvec(const float* d2, const int* u, const int* v,
   return static_cast<int>(tpl::launch_df_kkt_matvec(d2, u, v, ptr, ent, m, p,
                                                     x2, y2, nullptr, 0,
                                                     stream));
+}
+
+// The pair instance: x and y (m + p) pairs, (hi_i, lo_i) at element i; d2
+// as above. Bitwise tpl_df_kkt_matvec in both planes.
+extern "C" int tpl_df_kkt_matvec_pairs(const float* d2, const int* u,
+                                       const int* v, const int* ptr,
+                                       const int* ent, int m, int p,
+                                       const float* x, float* y,
+                                       cudaStream_t stream) {
+  const int arc_blocks = (m + tpl::kThreads - 1) / tpl::kThreads;
+  tpl::df_kkt_matvec_pairs_kernel<<<arc_blocks + p, tpl::kThreads, 0,
+                                    stream>>>(
+      d2, u, v, ptr, ent, m, arc_blocks, reinterpret_cast<const float2*>(x),
+      reinterpret_cast<float2*>(y));
+  return static_cast<int>(cudaGetLastError());
 }

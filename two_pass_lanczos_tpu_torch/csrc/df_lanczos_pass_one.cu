@@ -5,9 +5,11 @@
 // hi/lo state of both arc orderings in VMEM. So does K9 on the H100:
 // df_pass_one_persistent_kernel runs the start from b and all k steps in
 // ONE cooperative launch (lanczos_persistent.cuh), on the pattern of K2's
-// pass_one_persistent_kernel (lanczos_pass_one.cu), on (2, n) hi/lo
-// vectors. A step has the two grid barriers its two dots need, and no
-// launch:
+// pass_one_persistent_kernel (lanczos_pass_one.cu). Its working vectors
+// (w's two halves, v_prev, v_curr) are (hi, lo) pairs (df_common.cuh), so
+// every element is one 8-byte access and every gathered entry one L2
+// sector; b comes in and the final state goes out in planes. A step has
+// the two grid barriers its two dots need, and no launch:
 //   phase 1  the node rows of w = A v (K11's df_kkt_node_row), each
 //            published by a release store; then the first dot's virtual
 //            blocks: an arc element rotates (v_prev = v; v = w_last (x)
@@ -19,8 +21,9 @@
 //            df partials of <w, w>
 //   then     every block folds beta (df_scalar_sqrt), takes the breakdown
 //            decision and 1/beta (df_scalar_recip)
-// The matvec gathers v as df_scale(w_last, 1/beta) (DFScaledLoad) from the
-// other half of a two-half w, so no block writes what another gathers. The
+// The matvec gathers v as df_scale(w_last, 1/beta) (DFPairScaledLoad) from
+// the other half of a two-half w (step 0: b's pairs, stored there in the
+// start), so no block writes what another gathers. The
 // dots walk the g = reduction_blocks(n) virtual blocks of the per-step
 // launches below and fold their df partials with the same
 // df_fold_partials, so alpha and beta (hi and lo), ||b||, steps and the
@@ -29,9 +32,11 @@
 // decision from the same folded beta, so all blocks leave the loop
 // together (a block that left alone would deadlock the next barrier).
 //
-// The per-step launches it replaced stay as the reference that chip_smoke.py
-// and the card tests hold it to (tpl_df_lanczos_pass_one_steps; no solve
-// reaches it): each step is a fixed sequence of launches that one C++
+// The per-step launches it replaced stay, on the planes and the planar
+// K11, as the reference that chip_smoke.py and the card tests hold it to
+// bit for bit (tpl_df_lanczos_pass_one_steps; no solve reaches it): the
+// pairs change where values lie, not one rounding. Each step is a fixed
+// sequence of launches that one C++
 // routine (enqueue_step) enqueues on the caller's stream with no host
 // synchronisation:
 //   1. the K11 df matvec           w = A v
@@ -51,13 +56,14 @@
 // cleared: 0 steps.
 //
 // What bounds it on the H100: per step the df matvec plus three passes over
-// the (2, n) vectors, ~24 MB of L2 traffic at the headline with the whole
+// the n-pair vectors, ~24 MB of L2 traffic at the headline with the whole
 // state (12 MB of vectors, 4 MB of d, 6 MB of layout) L2-resident, so like
-// K2 a step is bound by the L2, by the node rows' scattered x_a gathers and
-// by its two grid barriers, over 500 dependent steps. The df arithmetic is
-// ~10x K2's f32 operations per element, still far below the card's f32
-// rate; every df value is a pair, so a thread holds twice K2's registers
-// (hence the df passes' own cap, kDFPersistentBlocksPerSM).
+// K2 a step is bound by the L2, by the node rows' scattered x_a gathers (one
+// sector an entry on pairs, two on planes) and by its two grid barriers,
+// over 500 dependent steps. The df arithmetic is ~10x K2's f32 operations
+// per element, still far below the card's f32 rate; every df value is a
+// pair, so a thread holds twice K2's registers (hence the df passes' own
+// cap, kDFPersistentBlocksPerSM).
 #include <cstddef>
 
 #include "df_common.cuh"
@@ -248,12 +254,17 @@ struct DFPassOne {
 
 // K9's one launch: the start and k steps of the per-step launches, on one
 // resident grid (see the top of the file). Clock is PhaseClock (6 stamps a
-// step, see the loop) or NoClock (every solve).
+// step, see the loop) or NoClock (every solve). It works on pairs
+// (df_common.cuh): w's two halves and v_prev, v_curr; s.vp2 and s.vc2 get
+// the final state in planes.
 template <typename Clock>
 struct DFPersistent {
   DFPassOne s;
   const float* b2;
   int g;  // reduction_blocks(n): the dots' virtual blocks
+  float2* w;  // (2, n) pairs: this step's w in one half, the last's in the
+              // other
+  float2* v;  // (2, n) pairs: v_prev, v_curr
   Clock clock;
 };
 
@@ -281,12 +292,9 @@ df_pass_one_persistent_kernel(DFPersistent<Clock> a) {
   __shared__ float sl[kThreads];
   const DFPassOne& s = a.s;
   const CachedLoad ld;
-  const DFCachedLoad ld2;
   const int m = s.m, n = s.n, k = s.k, g = a.g;
-  float* const w = s.w2;  // (2, 2, n): this step's w in one half, the
-                          // last's in the other
-  float* const vp = s.vp2;
-  float* const vc = s.vc2;
+  float2* const vp = a.v;
+  float2* const vc = a.v + n;
   int* const ready = s.flags + 1;  // p: the step whose node row is in w
   // alpha's partials in pa, ||b||^2's and beta's in pb, each a hi and a lo
   // plane: a block may start the beta dot while another still folds
@@ -299,9 +307,13 @@ df_pass_one_persistent_kernel(DFPersistent<Clock> a) {
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   const float2 zero = make_float2(0.0f, 0.0f);
 
-  // the start: df_sq_partials_kernel, df_init_kernel, df_init_vectors_kernel
+  // the start: df_sq_partials_kernel, df_init_kernel, df_init_vectors_kernel;
+  // b's pairs go to w's second half, which step 0 gathers
+  float2* const bp = a.w + n;
   df_reduce_phase(g, n, pb, sh, sl, [&](float2 acc, int i) {
-    const float2 sq = df_square(a.b2[i], a.b2[n + i]);
+    const float bh = a.b2[i], bl = a.b2[n + i];
+    bp[i] = make_float2(bh, bl);
+    const float2 sq = df_square(bh, bl);
     return df_add2(acc.x, acc.y, sq.x, sq.y);
   });
   for (int i = first; i < 4 * k; i += stride) s.coeffs[i] = 0.0f;
@@ -312,47 +324,38 @@ df_pass_one_persistent_kernel(DFPersistent<Clock> a) {
   const bool zero_b = nb.x <= s.ztol;
   float2 inv = zero_b ? zero : df_scalar_recip(nb.x, nb.y);
   for (int i = first; i < n; i += stride) {
-    const float2 v1 = df_scale(a.b2[i], a.b2[n + i], inv.x, inv.y);
-    vc[i] = v1.x;
-    vc[n + i] = v1.y;
-    vp[i] = 0.0f;
-    vp[n + i] = 0.0f;
+    vc[i] = df_scale(a.b2[i], a.b2[n + i], inv.x, inv.y);
+    vp[i] = zero;
   }
-  // no barrier: before its first barrier, step 0 reads b, not v_prev or
-  // v_curr
+  // no barrier: before its first barrier, step 0 reads b's pairs, not
+  // v_prev or v_curr
 
   float2 beta_prev = zero, alpha = zero;
   int steps = 0;
   bool live = !zero_b;
-  const float* src = a.b2;  // this step's v is src (x) inv, a (2, n) pair
+  const float2* src = bp;  // this step's v is src (x) inv
   for (int j = 0; live && j < k; ++j) {
     // step 0's v = b (x) 1/||b|| is already in v_curr; a later step's v is
     // w (x) 1/beta_prev, and the step does the previous step's rotate
     // (df_rotate_kernel) element by element, where it first reads the
     // element
     const bool rotate = j > 0;
-    const DFScaledLoad vld{inv.x, inv.y};
-    float* const wn = w + (j & 1) * 2 * n;  // src is the other half
+    const DFPairScaledLoad vld{src, inv.x, inv.y};
+    float2* const wn = a.w + (j & 1) * n;  // src is the other half
     a.clock.stamp(j, 0);
     // 1. one phase for w = A v and the first df_sub_dot. First this block's
     //    node rows (K11's node blocks, gathering v from src): thread 0
     //    rotates the node's element, leaves the row in wn and publishes it
     const Share nodes = share_of(s.p);
     for (int node = nodes.begin; node < nodes.end; ++node) {
-      const float2 total =
-          df_kkt_node_row(s.ptr, s.ent, src, src + n, node, sh, sl, vld);
+      const float2 total = df_kkt_node_row(s.ptr, s.ent, node, sh, sl, vld);
       if (threadIdx.x == 0) {
         const int i = m + node;
         if (rotate) {
-          const float2 vci = ld2(vc, vc + n, i);
-          const float2 vn = vld(src, src + n, i);
-          vp[i] = vci.x;
-          vp[n + i] = vci.y;
-          vc[i] = vn.x;
-          vc[n + i] = vn.y;
+          vp[i] = __ldca(vc + i);
+          vc[i] = vld(i);
         }
-        wn[i] = total.x;
-        wn[n + i] = total.y;
+        wn[i] = total;
         publish(ready + node, j + 1);
       }
     }
@@ -366,28 +369,25 @@ df_pass_one_persistent_kernel(DFPersistent<Clock> a) {
     df_reduce_phase(g, n, pa, sh, sl, [&](float2 acc, int i) {
       float2 y, vpi, vci;
       if (i < m) {
-        vci = vld(src, src + n, i);
-        vpi = rotate ? ld2(vc, vc + n, i) : zero;
+        vci = vld(i);
+        vpi = rotate ? __ldca(vc + i) : zero;
         if (rotate) {
-          vp[i] = vpi.x;
-          vp[n + i] = vpi.y;
-          vc[i] = vci.x;
-          vc[n + i] = vci.y;
+          vp[i] = vpi;
+          vc[i] = vci;
         }
-        const float2 gu = vld(src, src + n, m + s.u[i]);
-        const float2 gv = vld(src, src + n, m + s.v[i]);
+        const float2 gu = vld(m + s.u[i]);
+        const float2 gv = vld(m + s.v[i]);
         y = df_kkt_arc_row(s.d2[i], s.d2[m + i], vci.x, vci.y, gu.x, gu.y,
                            gv.x, gv.y);
       } else {
         wait_for(ready + (i - m), j + 1);
-        vpi = rotate ? ld2(vp, vp + n, i) : zero;
-        vci = rotate ? ld2(vc, vc + n, i) : vld(src, src + n, i);
-        y = ld2(wn, wn + n, i);
+        vpi = rotate ? __ldca(vp + i) : zero;
+        vci = rotate ? __ldca(vc + i) : vld(i);
+        y = __ldca(wn + i);
       }
       const float2 wi = df_axpy(y.x, y.y, beta_prev.x, beta_prev.y, vpi.x,
                                 vpi.y);
-      wn[i] = wi.x;
-      wn[n + i] = wi.y;
+      wn[i] = wi;
       const float2 pr = df_prod(vci.x, vci.y, wi.x, wi.y);
       return df_add2(acc.x, acc.y, pr.x, pr.y);
     });
@@ -402,11 +402,10 @@ df_pass_one_persistent_kernel(DFPersistent<Clock> a) {
       s.coeffs[k + j] = alpha.y;
     }
     df_reduce_phase(g, n, pb, sh, sl, [&](float2 acc, int i) {
-      const float2 wo = ld2(wn, wn + n, i);
-      const float2 vci = ld2(vc, vc + n, i);
+      const float2 wo = __ldca(wn + i);
+      const float2 vci = __ldca(vc + i);
       const float2 wi = df_axpy(wo.x, wo.y, alpha.x, alpha.y, vci.x, vci.y);
-      wn[i] = wi.x;
-      wn[n + i] = wi.y;
+      wn[i] = wi;
       const float2 sq = df_square(wi.x, wi.y);
       return df_add2(acc.x, acc.y, sq.x, sq.y);
     });
@@ -430,15 +429,17 @@ df_pass_one_persistent_kernel(DFPersistent<Clock> a) {
     inv = df_scalar_recip(beta.x, beta.y);
     src = wn;
   }
-  if (live) {  // the last step's rotate
-    for (int i = first; i < n; i += stride) {
-      const float2 vn = df_scale(ld(src + i), ld(src + n + i), inv.x, inv.y);
-      const float2 vci = ld2(vc, vc + n, i);
-      vp[i] = vci.x;
-      vp[n + i] = vci.y;
-      vc[i] = vn.x;
-      vc[n + i] = vn.y;
-    }
+  // the state in planes, as the per-step launches leave it: after the last
+  // step's rotate (df_rotate_kernel) while live, else as the loop left it
+  const DFPairScaledLoad last{src, inv.x, inv.y};
+  for (int i = first; i < n; i += stride) {
+    const float2 vci = __ldca(vc + i);
+    const float2 vpo = live ? vci : __ldca(vp + i);
+    const float2 vco = live ? last(i) : vci;
+    s.vp2[i] = vpo.x;
+    s.vp2[n + i] = vpo.y;
+    s.vc2[i] = vco.x;
+    s.vc2[n + i] = vco.y;
   }
   if (lead) {  // the outputs the per-step launches leave behind
     s.bnorm2[0] = nb.x;
@@ -450,12 +451,14 @@ df_pass_one_persistent_kernel(DFPersistent<Clock> a) {
 
 // K9's cooperative launch, built with the phase timer or without it.
 template <typename Clock>
-cudaError_t launch_pass_one(const DFPassOne& s, const float* b2, Clock clock,
-                            cudaStream_t stream) {
+cudaError_t launch_pass_one(const DFPassOne& s, const float* b2, float* pairs,
+                            Clock clock, cudaStream_t stream) {
   return launch_persistent(
       df_pass_one_persistent_kernel<Clock>,
-      DFPersistent<Clock>{s, b2, reduction_blocks(s.n), clock}, stream,
-      kDFPersistentBlocksPerSM);
+      DFPersistent<Clock>{s, b2, reduction_blocks(s.n),
+                          reinterpret_cast<float2*>(s.w2),
+                          reinterpret_cast<float2*>(pairs), clock},
+      stream, kDFPersistentBlocksPerSM);
 }
 
 cudaError_t enqueue_start(const DFPassOne& s, const float* b2,
@@ -503,17 +506,18 @@ cudaError_t enqueue_step(const DFPassOne& s, int j, int* matvec_launches,
 // allocates nothing and does not synchronise; it returns the error of its
 // launches.
 
-// K9: one cooperative launch. Scratch besides: w2 (2 x 2 x n: two halves),
-// partials (4 * tpl::kMaxPartials: alpha's hi and lo planes, then beta's),
-// flags (1 + p ints). clock: the phase timer's stamps ((8, grid, 6) int64,
+// K9: one cooperative launch, on pairs inside. Scratch besides: w2 (2 x n
+// pairs: two halves), pairs (2 x n pairs: v_prev, v_curr), partials (4 *
+// tpl::kMaxPartials: alpha's hi and lo planes, then beta's), flags (1 + p
+// ints). clock: the phase timer's stamps ((8, grid, 6) int64,
 // tpl::PhaseClock), or nullptr (every solve: the build without the timer).
 // *matvec_launches counts the k matvec phases inside the launch.
 extern "C" int tpl_df_lanczos_pass_one(
     const float* d2, const int* u, const int* v, const int* ptr,
     const int* ent, int m, int p, const float* b2, int k, float tol,
     float ztol, float* coeffs, float* bnorm2, int* steps, float* v_prev2,
-    float* v_curr2, float* w2, float* partials, int* flags, long long* clock,
-    int* matvec_launches, cudaStream_t stream) {
+    float* v_curr2, float* w2, float* pairs, float* partials, int* flags,
+    long long* clock, int* matvec_launches, cudaStream_t stream) {
   *matvec_launches = 0;
   const tpl::DFPassOne s{d2,     u,       v,       ptr,     ent,      m,
                          p,      m + p,   k,       tol,     ztol,     coeffs,
@@ -521,9 +525,9 @@ extern "C" int tpl_df_lanczos_pass_one(
                          nullptr, flags};
   const cudaError_t err =
       clock == nullptr
-          ? tpl::launch_pass_one(s, b2, tpl::NoClock{}, stream)
-          : tpl::launch_pass_one(s, b2, tpl::PhaseClock{clock, k / 2, 6},
-                                 stream);
+          ? tpl::launch_pass_one(s, b2, pairs, tpl::NoClock{}, stream)
+          : tpl::launch_pass_one(s, b2, pairs,
+                                 tpl::PhaseClock{clock, k / 2, 6}, stream);
   if (err == cudaSuccess) *matvec_launches = k;
   return static_cast<int>(err);
 }

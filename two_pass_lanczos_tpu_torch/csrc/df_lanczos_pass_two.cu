@@ -23,11 +23,15 @@
 //   w_i -= beta_prev v_prev_i; w_i -= alpha v_i; v_next = w_i (x) 1/beta;
 //   x_i += y_{j+1} (x) v_next
 // v_next overwrites v_prev_i, which no other block reads in the step (the
-// matvec gathers v only), and v_prev and v_curr swap roles by pointer. The
-// rows keep K11's arithmetic and the update df_step_kernel's, so x and the
-// final state are bitwise those of the two launches a step it replaced,
-// which stay as the reference that chip_smoke.py and the card tests hold it
-// to (tpl_df_lanczos_pass_two_steps; no solve reaches it).
+// matvec gathers v only), and v_prev and v_curr swap roles by pointer.
+// v_prev, v_curr and x are (hi, lo) pairs (df_common.cuh): an element is
+// one 8-byte access and a gathered entry one L2 sector; b is read and x
+// and the state are written in planes, once a pass. The rows keep K11's
+// arithmetic and the update df_step_kernel's, so x and the final state are
+// bitwise those of the two launches a step it replaced, which stay, on the
+// planes and the planar K11, as the reference that chip_smoke.py and the
+// card tests hold it to (tpl_df_lanczos_pass_two_steps; no solve reaches
+// it).
 //
 // What bounds it on the H100: per step one df matvec, whose node rows gather
 // v from all over the 50 MB L2, and the update's stream over the v_prev, v
@@ -115,6 +119,7 @@ struct DFPassTwo {
   float* x2;            // (2, n)
   float* vp2;           // (2, n)
   float* vc2;           // (2, n)
+  float2* pairs;        // (3, n) pairs: v_prev, v_curr, x
 };
 
 // K10's one launch. Clock is PhaseClock (4 stamps a step, see the loop) or
@@ -131,12 +136,12 @@ df_pass_two_persistent_kernel(DFPersistentTwo<Clock> a) {
   __shared__ float sh[kThreads];
   __shared__ float sl[kThreads];
   const DFPassTwo& s = a.s;
-  const DFCachedLoad ld2;
   const int m = s.m, n = s.n, k = s.k;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
+  float2* const x = s.pairs + 2 * n;
 
-  // df_init_kernel
+  // df_init_kernel, from the planes of b into pairs
   const bool zero_b = s.bnorm2[0] <= s.ztol;
   const float2 r = df_scalar_recip(zero_b ? 1.0f : s.bnorm2[0], s.bnorm2[1]);
   const float ih = zero_b ? 0.0f : r.x;
@@ -145,21 +150,17 @@ df_pass_two_persistent_kernel(DFPersistentTwo<Clock> a) {
   const float y0l = s.y2[k];
   for (int i = first; i < n; i += stride) {
     const float2 v1 = df_scale(s.b2[i], s.b2[n + i], ih, il);
-    const float2 x0 = df_scale(v1.x, v1.y, y0h, y0l);
-    s.vc2[i] = v1.x;
-    s.vc2[n + i] = v1.y;
-    s.vp2[i] = 0.0f;
-    s.vp2[n + i] = 0.0f;
-    s.x2[i] = x0.x;
-    s.x2[n + i] = x0.y;
+    s.pairs[n + i] = v1;
+    s.pairs[i] = make_float2(0.0f, 0.0f);
+    x[i] = df_scale(v1.x, v1.y, y0h, y0l);
   }
   const int steps = s.steps[0];
   grid_sync();
 
   // v_prev and v_curr swap roles every step: element i's update writes
   // v_{j+2} over its v_j, which no other block reads in that step
-  float* prev = s.vp2;
-  float* cur = s.vc2;
+  float2* prev = s.pairs;
+  float2* cur = s.pairs + n;
   for (int j = 0; j + 1 < k && j + 1 < steps; ++j) {
     const float ah = s.coeffs[j];
     const float al = s.coeffs[k + j];
@@ -170,29 +171,26 @@ df_pass_two_persistent_kernel(DFPersistentTwo<Clock> a) {
     const float2 ib = df_scalar_recip(bjh > 0.0f ? bjh : 1.0f, bjl);
     const float ynh = s.y2[j + 1];
     const float ynl = s.y2[k + j + 1];
+    const DFPairCachedLoad vld{cur};
     a.clock.stamp(j, 0);
     // df_step_kernel's update of element i, given row i of w = A v
     const auto update = [&](int i, float2 wi) {
-      const float2 vi = ld2(cur, cur + n, i);
-      const float2 vpi = ld2(prev, prev + n, i);
+      const float2 vi = vld(i);
+      const float2 vpi = __ldca(prev + i);
       float2 w = df_axpy(wi.x, wi.y, bph, bpl, vpi.x, vpi.y);
       w = df_axpy(w.x, w.y, ah, al, vi.x, vi.y);
       const float2 vn = df_scale(w.x, w.y, ib.x, ib.y);
       const float2 pr = df_prod(vn.x, vn.y, ynh, ynl);
-      const float2 xi = ld2(s.x2, s.x2 + n, i);
-      const float2 xn = df_add2(xi.x, xi.y, pr.x, pr.y);
-      s.x2[i] = xn.x;
-      s.x2[n + i] = xn.y;
-      prev[i] = vn.x;
-      prev[n + i] = vn.y;
+      const float2 xi = __ldca(x + i);
+      x[i] = df_add2(xi.x, xi.y, pr.x, pr.y);
+      prev[i] = vn;
     };
     // K11's blocks as virtual blocks: this block's share of the node rows
     // (the heavy ones) first, then its share of the arc blocks; each row of
     // A v is updated where it is formed
     const Share nodes = share_of(s.p);
     for (int node = nodes.begin; node < nodes.end; ++node) {
-      const float2 total =
-          df_kkt_node_row(s.ptr, s.ent, cur, cur + n, node, sh, sl, ld2);
+      const float2 total = df_kkt_node_row(s.ptr, s.ent, node, sh, sl, vld);
       if (threadIdx.x == 0) update(m + node, total);
     }
     a.clock.stamp(j, 1);
@@ -200,9 +198,9 @@ df_pass_two_persistent_kernel(DFPersistentTwo<Clock> a) {
     for (int ab = arcs.begin; ab < arcs.end; ++ab) {
       const int i = ab * kThreads + threadIdx.x;
       if (i < m) {
-        const float2 xi = ld2(cur, cur + n, i);
-        const float2 gu = ld2(cur, cur + n, m + s.u[i]);
-        const float2 gv = ld2(cur, cur + n, m + s.v[i]);
+        const float2 xi = vld(i);
+        const float2 gu = vld(m + s.u[i]);
+        const float2 gv = vld(m + s.v[i]);
         update(i, df_kkt_arc_row(s.d2[i], s.d2[m + i], xi.x, xi.y, gu.x,
                                  gu.y, gv.x, gv.y));
       }
@@ -210,16 +208,22 @@ df_pass_two_persistent_kernel(DFPersistentTwo<Clock> a) {
     a.clock.stamp(j, 2);
     grid_sync();
     a.clock.stamp(j, 3);
-    float* const t = prev;
+    float2* const t = prev;
     prev = cur;
     cur = t;
   }
-  if (cur != s.vc2) {  // an odd number of steps: name the state as the caller
-    for (int i = first; i < 2 * n; i += stride) {
-      const float v = __ldca(s.vp2 + i);
-      s.vp2[i] = __ldca(s.vc2 + i);
-      s.vc2[i] = v;
-    }
+  // x and the state in planes, named as the caller reads them (v_curr2
+  // holds v_{steps_taken})
+  for (int i = first; i < n; i += stride) {
+    const float2 xi = __ldca(x + i);
+    const float2 vpi = __ldca(prev + i);
+    const float2 vci = __ldca(cur + i);
+    s.x2[i] = xi.x;
+    s.x2[n + i] = xi.y;
+    s.vp2[i] = vpi.x;
+    s.vp2[n + i] = vpi.y;
+    s.vc2[i] = vci.x;
+    s.vc2[n + i] = vci.y;
   }
 }
 
@@ -243,21 +247,24 @@ cudaError_t launch_pass_two(const DFPassTwo& s, Clock clock,
 // v_{steps_taken}. Each entry point allocates nothing and does not
 // synchronise; it returns the error of its launches.
 
-// K10: one cooperative launch. clock: the phase timer's stamps ((8, grid, 4)
-// int64, tpl::PhaseClock), or nullptr (every solve: the build without the
-// timer). *matvec_launches counts the k - 1 matvec phases of the launch,
-// each gated on steps_taken.
+// K10: one cooperative launch, on pairs inside. Scratch besides: pairs (3 x
+// n pairs: v_prev, v_curr, x). clock: the phase timer's stamps ((8, grid,
+// 4) int64, tpl::PhaseClock), or nullptr (every solve: the build without
+// the timer). *matvec_launches counts the k - 1 matvec phases of the
+// launch, each gated on steps_taken.
 extern "C" int tpl_df_lanczos_pass_two(
     const float* d2, const int* u, const int* v, const int* ptr,
     const int* ent, int m, int p, const float* b2, int k, float ztol,
     const float* coeffs, const float* y2, const float* bnorm2,
     const int* steps, float* x2, float* v_prev2, float* v_curr2,
-    long long* clock, int* matvec_launches, cudaStream_t stream) {
+    float* pairs, long long* clock, int* matvec_launches,
+    cudaStream_t stream) {
   using namespace tpl;
   *matvec_launches = 0;
   const DFPassTwo s{d2, u, v, ptr, ent, m, p, m + p, k,
                     (m + kThreads - 1) / kThreads, ztol, b2, coeffs,
-                    y2, bnorm2, steps, x2, v_prev2, v_curr2};
+                    y2, bnorm2, steps, x2, v_prev2, v_curr2,
+                    reinterpret_cast<float2*>(pairs)};
   const cudaError_t err =
       clock == nullptr
           ? launch_pass_two(s, NoClock{}, stream)

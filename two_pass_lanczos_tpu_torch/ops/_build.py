@@ -18,13 +18,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_log", "sass_digests", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -82,12 +83,15 @@ _SIGNATURES = {
     # the double-float kernels (csrc/df_*.cu): d2, u, v, ptr, ent, m, p, ...
     # ... x2, y2, stream
     "tpl_df_kkt_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
-    # the same arguments over one shard's layout and local pairs
+    # the same arguments, x and y as (hi, lo) pairs (the pair instance)
+    "tpl_df_kkt_matvec_pairs": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # the same arguments over one shard's layout and local (hi, lo) pairs
     "tpl_df_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # ... b2, k, tol, ztol, coeffs, bnorm2, steps, v_prev2, v_curr2, w2,
-    # partials, flags, clock, *matvec_launches, stream (K9, persistent)
+    # pairs, partials, flags, clock, *matvec_launches, stream (K9,
+    # persistent)
     "tpl_df_lanczos_pass_one": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,
-                                _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 ctypes.POINTER(_I), _P],
     # ... b2, k, tol, ztol, coeffs, bnorm2, steps, v_prev2, v_curr2, w2,
     # partials, scal, flags, *matvec_launches, stream (the per-step launches)
@@ -95,9 +99,9 @@ _SIGNATURES = {
                                       _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       ctypes.POINTER(_I), _P],
     # ... b2, k, ztol, coeffs, y2, bnorm2, steps, x2, v_prev2, v_curr2,
-    # clock, *matvec_launches, stream (K10, persistent)
+    # pairs, clock, *matvec_launches, stream (K10, persistent)
     "tpl_df_lanczos_pass_two": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F,
-                                _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 ctypes.POINTER(_I), _P],
     # ... b2, k, ztol, coeffs, y2, bnorm2, steps, x2, v_prev2, v_curr2, w2,
     # *matvec_launches, stream (the per-step launches)
@@ -216,3 +220,57 @@ def build_log() -> str:
     cu, cuh = _sources()
     log = BUILD_ROOT / _key(cu + cuh) / "build.log"
     return log.read_text() if log.is_file() else ""
+
+
+def sass_digests(lib=None) -> dict:
+    """``{kernel: digest}`` of every kernel in a built library (the current
+    sources' by default): the first 16 hex digits of the sha256 of its SASS
+    as ``cuobjdump -sass`` prints it, so that two builds can be compared
+    kernel by kernel. Only instruction and label lines count, and what
+    depends on the build and not on the kernel is taken out: an anonymous
+    namespace's name becomes ``{<file>_cu}`` (nvcc hashes the source's path
+    into it), branch labels are numbered within each kernel (cuobjdump
+    numbers them across the file), runs of blanks count as one (cuobjdump
+    pads its columns to the file's widest line), and a call keeps its
+    target's name but
+    not its encoding (the offset to a subroutine the file's kernels share,
+    such as the division's slow path, moves with the other kernels). Empty
+    where the toolkit has no ``cuobjdump`` or it fails."""
+    if lib is None:
+        cu, cuh = _sources()
+        lib = BUILD_ROOT / _key(cu + cuh) / LIB_NAME
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return {}
+    proc = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        return {}
+    text = proc.stdout
+    out, name, body, call = {}, None, [], False
+
+    def close():
+        if name is not None:
+            labels = {}
+            text = re.sub(r"\.L_x_\d+", lambda hit: labels.setdefault(
+                hit.group(0), f".L{len(labels)}"), "\n".join(body))
+            out[name] = hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    for line in text.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            close()
+            name, body = re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+_cu)_"
+                                r"[0-9a-f]{8}", r"{\1}", func.group(1)), []
+        elif name is not None and re.match(
+                r"\s*(/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/|\.L_x_)", line):
+            # instructions (and the second word of their encoding) and labels
+            if call and line.lstrip().startswith("/* 0x"):
+                call = False  # the call's second word
+                continue
+            call = " CALL" in line
+            if call:
+                line = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", line)
+            body.append(" ".join(line.split()))
+    close()
+    return out

@@ -90,7 +90,8 @@ LAUNCHES = {"kkt_matvec": 0, "kkt_matvec_in_pass": 0,
             "lanczos_pass_one_comp": 0, "lanczos_pass_one_steps": 0,
             "eft_check": 0,
             "kkt_streaming_matvec": 0, "kkt_operator_matvec": 0,
-            "df_kkt_matvec": 0, "df_kkt_matvec_in_pass": 0,
+            "df_kkt_matvec": 0, "df_kkt_matvec_pairs": 0,
+            "df_kkt_matvec_in_pass": 0,
             "df_lanczos_pass_one": 0, "df_lanczos_pass_two": 0,
             "df_lanczos_pass_one_steps": 0, "df_lanczos_pass_two_steps": 0,
             "df_kkt_streaming_matvec": 0,

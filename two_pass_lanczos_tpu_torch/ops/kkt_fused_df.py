@@ -12,16 +12,27 @@ The TPU kernels held both sorted arc orderings in VMEM with 128-lane
 padding and 256-node scatter windows; the port keeps the f32 solver's
 Hopper layout (:class:`~two_pass_lanczos_tpu_torch.ops.kkt_fused.KKTLayout`:
 arcs in their original order plus a node-sorted incidence CSR) with the
-costs as a ``(2, m)`` hi/lo tensor, and every df vector as one ``(2, n)``
-tensor, hi plane first. The kernels (``csrc/df_*.cu``):
+costs as a ``(2, m)`` hi/lo tensor. A df vector at the Python boundary is
+one ``(2, n)`` tensor, hi plane first ("planar"). A vector that a kernel
+gathers from is ``(n, 2)``, (hi, lo) pairs: one 8-byte load and one L2
+sector an entry, where the planes take two. The kernels
+(``csrc/df_*.cu``):
 
-* K11 ``df_kkt_matvec.cu`` — one df ``y = A·x`` (:func:`df_kkt_matvec`);
-* K9 ``df_lanczos_pass_one.cu`` — pass one, α, β and ‖b‖ as df pairs;
+* K11 ``df_kkt_matvec.cu`` — one df ``y = A·x``, planar
+  (:func:`df_kkt_matvec`; the per-step references launch this instance)
+  and on pairs (:func:`df_kkt_matvec_pairs_cuda`, ``DFKKTOperator``'s on a
+  card), bitwise equal;
+* K9 ``df_lanczos_pass_one.cu`` — pass one, α, β and ‖b‖ as df pairs; its
+  w halves, v_prev and v_curr are pairs in its scratch;
 * K10 ``df_lanczos_pass_two.cu`` — the replay from the stored df β and the
-  df accumulation of x; its hi and lo basis are bitwise pass one's;
+  df accumulation of x; its hi and lo basis are bitwise pass one's; its
+  v_prev, v_curr and x are pairs in its scratch;
 * K12 ``df_kkt_shard_matvec.cu`` — one shard's df matvec with its df node
-  partial (:func:`df_kkt_shard_matvec`), for the sharded df solver
-  (``parallel/fused_sharded_df.py``).
+  partial, on pairs (:func:`df_kkt_shard_matvec`), for the sharded df
+  solver (``parallel/fused_sharded_df.py``).
+
+b comes in planar and x and the final state go out planar: K9 and K10 read
+and write the planes once a pass, never a copy a step.
 
 K9 and K10 are each ONE persistent cooperative launch
 (``csrc/lanczos_persistent.cuh``, as K2 and K3) that runs K11's rows as a
@@ -35,7 +46,8 @@ does not take; on the CPU the solver runs the plain versions,
 ``algorithms/df.py``'s passes over ``DFKKTOperator.plain_matvec_df``.
 ``LAUNCHES`` (``ops/kkt_fused.py``) counts each kernel's launches; K9 and
 K10 count their matvec phases as ``df_kkt_matvec_in_pass`` (they launch no
-K11), the per-step reference its K11 launches as ``df_kkt_matvec``.
+K11), the per-step reference its (planar) K11 launches as
+``df_kkt_matvec``, the pair K11 its own as ``df_kkt_matvec_pairs``.
 
 Not ported, as for the f32 solver: the VMEM admission (``MAX_ARCS``,
 ``VMEM_BUDGET``, ``pass_vmem_bytes``), ``windowed``, ``interpret`` and the
@@ -75,7 +87,8 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
 )
 
 __all__ = ["DFFusedKKTSolver", "DF_BREAKDOWN_TOL", "df_kkt_matvec",
-           "df_kkt_matvec_cuda", "df_kkt_shard_matvec",
+           "df_kkt_matvec_cuda", "df_kkt_matvec_pairs_cuda",
+           "df_kkt_shard_matvec",
            "df_kkt_shard_matvec_cuda", "df_pass_one_cuda",
            "df_pass_two_cuda", "df_pass_one_steps_cuda",
            "df_pass_two_steps_cuda", "DFPassOneScratch",
@@ -117,6 +130,21 @@ def df_kkt_matvec_cuda(lay: KKTLayout, d2: torch.Tensor,
     return y2
 
 
+def df_kkt_matvec_pairs_cuda(lay: KKTLayout, d2: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """The pair K11 (``csrc/df_kkt_matvec.cu``): ``y = A·x`` for an (n, 2)
+    CUDA x of (hi, lo) pairs; returns y as (n, 2), bitwise the planar
+    :func:`df_kkt_matvec_cuda` of the same values."""
+    args = _df_layout_args(lay, d2)
+    _need(x, (lay.n, 2), torch.float32, lay.d.device, "x")
+    lib = load_library()
+    y = torch.empty_like(x)
+    code = lib.tpl_df_kkt_matvec_pairs(*args, _ptr(x), _ptr(y), _stream())
+    _check(lib, code, "df_kkt_matvec_pairs")
+    LAUNCHES["df_kkt_matvec_pairs"] += 1
+    return y
+
+
 def df_kkt_matvec(op: DFKKTOperator, x2: torch.Tensor) -> torch.Tensor:
     """One df ``y = A·x`` for a (2, n) hi/lo x: K11 for a CUDA x, the plain
     pairwise table fold (``op.plain_matvec_df``) for a CPU x."""
@@ -127,30 +155,31 @@ def df_kkt_matvec(op: DFKKTOperator, x2: torch.Tensor) -> torch.Tensor:
 
 
 def df_kkt_shard_matvec_cuda(lay: KKTLayout, d2: torch.Tensor,
-                             x2: torch.Tensor) -> torch.Tensor:
+                             x: torch.Tensor) -> torch.Tensor:
     """K12 (``csrc/df_kkt_shard_matvec.cu``): one shard's df matvec for its
     CUDA layout (arcs over the global node ids), its (2, m_d) costs and the
-    local (2, m_d + p) pair ``[x_a of the shard, x_n]``; returns ``[y_a,
-    s]`` as (2, m_d + p), s the shard's df node partial. With one shard it
-    is bitwise K11."""
+    local ``[x_a of the shard, x_n]`` as (m_d + p, 2) (hi, lo) pairs;
+    returns ``[y_a, s]`` as (m_d + p, 2) pairs, s the shard's df node
+    partial. With one shard it is bitwise K11."""
     args = _df_layout_args(lay, d2)
-    _need(x2, (2, lay.n), torch.float32, lay.d.device, "x2")
+    _need(x, (lay.n, 2), torch.float32, lay.d.device, "x")
     lib = load_library()
-    y2 = torch.empty_like(x2)
-    code = lib.tpl_df_kkt_shard_matvec(*args, _ptr(x2), _ptr(y2), _stream())
+    y = torch.empty_like(x)
+    code = lib.tpl_df_kkt_shard_matvec(*args, _ptr(x), _ptr(y), _stream())
     _check(lib, code, "df_kkt_shard_matvec")
     LAUNCHES["df_kkt_streaming_matvec"] += 1
-    return y2
+    return y
 
 
-def df_kkt_shard_matvec(op: DFKKTOperator, x2: torch.Tensor) -> torch.Tensor:
-    """One shard's df matvec for a (2, m_d + p) local pair, ``op`` the
-    shard's :class:`DFKKTOperator`: K12 for a CUDA x, the plain pairwise
-    table fold over the shard (``op.plain_matvec_df``) for a CPU x."""
-    if x2.is_cuda:
-        return df_kkt_shard_matvec_cuda(op.layout, op.d2, x2.contiguous())
-    y = op.plain_matvec_df(DF(x2[0], x2[1]))
-    return torch.stack([y.hi, y.lo])
+def df_kkt_shard_matvec(op: DFKKTOperator, x: torch.Tensor) -> torch.Tensor:
+    """One shard's df matvec for the local vector as (m_d + p, 2) (hi, lo)
+    pairs, ``op`` the shard's :class:`DFKKTOperator`; returns (m_d + p, 2)
+    pairs: K12 for a CUDA x, the plain pairwise table fold over the shard
+    (``op.plain_matvec_df``) for a CPU x."""
+    if x.is_cuda:
+        return df_kkt_shard_matvec_cuda(op.layout, op.d2, x.contiguous())
+    y = op.plain_matvec_df(DF(x[:, 0], x[:, 1]))
+    return torch.stack([y.hi, y.lo], -1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,25 +187,26 @@ class DFPassOneScratch:
     """Pass one's scratch, as its entry point takes it
     (``csrc/df_lanczos_pass_one.cu``)."""
 
-    w2: torch.Tensor  # (2, n); (2, 2, n) for K9: this step's w, the last's
+    w2: torch.Tensor  # (2, n) planar; K9: (2, n, 2), two halves of pairs
     partials: torch.Tensor  # (2 * MAX_PARTIALS,); K9: (4 * MAX_PARTIALS,)
     flags: torch.Tensor  # (1,) int32: live; (1 + p,) for K9: node-row tags
     scal: Optional[torch.Tensor]  # (6,) f32 per-step only: β, α, 1/β pairs
+    pairs: Optional[torch.Tensor]  # K9 only: (2, n, 2) v_prev, v_curr pairs
 
     @classmethod
     def alloc(cls, lay: KKTLayout, persistent: bool) -> "DFPassOneScratch":
-        """``persistent``: K9's scratch, two halves of w, α's and β's df
-        partial planes apart, and the node rows' hand-over tags; the
-        per-step launches need one w, one pair of planes, the scalars and
-        the live flag."""
+        """``persistent``: K9's scratch, two halves of w and v_prev, v_curr
+        as (hi, lo) pairs, α's and β's df partial planes apart, and the node
+        rows' hand-over tags; the per-step launches need one planar w, one
+        pair of planes, the scalars and the live flag."""
         dev = lay.d.device
         f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
-        halves = (2,) if persistent else ()
-        return cls(w2=f32((*halves, 2, lay.n)),
+        return cls(w2=f32((2, lay.n, 2) if persistent else (2, lay.n)),
                    partials=f32((4 if persistent else 2) * MAX_PARTIALS),
                    flags=torch.empty(1 + lay.p if persistent else 1,
                                      dtype=torch.int32, device=dev),
-                   scal=None if persistent else f32(6))
+                   scal=None if persistent else f32(6),
+                   pairs=f32((2, lay.n, 2)) if persistent else None)
 
 
 def _df_pass_one(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor, k: int,
@@ -196,16 +226,17 @@ def _df_pass_one(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor, k: int,
     lib = load_library()
     mv = ctypes.c_int(0)
     head = (*args, _ptr(b2), k, tol, ztol, _ptr(coeffs), _ptr(bnorm2),
-            _ptr(steps), _ptr(state[0]), _ptr(state[1]), _ptr(sc.w2),
-            _ptr(sc.partials))
+            _ptr(steps), _ptr(state[0]), _ptr(state[1]), _ptr(sc.w2))
     if persistent:
         code = lib.tpl_df_lanczos_pass_one(
-            *head, _ptr(sc.flags), _clock_ptr(clock, "df_lanczos_pass_one"),
-            ctypes.byref(mv), _stream())
+            *head, _ptr(sc.pairs), _ptr(sc.partials), _ptr(sc.flags),
+            _clock_ptr(clock, "df_lanczos_pass_one"), ctypes.byref(mv),
+            _stream())
         name, matvecs = "df_lanczos_pass_one", "df_kkt_matvec_in_pass"
     else:
         code = lib.tpl_df_lanczos_pass_one_steps(
-            *head, _ptr(sc.scal), _ptr(sc.flags), ctypes.byref(mv), _stream())
+            *head, _ptr(sc.partials), _ptr(sc.scal), _ptr(sc.flags),
+            ctypes.byref(mv), _stream())
         name, matvecs = "df_lanczos_pass_one_steps", "df_kkt_matvec"
     LAUNCHES[matvecs] += mv.value
     _check(lib, code, name)
@@ -259,9 +290,10 @@ def _df_pass_two(lay: KKTLayout, d2: torch.Tensor, b2: torch.Tensor,
     head = (*args, _ptr(b2), k, ztol, _ptr(c4), _ptr(y2), _ptr(bnorm2),
             _ptr(steps), _ptr(x2), _ptr(state[0]), _ptr(state[1]))
     if persistent:
+        pairs = torch.empty((3, n, 2), dtype=torch.float32, device=dev)
         code = lib.tpl_df_lanczos_pass_two(
-            *head, _clock_ptr(clock, "df_lanczos_pass_two"), ctypes.byref(mv),
-            _stream())
+            *head, _ptr(pairs), _clock_ptr(clock, "df_lanczos_pass_two"),
+            ctypes.byref(mv), _stream())
         name, matvecs = "df_lanczos_pass_two", "df_kkt_matvec_in_pass"
     else:
         w2 = torch.empty((2, n), dtype=torch.float32, device=dev)

@@ -8,7 +8,8 @@ in the double-float arithmetic of ``ops/kkt_fused_df.py``.
   :class:`~two_pass_lanczos_tpu_torch.algorithms.df.DFKKTOperator` over the
   *global* node ids (the f32 solver's Hopper layout, d as a (2, m_d) hi/lo
   pair); its local vector is the (2, m_d + p) pair ``[x_a of its arcs,
-  x_n]``.
+  x_n]``, which each matvec hands K12 as (m_d + p, 2) (hi, lo) pairs (one
+  copy a call, as the planes took).
 * Each matvec runs K12 over the shard (its plain version on the CPU): the
   arc outputs are local, the node output is the shard's df partial of
   E·x_a. A plain f32 sum of df partials would re-round them to f32, so
@@ -141,10 +142,10 @@ class DFShardedFusedKKTSolver:
         CPU), then the df node partials folded across ranks in place of
         y_n. The df passes call it as their operator's matvec."""
         m = self.m_d
-        y2 = df_kkt_shard_matvec(self.op, torch.stack([x.hi, x.lo]))
-        s = df_gather_fold(y2[0, m:], y2[1, m:], self.mesh)
-        y2[0, m:], y2[1, m:] = s.hi, s.lo
-        return DF(y2[0], y2[1])
+        y = df_kkt_shard_matvec(self.op, torch.stack([x.hi, x.lo], -1))
+        s = df_gather_fold(y[m:, 0], y[m:, 1], self.mesh)
+        y[m:, 0], y[m:, 1] = s.hi, s.lo
+        return DF(y[:, 0], y[:, 1])
 
     def _dot(self, a: DF, b: DF) -> DF:
         """⟨a, b⟩ in double-float over the whole vector: the arc partials

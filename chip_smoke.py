@@ -161,10 +161,29 @@ Phases (each one raises on failure, so the exit code is non-zero):
     kernel, x finite, pass two's v_s bitwise pass one's, α, β at k = 20
     within rtol 1e-4 of the generic ``SparseOperator`` solve; device events
     per step; medians of 5 solves beside the generic two-pass solve; a
-    small f64 instance within rel 1e-9 of one device.
+    small f64 instance within rel 1e-9 of one device;
+21. the fused tier's capability methods on the headline solver, each
+    driven with the counters reset: ``slq_trace("inv", k=50,
+    num_probes=16, key=0)`` (16 K2 launches and nothing else, every
+    probe's alpha, beta, steps and ||z|| bitwise ``pass_one_cuda`` alone,
+    the samples at k = 20 within rtol 2e-3 of the f64 plain pass on the
+    CPU), the same on the compensated solver with 4 probes (4 K6 launches,
+    bitwise alone), ``slq_trace_adaptive(batch=8, max_probes=32)`` (its
+    probe count and relative stderr printed), ``estimate_interval()`` (K8
+    only, cached, holding every Ritz value of K2's k = 500 decomposition
+    of b, reproduced by its two ``eigsh`` runs, whose restarts are
+    printed), ``slq_spectral_density`` on 201 points over the interval (8
+    K2 launches, mass within 0.05 of 1), ``chebyshev_fAb(b, exp(t/rho),
+    degree=100)`` with rho the interval's radius (exactly 100 K1 launches,
+    within 2e-4·max|y| of the f64 plain expansion on the CPU, and the
+    generic ``chebyshev_fAb`` on ``make_kkt_operator`` (100 K8 launches)
+    within the same of it), and the median of 3 calls of each method.
 
 Every kernel's entry of the JSON line carries its launches on its main
-path (K1's: 0, since K2-K6 launch no K1; its entry also carries
+path, plus those of phase 21's paths (``capability_launches``, per path:
+K1's in the fused Chebyshev expansion, K2's and K6's in the SLQ methods,
+K8's under ``estimate_interval`` and the generic expansion). On the solve
+path K1 launches 0 times, since K2-K6 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
 on the main path, K4 in the one-pass solve, K5 in the callback solve and
 K6 in the compensated solve,
@@ -1288,6 +1307,219 @@ def probes_phase(card, dev, sizes) -> dict:
     return out
 
 
+#: the capability phase (21): SLQ probes and steps, density probes and grid
+#: points, the adaptive loop's batch and cap, the Chebyshev degree, and the
+#: seed of every keyed call
+SLQ_K, SLQ_PROBES, DOS_PROBES, DOS_POINTS = 50, 16, 8, 201
+ADAPT_BATCH, ADAPT_MAX, CHEB_DEGREE, SEED = 8, 32, 100, 0
+
+
+def capability_phase(card, dev, inst, solver, solver_c, b) -> dict:
+    """21. The fused tier's capability methods on the headline: SLQ (K2 a
+    probe, K6 a probe on the compensated solver), the spectral density,
+    the cached interval (eigsh over K8) and Chebyshev f(A)·b (K1 a degree),
+    each driven with the counters reset just before it. Returns each
+    path's launches per kernel and the median times."""
+    import numpy as np
+    import torch
+
+    from two_pass_lanczos_tpu_torch import make_kkt_operator, slq, spectrum
+    from two_pass_lanczos_tpu_torch.algorithms.chebyshev import (
+        chebyshev_coefficients,
+        chebyshev_fAb,
+        chebyshev_scan,
+        interval_from_extremes,
+    )
+    from two_pass_lanczos_tpu_torch.algorithms.core import pass_one_scan
+    from two_pass_lanczos_tpu_torch.devices import cpu_generator
+    from two_pass_lanczos_tpu_torch.eigen import eigsh
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        pass_one_cuda,
+        reset_launches,
+    )
+    from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
+
+    lay, n = solver.layout, solver.n
+
+    def driven(fn):
+        """Run ``fn`` with the counters reset just before it: (its result,
+        the launches it made)."""
+        reset_launches()
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: c for name, c in LAUNCHES.items() if c}
+
+    def same_as_solo(slv, dec, probes, k, what):
+        for i in range(probes.shape[0]):
+            solo = pass_one_cuda(lay, probes[i].contiguous(), k, slv.tol,
+                                 slv.ztol, compensated=slv.compensated)
+            check(torch.equal(dec.alphas[i], solo.alphas)
+                  and torch.equal(dec.betas[i], solo.betas)
+                  and torch.equal(dec.b_norm[i], solo.b_norm)
+                  and torch.equal(dec.steps_taken[i], solo.steps_taken),
+                  f"{what}: probe {i} differs from pass_one_cuda alone")
+
+    paths = {}
+    # SLQ: tr A^-1 by 16 Rademacher probes, k = 50
+    res, got = driven(lambda: solver.slq_trace(
+        "inv", k=SLQ_K, num_probes=SLQ_PROBES, key=SEED))
+    check(got == {"lanczos_pass_one": SLQ_PROBES,
+                  "kkt_matvec_in_pass": SLQ_PROBES * SLQ_K},
+          f"slq_trace launches {got}")
+    paths["slq_trace"] = got
+    samples = res.samples.cpu().numpy()
+    check(res.samples.is_cuda and np.all(np.isfinite(samples)),
+          "slq_trace samples not finite on the card")
+    probes = slq._draw_probes(SEED, SLQ_PROBES, n, torch.float32,
+                              "rademacher").to(dev)
+    same_as_solo(solver, solver._slq_pass_one(probes, SLQ_K), probes, SLQ_K,
+                 "K2 in _slq_pass_one")
+    # k = 20 against the f64 plain pass on the CPU, same probes
+    t = torch.from_numpy
+    d64 = t(np.asarray(inst.quad_costs, np.float64))
+    u_, v_ = t(np.asarray(inst.arc_u)), t(np.asarray(inst.arc_v))
+    p_ = int(inst.num_nodes)
+
+    def mv64(x):
+        return kkt_matvec(d64, u_, v_, p_, x)
+
+    q20 = slq.batched_quadratic_form(
+        solver._slq_pass_one(probes, K_CHECK), "inv").cpu().double().numpy()
+    probes64 = probes.cpu().double()
+    ref20 = slq.batched_quadratic_form(slq.stack_decompositions(
+        [pass_one_scan(mv64, z, K_CHECK)[0] for z in probes64]),
+        "inv").numpy()
+    rel20 = float(np.max(np.abs(q20 - ref20) / np.abs(ref20)))
+    check(rel20 <= 2e-3, f"SLQ samples at k={K_CHECK}: max rel {rel20:.3e} "
+                         "from the f64 plain pass, above 2e-3")
+    # compensated: K6 a probe, bitwise each alone
+    res_c, got = driven(lambda: solver_c.slq_trace(
+        "inv", k=SLQ_K, num_probes=4, key=SEED))
+    check(got == {"lanczos_pass_one_comp": 4, "kkt_matvec_in_pass": 4 * SLQ_K},
+          f"compensated slq_trace launches {got}")
+    paths["slq_trace_compensated"] = got
+    same_as_solo(solver_c, solver_c._slq_pass_one(probes[:4], SLQ_K),
+                 probes[:4], SLQ_K, "K6 in _slq_pass_one")
+    res_a, got = driven(lambda: solver.slq_trace_adaptive(
+        "inv", k=SLQ_K, batch=ADAPT_BATCH, max_probes=ADAPT_MAX, key=SEED))
+    m_a = int(res_a.samples.shape[0])
+    check(got == {"lanczos_pass_one": m_a, "kkt_matvec_in_pass": m_a * SLQ_K},
+          f"slq_trace_adaptive launches {got}")
+    paths["slq_trace_adaptive"] = got
+    rel_se = float(res_a.stderr) / abs(float(res_a.estimate))
+    print(f"[21] slq_trace('inv', k={SLQ_K}, num_probes={SLQ_PROBES}, "
+          f"key={SEED}): estimate {float(res.estimate):.6e} +- "
+          f"{float(res.stderr):.3e}, launches {paths['slq_trace']}; every "
+          f"probe's alpha, beta, steps and ||z|| bitwise K2 alone; at "
+          f"k={K_CHECK} max rel {rel20:.3e} from the CPU f64 plain pass "
+          f"(<= 2e-3); compensated (4 probes) {paths['slq_trace_compensated']}"
+          f", bitwise K6 alone; adaptive (batch {ADAPT_BATCH}, max "
+          f"{ADAPT_MAX}): {m_a} probes, rel stderr {rel_se:.4f}, estimate "
+          f"{float(res_a.estimate):.6e}")
+
+    # the interval: eigsh over K8, cached
+    iv, got = driven(solver.estimate_interval)
+    check(set(got) == {"kkt_operator_matvec"}, f"interval launches {got}")
+    paths["estimate_interval"] = got
+    _, again = driven(solver.estimate_interval)
+    check(solver.estimate_interval() is iv and not again,
+          f"estimate_interval not cached (second call launched {again})")
+    theta = spectrum.ritz_values(solver.pass_one(b, K))
+    check(iv[0] <= theta.min() and theta.max() <= iv[1],
+          f"interval {iv} does not hold the k={K} Ritz values "
+          f"[{theta.min():.6e}, {theta.max():.6e}]")
+    op = make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
+                           inst.num_nodes, dtype=torch.float32, device=dev)
+    gen = cpu_generator(0)
+    runs_ = [eigsh(op, nev=1, which=w, tol=1e-3, ncv=20, key=gen)
+             for w in ("LA", "SA")]
+    check(interval_from_extremes(*runs_, 0.05) == iv,
+          "the interval's two eigsh runs do not reproduce it")
+    print(f"     estimate_interval(): [{iv[0]:.6e}, {iv[1]:.6e}], "
+          f"{got['kkt_operator_matvec']} K8 launches and nothing else; "
+          f"eigsh LA {runs_[0].restarts} restarts, SA {runs_[1].restarts} "
+          f"(converged {runs_[0].converged}, {runs_[1].converged}); cached; "
+          f"holds K2's k={K} Ritz values [{theta.min():.6e}, "
+          f"{theta.max():.6e}]")
+
+    # the density on 201 points over the interval
+    grid = np.linspace(iv[0], iv[1], DOS_POINTS)
+    phi, got = driven(lambda: solver.slq_spectral_density(
+        grid, k=SLQ_K, num_probes=DOS_PROBES, key=SEED))
+    check(got == {"lanczos_pass_one": DOS_PROBES,
+                  "kkt_matvec_in_pass": DOS_PROBES * SLQ_K},
+          f"slq_spectral_density launches {got}")
+    paths["slq_spectral_density"] = got
+    mass = float(np.trapezoid(phi.cpu().double().numpy(), grid))
+    check(abs(mass - 1.0) <= 0.05, f"density mass {mass:.4f}, not 1 +- 0.05")
+    print(f"     slq_spectral_density({DOS_POINTS} points, k={SLQ_K}, "
+          f"num_probes={DOS_PROBES}): mass {mass:.6f}, launches {got}")
+
+    # Chebyshev f(A)·b with f = exp(t/rho), rho the interval's radius, which
+    # stays finite on the interval (exp of the headline's spectrum would
+    # overflow f32, and inv is singular inside it)
+    rho = 0.5 * (iv[1] - iv[0])
+
+    def f_cheb(t_):
+        return np.exp(t_ / rho)
+
+    y, got = driven(lambda: solver.chebyshev_fAb(
+        b, f_cheb, degree=CHEB_DEGREE, interval=iv, raw=True))
+    check(got == {"kkt_matvec": CHEB_DEGREE}, f"chebyshev_fAb launches {got}")
+    paths["chebyshev_fAb"] = got
+    cs = torch.from_numpy(chebyshev_coefficients(f_cheb, iv, CHEB_DEGREE))
+    scale = torch.tensor([2.0 / (iv[1] - iv[0]),
+                          (iv[1] + iv[0]) / (iv[1] - iv[0])],
+                         dtype=torch.float64)
+    y64 = chebyshev_scan(mv64, b.cpu().double(), cs, scale).numpy()
+    ymax = float(np.abs(y64).max())
+    err_cpu = float(np.abs(y.cpu().double().numpy() - y64).max())
+    check(np.all(np.isfinite(y64)) and err_cpu <= 2e-4 * ymax,
+          f"chebyshev_fAb {err_cpu:.3e} from the f64 plain expansion, above "
+          f"2e-4·max|y| = {2e-4 * ymax:.3e}")
+    y_gen, got = driven(lambda: chebyshev_fAb(
+        op, b, f_cheb, degree=CHEB_DEGREE, interval=iv))
+    check(got == {"kkt_operator_matvec": CHEB_DEGREE},
+          f"generic chebyshev_fAb launches {got}")
+    paths["chebyshev_fAb_generic"] = got
+    err_gen = float((y_gen - y).abs().max())
+    check(err_gen <= 2e-4 * ymax, f"generic chebyshev_fAb (K8) {err_gen:.3e} "
+                                  f"from the fused one (K1)")
+    print(f"     chebyshev_fAb(b, f=exp(t/{rho:.6e}), degree={CHEB_DEGREE}) "
+          f"on the interval: max|y - y_f64| {err_cpu:.3e} <= 2e-4·max|y| "
+          f"{2e-4 * ymax:.3e}; launches {paths['chebyshev_fAb']}; the "
+          f"generic one on make_kkt_operator {err_gen:.3e} from it, "
+          f"launches {got}")
+
+    # times: the median of 3 calls, each ending in a sync
+    def fresh_interval():
+        solver._interval_cache = None
+        return solver.estimate_interval()
+
+    timed = {
+        "slq_trace": lambda: solver.slq_trace(
+            "inv", k=SLQ_K, num_probes=SLQ_PROBES, key=SEED),
+        "slq_spectral_density": lambda: solver.slq_spectral_density(
+            grid, k=SLQ_K, num_probes=DOS_PROBES, key=SEED),
+        "slq_trace_adaptive": lambda: solver.slq_trace_adaptive(
+            "inv", k=SLQ_K, batch=ADAPT_BATCH, max_probes=ADAPT_MAX,
+            key=SEED),
+        "estimate_interval": fresh_interval,
+        "chebyshev_fAb": lambda: solver.chebyshev_fAb(
+            b, f_cheb, degree=CHEB_DEGREE, interval=iv, raw=True),
+    }
+    times = {name: wall_s(fn, 3) for name, fn in timed.items()}
+    check(solver.estimate_interval() == iv, "the interval is not reproducible")
+    print(f"     on {card}: " + "; ".join(
+        f"{name} {runs(ts)}" for name, ts in times.items())
+        + " (estimate_interval uncached: the operator's layout build and "
+        "both eigsh runs)")
+    return {"paths": paths, "times": times}
+
+
+
 def sparse_phase(card, dev, mesh, inst) -> None:
     """Phase 20: the row-sharded ``ShardedSparseOperator`` on ``mesh`` (a
     one-rank NCCL group), on the f32 KKT triplets of ``inst``, with b on the
@@ -2250,11 +2482,11 @@ def main() -> int:
     db = np.random.default_rng(12345).standard_normal(100)
     dop = tpl.DiagonalOperator(eigs)
     rel_diag = {}
-    for name, solver, fx, tol in (
+    for name, f_tk, fx, tol in (
             ("inv", tpl.make_inv_solver(), 1.0 / eigs, 1e-3),
             ("exp", tpl.make_exp_solver(), np.exp(eigs), 1e-3),
             ("z2", tpl.make_poly_solver([0.0, 0.0, 1.0]), eigs ** 2, 1e-12)):
-        xd_ = tpl.lanczos_two_pass(dop, db, 30, solver).cpu().numpy()
+        xd_ = tpl.lanczos_two_pass(dop, db, 30, f_tk).cpu().numpy()
         rel_diag[name] = float(np.linalg.norm(xd_ - fx * db)
                                / np.linalg.norm(fx * db))
         check(rel_diag[name] < tol,
@@ -2586,6 +2818,8 @@ def main() -> int:
     k14 = probes_phase(card, dev, [("headline", inst), ("5M", big)])
     sparse_phase(card, dev, mesh, inst)
     torch.distributed.destroy_process_group()
+    # 21. the capability methods of the fused tier
+    cap = capability_phase(card, dev, inst, solver, solver_c, b)
     for name, got in (("kkt_streaming_matvec", k7["headline"]),
                       ("df_kkt_streaming_matvec", k12["headline"]),
                       *k14.items()):
@@ -2632,6 +2866,15 @@ def main() -> int:
     k11_row["in_pass_matvecs"] = df_in_pass_matvecs
     k11_row["in_pass_us"] = df_in_pass_us
     k11_row["planar_ms"] = k11_planar_ms
+    # the capability paths' launches (phase 21), each path driven with the
+    # counters reset: K1 in the fused Chebyshev expansion, K2 and K6 in the
+    # SLQ methods, K8 under eigsh and the generic expansion
+    for r in rows:
+        extra = {path: got[r["name"]] for path, got in cap["paths"].items()
+                 if r["name"] in got}
+        if extra:
+            r["capability_launches"] = extra
+            r["launches"] += sum(extra.values())
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     check(not below, f"timed below their bound (a bound of the wrong "
                      f"memory level): {below}")

@@ -24,6 +24,10 @@ one traced call, ~600 launches a step), and the row-sharded
 trace's NCCL ranges, and how much of their device time, overlap a compute
 kernel (not a copy) and the owned-column SpMV's row sums, which are queued
 between each gather's start and its wait.
+The fused solver's capability methods: ``slq_trace`` (``slq_trace("inv",
+k=50, num_probes=16, key=0)``, 16 K2 launches and one batched ``eigh``)
+and ``chebyshev_fAb`` (degree 100 on the cached interval, 100 K1 launches
+and the eager recurrence around them).
 
 ``--paths`` traces the named paths only (all by default). Each path runs
 twice to warm up, then ``--reps`` times under the profiler,
@@ -162,6 +166,17 @@ def profile(fn, reps: int, overlap: bool = False) -> dict:
                           round(a.count / reps)] for a in host[:6]]}
 
 
+def chebyshev(s, b):
+    """The fused Chebyshev expansion of phase 21 of ``chip_smoke.py``:
+    degree 100, f = exp(t/ρ) on the solver's cached interval, ρ its
+    radius (the first call estimates the interval)."""
+    import numpy as np
+    iv = s.estimate_interval()
+    rho = 0.5 * (iv[1] - iv[0])
+    return s.chebyshev_fAb(b, lambda t: np.exp(t / rho), degree=100,
+                           interval=iv, raw=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=500)
@@ -233,6 +248,8 @@ def main(argv=None) -> int:
         "df_sharded_two_pass": lambda: shdf.solve(b64, k=k, raw=True),
         "sparse_sharded_two_pass": lambda: sop.solve_fAb(b, k=k, f="inv",
                                                          raw=True),
+        "slq_trace": lambda: s.slq_trace("inv", k=50, num_probes=16, key=0),
+        "chebyshev_fAb": lambda: chebyshev(s, b),
     }
     chosen = args.paths.split(",") if args.paths else list(paths)
     unknown = sorted(set(chosen) - set(paths))

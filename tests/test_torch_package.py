@@ -86,18 +86,12 @@ def test_import_leaves_jax_out():
 
 
 #: names of the JAX package's ``__all__`` the port does not have yet: the
-#: capability layer (ROADMAP Queue 1 item 2); ``PallasKKTOperator``'s
+#: block Lanczos tier (ROADMAP Queue 1 item 2 step 6); ``PallasKKTOperator``'s
 #: counterpart is ``CudaKKTOperator``
 NOT_PORTED = {
     "PallasKKTOperator",
-    "ritz_values", "ritz_pairs", "ritz_residual_bounds", "quadratic_form",
-    "gauss_radau_bracket", "quadrature_bracket", "a_norm_error_history",
-    "eigsh", "EigshResult", "chebyshev_fAb", "chebyshev_coefficients",
-    "estimate_interval", "BlockDecomposition", "block_pass_one",
-    "block_pass_two", "block_padded_f_e1", "solve_fAb_block",
-    "solve_fAb_block_jit", "SLQResult", "lanczos_pass_one_batched",
-    "batched_quadratic_form", "batched_ritz_weights", "slq_trace",
-    "slq_trace_adaptive", "slq_logdet", "slq_spectral_density",
+    "BlockDecomposition", "block_pass_one", "block_pass_two",
+    "block_padded_f_e1", "solve_fAb_block", "solve_fAb_block_jit",
 }
 
 

@@ -90,19 +90,6 @@ def test_unported_options_raise(problem):
         FusedKKTSolver(d, u, v, p, dtype=torch.float64, device=CPU)
 
 
-@pytest.mark.parametrize("name", ["slq_trace", "slq_spectral_density",
-                                  "slq_trace_adaptive", "estimate_interval",
-                                  "chebyshev_fAb"])
-def test_unported_capabilities_raise(problem, name):
-    # the JAX solver has them (ops/kkt_fused.py:1241-1426); the port names
-    # the queue item that brings them instead of an AttributeError
-    d, u, v, p, b = problem
-    assert hasattr(JaxFused, name)
-    s = FusedKKTSolver(d, u, v, p, device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2 step 7"):
-        getattr(s, name)(b, k=5)
-
-
 @pytest.mark.parametrize("f", ["inv", "exp"])
 def test_plain_f64_matches_jax_x64(problem, f):
     d, u, v, p, b = problem

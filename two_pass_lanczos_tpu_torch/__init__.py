@@ -18,6 +18,14 @@ Two tiers:
   the fused ``DFFusedKKTSolver`` (kernels K9 and K10), near-f64 results
   from (hi, lo) f32 pairs.
 
+On these tiers stands the capability layer: Ritz values, quadratures and
+error brackets from a decomposition (``spectrum``), tr f(A) and the
+spectral density by stochastic Lanczos quadrature (``slq``), extreme
+eigenpairs by thick-restart Lanczos (``eigen.eigsh``) and storage-free
+Chebyshev f(A)·b (``algorithms.chebyshev``); the fused solver runs them on
+its kernels (``FusedKKTSolver.slq_trace``, ``slq_spectral_density``,
+``slq_trace_adaptive``, ``estimate_interval``, ``chebyshev_fAb``).
+
 Example::
 
     import numpy as np
@@ -38,6 +46,11 @@ Example::
     x4, (alphas, betas, steps) = sdf.solve(b.astype(np.float64), k=500)
 """
 
+from two_pass_lanczos_tpu_torch.algorithms.chebyshev import (
+    chebyshev_coefficients,
+    chebyshev_fAb,
+    estimate_interval,
+)
 from two_pass_lanczos_tpu_torch.algorithms.chunked import (
     lanczos_pass_one_chunked,
     lanczos_standard_chunked,
@@ -69,6 +82,7 @@ from two_pass_lanczos_tpu_torch.convergence import (
     radau_error_bound,
     update_norm,
 )
+from two_pass_lanczos_tpu_torch.eigen import EigshResult, eigsh
 from two_pass_lanczos_tpu_torch.errors import (
     BreakdownError,
     DimensionMismatchError,
@@ -104,10 +118,29 @@ from two_pass_lanczos_tpu_torch.operators import (
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import FusedKKTSolver
 from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import DFFusedKKTSolver
+from two_pass_lanczos_tpu_torch.slq import (
+    SLQResult,
+    batched_quadratic_form,
+    batched_ritz_weights,
+    lanczos_pass_one_batched,
+    slq_logdet,
+    slq_spectral_density,
+    slq_trace,
+    slq_trace_adaptive,
+)
 from two_pass_lanczos_tpu_torch.solvers import (
     lanczos,
     lanczos_two_pass,
     solve_fAb,
+)
+from two_pass_lanczos_tpu_torch.spectrum import (
+    a_norm_error_history,
+    gauss_radau_bracket,
+    quadratic_form,
+    quadrature_bracket,
+    ritz_pairs,
+    ritz_residual_bounds,
+    ritz_values,
 )
 
 __all__ = [
@@ -153,6 +186,30 @@ __all__ = [
     "make_convergence_callback",
     "radau_error_bound",
     "make_radau_error_callback",
+    # spectral analysis from the decomposition
+    "ritz_values",
+    "ritz_pairs",
+    "ritz_residual_bounds",
+    "quadratic_form",
+    "gauss_radau_bracket",
+    "quadrature_bracket",
+    "a_norm_error_history",
+    # thick-restart Lanczos eigensolver
+    "eigsh",
+    "EigshResult",
+    # Chebyshev-expansion f(A)b
+    "chebyshev_fAb",
+    "chebyshev_coefficients",
+    "estimate_interval",
+    # stochastic Lanczos quadrature: tr f(A) and the spectral density
+    "SLQResult",
+    "lanczos_pass_one_batched",
+    "batched_quadratic_form",
+    "batched_ritz_weights",
+    "slq_trace",
+    "slq_trace_adaptive",
+    "slq_logdet",
+    "slq_spectral_density",
     # observability and checkpoints
     "replay_iterations",
     "find_stopping_point",

@@ -10,9 +10,11 @@ tests ask for it explicitly.
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "cpu_generator"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -28,3 +30,20 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def cpu_generator(key) -> torch.Generator:
+    """The random stream of a keyed entry point (the JAX package takes a
+    ``jax.random`` key there): a CPU ``torch.Generator`` as it is, or an
+    ``int`` as the seed of a fresh one. Random numbers are drawn on the CPU
+    and uploaded, so the CPU and the card see the same draws for the same
+    seed; no global random state is read or written."""
+    if isinstance(key, torch.Generator):
+        if key.device.type != "cpu":
+            raise ValueError(
+                f"key must be a CPU torch.Generator, got one on {key.device}")
+        return key
+    if isinstance(key, numbers.Integral) and not isinstance(key, bool):
+        return torch.Generator().manual_seed(int(key))
+    raise TypeError(
+        f"key must be a torch.Generator or an int seed, got {type(key)!r}")

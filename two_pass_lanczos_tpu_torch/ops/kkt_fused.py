@@ -32,6 +32,13 @@ on anything it does not take, and a plain PyTorch version
 ``pass_one_chunk_scan`` and ``pass_two_scan``, ``dot_f64`` for the
 compensated reductions, ``ops/eft.eft_check_plain``,
 :func:`kkt_shard_matvec`) that runs for CPU tensors. ``LAUNCHES`` counts the kernel launches of each wrapper.
+
+The solver's capability methods (JAX ``ops/kkt_fused.py:1241-1426``) run
+on the same kernels: the SLQ methods one K2 launch (or K6's instance) per
+probe (:func:`pass_one_batched_cuda`), ``chebyshev_fAb`` one K1 launch per
+degree, ``estimate_interval`` ``eigsh`` over the K8 of the instance's KKT
+operator; their host work is ``slq.py``, ``eigen.py`` and
+``algorithms/chebyshev.py``.
 """
 
 from __future__ import annotations
@@ -46,7 +53,13 @@ import torch
 
 # the module, not the name: functions.py imports ops.tridiag, and so this
 # package's __init__, which imports this module
-from two_pass_lanczos_tpu_torch import functions
+from two_pass_lanczos_tpu_torch import functions, slq
+from two_pass_lanczos_tpu_torch.algorithms.chebyshev import (
+    chebyshev_coefficients,
+    chebyshev_scan,
+    estimate_interval,
+    validate_interval_for_f,
+)
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     LanczosDecomposition,
     basis_product,
@@ -335,6 +348,33 @@ def pass_one_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
     return bufs.decomposition()
 
 
+def pass_one_batched_cuda(lay: KKTLayout, probes: torch.Tensor, k: int,
+                          tol: float, ztol: float,
+                          compensated: bool = False) -> LanczosDecomposition:
+    """K2 (compensated: its K6 instance) once per row of an ``(m, n)`` f32
+    CUDA ``probes``: the stacked decomposition, ``alphas`` and ``betas``
+    (m, k), ``steps_taken`` and ``b_norm`` (m,), each row written in place
+    by its launch. The launches share one scratch, which each start from b
+    resets (α, β and the node-row tags), so row i is bitwise
+    :func:`pass_one_cuda` on probe i alone."""
+    m = probes.shape[0]
+    _need(probes, (m, lay.n), torch.float32, lay.d.device, "probes")
+    dev = lay.d.device
+    alphas = torch.empty((m, k), dtype=torch.float32, device=dev)
+    betas = torch.empty((m, k), dtype=torch.float32, device=dev)
+    bnorm = torch.empty(m, dtype=torch.float32, device=dev)
+    steps = torch.empty(m, dtype=torch.int32, device=dev)
+    scratch = PassOneBuffers.alloc(lay, k, persistent=True)
+    name = _comp("lanczos_pass_one", compensated)
+    for i in range(m):
+        bufs = dataclasses.replace(scratch, alphas=alphas[i], betas=betas[i],
+                                   bnorm=bnorm[i:i + 1], steps=steps[i:i + 1])
+        _launch_pass_one("tpl_lanczos_pass_one", name, lay, bufs, probes[i],
+                         tol, ztol, int(compensated), ctypes.c_void_p(None))
+    return LanczosDecomposition(alphas=alphas, betas=betas,
+                                steps_taken=steps, b_norm=bnorm)
+
+
 def pass_one_basis_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                         ztol: float, compensated: bool = False,
                         state: Optional[torch.Tensor] = None
@@ -526,8 +566,6 @@ def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
 
 #: inputs of the EFT tripwire with exact, known outputs (``ops/eft.py``)
 _EFT_A, _EFT_B = 1.0 + 2.0 ** -12, 2.0 ** -30
-_CAPABILITY = ("{} is not ported yet: the fused solver's capability methods "
-               "come with ROADMAP Queue 1 item 2 step 7")
 
 
 def scaled_y(decomp: LanczosDecomposition, f, k: int) -> torch.Tensor:
@@ -594,9 +632,11 @@ class FusedKKTSolver:
 
     On ``device="cuda"`` (the default; it raises without a card) every pass
     runs the hand-written kernels; on ``device="cpu"`` the plain PyTorch
-    versions. f32 only, as the TPU path. The capability methods
-    (``slq_*``, ``estimate_interval``, ``chebyshev_fAb``) raise
-    ``NotImplementedError`` until ROADMAP Queue 1 item 2 step 7.
+    versions. f32 only, as the TPU path. The capability methods run on the
+    same kernels: :meth:`slq_trace`, :meth:`slq_spectral_density` and
+    :meth:`slq_trace_adaptive` one pass one (K2, or K6's instance) per
+    probe, :meth:`estimate_interval` ``eigsh`` on the instance's
+    ``make_kkt_operator`` (K8), :meth:`chebyshev_fAb` one K1 per degree.
     ``compensated=True`` takes the α, β and ‖b‖ reductions as exact products
     folded in two-float pairs (the plain version: f64-accumulated dots),
     on the card in K6, the compensated instances of K2, K4 and K5, each
@@ -620,6 +660,11 @@ class FusedKKTSolver:
         self.ztol = zero_tolerance(torch.float32)
         self.compensated = bool(compensated)
         self._dot: Callable = dot_f64 if self.compensated else torch.dot
+        # the host arrays of estimate_interval's KKT operator, and its cache
+        self._kkt_arrays = (np.asarray(quad_costs, np.float32),
+                            np.asarray(arc_u), np.asarray(arc_v),
+                            int(num_nodes))
+        self._interval_cache = None
         if self.compensated and self._cuda:
             self._check_eft()
 
@@ -780,18 +825,111 @@ class FusedKKTSolver:
             return x, decomp
         return x.cpu().numpy(), decomp
 
-    # -- not ported yet -----------------------------------------------------
-    def slq_trace(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_trace"))
+    # -- capability methods --------------------------------------------------
+    def _slq_pass_one(self, probes, k: int) -> LanczosDecomposition:
+        """Pass one for each row of the ``(m, n)`` probes, uploaded once as
+        f32: on CUDA one K2 launch (or K6's instance) a probe, on the CPU
+        the plain ``pass_one_scan`` with the solver's dot. Returns the
+        stacked decomposition the batched quadratures take."""
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        z = torch.as_tensor(probes).to(device=self.device,
+                                       dtype=torch.float32).contiguous()
+        if z.dim() != 2 or z.shape[1] != self.n:
+            raise ValueError(f"probes must be (m, {self.n}), got "
+                             f"{tuple(z.shape)}")
+        if self._cuda:
+            return pass_one_batched_cuda(self.layout, z, k, self.tol,
+                                         self.ztol, self.compensated)
+        return slq.stack_decompositions(
+            [pass_one_scan(self._plain_matvec, row, k, dot=self._dot)[0]
+             for row in z])
 
-    def slq_spectral_density(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_spectral_density"))
+    def slq_trace(self, f="inv", *, k: int = 50, num_probes: int = 16,
+                  key, probe: str = "rademacher") -> slq.SLQResult:
+        """``tr f(A)`` by stochastic Lanczos quadrature (the estimator of
+        :func:`slq.slq_trace`) with every probe's pass one in the solver's
+        kernel: the probes are drawn from ``key`` (a CPU ``torch.Generator``
+        or an ``int`` seed) on the CPU, uploaded once, run by one K2 launch
+        each, and all quadratures are one batched ``eigh`` on the device."""
+        if num_probes < 1:
+            raise ValueError("num_probes must be >= 1")
+        if not callable(f):
+            slq._f_of_theta(torch.ones(1), f)  # reject unknown strings first
+        probes = slq._draw_probes(key, num_probes, self.n, torch.float32,
+                                  probe)
+        decomp = self._slq_pass_one(probes, k)
+        return slq.slq_stats(slq.batched_quadratic_form(decomp, f))
 
-    def slq_trace_adaptive(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_trace_adaptive"))
+    def slq_spectral_density(self, grid, *, sigma=None, k: int = 50,
+                             num_probes: int = 16, key,
+                             probe: str = "gaussian") -> torch.Tensor:
+        """Smoothed spectral density (the estimator of
+        :func:`slq.slq_spectral_density`) with the unit probes' pass one in
+        the solver's kernel; the probes are normalised in f32 on the CPU.
+        Returns a tensor on the solver's device."""
+        grid, sigma = slq.validate_dos_params(grid, sigma, num_probes)
+        probes = slq._draw_probes(key, num_probes, self.n, torch.float32,
+                                  probe)
+        probes = probes / torch.linalg.norm(probes, dim=1, keepdim=True)
+        decomp = self._slq_pass_one(probes, k)
+        return slq.dos_from_decomposition(decomp, grid, sigma)
 
-    def estimate_interval(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("estimate_interval"))
+    def slq_trace_adaptive(self, f="inv", *, k: int = 50, key,
+                           probe: str = "rademacher",
+                           target_rel_stderr: float = 0.01,
+                           batch: int = 8, max_probes: int = 512
+                           ) -> slq.SLQResult:
+        """:meth:`slq_trace` with the probe count chosen adaptively by the
+        shared :func:`slq.adaptive_probe_loop`: ``batch`` probes a round
+        through this solver's kernel, from one generator, until the sample
+        standard error certifies ``target_rel_stderr`` (or
+        ``max_probes``)."""
+        return slq.adaptive_probe_loop(
+            lambda gen, take: self.slq_trace(
+                f, k=k, num_probes=take, key=gen, probe=probe).samples,
+            key, batch=batch, max_probes=max_probes,
+            target_rel_stderr=target_rel_stderr)
 
-    def chebyshev_fAb(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("chebyshev_fAb"))
+    def estimate_interval(self, *, margin: float = 0.05, tol: float = 1e-3,
+                          key=None):
+        """Cached spec(A) interval: :func:`algorithms.chebyshev
+        .estimate_interval` (two 1-eigenpair ``eigsh`` runs, LA and SA) on
+        the f32 ``make_kkt_operator`` of the same arrays on the solver's
+        device, whose matvec is K8 on a card. Computed once; later calls
+        return the same object."""
+        if self._interval_cache is None:
+            # operators.py imports this module for KKTLayout
+            from two_pass_lanczos_tpu_torch.operators import make_kkt_operator
+
+            d, u, v, p = self._kkt_arrays
+            op = make_kkt_operator(d, u, v, p, dtype=torch.float32,
+                                   device=self.device)
+            self._interval_cache = estimate_interval(
+                op, margin=margin, tol=tol, key=key)
+        return self._interval_cache
+
+    def chebyshev_fAb(self, b, f, *, degree: int = 100, interval=None,
+                      raw: bool = False):
+        """Storage-free Chebyshev f(A)·b (:func:`algorithms.chebyshev
+        .chebyshev_scan`) on the solver's matvec: ``degree`` K1 launches on
+        a card, the plain matvec on the CPU, no basis and no (α, β).
+        ``interval`` must hold spec(A); ``None`` takes
+        :meth:`estimate_interval` (cached). Returns NumPy, or the device
+        tensor when ``raw=True``."""
+        if interval is None:
+            interval = self.estimate_interval()
+        a_lo, a_hi = float(interval[0]), float(interval[1])
+        validate_interval_for_f(f, a_lo, a_hi)
+        cs = torch.as_tensor(chebyshev_coefficients(f, interval, degree),
+                             dtype=torch.float32, device=self.device)
+        scale = torch.tensor(
+            [2.0 / (a_hi - a_lo), (a_hi + a_lo) / (a_hi - a_lo)],
+            dtype=torch.float32, device=self.device)
+        b = self.pack(b)
+        if self._cuda:
+            y = chebyshev_scan(lambda x: kkt_matvec_cuda(self.layout, x), b,
+                               cs, scale)
+        else:
+            y = chebyshev_scan(self._plain_matvec, b, cs, scale)
+        return y if raw else y.cpu().numpy()

@@ -177,12 +177,37 @@ Phases (each one raises on failure, so the exit code is non-zero):
     degree=100)`` with rho the interval's radius (exactly 100 K1 launches,
     within 2e-4·max|y| of the f64 plain expansion on the CPU, and the
     generic ``chebyshev_fAb`` on ``make_kkt_operator`` (100 K8 launches)
-    within the same of it), and the median of 3 calls of each method.
+    within the same of it), and the median of 3 calls of each method;
+22. reorthogonalisation and block Lanczos on the headline's f32
+    ``make_kkt_operator`` (K8), each driven with the counters reset:
+    ``solve_fAb(b, k=500, method="one_pass", reorth=True)`` (exactly 500
+    K8 launches; the basis's max|VᵀV − I| in f64 at most 1e-4 and 100×
+    below the plain one-pass basis's, which is above 1e-2; α, β at k = 20
+    within rtol 1e-4 of the CPU f64 run; the same bits with TF32 on),
+    ``reorth="selective"`` (500 K8 launches, its sweeps counted; at a k
+    where none fires, bitwise the plain one-pass solve),
+    ``solve_fAb_block`` with p = 4, k = 100, one- and two-pass (p K8
+    launches a step and pass: 400 and 800; the two within rtol 1e-4; the
+    replay drift printed and gated at 1e-12; the same bits with TF32 on;
+    m = 500 within 1e-4 of the CPU f64 run), and medians of 3 beside the
+    plain one-pass solve;
+23. the sharded tiers' capability methods on the one-rank NCCL group,
+    each driven with the counters reset and held against its single-card
+    twin on the same probes, v0 or coefficients: the row-sharded
+    operator's ``eigsh`` (LA and SA), SLQ methods, ``solve_fAb_block``,
+    ``estimate_interval``, ``chebyshev_fAb`` and ``solve_fAb(reorth=True)``
+    (no port kernel), the arc-sharded solver's SLQ methods (k K7 launches
+    a probe, a probe bitwise a solve's pass one), ``estimate_interval``
+    (K8 only, the fused solver's interval, cached) and ``chebyshev_fAb``
+    (``degree`` K7 launches; whether it is bitwise the fused K1 expansion
+    is printed), and medians of 3 of every method.
 
 Every kernel's entry of the JSON line carries its launches on its main
-path, plus those of phase 21's paths (``capability_launches``, per path:
-K1's in the fused Chebyshev expansion, K2's and K6's in the SLQ methods,
-K8's under ``estimate_interval`` and the generic expansion). On the solve
+path, plus those of phases 21–23's paths (``capability_launches``, per
+path: K1's in the fused Chebyshev expansion, K2's and K6's in the SLQ
+methods, K8's under ``estimate_interval``, the generic expansion, the
+reorthogonalised and block solves and the arc-sharded interval, K7's in
+the arc-sharded SLQ methods and expansion). On the solve
 path K1 launches 0 times, since K2-K6 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
 on the main path, K4 in the one-pass solve, K5 in the callback solve and
@@ -1333,23 +1358,10 @@ def capability_phase(card, dev, inst, solver, solver_c, b) -> dict:
     from two_pass_lanczos_tpu_torch.algorithms.core import pass_one_scan
     from two_pass_lanczos_tpu_torch.devices import cpu_generator
     from two_pass_lanczos_tpu_torch.eigen import eigsh
-    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
-        LAUNCHES,
-        pass_one_cuda,
-        reset_launches,
-    )
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import pass_one_cuda
     from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
 
     lay, n = solver.layout, solver.n
-
-    def driven(fn):
-        """Run ``fn`` with the counters reset just before it: (its result,
-        the launches it made)."""
-        reset_launches()
-        torch.cuda.synchronize()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {name: c for name, c in LAUNCHES.items() if c}
 
     def same_as_solo(slv, dec, probes, k, what):
         for i in range(probes.shape[0]):
@@ -1518,6 +1530,482 @@ def capability_phase(card, dev, inst, solver, solver_c, b) -> dict:
         "both eigsh runs)")
     return {"paths": paths, "times": times}
 
+
+
+def driven(fn):
+    """Run ``fn`` with the launch counters reset just before it: (its
+    result, the launches it made)."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+    )
+    reset_launches()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c for name, c in LAUNCHES.items() if c}
+
+
+def tf32_same(fn) -> bool:
+    """Whether ``fn()`` gives the same bits with TF32 on as off (the
+    script runs with it off)."""
+    import torch
+    off = fn()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.equal(on, off)
+
+
+def ortho_defect(basis, steps: int) -> float:
+    """max|VᵀV − I| of the first ``steps`` rows, in f64, column block by
+    column block (the f64 copy of a whole basis would take 2 GB)."""
+    import torch
+    v = basis[:steps]
+    gram = torch.zeros((steps, steps), dtype=torch.float64,
+                       device=basis.device)
+    for c in range(0, v.shape[1], 65536):
+        blk = v[:, c:c + 65536].double()
+        gram += blk @ blk.T
+    eye = torch.eye(steps, dtype=torch.float64, device=basis.device)
+    return float((gram - eye).abs().max())
+
+
+def rel_err(x, ref) -> float:
+    import torch
+    x, ref = torch.as_tensor(x).double().cpu(), torch.as_tensor(
+        ref).double().cpu()
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+
+#: phase 22: the block width and steps, and the k of the TF32 checks
+BLOCK_P, BLOCK_K, TF32_K = 4, 100, 100
+
+
+def reorth_block_phase(card, dev, inst, b) -> dict:
+    """22. The generic tier's reorthogonalised one-pass solves and block
+    Lanczos on the headline's f32 ``make_kkt_operator`` (K8), each driven
+    with the counters reset: ``solve_fAb(..., k=500, method="one_pass",
+    reorth=True)`` exactly 500 K8 launches, the orthogonality defect of
+    its basis against the plain one-pass basis, α and β at k = 20 within
+    rtol 1e-4 of the CPU f64 run, the same bits with TF32 on;
+    ``reorth="selective"`` its sweeps counted at k = 500 and, at a k where
+    none fires, bitwise the plain one-pass solve; ``solve_fAb_block`` (p =
+    4, k = 100) one- and two-pass, p K8 launches a step and pass, the two
+    within rtol 1e-4, the replay drift printed and gated at 1e-12, a small
+    instance within 1e-4 of the CPU f64 solve; medians of 3 beside the
+    plain one-pass solve."""
+    import numpy as np
+    import torch
+
+    from two_pass_lanczos_tpu_torch import (
+        make_kkt_operator,
+        solve_fAb,
+        solve_fAb_block,
+    )
+    from two_pass_lanczos_tpu_torch.algorithms.block import (
+        block_pass_one,
+        block_pass_two,
+    )
+    from two_pass_lanczos_tpu_torch.algorithms.core import pass_one_scan
+    from two_pass_lanczos_tpu_torch.algorithms.reorth import (
+        pass_one_scan_reorth,
+        pass_one_scan_selective,
+    )
+    from two_pass_lanczos_tpu_torch.models.generator import (
+        generate_mcf_instance,
+    )
+    from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
+
+    t_phase = time.perf_counter()
+    op = make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
+                           inst.num_nodes, dtype=torch.float32, device=dev)
+    n, paths = op.shape[0], {}
+
+    def reorth_solve(mode, k=K):
+        return solve_fAb(op, b, k=k, f="inv", method="one_pass",
+                         reorth=mode)
+
+    x_r, got = driven(lambda: reorth_solve(True))
+    check(got == {"kkt_operator_matvec": K}, f"reorth launches {got}")
+    check(bool(torch.isfinite(x_r).all()), "reorth x not finite")
+    paths["reorth"] = got
+    dec_r, basis_r = pass_one_scan_reorth(op.matvec, b, K)
+    steps = dec_r.steps()
+    d_r = ortho_defect(basis_r, steps)
+    del basis_r
+    dec_p, basis_p = pass_one_scan(op.matvec, b, K, emit_basis=True)
+    d_p = ortho_defect(basis_p, dec_p.steps())
+    del basis_p
+    check(steps == K and d_p > 1e-2 and d_r <= 1e-4 and 100 * d_r <= d_p,
+          f"orthogonality defect: reorth {d_r:.3e}, plain {d_p:.3e}, "
+          f"steps {steps}")
+    t = torch.from_numpy
+    d64 = t(np.asarray(inst.quad_costs, np.float64))
+    u_, v_ = t(np.asarray(inst.arc_u)), t(np.asarray(inst.arc_v))
+    p_ = int(inst.num_nodes)
+
+    def mv64(x):
+        return kkt_matvec(d64, u_, v_, p_, x)
+
+    dec20, _ = pass_one_scan_reorth(op.matvec, b, K_CHECK)
+    ref20, _ = pass_one_scan_reorth(mv64, b.cpu().double(), K_CHECK)
+    np.testing.assert_allclose(dec20.alphas.cpu().numpy(),
+                               ref20.alphas.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(dec20.betas.cpu().numpy(),
+                               ref20.betas.numpy(), rtol=1e-4)
+    a20 = float(((dec20.alphas.cpu().double() - ref20.alphas).abs()
+                 / ref20.alphas.abs()).max())
+    check(tf32_same(lambda: reorth_solve(True, TF32_K)),
+          "reorth x changed with TF32 on")
+    print(f"[22] solve_fAb(make_kkt_operator, b, k={K}, f='inv', "
+          f"method='one_pass', reorth=True): launches {got}; "
+          f"max|VᵀV - I| in f64: reorthogonalised {d_r:.3e}, plain one-pass "
+          f"{d_p:.3e} ({d_p / d_r:.3g}x); alpha, beta at k={K_CHECK} max rel "
+          f"{a20:.3e} from the CPU f64 run (<= 1e-4); the same bits with "
+          f"TF32 on (k={TF32_K})")
+
+    x_s, got = driven(lambda: reorth_solve("selective"))
+    check(got == {"kkt_operator_matvec": K}, f"selective launches {got}")
+    check(bool(torch.isfinite(x_s).all()), "selective x not finite")
+    paths["reorth_selective"] = got
+    dec_s, basis_s, nre = pass_one_scan_selective(op.matvec, b, K)
+    d_s = ortho_defect(basis_s, dec_s.steps())
+    del basis_s
+    quiet = None
+    for k0 in (50, 30, 20, 10, 5):
+        if int(pass_one_scan_selective(op.matvec, b, k0)[2]) == 0:
+            quiet = k0
+            break
+    check(quiet is not None, "the selective run sweeps from step 5 on")
+    check(torch.equal(reorth_solve("selective", quiet),
+                      solve_fAb(op, b, k=quiet, f="inv", method="one_pass")),
+          f"selective without a sweep (k={quiet}) is not the plain solve")
+    print(f"     reorth='selective': {int(nre)} of {K} steps swept "
+          f"(reorth_steps), defect {d_s:.3e}, launches {got}; at k={quiet} "
+          f"no sweep fires and x is bitwise the plain one-pass solve's")
+
+    bb = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (n, BLOCK_P)).astype(np.float32)).to(dev)
+    x1, got1 = driven(lambda: solve_fAb_block(op, bb, BLOCK_K, "inv"))
+    x2, got2 = driven(lambda: solve_fAb_block(op, bb, BLOCK_K, "inv",
+                                              method="two_pass"))
+    check(got1 == {"kkt_operator_matvec": BLOCK_P * BLOCK_K}
+          and got2 == {"kkt_operator_matvec": 2 * BLOCK_P * BLOCK_K},
+          f"block launches {got1}, {got2}")
+    paths["solve_fAb_block_one_pass"] = got1
+    paths["solve_fAb_block_two_pass"] = got2
+    check(bool(torch.isfinite(x1).all() and torch.isfinite(x2).all()),
+          "block x not finite")
+    rel12 = rel_err(x2, x1)
+    check(rel12 <= 1e-4, f"block two-pass {rel12:.3e} from one-pass")
+    dec_b, basis1 = block_pass_one(op.matvec, bb, BLOCK_K)
+    _, basis2 = block_pass_two(
+        op.matvec, bb, dec_b, torch.zeros((BLOCK_K, BLOCK_P, BLOCK_P),
+                                          device=dev), emit_basis=True)
+    drift = float((basis1 - basis2).abs().max())
+    del basis1, basis2
+    check(int(dec_b.steps_taken) == BLOCK_K and drift <= 1e-12,
+          f"block replay drift {drift:.3e}, steps {int(dec_b.steps_taken)}")
+    check(tf32_same(lambda: solve_fAb_block(op, bb, BLOCK_K, "inv")),
+          "block x changed with TF32 on")
+    small = generate_mcf_instance(500, rho=3, instance_id=1)
+    ops = {dt: make_kkt_operator(small.quad_costs, small.arc_u, small.arc_v,
+                                 small.num_nodes, dtype=dt, device=dv)
+           for dt, dv in ((torch.float32, dev), (torch.float64, "cpu"))}
+    bs = np.random.default_rng(5).standard_normal((ops[torch.float64].shape[
+        0], BLOCK_P))
+    rel_small = {m: rel_err(
+        solve_fAb_block(ops[torch.float32], bs.astype(np.float32), 10, "inv",
+                        method=m),
+        solve_fAb_block(ops[torch.float64], bs, 10, "inv", method=m))
+        for m in ("one_pass", "two_pass")}
+    check(max(rel_small.values()) <= 1e-4,
+          f"small block solves against the CPU f64 run: {rel_small}")
+    print(f"     solve_fAb_block(p={BLOCK_P}, k={BLOCK_K}): one-pass "
+          f"launches {got1}, two-pass {got2} (p K8 launches a step and "
+          f"pass, {int(dec_b.steps_taken)} steps); two-pass {rel12:.3e} from "
+          f"one-pass; replay drift max|V1 - V2| = {drift:.3e}; the same bits "
+          f"with TF32 on; m=500 k=10 against the CPU f64 run: "
+          + ", ".join(f"{m} {r:.3e}" for m, r in rel_small.items()))
+
+    timed = {
+        "reorth": lambda: reorth_solve(True),
+        "reorth_selective": lambda: reorth_solve("selective"),
+        "solve_fAb_block_one_pass": lambda: solve_fAb_block(
+            op, bb, BLOCK_K, "inv"),
+        "solve_fAb_block_two_pass": lambda: solve_fAb_block(
+            op, bb, BLOCK_K, "inv", method="two_pass"),
+        "one_pass_plain": lambda: solve_fAb(op, b, k=K, f="inv",
+                                            method="one_pass"),
+    }
+    times = {name: wall_s(fn, 3) for name, fn in timed.items()}
+    wall = time.perf_counter() - t_phase
+    print(f"     on {card}: " + "; ".join(
+        f"{name} {runs(ts)}" for name, ts in times.items())
+        + f"; phase 22 wall {wall:.1f} s")
+    return {"paths": paths, "times": times}
+
+
+#: phase 23: the probes of the sharded SLQ, and eigsh's tolerance and cap
+SH_PROBES, EIG_TOL, EIG_MAXITER = 8, 1e-5, 100
+
+
+def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
+    """23. The sharded tiers' capability methods on ``mesh`` (a one-rank
+    NCCL group), each driven with the counters reset and held against its
+    single-card twin on the same probes, ``v0`` or coefficients. The
+    row-sharded ``ShardedSparseOperator`` (f32 KKT triplets, no port
+    kernel): ``eigsh(nev=2)`` LA and SA against ``eigen.eigsh`` on
+    ``make_kkt_operator`` (both converged; LA's values, and SA's smallest,
+    within 2·tol·scale, the scale the spectral radius),
+    the SLQ methods against the generic ones (samples rtol 2e-3, density
+    5e-3), ``solve_fAb_block`` (k = 10 within rel 1e-4 of the generic one;
+    k = 100 finite), ``estimate_interval`` (rtol 1e-2), ``chebyshev_fAb``
+    (2e-4·max|y|) and ``solve_fAb(reorth=True)`` (k = 20, rel 1e-4).
+    The arc-sharded ``ShardedFusedKKTSolver``: SLQ on K7 (k launches a
+    probe, samples within rtol 2e-3 of the fused solver's K2, a probe
+    bitwise a solve's pass one), the density, the adaptive loop, the
+    cached interval (K8 only, the fused solver's), ``chebyshev_fAb``
+    (``degree`` K7 launches, against the fused K1 expansion). Medians of 3
+    for every method."""
+    import numpy as np
+    import torch
+
+    from two_pass_lanczos_tpu_torch import (
+        chebyshev_fAb,
+        eigsh,
+        estimate_interval,
+        make_kkt_operator,
+        slq_spectral_density,
+        slq_trace,
+        slq_trace_adaptive,
+        solve_fAb,
+        solve_fAb_block,
+    )
+    from two_pass_lanczos_tpu_torch import slq
+    from two_pass_lanczos_tpu_torch.parallel import (
+        ShardedFusedKKTSolver,
+        ShardedSparseOperator,
+    )
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+
+    t_phase = time.perf_counter()
+    arrays = KKTArrays(quad_costs=inst.quad_costs, arc_u=inst.arc_u,
+                       arc_v=inst.arc_v, num_nodes=inst.num_nodes,
+                       num_arcs=inst.num_arcs)
+    sop = ShardedSparseOperator.from_kkt_arrays(arrays, mesh,
+                                                dtype=np.float32)
+    op = make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
+                           inst.num_nodes, dtype=torch.float32, device=dev)
+    n, paths, lines = op.shape[0], {}, []
+
+    def none_launched(got, what):
+        check(not got, f"{what} launched port kernels {got}")
+
+    v0 = np.random.default_rng(23).standard_normal(n).astype(np.float32)
+    # eigsh's own scale: its convergence test is resid <= tol·max|θ| over
+    # every Ritz value, ~ the spectral radius (the cached interval's end)
+    iv = solver.estimate_interval()
+    scale = max(abs(iv[0]), abs(iv[1]))
+    eig = {}
+    for which in ("LA", "SA"):
+        r_sh, got = driven(lambda: sop.eigsh(
+            nev=2, which=which, tol=EIG_TOL, ncv=20, maxiter=EIG_MAXITER,
+            v0=v0))
+        none_launched(got, f"sharded eigsh {which}")
+        r_1 = eigsh(op, nev=2, which=which, tol=EIG_TOL, ncv=20,
+                    maxiter=EIG_MAXITER, v0=v0)
+        # LA: two separated extremes, compared pair by pair. SA: the KKT's
+        # low end is a cluster of eigenvalues within ~0.03 of 0, far inside
+        # tol·scale, so only the smallest Ritz value is pinned down
+        pairs = slice(None) if which == "LA" else slice(0, 1)
+        gap = float(np.abs(r_sh.eigenvalues[pairs]
+                           - r_1.eigenvalues[pairs]).max())
+        check(r_sh.converged and r_1.converged
+              and gap <= 2 * EIG_TOL * scale,
+              f"eigsh {which}: sharded {r_sh.eigenvalues} "
+              f"({r_sh.converged}), single card {r_1.eigenvalues} "
+              f"({r_1.converged}), 2·tol·scale {2 * EIG_TOL * scale:.3e}")
+        eig[which] = (r_sh, gap)
+    lines.append(
+        f"eigsh(nev=2, tol={EIG_TOL:g}, 2·tol·scale "
+        f"{2 * EIG_TOL * scale:.3e}): " + "; ".join(
+            f"{w} {r.eigenvalues} ({r.restarts} restarts, {gap:.3e} from "
+            f"the single-card eigsh on K8)" for w, (r, gap) in eig.items()))
+
+    res, got = driven(lambda: sop.slq_trace("inv", k=SLQ_K,
+                                            num_probes=SH_PROBES, key=SEED))
+    none_launched(got, "sharded slq_trace")
+    ref = slq_trace(op, "inv", k=SLQ_K, num_probes=SH_PROBES, key=SEED)
+    np.testing.assert_allclose(res.samples.cpu().numpy(),
+                               ref.samples.cpu().numpy(), rtol=2e-3)
+    grid = np.linspace(iv[0], iv[1], DOS_POINTS)
+    phi, got = driven(lambda: sop.slq_spectral_density(
+        grid, k=SLQ_K, num_probes=SH_PROBES, key=SEED))
+    none_launched(got, "sharded slq_spectral_density")
+    phi1 = slq_spectral_density(op, grid, k=SLQ_K, num_probes=SH_PROBES,
+                                key=SEED).cpu().numpy()
+    np.testing.assert_allclose(phi.cpu().numpy(), phi1, rtol=5e-3,
+                               atol=5e-4 * phi1.max())
+    res_a, got = driven(lambda: sop.slq_trace_adaptive(
+        "inv", k=SLQ_K, batch=4, max_probes=SH_PROBES, key=SEED))
+    none_launched(got, "sharded slq_trace_adaptive")
+    ref_a = slq_trace_adaptive(op, "inv", k=SLQ_K, batch=4,
+                               max_probes=SH_PROBES, key=SEED)
+    np.testing.assert_allclose(res_a.samples.numpy(), ref_a.samples.numpy(),
+                               rtol=2e-3)
+    lines.append(f"slq_trace(k={SLQ_K}, {SH_PROBES} probes) "
+                 f"{float(res.estimate):.6e}, samples within rtol 2e-3 of "
+                 f"the generic ones (K8); density and adaptive "
+                 f"({res_a.samples.shape[0]} probes) likewise")
+
+    bb = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (n, BLOCK_P)).astype(np.float32)).to(dev)
+    x10, got = driven(lambda: sop.solve_fAb_block(bb, k=10, f="inv"))
+    none_launched(got, "sharded solve_fAb_block")
+    rel_blk = rel_err(x10, solve_fAb_block(op, bb, 10, "inv"))
+    check(rel_blk <= 1e-4, f"sharded block k=10 {rel_blk:.3e} from generic")
+    x100 = sop.solve_fAb_block(bb, k=BLOCK_K, f="inv")
+    check(bool(np.isfinite(x100).all()) and sop._last_block_steps == BLOCK_K,
+          f"sharded block k={BLOCK_K}: steps {sop._last_block_steps}")
+    lines.append(f"solve_fAb_block(p={BLOCK_P}) k=10 {rel_blk:.3e} from the "
+                 f"generic one (Householder QR), k={BLOCK_K} finite with "
+                 f"{sop._last_block_steps} steps (CholeskyQR2)")
+
+    iv_sh, got = driven(sop.estimate_interval)
+    none_launched(got, "sharded estimate_interval")
+    iv_1 = estimate_interval(op)
+    np.testing.assert_allclose(iv_sh, iv_1, rtol=1e-2)
+    rho = 0.5 * (iv[1] - iv[0])
+
+    def f_cheb(t_):
+        return np.exp(t_ / rho)
+
+    y_sh, got = driven(lambda: sop.chebyshev_fAb(
+        b, f_cheb, degree=CHEB_DEGREE, interval=iv))
+    none_launched(got, "sharded chebyshev_fAb")
+    y_1 = chebyshev_fAb(op, b, f_cheb, degree=CHEB_DEGREE,
+                        interval=iv).cpu().numpy()
+    err_c = float(np.abs(y_sh - y_1).max())
+    check(err_c <= 2e-4 * float(np.abs(y_1).max()),
+          f"sharded chebyshev {err_c:.3e} from the generic one")
+    xr, got = driven(lambda: sop.solve_fAb(b, k=K_CHECK, f="inv",
+                                           method="one_pass", reorth=True))
+    none_launched(got, "sharded reorth")
+    rel_r = rel_err(xr[0], solve_fAb(op, b, k=K_CHECK, f="inv",
+                                     method="one_pass", reorth=True))
+    check(rel_r <= 1e-4, f"sharded reorth k={K_CHECK} {rel_r:.3e}")
+    lines.append(f"estimate_interval [{iv_sh[0]:.6e}, {iv_sh[1]:.6e}] "
+                 f"(single card [{iv_1[0]:.6e}, {iv_1[1]:.6e}]); "
+                 f"chebyshev_fAb(degree={CHEB_DEGREE}) {err_c:.3e} from the "
+                 f"generic one; solve_fAb(k={K_CHECK}, reorth=True) "
+                 f"{rel_r:.3e} from the generic one")
+    print(f"[23] ShardedSparseOperator on a one-rank "
+          f"{torch.distributed.get_backend(mesh.group)} group, no port "
+          f"kernel launched: " + "; ".join(lines))
+
+    sh = ShardedFusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
+                               inst.num_nodes, mesh)
+    res, got = driven(lambda: sh.slq_trace("inv", k=SLQ_K,
+                                           num_probes=SH_PROBES, key=SEED))
+    check(got == {"kkt_streaming_matvec": SH_PROBES * SLQ_K},
+          f"fused sharded slq_trace launches {got}")
+    paths["slq_trace_sharded"] = got
+    ref = solver.slq_trace("inv", k=SLQ_K, num_probes=SH_PROBES, key=SEED)
+    np.testing.assert_allclose(res.samples.cpu().numpy(),
+                               ref.samples.cpu().numpy(), rtol=2e-3)
+    z = slq._draw_probes(SEED, SH_PROBES, n, torch.float32, "rademacher")
+    dec = sh._slq_pass_one(z, SLQ_K)
+    solo = sh.pass_one(z[SH_PROBES - 1], SLQ_K)
+    check(torch.equal(dec.alphas[-1], solo.alphas)
+          and torch.equal(dec.betas[-1], solo.betas),
+          "a sharded SLQ probe is not bitwise a solve's pass one")
+    phi, got = driven(lambda: sh.slq_spectral_density(
+        grid, k=SLQ_K, num_probes=SH_PROBES, key=SEED))
+    check(got == {"kkt_streaming_matvec": SH_PROBES * SLQ_K},
+          f"fused sharded density launches {got}")
+    paths["slq_spectral_density_sharded"] = got
+    phi1 = solver.slq_spectral_density(grid, k=SLQ_K, num_probes=SH_PROBES,
+                                       key=SEED).cpu().numpy()
+    np.testing.assert_allclose(phi.cpu().numpy(), phi1, rtol=5e-3,
+                               atol=5e-4 * phi1.max())
+    res_a, got = driven(lambda: sh.slq_trace_adaptive(
+        "inv", k=SLQ_K, batch=4, max_probes=SH_PROBES, key=SEED))
+    m_a = int(res_a.samples.shape[0])
+    check(got == {"kkt_streaming_matvec": m_a * SLQ_K},
+          f"fused sharded adaptive launches {got}")
+    paths["slq_trace_adaptive_sharded"] = got
+    iv_f, got = driven(sh.estimate_interval)
+    check(set(got) == {"kkt_operator_matvec"} and iv_f == iv
+          and sh.estimate_interval() is iv_f,
+          f"fused sharded interval {iv_f} ({got}), the fused one {iv}")
+    paths["estimate_interval_sharded"] = got
+    y, got = driven(lambda: sh.chebyshev_fAb(
+        b, f_cheb, degree=CHEB_DEGREE, interval=iv, raw=True))
+    check(got == {"kkt_streaming_matvec": CHEB_DEGREE},
+          f"fused sharded chebyshev launches {got}")
+    paths["chebyshev_fAb_sharded"] = got
+    y_f = solver.chebyshev_fAb(b, f_cheb, degree=CHEB_DEGREE, interval=iv,
+                               raw=True)
+    y_cat = torch.cat(y)
+    err_f = float((y_cat - y_f).abs().max())
+    check(err_f <= 2e-4 * float(y_f.abs().max()),
+          f"fused sharded chebyshev {err_f:.3e} from the fused one")
+    print(f"     ShardedFusedKKTSolver: slq_trace launches "
+          f"{paths['slq_trace_sharded']}, samples within rtol 2e-3 of K2's, "
+          f"a probe bitwise a solve's pass one; density "
+          f"{paths['slq_spectral_density_sharded']}; adaptive ({m_a} "
+          f"probes) {paths['slq_trace_adaptive_sharded']}; "
+          f"estimate_interval {paths['estimate_interval_sharded']}, the "
+          f"fused solver's interval, cached; chebyshev_fAb "
+          f"{paths['chebyshev_fAb_sharded']}, {err_f:.3e} from the fused "
+          f"K1 expansion, bitwise: {bool(torch.equal(y_cat, y_f))}")
+
+    def fresh(s):
+        s._interval_cache = None
+        return s.estimate_interval()
+
+    timed = {
+        "sparse_eigsh_LA": lambda: sop.eigsh(
+            nev=2, which="LA", tol=EIG_TOL, ncv=20, maxiter=EIG_MAXITER,
+            v0=v0),
+        "sparse_eigsh_SA": lambda: sop.eigsh(
+            nev=2, which="SA", tol=EIG_TOL, ncv=20, maxiter=EIG_MAXITER,
+            v0=v0),
+        "sparse_slq_trace": lambda: sop.slq_trace(
+            "inv", k=SLQ_K, num_probes=SH_PROBES, key=SEED),
+        "sparse_slq_spectral_density": lambda: sop.slq_spectral_density(
+            grid, k=SLQ_K, num_probes=SH_PROBES, key=SEED),
+        "sparse_slq_trace_adaptive": lambda: sop.slq_trace_adaptive(
+            "inv", k=SLQ_K, batch=4, max_probes=SH_PROBES, key=SEED),
+        "sparse_solve_fAb_block": lambda: sop.solve_fAb_block(
+            bb, k=BLOCK_K, f="inv", raw=True),
+        "sparse_estimate_interval": sop.estimate_interval,
+        "sparse_chebyshev_fAb": lambda: sop.chebyshev_fAb(
+            b, f_cheb, degree=CHEB_DEGREE, interval=iv, raw=True),
+        "sparse_reorth": lambda: sop.solve_fAb(
+            b, k=K, f="inv", method="one_pass", reorth=True, raw=True),
+        "fused_slq_trace": lambda: sh.slq_trace(
+            "inv", k=SLQ_K, num_probes=SH_PROBES, key=SEED),
+        "fused_slq_spectral_density": lambda: sh.slq_spectral_density(
+            grid, k=SLQ_K, num_probes=SH_PROBES, key=SEED),
+        "fused_slq_trace_adaptive": lambda: sh.slq_trace_adaptive(
+            "inv", k=SLQ_K, batch=4, max_probes=SH_PROBES, key=SEED),
+        "fused_estimate_interval": lambda: fresh(sh),
+        "fused_chebyshev_fAb": lambda: sh.chebyshev_fAb(
+            b, f_cheb, degree=CHEB_DEGREE, interval=iv, raw=True),
+    }
+    times = {name: wall_s(fn, 3) for name, fn in timed.items()}
+    wall = time.perf_counter() - t_phase
+    print(f"     on {card}: " + "; ".join(
+        f"{name} {runs(ts)}" for name, ts in times.items())
+        + f"; phase 23 wall {wall:.1f} s")
+    del sop, sh, op
+    return {"paths": paths, "times": times}
 
 
 def sparse_phase(card, dev, mesh, inst) -> None:
@@ -2817,9 +3305,17 @@ def main() -> int:
     # 19. the K14 probes; 20. the row-sharded operator on the same group
     k14 = probes_phase(card, dev, [("headline", inst), ("5M", big)])
     sparse_phase(card, dev, mesh, inst)
-    torch.distributed.destroy_process_group()
-    # 21. the capability methods of the fused tier
+    # 21. the capability methods of the fused tier; 22. reorthogonalisation
+    #     and block Lanczos on K8; 23. the sharded tiers' capability methods
+    #     on the same one-rank group
+    t21 = time.perf_counter()
     cap = capability_phase(card, dev, inst, solver, solver_c, b)
+    print(f"     phase 21 wall {time.perf_counter() - t21:.1f} s")
+    p22 = reorth_block_phase(card, dev, inst, b)
+    p23 = sharded_capability_phase(card, dev, mesh, inst, solver, b)
+    torch.distributed.destroy_process_group()
+    for extra in (p22, p23):
+        cap["paths"].update(extra["paths"])
     for name, got in (("kkt_streaming_matvec", k7["headline"]),
                       ("df_kkt_streaming_matvec", k12["headline"]),
                       *k14.items()):
@@ -2866,9 +3362,11 @@ def main() -> int:
     k11_row["in_pass_matvecs"] = df_in_pass_matvecs
     k11_row["in_pass_us"] = df_in_pass_us
     k11_row["planar_ms"] = k11_planar_ms
-    # the capability paths' launches (phase 21), each path driven with the
-    # counters reset: K1 in the fused Chebyshev expansion, K2 and K6 in the
-    # SLQ methods, K8 under eigsh and the generic expansion
+    # the capability paths' launches (phases 21-23), each path driven with
+    # the counters reset: K1 in the fused Chebyshev expansion, K2 and K6 in
+    # the SLQ methods, K8 under eigsh, the generic expansion, the
+    # reorthogonalised and block solves, K7 in the arc-sharded SLQ methods
+    # and expansion
     for r in rows:
         extra = {path: got[r["name"]] for path, got in cap["paths"].items()
                  if r["name"] in got}

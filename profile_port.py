@@ -27,7 +27,13 @@ between each gather's start and its wait.
 The fused solver's capability methods: ``slq_trace`` (``slq_trace("inv",
 k=50, num_probes=16, key=0)``, 16 K2 launches and one batched ``eigh``)
 and ``chebyshev_fAb`` (degree 100 on the cached interval, 100 K1 launches
-and the eager recurrence around them).
+and the eager recurrence around them). The generic tier's
+reorthogonalised one-pass solve ``reorth`` (``solve_fAb(..., k,
+method="one_pass", reorth=True)`` on ``make_kkt_operator``: k K8 launches
+and the CGS2 GEMVs over the stored rows) and the block solve
+``solve_fAb_block`` (``solve_fAb_block(op, B, 100, "inv")``, B of 4
+columns from ``default_rng(4)``: 4 K8 launches a block step, the QR, the
+triangular solve and the block products).
 
 ``--paths`` traces the named paths only (all by default). Each path runs
 twice to warm up, then ``--reps`` times under the profiler,
@@ -200,6 +206,7 @@ def main(argv=None) -> int:
         generate_mcf_instance,
         make_kkt_operator,
         solve_fAb,
+        solve_fAb_block,
     )
     from two_pass_lanczos_tpu_torch.parallel import (
         DFShardedFusedKKTSolver,
@@ -230,6 +237,8 @@ def main(argv=None) -> int:
                   arc_v=inst.arc_v, num_nodes=inst.num_nodes,
                   num_arcs=inst.num_arcs), mesh, dtype=np.float32)
     b64 = b.double()
+    b_block = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (s.n, 4)).astype(np.float32)).to(dev)
     k = args.k
     paths = {
         "two_pass": lambda: s.solve(b, k=k, raw=True),
@@ -250,6 +259,9 @@ def main(argv=None) -> int:
                                                          raw=True),
         "slq_trace": lambda: s.slq_trace("inv", k=50, num_probes=16, key=0),
         "chebyshev_fAb": lambda: chebyshev(s, b),
+        "reorth": lambda: solve_fAb(op, b, k=k, f="inv", method="one_pass",
+                                    reorth=True),
+        "solve_fAb_block": lambda: solve_fAb_block(op, b_block, 100, "inv"),
     }
     chosen = args.paths.split(",") if args.paths else list(paths)
     unknown = sorted(set(chosen) - set(paths))

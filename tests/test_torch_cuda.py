@@ -1435,6 +1435,94 @@ def test_sharded_sparse_operator_across_four_cards(problem, cuda_device,
         assert _rel(r["x"], r["x1"]) < 1e-4
 
 
+# --- reorthogonalisation and block Lanczos on K8 ----------------------------
+
+def _tf32_runs(fn):
+    """``fn()`` with TF32 off, then on (launches counted each time); the
+    caller's setting is restored."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    out = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            reset_launches()
+            got = fn()
+            torch.cuda.synchronize()
+            out.append((got, {n: c for n, c in LAUNCHES.items() if c}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+@pytest.mark.parametrize("mode", ["full", "selective"])
+def test_reorth_on_card_runs_k8_and_takes_no_tf32(problem, cuda_device,
+                                                  mode):
+    """One K8 launch a step and nothing else; the CGS sweeps are GEMVs,
+    so the TF32 switch changes no bit; α, β at k = 20 match the CPU f64
+    run."""
+    from two_pass_lanczos_tpu_torch.solvers import pass_one_reorth
+    d, u, v, p, b = problem
+    op = make_kkt_operator(d, u, v, p, dtype=torch.float32,
+                           device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    k = 40
+    (x0, l0), (x1, l1) = _tf32_runs(lambda: solve_fAb(
+        op, bt, k=k, f="inv", method="one_pass", reorth=mode))
+    assert torch.equal(x0, x1)
+    assert l0 == l1 == {"kkt_operator_matvec": k}
+    dec, basis = pass_one_reorth(op.matvec, bt, 20, mode)
+    op64 = make_kkt_operator(d.astype(np.float64), u, v, p, device=CPU)
+    dec64, _ = pass_one_reorth(op64.matvec, torch.from_numpy(
+        b.astype(np.float64)), 20, mode)
+    np.testing.assert_allclose(dec.alphas.cpu().numpy(),
+                               dec64.alphas.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(dec.betas.cpu().numpy(),
+                               dec64.betas.numpy(), rtol=1e-4)
+
+
+def test_selective_without_a_sweep_is_the_plain_pass_on_card(cuda_device):
+    """A selective run that never sweeps is bitwise the plain one-pass
+    pass one on the card too: α, β and every basis row."""
+    from two_pass_lanczos_tpu_torch.algorithms.reorth import (
+        pass_one_scan_selective,
+    )
+    d = np.linspace(1.0, 3.0, 500).astype(np.float32)
+    op = DiagonalOperator(d, device=cuda_device)
+    bt = torch.from_numpy(np.random.default_rng(0).standard_normal(500)
+                          .astype(np.float32)).to(cuda_device)
+    dec_p, bas_p = pass_one_scan(op.matvec, bt, 8, emit_basis=True)
+    dec_s, bas_s, nre = pass_one_scan_selective(op.matvec, bt, 8)
+    assert int(nre) == 0
+    assert torch.equal(dec_p.alphas, dec_s.alphas)
+    assert torch.equal(dec_p.betas, dec_s.betas)
+    assert torch.equal(bas_p, bas_s)
+
+
+@pytest.mark.parametrize("method", ["one_pass", "two_pass"])
+def test_block_on_card_runs_p_k8_a_step_and_takes_no_tf32(problem,
+                                                          cuda_device,
+                                                          method):
+    """p K8 launches a block step and pass (every one of the k steps runs
+    its matvec, as the masked scan does); the same bits with TF32 on; x
+    within 1e-4 of the CPU f64 solve at k = 12."""
+    from two_pass_lanczos_tpu_torch import solve_fAb_block
+    d, u, v, p, b = problem
+    n, width, k = len(d) + p, 3, 12
+    op = make_kkt_operator(d, u, v, p, dtype=torch.float32,
+                           device=cuda_device)
+    bb = np.random.default_rng(3).standard_normal((n, width)).astype(
+        np.float32)
+    (x0, l0), (x1, l1) = _tf32_runs(lambda: solve_fAb_block(
+        op, bb, k, "inv", method=method))
+    assert torch.equal(x0, x1)
+    passes = 1 if method == "one_pass" else 2
+    assert l0 == l1 == {"kkt_operator_matvec": passes * width * k}
+    op64 = make_kkt_operator(d.astype(np.float64), u, v, p, device=CPU)
+    x64 = solve_fAb_block(op64, bb.astype(np.float64), k, "inv",
+                          method=method).numpy()
+    assert _rel(x0.cpu().numpy(), x64) < 1e-4
+
+
 # --- the default device ----------------------------------------------------
 
 @pytest.mark.parametrize("entry", [

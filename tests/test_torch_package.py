@@ -85,14 +85,9 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
-#: names of the JAX package's ``__all__`` the port does not have yet: the
-#: block Lanczos tier (ROADMAP Queue 1 item 2 step 6); ``PallasKKTOperator``'s
-#: counterpart is ``CudaKKTOperator``
-NOT_PORTED = {
-    "PallasKKTOperator",
-    "BlockDecomposition", "block_pass_one", "block_pass_two",
-    "block_padded_f_e1", "solve_fAb_block", "solve_fAb_block_jit",
-}
+#: names of the JAX package's ``__all__`` the port does not have:
+#: ``PallasKKTOperator``, whose counterpart is ``CudaKKTOperator``
+NOT_PORTED = {"PallasKKTOperator"}
 
 
 def test_port_exports_the_jax_names():

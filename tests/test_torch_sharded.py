@@ -432,14 +432,6 @@ def test_collectives_per_step_are_O_p(ranks4):
         assert per_step < 8 * d * p  # O(p) bytes a step, not O(n)
 
 
-def test_unported_capabilities_raise(ranks4):
-    e = ranks4[0]["errors"]
-    for name in ("slq_trace", "slq_spectral_density", "slq_trace_adaptive",
-                 "estimate_interval", "chebyshev_fAb"):
-        assert e[name].startswith("NotImplementedError"), name
-        assert "Queue 1 item 2" in e[name], name
-
-
 def test_sharded_solver_from_jax(ranks4):
     for r in ranks4:
         c = r["convert"]

@@ -372,17 +372,10 @@ def test_generic_matvec_overlaps_halo_with_owned_spmv(ranks):
                              for s in steps), ev
 
 
-# --- what is not ported -----------------------------------------------------
+# --- what the operator refuses ----------------------------------------------
 
 def test_unported_capabilities_and_options_raise(ranks4):
     e = ranks4[0]["errors"]
-    for name in ("eigsh", "slq_trace", "slq_spectral_density",
-                 "slq_trace_adaptive", "solve_fAb_block",
-                 "estimate_interval", "chebyshev_fAb"):
-        assert e[name].startswith("NotImplementedError"), name
-        assert "Queue 1 item 2" in e[name], name
-    assert e["reorth"].startswith("NotImplementedError")
-    assert "reorth" in e["reorth"]
     assert e["method"].startswith("ValueError")
     assert "two_pass" in e["callback_one_pass"]
     assert "length" in e["shape"] and e["chunk"].startswith("ValueError")

@@ -181,17 +181,6 @@ def test_errors_of_the_reference_taxonomy():
         tpl.solve_fAb(op8, np.ones(8), k=4, method="three_pass")
 
 
-@pytest.mark.parametrize("call", ["lanczos", "solve_fAb"])
-def test_reorth_names_its_roadmap_item(call):
-    op = tpl.DiagonalOperator(np.arange(1.0, 9.0), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        if call == "lanczos":
-            tpl.lanczos(op, np.ones(8), 4, tpl.make_inv_solver(), reorth=True)
-        else:
-            tpl.solve_fAb(op, np.ones(8), k=4, method="one_pass",
-                          reorth="full")
-
-
 def test_small_norm_b_is_not_rejected():
     diag = np.arange(1.0, 65.0, dtype=np.float32)
     op = tpl.DiagonalOperator(diag, device=CPU)

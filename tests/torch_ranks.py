@@ -184,15 +184,12 @@ def case_errors(device, d, u, v, p):
         "method": lambda: s.solve(zero, k=4, method="three_pass"),
         "shape": lambda: s.solve(zero[:-1], k=4),
     }
-    for name in ("slq_trace", "slq_spectral_density", "slq_trace_adaptive",
-                 "estimate_interval", "chebyshev_fAb"):
-        calls[name] = getattr(s, name)
     out = {}
     for name, call in calls.items():
         try:
             call()
             out[name] = None
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             out[name] = f"{type(e).__name__}: {e}"
     out["one_pass_bytes"] = s.one_pass_basis_bytes(7)
     out["budget"] = s.ONE_PASS_HBM_BUDGET
@@ -457,25 +454,228 @@ def case_sparse_errors(device, spec):
     n = sop.shape[0]
     zero = np.zeros(n)
     calls = {
-        "reorth": lambda: sop.solve_fAb(zero, k=4, reorth=True),
         "method": lambda: sop.solve_fAb(zero, k=4, method="three_pass"),
         "callback_one_pass": lambda: sop.solve_fAb(
             zero, k=4, method="one_pass", callback=lambda *a: True),
         "shape": lambda: sop.solve_fAb(zero[:-1], k=4),
         "chunk": lambda: sop.pass_one_chunked(zero, 4, chunk=0),
     }
-    for name in ("eigsh", "slq_trace", "slq_spectral_density",
-                 "slq_trace_adaptive", "solve_fAb_block",
-                 "estimate_interval", "chebyshev_fAb"):
-        calls[name] = getattr(sop, name)
     out = {}
     for name, call in calls.items():
         try:
             call()
             out[name] = None
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             out[name] = f"{type(e).__name__}: {e}"
     return out
+
+
+def _raised(call):
+    """The message of what ``call`` raises (None: no error)."""
+    try:
+        call()
+    except (ValueError, TypeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def _eig(res):
+    return {"values": np.asarray(res.eigenvalues),
+            "vectors": (None if res.eigenvectors is None
+                        else np.asarray(res.eigenvectors)),
+            "resid": np.asarray(res.residual_norms),
+            "restarts": res.restarts, "converged": res.converged}
+
+
+def case_sparse_eigsh(device, spec, **kwargs):
+    """``ShardedSparseOperator.eigsh(**kwargs)``."""
+    return _eig(_sparse(device, spec).eigsh(**kwargs))
+
+
+def case_sparse_eigsh_errors(device, spec):
+    sop = _sparse(device, spec)
+    n = sop.shape[0]
+    return {"which": _raised(lambda: sop.eigsh(nev=2, which="XX")),
+            "v0": _raised(lambda: sop.eigsh(nev=2, v0=np.zeros(n)))}
+
+
+def case_sparse_slq(device, spec, f, k, num_probes, key, probe="rademacher"):
+    """``slq_trace`` (``f`` "x2" is t ↦ t², a callable), and its pass one
+    on the same probes."""
+    from two_pass_lanczos_tpu_torch import slq
+    sop = _sparse(device, spec)
+    fn = (lambda t: t * t) if f == "x2" else f
+    res = sop.slq_trace(fn, k=k, num_probes=num_probes, key=key,
+                        probe=probe)
+    probes = slq._draw_probes(key, num_probes, sop.shape[0], sop.dtype,
+                              probe)
+    return {"estimate": float(res.estimate), "stderr": float(res.stderr),
+            "samples": _np(res.samples), "probes": _np(probes),
+            "dec": _dec_stack(sop._slq_pass_one(probes, k))}
+
+
+def _dec_stack(dec):
+    return {"alphas": _np(dec.alphas), "betas": _np(dec.betas),
+            "steps": _np(dec.steps_taken), "b_norm": _np(dec.b_norm)}
+
+
+def case_sparse_slq_errors(device, spec):
+    sop = _sparse(device, spec)
+    return {"num_probes": _raised(lambda: sop.slq_trace(
+                "inv", k=4, num_probes=0, key=0)),
+            "f": _raised(lambda: sop.slq_trace("nope", k=4, num_probes=2,
+                                               key=0))}
+
+
+def case_sparse_adaptive(device, spec, k, batch, target, max_probes, key):
+    sop = _sparse(device, spec)
+    res = sop.slq_trace_adaptive(lambda t: t * t, k=k, batch=batch,
+                                 target_rel_stderr=target,
+                                 max_probes=max_probes, key=key)
+    return {"estimate": float(res.estimate), "m": int(res.samples.shape[0])}
+
+
+def case_sparse_dos(device, spec, grid, sigma, k, num_probes, key):
+    from two_pass_lanczos_tpu_torch import slq
+    sop = _sparse(device, spec)
+    phi = sop.slq_spectral_density(grid, sigma=sigma, k=k,
+                                   num_probes=num_probes, key=key)
+    probes = slq._draw_probes(key, num_probes, sop.shape[0], sop.dtype,
+                              "gaussian")
+    return {"phi": _np(phi), "probes": _np(probes)}
+
+
+def case_sparse_chebyshev(device, spec, b, f, degree, interval=None):
+    sop = _sparse(device, spec)
+    out = {"x": sop.chebyshev_fAb(b, f, degree=degree, interval=interval)}
+    if interval is None:
+        out["interval"] = sop.estimate_interval()
+    return out
+
+
+def case_sparse_chebyshev_errors(device, spec):
+    sop = _sparse(device, spec)
+    return {"inv": _raised(lambda: sop.chebyshev_fAb(
+        np.ones(sop.shape[0]), "inv", degree=10, interval=(-2.0, 2.0)))}
+
+
+def case_sparse_block(device, spec, b_block, k, f="inv", raw=False):
+    sop = _sparse(device, spec)
+    x = sop.solve_fAb_block(b_block, k=k, f=f, raw=raw)
+    return {"x": _np(x), "steps": sop._last_block_steps}
+
+
+def case_sparse_block_errors(device, spec):
+    sop = _sparse(device, spec)
+    n = sop.shape[0]
+    return {
+        "ndim": _raised(lambda: sop.solve_fAb_block(np.ones(n), k=4)),
+        "rows": _raised(lambda: sop.solve_fAb_block(np.ones((8, 2)), k=4)),
+        "f": _raised(lambda: sop.solve_fAb_block(np.ones((n, 2)), k=4,
+                                                 f="nope")),
+        "k": _raised(lambda: sop.solve_fAb_block(np.ones((n, 2)), k=0)),
+        "width": _raised(lambda: sop.solve_fAb_block(np.ones((n, 0)), k=4)),
+        "complex": _raised(lambda: sop.solve_fAb_block(
+            np.ones((n, 2), np.complex128), k=4)),
+    }
+
+
+def case_sparse_reorth(device, spec, b, k, reorth, f="inv"):
+    """``solve_fAb(..., method="one_pass", reorth=...)`` and the basis
+    of this rank's rows (its orthogonality defect over the mesh)."""
+    import torch
+    from two_pass_lanczos_tpu_torch.solvers import pass_one_reorth
+    sop = _sparse(device, spec)
+    x, dec = sop.solve_fAb(b, k=k, f=f, method="one_pass", reorth=reorth)
+    _, basis = pass_one_reorth(sop._matvec, sop._prepare_b(b), k,
+                               "full" if reorth is True else reorth,
+                               dot=sop._dot, reduce=sop._fold)
+    s = dec.steps()
+    gram = sop._fold(basis[:s].double() @ basis[:s].double().T)
+    defect = float((gram - torch.eye(s, dtype=gram.dtype)).abs().max())
+    return dict(_dec(dec), x=x, defect=defect)
+
+
+def case_sparse_reorth_errors(device, spec):
+    sop = _sparse(device, spec)
+    b = np.ones(sop.shape[0])
+    return {
+        "two_pass": _raised(lambda: sop.solve_fAb(
+            b, k=4, f="inv", method="two_pass", reorth=True)),
+        "callback": _raised(lambda: sop.solve_fAb(
+            b, k=4, f="inv", method="one_pass", reorth=True,
+            callback=lambda *a: True)),
+        "typo": _raised(lambda: sop.solve_fAb(
+            b, k=4, f="inv", method="one_pass", reorth="selectve")),
+    }
+
+
+def case_sparse_convert(device, jax_like, b, k):
+    """``convert.sharded_operator_from_jax`` on the host fields of a JAX
+    ``ShardedSparseOperator`` (its partition and local blocks as NumPy):
+    a solve on the operator read back from them."""
+    from two_pass_lanczos_tpu_torch.convert import sharded_operator_from_jax
+    sop = sharded_operator_from_jax(jax_like, _mesh(device))
+    x, dec = sop.solve_fAb(b, k=k, f="inv")
+    return dict(_dec(dec), x=x)
+
+
+def case_fused_slq(device, d, u, v, p, k, num_probes, key, f="exp"):
+    """The arc-sharded SLQ, its probes, and a solve's pass one on the
+    first probe (bitwise the SLQ row)."""
+    import torch
+    from two_pass_lanczos_tpu_torch import slq
+    s = _f32(device, d, u, v, p)
+    res = s.slq_trace(f, k=k, num_probes=num_probes, key=key)
+    probes = slq._draw_probes(key, num_probes, s.n, torch.float32,
+                              "rademacher")
+    dec = s._slq_pass_one(probes, k)
+    solo = s.pass_one(probes[0], k)
+    return {"samples": _np(res.samples), "probes": _np(probes),
+            "dec": _dec_stack(dec), "solo": _dec(solo)}
+
+
+def case_fused_slq_errors(device, d, u, v, p):
+    s = _f32(device, d, u, v, p)
+    return {"num_probes": _raised(lambda: s.slq_trace(
+                "inv", num_probes=0, key=0)),
+            "f": _raised(lambda: s.slq_trace("bogus", key=0))}
+
+
+def case_fused_dos(device, d, u, v, p, grid, k, num_probes, key):
+    s = _f32(device, d, u, v, p)
+    return {"phi": _np(s.slq_spectral_density(grid, k=k,
+                                              num_probes=num_probes,
+                                              key=key))}
+
+
+def case_fused_adaptive(device, d, u, v, p, k, batch, target, max_probes,
+                        key):
+    s = _f32(device, d, u, v, p)
+    res = s.slq_trace_adaptive(lambda t: t * t, k=k, batch=batch,
+                               target_rel_stderr=target,
+                               max_probes=max_probes, key=key)
+    return {"estimate": float(res.estimate), "m": int(res.samples.shape[0])}
+
+
+def case_fused_chebyshev(device, d, u, v, p, x, f, degree, interval=None,
+                         raw=False):
+    s = _f32(device, d, u, v, p)
+    out = {}
+    if interval is None:
+        iv = s.estimate_interval()
+        out["interval"] = iv
+        out["cached"] = s.estimate_interval() is iv
+    y = s.chebyshev_fAb(x, f, degree=degree, interval=interval, raw=raw)
+    out["y"] = ({"ya": _np(y[0]), "yn": _np(y[1]), "m_d": s.m_d}
+                if raw else y)
+    return out
+
+
+def case_fused_chebyshev_errors(device, d, u, v, p):
+    s = _f32(device, d, u, v, p)
+    return {"inv": _raised(lambda: s.chebyshev_fAb(
+        np.ones(s.n, np.float32), "inv", interval=(-1.0, 1.0)))}
 
 
 def case_sparse_card_path(device, d, u, v, p, b, k):

@@ -24,7 +24,11 @@ spectral density by stochastic Lanczos quadrature (``slq``), extreme
 eigenpairs by thick-restart Lanczos (``eigen.eigsh``) and storage-free
 Chebyshev f(A)·b (``algorithms.chebyshev``); the fused solver runs them on
 its kernels (``FusedKKTSolver.slq_trace``, ``slq_spectral_density``,
-``slq_trace_adaptive``, ``estimate_interval``, ``chebyshev_fAb``).
+``slq_trace_adaptive``, ``estimate_interval``, ``chebyshev_fAb``), and so do
+the sharded tiers (``parallel``). Beside them: reorthogonalised one-pass
+Lanczos (``solve_fAb(..., method="one_pass", reorth=True)`` or
+``"selective"``, ``algorithms.reorth``) and block Lanczos for a block of
+right-hand sides (``solve_fAb_block``, ``algorithms.block``).
 
 Example::
 
@@ -46,6 +50,14 @@ Example::
     x4, (alphas, betas, steps) = sdf.solve(b.astype(np.float64), k=500)
 """
 
+from two_pass_lanczos_tpu_torch.algorithms.block import (
+    BlockDecomposition,
+    block_padded_f_e1,
+    block_pass_one,
+    block_pass_two,
+    solve_fAb_block,
+    solve_fAb_block_jit,
+)
 from two_pass_lanczos_tpu_torch.algorithms.chebyshev import (
     chebyshev_coefficients,
     chebyshev_fAb,
@@ -197,6 +209,13 @@ __all__ = [
     # thick-restart Lanczos eigensolver
     "eigsh",
     "EigshResult",
+    # block Lanczos: f(A)B on one shared block Krylov space
+    "BlockDecomposition",
+    "block_pass_one",
+    "block_pass_two",
+    "block_padded_f_e1",
+    "solve_fAb_block",
+    "solve_fAb_block_jit",
     # Chebyshev-expansion f(A)b
     "chebyshev_fAb",
     "chebyshev_coefficients",

@@ -35,6 +35,7 @@ tensors and the hand-written kernels for CUDA tensors; the generic solvers
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -49,6 +50,7 @@ __all__ = [
     "ChunkCarry",
     "dot_f64",
     "basis_product",
+    "full_f32_matmul",
     "l2_norm",
     "lanczos_recurrence_step",
     "pass_one_scan",
@@ -154,6 +156,20 @@ def basis_product(y_full: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.mv(vt, row) for row in y_full])
 
 
+@contextlib.contextmanager
+def full_f32_matmul():
+    """TF32 off for the GEMMs run inside the block (the block recurrence's
+    ``(n, p)×(p, p)`` products and Gram matrices, its QR and triangular
+    solves), whatever the caller's setting, which is restored on exit. The
+    JAX package asks for ``Precision.HIGHEST`` on the same products."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 class ChunkCarry(NamedTuple):
     """State carried from one chunk of pass one to the next."""
 
@@ -183,6 +199,19 @@ def _start(b: torch.Tensor, dot: Dot) -> ChunkCarry:
         b_norm=b_norm)
 
 
+def _residual(matvec, v_curr: torch.Tensor, v_prev: torch.Tensor,
+              beta_prev: torch.Tensor, dot: Dot
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Steps 1-4 of the module docstring: ``(α, w)`` with ``w`` the
+    unnormalised next vector before its norm (the reorthogonalised
+    recurrence sweeps it here, ``algorithms/reorth.py``)."""
+    w = matvec(v_curr)
+    w = w - beta_prev * v_prev
+    alpha = _inner(dot, v_curr, w)
+    w = w - alpha * v_curr
+    return alpha, w
+
+
 def lanczos_recurrence_step(
         matvec, v_curr: torch.Tensor, v_prev: torch.Tensor,
         beta_prev: torch.Tensor, dot: Dot = torch.dot
@@ -190,10 +219,7 @@ def lanczos_recurrence_step(
     """One unmasked recurrence step, steps 1-5 of the module docstring in the
     reference's order: ``(α, β, w)`` with ``w`` the unnormalised next
     vector."""
-    w = matvec(v_curr)
-    w = w - beta_prev * v_prev
-    alpha = _inner(dot, v_curr, w)
-    w = w - alpha * v_curr
+    alpha, w = _residual(matvec, v_curr, v_prev, beta_prev, dot)
     return alpha, l2_norm(w, dot), w
 
 
@@ -201,11 +227,20 @@ def _step(matvec, c: ChunkCarry, executed: torch.Tensor, tol: float,
           dot: Dot) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
     """One masked recurrence step. Returns the step's stored α (0 unless
     ``executed``), its stored β (0 unless it advanced) and the new carry."""
+    alpha, beta, w = lanczos_recurrence_step(matvec, c.v_curr, c.v_prev,
+                                             c.beta_prev, dot)
+    return _advance(c, executed, alpha, beta, w, tol)
+
+
+def _advance(c: ChunkCarry, executed: torch.Tensor, alpha: torch.Tensor,
+             beta: torch.Tensor, w: torch.Tensor, tol: float
+             ) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
+    """Step 6 and the masking of one step from its ``(α, β, w)``: the
+    breakdown test, v_next = w·(1/β) and the new carry. Every pass one
+    (plain, chunked, reorthogonalised) ends its step here."""
     zero = torch.zeros((), dtype=real_dtype(c.v_curr.dtype),
                        device=c.v_curr.device)
     v, v_prev = c.v_curr, c.v_prev
-    alpha, beta, w = lanczos_recurrence_step(matvec, v, v_prev, c.beta_prev,
-                                             dot)
     breakdown = beta <= tol
     advance = executed & ~breakdown
     inv_b = torch.where(advance, 1.0 / beta, zero)

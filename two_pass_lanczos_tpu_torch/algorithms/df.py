@@ -159,8 +159,8 @@ def _node_table(key: np.ndarray, m: int, p: int, device) -> torch.Tensor:
             f" nodes x {k_pad} slots (max degree {k_max}) = {p * k_pad}"
             f" entries, over the {MAX_TABLE_ENTRIES}-entry cap. This"
             " hub-heavy topology needs a path without the table:"
-            " ops.kkt_fused_df.DFFusedKKTSolver on a card (the sharded df"
-            " solver is not ported yet).")
+            " ops.kkt_fused_df.DFFusedKKTSolver or"
+            " parallel.DFShardedFusedKKTSolver on a card.")
     tab = np.full((p, k_pad), m, np.int64)
     order = np.argsort(key, kind="stable")
     ks = key[order]

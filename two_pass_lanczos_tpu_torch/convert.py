@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from two_pass_lanczos_tpu_torch.algorithms.block import BlockDecomposition
 from two_pass_lanczos_tpu_torch.algorithms.core import LanczosDecomposition
 from two_pass_lanczos_tpu_torch.algorithms.df import DFKKTOperator
 from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
@@ -33,10 +34,13 @@ from two_pass_lanczos_tpu_torch.parallel.fused_sharded import (
 from two_pass_lanczos_tpu_torch.parallel.fused_sharded_df import (
     DFShardedFusedKKTSolver,
 )
+from two_pass_lanczos_tpu_torch.parallel.sharded import ShardedSparseOperator
 
-__all__ = ["solver_from_jax", "decomposition_from_jax", "operator_from_jax",
+__all__ = ["solver_from_jax", "decomposition_from_jax",
+           "block_decomposition_from_jax", "operator_from_jax",
            "df_operator_from_jax", "df_solver_from_jax",
-           "sharded_solver_from_jax", "df_sharded_solver_from_jax"]
+           "sharded_solver_from_jax", "df_sharded_solver_from_jax",
+           "sharded_operator_from_jax"]
 
 
 def solver_from_jax(jax_fused_solver, device=DEFAULT_DEVICE) -> FusedKKTSolver:
@@ -60,6 +64,21 @@ def decomposition_from_jax(dec, device=DEFAULT_DEVICE) -> LanczosDecomposition:
         alphas=t(dec.alphas), betas=t(dec.betas),
         steps_taken=t(np.int32(dec.steps_taken)).reshape(()),
         b_norm=t(dec.b_norm).reshape(()))
+
+
+def block_decomposition_from_jax(dec, device=DEFAULT_DEVICE
+                                 ) -> BlockDecomposition:
+    """A JAX ``BlockDecomposition`` as the port's, on ``device``: so JAX's
+    pass one can feed the port's ``block_pass_two`` and
+    ``block_padded_f_e1``."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return BlockDecomposition(
+        a_blocks=t(dec.a_blocks), b_blocks=t(dec.b_blocks), r0=t(dec.r0),
+        steps_taken=t(np.int32(dec.steps_taken)).reshape(()))
 
 
 def operator_from_jax(op, device=DEFAULT_DEVICE) -> LinearOperator:
@@ -159,3 +178,27 @@ def df_sharded_solver_from_jax(jax_solver, mesh, kkt_arrays
                                 np.asarray(v), int(p), mesh)
     _same_split(jax_solver, s)
     return s
+
+
+def sharded_operator_from_jax(jax_sop, mesh) -> ShardedSparseOperator:
+    """This rank's :class:`ShardedSparseOperator` for the matrix of a JAX
+    ``ShardedSparseOperator``, whose triplets survive only in its
+    per-device blocks (``local_blocks``: owned columns by local id, remote
+    columns by gathered id, both padded with zero values). The triplets are
+    read back through its partition's ``perm`` (the padding and any
+    explicit zero dropped), each row's entries in their order there; the
+    port then partitions them over ``mesh`` itself."""
+    part = jax_sop.part
+    rp = part.rows_per
+    blocks = [np.asarray(a) for a in jax_sop.local_blocks]
+    rows, cols, vals = [], [], []
+    for (lr, lc, lv), local in ((blocks[:3], True), (blocks[3:], False)):
+        for d in range(part.ndev):
+            keep = lv[d] != 0
+            pos_c = lc[d][keep].astype(np.int64)
+            rows.append(part.perm[d * rp + lr[d][keep].astype(np.int64)])
+            cols.append(part.perm[d * rp + pos_c if local else pos_c])
+            vals.append(lv[d][keep])
+    return ShardedSparseOperator(part.n_orig, np.concatenate(rows),
+                                 np.concatenate(cols), np.concatenate(vals),
+                                 mesh)

@@ -63,21 +63,41 @@ class EigshResult(NamedTuple):
     converged: bool
 
 
-def _project(v: torch.Tensor, w: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
+def _project(v: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
+             reduce_sum=None) -> torch.Tensor:
     # ⟨v_i, w⟩ = Σ conj(v_i)·w, one GEMV; conj is a no-op on real dtypes
-    return torch.mv(v.conj(), w) * mask
+    c = torch.mv(v.conj(), w)
+    if reduce_sum is not None:
+        c = reduce_sum(c)
+    return c * mask
+
+
+def _norm(x: torch.Tensor, reduce_sum=None) -> torch.Tensor:
+    """‖x‖, its square reduced by ``reduce_sum`` when given."""
+    if reduce_sum is None:
+        return l2_norm(x)
+    sq = (x * x.conj()).real.sum() if x.is_complex() else torch.dot(x, x)
+    return torch.sqrt(reduce_sum(sq))
 
 
 def _expand_and_ritz(matvec, v_basis: torch.Tensor, h_proj: torch.Tensor,
-                     start: int, gen: torch.Generator):
+                     start: int, gen: torch.Generator, *, reduce_sum=None,
+                     inject_mask: Optional[torch.Tensor] = None,
+                     inject_fold=None):
     """One restart cycle: grow the basis from ``start`` to ``ncv`` columns
     (CGS2 full orthogonalisation), then Rayleigh–Ritz on the projected H.
 
     ``v_basis`` is (ncv+1, n) with rows [0, start] valid (row ``start`` is
     the next unit vector to expand with); ``h_proj`` is (ncv, ncv) with the
     leading (start, start) block valid. Both are updated in place. Returns
-    ``(theta, S, resid)`` of H on its device."""
+    ``(theta, S, resid)`` of H on its device.
+
+    The sharding hooks (JAX ``eigen.py:78-79``): with the basis split by
+    rows over ranks, ``reduce_sum`` folds the ``(ncv+1,)`` projection
+    partials and the squared norms in rank order, ``inject_mask`` (this
+    rank's rows, 1 or 0) keeps random injections off the padded rows, and
+    ``inject_fold(gen)`` returns the generator this rank draws them from,
+    so every rank has its own stream."""
     ncv = h_proj.shape[0]
     rdt = v_basis.dtype
     dev = v_basis.device
@@ -88,15 +108,15 @@ def _expand_and_ritz(matvec, v_basis: torch.Tensor, h_proj: torch.Tensor,
         v = v_basis
         w = matvec(v[j])
         mask = (rows <= j).to(rdt)
-        c1 = _project(v, w, mask)
+        c1 = _project(v, w, mask, reduce_sum)
         w = w - torch.mv(v.t(), c1)
-        c2 = _project(v, w, mask)
+        c2 = _project(v, w, mask, reduce_sum)
         w = w - torch.mv(v.t(), c2)
         h_col = (c1 + c2)[:ncv]
         h_proj[:, j] = h_col
         # keep H Hermitian (row j = conj of column j)
         h_proj[j, :] = h_col.conj()
-        beta = float(l2_norm(w))
+        beta = float(_norm(w, reduce_sum))
         if beta > brk:
             v_basis[j + 1] = w / beta
             coupled = beta
@@ -104,10 +124,13 @@ def _expand_and_ritz(matvec, v_basis: torch.Tensor, h_proj: torch.Tensor,
             # invariant subspace: inject a fresh random direction, CGS2 it
             # against the basis (Wu–Simon §4.2); the coupling is zero, the
             # invariant block decouples exactly
-            r = torch.randn(w.shape, generator=gen, dtype=rdt).to(dev)
-            r = r - torch.mv(v.t(), _project(v, r, mask))
-            r = r - torch.mv(v.t(), _project(v, r, mask))
-            nrm = float(l2_norm(r))
+            g = gen if inject_fold is None else inject_fold(gen)
+            r = torch.randn(w.shape, generator=g, dtype=rdt).to(dev)
+            if inject_mask is not None:
+                r = r * inject_mask
+            r = r - torch.mv(v.t(), _project(v, r, mask, reduce_sum))
+            r = r - torch.mv(v.t(), _project(v, r, mask, reduce_sum))
+            nrm = float(_norm(r, reduce_sum))
             v_basis[j + 1] = r / (nrm if nrm > brk else 1.0)
             coupled = 0.0
         if j + 1 < ncv:

@@ -24,12 +24,17 @@ eager PyTorch around K7 and the collectives, with the breakdown flag, α and
 once per chunk. On CPU tensors (a gloo mesh) K7's plain version
 ``ops/kkt_fused.kkt_shard_matvec`` runs instead; a CUDA shard never runs it.
 
+The capability methods run on the same matvec and folds: the SLQ
+methods one sharded pass one a probe (each probe's α and β bitwise a
+solve's pass one on it), ``chebyshev_fAb`` the expansion on the packed
+local vector (``degree`` K7 launches and node folds, no inner product) and
+``estimate_interval`` eigsh on the f32 ``make_kkt_operator`` of the whole
+instance on this rank's device (K8 on a card), cached.
+
 Not ported: the TPU layout (per-shard dual sorted orderings padded to a
 common R, a common windowed-gather width with re-clamped windows, arrays
 stacked per device and placed by ``make_array_from_callback``), which VMEM,
-the lanes and the lack of a gather forced; ``interpret``; and the
-capability methods (``slq_*``, ``estimate_interval``, ``chebyshev_fAb``),
-which raise ``NotImplementedError`` until ROADMAP Queue 1 item 2.
+the lanes and the lack of a gather forced; and ``interpret``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from two_pass_lanczos_tpu_torch import slq
+from two_pass_lanczos_tpu_torch.algorithms.chebyshev import (
+    chebyshev_coefficients,
+    chebyshev_scan,
+    estimate_interval,
+    validate_interval_for_f,
+)
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     LanczosDecomposition,
     basis_product,
@@ -62,9 +74,6 @@ from two_pass_lanczos_tpu_torch.parallel.comm import (
 from two_pass_lanczos_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["ShardedFusedKKTSolver"]
-
-_CAPABILITY = ("{} is not ported yet: the capability layer comes with "
-               "ROADMAP Queue 1 item 2")
 
 
 def split_arcs(m: int, mesh: Mesh):
@@ -109,6 +118,10 @@ class ShardedFusedKKTSolver:
         self.n_local = self.layout.n
         self.tol = breakdown_tolerance(torch.float32)
         self.ztol = zero_tolerance(torch.float32)
+        # the whole instance on the host, for estimate_interval's operator,
+        # and its cache
+        self._kkt_arrays = (d.astype(np.float32), u, v, self.p)
+        self._interval_cache = None
 
     @property
     def _cuda(self) -> bool:
@@ -275,18 +288,104 @@ class ShardedFusedKKTSolver:
             return (x[..., :self.m_d], x[..., self.m_d:]), decomp
         return self.unpack(x), decomp
 
-    # -- not ported yet -----------------------------------------------------
-    def slq_trace(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_trace"))
+    # -- capability methods --------------------------------------------------
+    def _slq_pass_one(self, probes, k: int) -> LanczosDecomposition:
+        """:meth:`pass_one` for each row of the (m, n) probes, one after
+        another: the sharded recurrence of :meth:`solve` on K7 and the node
+        fold, so each probe's α and β are bitwise a solve's pass one on it.
+        Returns the stacked decomposition, the same bits on every rank."""
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        z = torch.as_tensor(probes).to(device=self.device,
+                                       dtype=torch.float32)
+        if z.dim() != 2 or z.shape[1] != self.n:
+            raise ValueError(f"probes must be (m, {self.n}), got "
+                             f"{tuple(z.shape)}")
+        return slq.stack_decompositions([self.pass_one(row, k) for row in z])
 
-    def slq_spectral_density(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_spectral_density"))
+    def slq_trace(self, f="inv", *, k: int = 50, num_probes: int = 16,
+                  key, probe: str = "rademacher") -> slq.SLQResult:
+        """``tr f(A)`` by stochastic Lanczos quadrature over the arc
+        partition: the probes drawn from ``key`` (a CPU ``torch.Generator``
+        or an ``int`` seed) as ``FusedKKTSolver.slq_trace`` draws them, each
+        probe's pass one by :meth:`_slq_pass_one`, all quadratures one
+        batched ``eigh`` on the device."""
+        if num_probes < 1:
+            raise ValueError("num_probes must be >= 1")
+        if not callable(f):
+            slq._f_of_theta(torch.ones(1), f)  # reject unknown strings first
+        probes = slq._draw_probes(key, num_probes, self.n, torch.float32,
+                                  probe)
+        decomp = self._slq_pass_one(probes, k)
+        return slq.slq_stats(slq.batched_quadratic_form(decomp, f))
 
-    def slq_trace_adaptive(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_trace_adaptive"))
+    def slq_spectral_density(self, grid, *, sigma=None, k: int = 50,
+                             num_probes: int = 16, key,
+                             probe: str = "gaussian") -> torch.Tensor:
+        """Smoothed spectral density over the arc partition: the unit
+        probes' pass one by :meth:`_slq_pass_one`, the density by
+        :func:`slq.dos_from_decomposition` on the replicated decomposition.
+        A tensor on this rank's device."""
+        grid, sigma = slq.validate_dos_params(grid, sigma, num_probes)
+        probes = slq._draw_probes(key, num_probes, self.n, torch.float32,
+                                  probe)
+        probes = probes / torch.linalg.norm(probes, dim=1, keepdim=True)
+        return slq.dos_from_decomposition(self._slq_pass_one(probes, k),
+                                          grid, sigma)
 
-    def estimate_interval(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("estimate_interval"))
+    def slq_trace_adaptive(self, f="inv", *, k: int = 50, key,
+                           probe: str = "rademacher",
+                           target_rel_stderr: float = 0.01,
+                           batch: int = 8, max_probes: int = 512
+                           ) -> slq.SLQResult:
+        """:meth:`slq_trace` with the probe count chosen by the shared
+        :func:`slq.adaptive_probe_loop`: ``batch`` probes a round over the
+        arc partition until the sample standard error certifies
+        ``target_rel_stderr`` (or ``max_probes``)."""
+        return slq.adaptive_probe_loop(
+            lambda gen, take: self.slq_trace(
+                f, k=k, num_probes=take, key=gen, probe=probe).samples,
+            key, batch=batch, max_probes=max_probes,
+            target_rel_stderr=target_rel_stderr)
 
-    def chebyshev_fAb(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("chebyshev_fAb"))
+    def estimate_interval(self, *, margin: float = 0.05, tol: float = 1e-3,
+                          key=None):
+        """Cached spec(A) interval: :func:`algorithms.chebyshev
+        .estimate_interval` (two 1-eigenpair ``eigsh`` runs) on the f32
+        ``make_kkt_operator`` of the whole instance on this rank's device,
+        whose matvec is K8 on a card (the interval is a property of A; the
+        operator is ~12 bytes an arc). Every rank computes the same
+        interval. Computed once; later calls return the same object."""
+        if self._interval_cache is None:
+            from two_pass_lanczos_tpu_torch.operators import make_kkt_operator
+
+            d, u, v, p = self._kkt_arrays
+            op = make_kkt_operator(d, u, v, p, dtype=torch.float32,
+                                   device=self.device)
+            self._interval_cache = estimate_interval(
+                op, margin=margin, tol=tol, key=key)
+        return self._interval_cache
+
+    def chebyshev_fAb(self, b, f, *, degree: int = 100, interval=None,
+                      raw: bool = False):
+        """Storage-free Chebyshev f(A)·b over the arc partition
+        (:func:`algorithms.chebyshev.chebyshev_scan` on the packed local
+        vector): ``degree`` K7 launches and node folds, the updates
+        elementwise on the replicated node block, no inner product.
+        ``interval`` must hold spec(A); ``None`` takes
+        :meth:`estimate_interval` (cached). Returns the full NumPy (n,) y
+        on every rank, or with ``raw=True`` this rank's ``(y_a of the
+        shard, y_n)`` device pair."""
+        if interval is None:
+            interval = self.estimate_interval()
+        a_lo, a_hi = float(interval[0]), float(interval[1])
+        validate_interval_for_f(f, a_lo, a_hi)
+        cs = torch.as_tensor(chebyshev_coefficients(f, interval, degree),
+                             dtype=torch.float32, device=self.device)
+        scale = torch.tensor(
+            [2.0 / (a_hi - a_lo), (a_hi + a_lo) / (a_hi - a_lo)],
+            dtype=torch.float32, device=self.device)
+        y = chebyshev_scan(self._matvec, self.pack(b), cs, scale)
+        if raw:
+            return y[:self.m_d], y[self.m_d:]
+        return self.unpack(y)

@@ -28,10 +28,18 @@ with no host sync; only the callback path reads back, once per chunk.
 As in the JAX package, N ranks match one rank to rounding (the reduction
 orders differ), while the two-pass replay is bitwise within a fixed D.
 
-Real f32 and f64 operators only. The capability methods (``eigsh``,
-``slq_*``, ``solve_fAb_block``, ``estimate_interval``, ``chebyshev_fAb``)
-raise ``NotImplementedError`` until ROADMAP Queue 1 item 2, and
-``reorth=True`` raises as the generic solvers' does.
+The capability methods run the port's shared drivers over the same
+matvec and rank-ordered folds: ``eigsh`` (thick restart with the basis
+split by rows, ``eigen._expand_and_ritz``'s sharding hooks), the SLQ
+methods (one sharded pass one a probe), ``solve_fAb_block`` (block Lanczos
+with CholeskyQR2 in place of the Householder QR, which has no distributed
+form: its only collectives are the folded p×p Gram matrices),
+``estimate_interval`` (two sharded eigsh runs) and ``chebyshev_fAb`` (no
+inner product at all); ``solve_fAb(reorth=...)`` reorthogonalises against
+the row-split basis, folding the ``(j+1,)`` projection partials.
+
+Real f32 and f64 operators only (the JAX package also takes complex
+triplets here).
 """
 
 from __future__ import annotations
@@ -41,12 +49,37 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from two_pass_lanczos_tpu_torch import slq
+from two_pass_lanczos_tpu_torch.algorithms.block import (
+    BlockDecomposition,
+    _block_matvec,
+    _block_recurrence_body,
+    _contract,
+    host_f_e1_r0,
+)
+from two_pass_lanczos_tpu_torch.algorithms.chebyshev import (
+    chebyshev_coefficients,
+    chebyshev_scan,
+    interval_from_extremes,
+    validate_interval_for_f,
+)
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     LanczosDecomposition,
     basis_product,
+    breakdown_tolerance,
+    full_f32_matmul,
     pass_one_chunk_scan,
     pass_one_scan,
     pass_two_scan,
+)
+from two_pass_lanczos_tpu_torch.devices import cpu_generator
+from two_pass_lanczos_tpu_torch.eigen import (
+    EigshResult,
+    _eigsh_driver,
+    _expand_and_ritz,
+    _norm,
+    eigsh_thickness,
+    validate_eigsh_params,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import run_chunks, scaled_y
 from two_pass_lanczos_tpu_torch.ops.spmv import SortedCOO, coo_spmv
@@ -61,13 +94,21 @@ from two_pass_lanczos_tpu_torch.parallel.partition import (
     local_blocks,
     snake_partition,
 )
-from two_pass_lanczos_tpu_torch.solvers import _check_reorth
+from two_pass_lanczos_tpu_torch.solvers import pass_one_reorth, reorth_mode
+from two_pass_lanczos_tpu_torch.spectrum import _f_of_theta
 from two_pass_lanczos_tpu_torch.utils.collectives import record_event
 
 __all__ = ["ShardedSparseOperator"]
 
-_CAPABILITY = ("{} is not ported yet: the capability layer comes with "
-               "ROADMAP Queue 1 item 2")
+
+def rank_generator(gen: torch.Generator, rank: int) -> torch.Generator:
+    """A CPU generator of this rank's own: seeded from (a seed drawn from
+    ``gen``, which every rank draws alike, and ``rank``), the port's form
+    of JAX's ``fold_in(key, axis_index)``."""
+    base = int(torch.randint(0, 2 ** 62, (), generator=gen))
+    seed = np.random.SeedSequence([base, rank]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
 
 
 class ShardedSparseOperator:
@@ -195,6 +236,12 @@ class ShardedSparseOperator:
         """⟨a, b⟩ over the mesh: the (D,) partials folded in rank order."""
         return gather_fold(torch.dot(a, b), self.mesh)
 
+    def _fold(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over ranks of this rank's partials ``t``, in rank
+        order (the reorthogonalisation's projections, eigsh's, the block
+        Gram matrices)."""
+        return gather_fold(t, self.mesh)
+
     def matvec_distributed(self, x, raw: bool = False):
         """One distributed SpMV (for tests and benchmarks): original order
         in and out, or this rank's permuted shard with ``raw=True``."""
@@ -248,8 +295,19 @@ class ShardedSparseOperator:
         (two_pass only) runs pass one by :meth:`pass_one_chunked`; a stop at
         step s runs a pass two of s steps, so the solve pays
         ceil(s/chunk)·chunk + s matvecs instead of 2k.
+        ``reorth=True``/``"full"`` or ``"selective"`` (one-pass only) runs
+        the reorthogonalised pass one with this rank's rows of the basis;
+        each CGS sweep folds one ``(j+1,)`` vector of projection partials.
         """
-        _check_reorth(reorth)
+        mode = reorth_mode(reorth)  # normalise; reject typos
+        if mode is not None:
+            if method != "one_pass":
+                raise ValueError(
+                    "reorth= requires method='one_pass' (the stored basis it "
+                    "orthogonalises against is the one-pass state)")
+            if callback is not None:
+                raise ValueError(
+                    "reorth= is not supported together with callback=")
         if method not in ("one_pass", "two_pass"):
             raise ValueError(f"unknown method {method!r}")
         if callback is not None and method != "two_pass":
@@ -266,8 +324,13 @@ class ShardedSparseOperator:
             x, _ = pass_two_scan(self._matvec, bl, short,
                                  scaled_y(short, f, k2))
         elif method == "one_pass":
-            decomp, basis = pass_one_scan(self._matvec, bl, k,
-                                          emit_basis=True, dot=self._dot)
+            if mode is not None:
+                decomp, basis = pass_one_reorth(self._matvec, bl, k, mode,
+                                                dot=self._dot,
+                                                reduce=self._fold)
+            else:
+                decomp, basis = pass_one_scan(self._matvec, bl, k,
+                                              emit_basis=True, dot=self._dot)
             x = basis_product(scaled_y(decomp, f, k).to(self.dtype), basis)
             del basis
         else:
@@ -276,24 +339,248 @@ class ShardedSparseOperator:
                                  scaled_y(decomp, f, k))
         return (x if raw else self._restore_x(x)), decomp
 
-    # -- not ported yet -----------------------------------------------------
-    def eigsh(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("eigsh"))
 
-    def slq_trace(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_trace"))
+    # -- capability methods ------------------------------------------------
+    def eigsh(self, nev: int = 6, *, which: str = "LA", ncv=None,
+              tol: float = 1e-8, maxiter: int = 100, v0=None, key=None,
+              _restore_vectors: bool = True) -> EigshResult:
+        """Distributed thick-restart Lanczos eigenpairs: :func:`eigen.eigsh`
+        with this rank's rows of the (ncv+1, n) basis.
 
-    def slq_spectral_density(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_spectral_density"))
+        Per expansion step one distributed SpMV and two CGS2 sweeps whose
+        (ncv+1,) projection partials are folded in rank order; the ncv×ncv
+        Rayleigh–Ritz ``eigh`` runs on every rank on the same bits. ``v0``
+        (default: Gaussian from ``key``, in original row order, the draw of
+        :func:`eigen.eigsh`) is padded and permuted; random injections past
+        an invariant subspace are masked to the rows that are not padding
+        (whose spurious zero eigenvalues never enter the Krylov space), and
+        each rank draws them from its own generator (:func:`rank_generator`).
+        Returns :class:`eigen.EigshResult`, the eigenvectors in original row
+        order on every rank (one gather)."""
+        n = self.part.n_orig
+        ncv = validate_eigsh_params(n, nev, ncv, which, maxiter)
+        ell = eigsh_thickness(nev, ncv)
+        gen = cpu_generator(0 if key is None else key)
+        if v0 is None:
+            v0 = torch.randn(n, generator=gen, dtype=self.dtype)
+        b_local = self._prepare_b(v0)
+        if float(_norm(b_local, self._fold)) == 0.0:
+            raise ValueError("v0 must be nonzero")
+        valid = (self._rows < n).to(self.dtype)
+        mine = []
 
-    def slq_trace_adaptive(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("slq_trace_adaptive"))
+        def fold(g):
+            # this rank's stream, made at the first injection (so a run
+            # without one draws from ``gen`` as the single-card eigsh does)
+            if not mine:
+                mine.append(rank_generator(g, self.mesh.rank))
+            return mine[0]
+        v_basis = torch.zeros((ncv + 1,) + tuple(b_local.shape),
+                              dtype=self.dtype, device=self.device)
+        v_basis[0] = b_local / _norm(b_local, self._fold)
+        h_proj = torch.zeros((ncv, ncv), dtype=self.dtype,
+                             device=self.device)
 
-    def solve_fAb_block(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("solve_fAb_block"))
+        def cycle(v, h, start):
+            return _expand_and_ritz(self._matvec, v, h, start, gen,
+                                    reduce_sum=self._fold,
+                                    inject_mask=valid, inject_fold=fold)
 
-    def estimate_interval(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("estimate_interval"))
+        theta, vectors, resid, restarts, converged = _eigsh_driver(
+            cycle, v_basis, h_proj, nev=nev, ell=ell, which=which, tol=tol,
+            maxiter=maxiter)
+        return EigshResult(
+            eigenvalues=theta,
+            eigenvectors=(self._restore_x(vectors) if _restore_vectors
+                          else None),
+            residual_norms=resid, restarts=restarts, converged=converged)
 
-    def chebyshev_fAb(self, *args, **kwargs):
-        raise NotImplementedError(_CAPABILITY.format("chebyshev_fAb"))
+    def _slq_pass_one(self, probes, k: int) -> LanczosDecomposition:
+        """Pass one over the row partition for each row of the (m, n)
+        probes (original order), one after another; the stacked
+        decomposition, the same bits on every rank."""
+        z = self._prepare_b(torch.as_tensor(probes))
+        return slq.stack_decompositions(
+            [pass_one_scan(self._matvec, row.contiguous(), k,
+                           dot=self._dot)[0] for row in z])
+
+    def slq_trace(self, f="inv", *, k: int = 50, num_probes: int = 16,
+                  key, probe: str = "rademacher") -> slq.SLQResult:
+        """Distributed stochastic Lanczos quadrature ``tr f(A)``: the
+        estimator of :func:`slq.slq_trace` with every probe's pass one over
+        the row partition. The probes are drawn from ``key`` (a CPU
+        ``torch.Generator`` or an ``int`` seed) in original row order, as
+        the single-card estimator draws them, so both see the same probes;
+        the padding rows stay zero and contribute nothing."""
+        if num_probes < 1:
+            raise ValueError("num_probes must be >= 1")
+        if not callable(f):
+            slq._f_of_theta(torch.ones(1), f)  # reject unknown strings
+        probes = slq._draw_probes(key, num_probes, self.part.n_orig,
+                                  self.dtype, probe)
+        decomp = self._slq_pass_one(probes, k)
+        return slq.slq_stats(slq.batched_quadratic_form(decomp, f))
+
+    def slq_spectral_density(self, grid, *, sigma=None, k: int = 50,
+                             num_probes: int = 16, key,
+                             probe: str = "gaussian") -> torch.Tensor:
+        """Distributed smoothed spectral density: the unit probes' pass one
+        over the row partition, then :func:`slq.dos_from_decomposition`
+        on the replicated decomposition. A tensor on the mesh's device."""
+        grid, sigma = slq.validate_dos_params(grid, sigma, num_probes)
+        probes = slq._draw_probes(key, num_probes, self.part.n_orig,
+                                  self.dtype, probe)
+        probes = probes / torch.linalg.norm(probes, dim=1, keepdim=True)
+        return slq.dos_from_decomposition(self._slq_pass_one(probes, k),
+                                          grid, sigma)
+
+    def slq_trace_adaptive(self, f="inv", *, k: int = 50, key,
+                           probe: str = "rademacher",
+                           target_rel_stderr: float = 0.01,
+                           batch: int = 8, max_probes: int = 512
+                           ) -> slq.SLQResult:
+        """:meth:`slq_trace` with the probe count chosen by the shared
+        :func:`slq.adaptive_probe_loop`: ``batch`` probes a round through
+        this operator until the sample standard error certifies
+        ``target_rel_stderr`` (or ``max_probes``)."""
+        return slq.adaptive_probe_loop(
+            lambda gen, take: self.slq_trace(
+                f, k=k, num_probes=take, key=gen, probe=probe).samples,
+            key, batch=batch, max_probes=max_probes,
+            target_rel_stderr=target_rel_stderr)
+
+    def _chol_qr2(self, w: torch.Tensor, ref_scale: torch.Tensor, tol: float):
+        """The distributed tall-skinny QR of this rank's rows ``w``:
+        ``(V, R, ok)`` by two rounds of ``R = chol(fold(WᴴW))ᴴ; V = W·R⁻¹``
+        (CholeskyQR2, Yamamoto et al. 2015). ``ok`` fails on a Cholesky
+        that is not positive definite or on a relative collapse of |diag
+        R| against the larger of its own scale and ``ref_scale`` (the
+        recurrence's max|diag A_j|, which alone sees an invariant subspace's
+        rounding-noise residual)."""
+        p = w.shape[1]
+        eye = torch.eye(p, dtype=w.dtype, device=w.device)
+
+        def one_round(v_in):
+            c, info = torch.linalg.cholesky_ex(self._fold(v_in.mH @ v_in))
+            ok_r = (info == 0) & ~torch.isnan(c).any()
+            r = torch.where(ok_r, c, eye).mH
+            return (torch.linalg.solve_triangular(r, v_in, upper=True,
+                                                  left=False), r, ok_r)
+
+        v1, r1, ok1 = one_round(w)
+        v2, r2, ok2 = one_round(v1)
+        r = r2 @ r1
+        diag = r.diagonal().abs()
+        full = diag.min() > tol * torch.maximum(diag.max(), ref_scale)
+        return v2, r, ok1 & ok2 & full
+
+    @full_f32_matmul()
+    def solve_fAb_block(self, b_block, *, k: int, f="exp",
+                        raw: bool = False):
+        """Distributed block Lanczos ``f(A)·B`` over the row partition.
+
+        The recurrence is ``algorithms/block.py``'s body with its p×p
+        projections folded across ranks; the block normalisation is
+        CholeskyQR2 (:meth:`_chol_qr2`), whose positive Cholesky diagonal
+        matches the single-card positive-diagonal R, so both agree to
+        rounding. A rank breakdown truncates through ``steps_taken``; a zero
+        or rank-deficient B gives zeros. The projected f(T) is the host f64
+        solve of :func:`algorithms.block.solve_fAb_block`. Returns the (n,
+        p) NumPy x on every rank, or with ``raw=True`` this rank's
+        (rows_per, p) row-permuted shard."""
+        if not callable(f):
+            _f_of_theta(np.ones(1), f)
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        t = b_block if isinstance(b_block, torch.Tensor) else \
+            torch.from_numpy(np.asarray(b_block))
+        if t.dim() != 2:
+            raise ValueError(
+                f"b_block must be (n, p), got {tuple(t.shape)}")
+        n, p = t.shape
+        if n != self.part.n_orig:
+            raise ValueError(
+                f"b_block has {n} rows, operator is {self.part.n_orig}")
+        if p < 1 or p > n:
+            raise ValueError(f"block width p={p} must be in [1, n={n}]")
+        if t.is_complex():
+            raise TypeError(
+                "complex b_block with a real operator; the row-sharded "
+                "operator takes real f32 or f64 values only")
+        bl = self._prepare_b(t.T).T.contiguous()  # (rows_per, p)
+        dt, dev = bl.dtype, bl.device
+        tol = breakdown_tolerance(dt)
+        block_mv = _block_matvec(self._matvec)
+        v0, r0, ok0 = self._chol_qr2(bl, torch.zeros((), dtype=dt,
+                                                    device=dev), tol)
+        v_curr = torch.where(ok0, v0, torch.zeros_like(v0))
+        v_prev = torch.zeros_like(v_curr)
+        b_prev = torch.zeros((p, p), dtype=dt, device=dev)
+        done = ~ok0
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+        a_blocks = torch.zeros((k, p, p), dtype=dt, device=dev)
+        b_blocks = torch.zeros((k, p, p), dtype=dt, device=dev)
+        basis = torch.zeros((k,) + tuple(bl.shape), dtype=dt, device=dev)
+        for j in range(k):
+            executed = ~done
+            w, a_j = _block_recurrence_body(block_mv, v_prev, v_curr, b_prev,
+                                            self._fold)
+            v_next, b_j, ok = self._chol_qr2(
+                w, a_j.diagonal().abs().max(), tol)
+            advance = executed & ok
+            a_blocks[j] = torch.where(executed, a_j, torch.zeros_like(a_j))
+            b_blocks[j] = torch.where(advance, b_j, torch.zeros_like(b_j))
+            basis[j] = torch.where(executed, v_curr,
+                                   torch.zeros_like(v_curr))
+            v_prev = torch.where(advance, v_curr, v_prev)
+            v_curr = torch.where(advance, v_next, v_curr)
+            b_prev = torch.where(advance, b_j, b_prev)
+            done = done | ~ok
+            steps = steps + executed.to(torch.int32)
+        decomp = BlockDecomposition(
+            a_blocks=a_blocks, b_blocks=b_blocks,
+            r0=torch.where(ok0, r0, torch.zeros_like(r0)), steps_taken=steps)
+        s = int(steps)
+        self._last_block_steps = s
+        if s == 0:  # a zero or rank-deficient B: zeros
+            return (torch.zeros_like(bl) if raw
+                    else np.zeros((n, p), t.numpy().dtype))
+        y = torch.from_numpy(host_f_e1_r0(decomp, f, k)).to(device=dev,
+                                                            dtype=dt)
+        x = _contract(basis, y, s)
+        return x if raw else self._restore_x(x.T).T
+
+    def estimate_interval(self, *, margin: float = 0.05, tol: float = 1e-3,
+                          key=None):
+        """Spectral interval [a, b] ⊇ spec(A) from two 1-eigenpair runs of
+        the distributed :meth:`eigsh` (LA, then SA, on one generator from
+        ``key``, seed 0 by default), widened by the residual norms plus
+        ``margin``: :func:`algorithms.chebyshev.estimate_interval` on the
+        row partition, with the same widening."""
+        gen = cpu_generator(0 if key is None else key)
+        ncv = min(20, self.part.n_orig)
+        hi = self.eigsh(nev=1, which="LA", tol=tol, ncv=ncv, key=gen,
+                        _restore_vectors=False)
+        lo = self.eigsh(nev=1, which="SA", tol=tol, ncv=ncv, key=gen,
+                        _restore_vectors=False)
+        return interval_from_extremes(hi, lo, margin)
+
+    def chebyshev_fAb(self, b, f, *, degree: int = 100, interval=None,
+                      raw: bool = False):
+        """Distributed Chebyshev-expansion f(A)·b: ``degree`` distributed
+        SpMVs, O(n/D) memory a rank and no collective beyond the SpMV's own
+        gather (the recurrence has no inner product). ``interval`` must
+        hold spec(A); ``None`` takes :meth:`estimate_interval`. The padded
+        rows stay zero through the recurrence. Returns the NumPy (n,) x on
+        every rank, or this rank's shard with ``raw=True``."""
+        if interval is None:
+            interval = self.estimate_interval()
+        a_lo, a_hi = float(interval[0]), float(interval[1])
+        validate_interval_for_f(f, a_lo, a_hi)
+        cs = torch.as_tensor(chebyshev_coefficients(f, interval, degree),
+                             dtype=self.dtype, device=self.device)
+        scale = torch.tensor(
+            [2.0 / (a_hi - a_lo), (a_hi + a_lo) / (a_hi - a_lo)],
+            dtype=self.dtype, device=self.device)
+        y = chebyshev_scan(self._matvec, self._prepare_b(b), cs, scale)
+        return y if raw else self._restore_x(y)

@@ -13,6 +13,11 @@ Counterpart of ``two_pass_lanczos_tpu/solvers.py`` (reference
   to end (breakdown handled by block-diagonal padding) and no host
   synchronisation: the fast path.
 
+``reorth=`` (one-pass only, beyond the reference) runs the reorthogonalised
+pass one of ``algorithms/reorth.py``: ``True``/``"full"`` sweeps CGS2 every
+step, ``"selective"`` only where Simon's ω-recurrence predicts a loss of
+semi-orthogonality (one host read a step).
+
 Every pass is the plain PyTorch recurrence of ``algorithms/core.py`` around
 ``operator.matvec``; a KKT operator on the card runs the hand-written K8
 there. ``b`` may be a tensor or an array; it is moved to the operator's
@@ -47,9 +52,6 @@ from two_pass_lanczos_tpu_torch.functions import padded_f_e1
 
 __all__ = ["lanczos", "lanczos_two_pass", "solve_fAb"]
 
-_REORTH = ("reorth= is not ported yet: algorithms/reorth.py comes with the "
-           "capability layer (ROADMAP Queue 1 item 2)")
-
 
 def _rhs(operator, b) -> torch.Tensor:
     """``b`` as a tensor on the operator's device, in its own dtype."""
@@ -69,9 +71,35 @@ def _validate_inputs(operator, b: torch.Tensor, k: int) -> None:
         raise InputError(f"k must be >= 1, got {k}")
 
 
-def _check_reorth(reorth) -> None:
-    if reorth not in (False, None):
-        raise NotImplementedError(_REORTH)
+def reorth_mode(reorth):
+    """Normalise the ``reorth`` argument: False/None → None, True →
+    "full", or one of {"full", "selective"}; anything else raises
+    ``ValueError``."""
+    if reorth is False or reorth is None:
+        return None
+    if reorth is True:
+        return "full"
+    if reorth in ("full", "selective"):
+        return reorth
+    raise ValueError(
+        f"reorth must be a bool, 'full' or 'selective', got {reorth!r}")
+
+
+def pass_one_reorth(matvec, b: torch.Tensor, k: int, mode: str, *,
+                    sweeps: int = 2, dot=torch.dot, reduce=None):
+    """The reorthogonalised pass one of ``mode``: ``(decomposition,
+    basis)``."""
+    from two_pass_lanczos_tpu_torch.algorithms.reorth import (
+        pass_one_scan_reorth,
+        pass_one_scan_selective,
+    )
+
+    if mode == "selective":
+        decomp, basis, _ = pass_one_scan_selective(
+            matvec, b, k, sweeps=sweeps, dot=dot, reduce=reduce)
+        return decomp, basis
+    return pass_one_scan_reorth(matvec, b, k, sweeps=sweeps, dot=dot,
+                                reduce=reduce)
 
 
 def _run_f_solver(f_tk_solver, decomp: LanczosDecomposition) -> np.ndarray:
@@ -138,13 +166,24 @@ def lanczos(operator, b, k: int, f_tk_solver: Callable, *,
     place (``algorithms/chunked.py``), checked every ``callback_chunk``
     steps. ``strict_breakdown=True`` raises :class:`BreakdownError` instead
     of truncating when the Krylov subspace becomes invariant before ``k``.
-    ``reorth`` is not ported yet and raises ``NotImplementedError``.
+    ``reorth=True``/``"full"`` reorthogonalises every step against the
+    stored basis (``reorth_sweeps`` CGS sweeps, 2 by default), and
+    ``"selective"`` only where the ω-recurrence asks for it
+    (``algorithms/reorth.py``); neither takes a ``callback``.
     """
-    del reorth_sweeps  # belongs to reorth=, which is not ported yet
-    _check_reorth(reorth)
     b = _rhs(operator, b)
     _validate_inputs(operator, b, k)
-    if callback is not None:
+    mode = reorth_mode(reorth)
+    if mode is not None:
+        if callback is not None:
+            raise InputError(
+                "reorth= is not supported together with callback= (the "
+                "chunked early-stop driver runs the plain recurrence); use "
+                "a plain run to locate the stopping step, or reorth without "
+                "a callback.")
+        decomp, v_k = pass_one_reorth(operator.matvec, b, k, mode,
+                                      sweeps=reorth_sweeps)
+    elif callback is not None:
         from two_pass_lanczos_tpu_torch.algorithms.chunked import (
             lanczos_standard_chunked,
         )
@@ -216,15 +255,24 @@ def solve_fAb(operator, b, *, k: int, f="exp", method: str = "two_pass",
     TUPLE of those: the Krylov work is paid once and the result is stacked
     ``(nf, n)``. ``method`` ∈ {"one_pass", "two_pass"}. Fixed shapes
     throughout: a breakdown and a zero b degrade gracefully (zero output).
-    ``reorth`` is not ported yet and raises ``NotImplementedError``.
+    ``reorth=True``/``"full"`` or ``"selective"`` (one-pass only) runs the
+    reorthogonalised pass one of ``algorithms/reorth.py``.
     """
+    mode = reorth_mode(reorth)
+    if mode is not None and method != "one_pass":
+        raise ValueError(
+            "reorth= requires method='one_pass' (reorthogonalisation "
+            "needs the stored basis; two-pass exists precisely to avoid "
+            "storing it)")
     if method not in ("one_pass", "two_pass"):
         raise ValueError(f"unknown method {method!r}")
-    _check_reorth(reorth)
     b = _rhs(operator, b)
     multi = isinstance(f, tuple)
-    decomp, v_k = pass_one_scan(operator.matvec, b, k,
-                                emit_basis=method == "one_pass")
+    if mode is not None:
+        decomp, v_k = pass_one_reorth(operator.matvec, b, k, mode)
+    else:
+        decomp, v_k = pass_one_scan(operator.matvec, b, k,
+                                    emit_basis=method == "one_pass")
     y = torch.stack([padded_f_e1(decomp, fi) for fi in (f if multi else (f,))])
     y = (y * decomp.b_norm).to(b.dtype)
     y = y if multi else y[0]

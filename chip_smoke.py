@@ -200,14 +200,31 @@ Phases (each one raises on failure, so the exit code is non-zero):
     a probe, a probe bitwise a solve's pass one), ``estimate_interval``
     (K8 only, the fused solver's interval, cached) and ``chebyshev_fAb``
     (``degree`` K7 launches; whether it is bitwise the fused K1 expansion
-    is printed), and medians of 3 of every method.
+    is printed), and medians of 3 of every method;
+24. the experiment CLIs (``python -m two_pass_lanczos_tpu_torch.
+    experiments.<name>``) and the measurement tools (``...tools.<name>``)
+    on the card, each writing the header of the JAX CLI's published run
+    under ``results/`` into a temporary directory: ``tradeoff`` on the
+    headline (K2, K3 and K4 once a solve; the one-pass device peak from k
+    = 100 to 1000 within 10 % of 900·n·4 bytes, the two-pass peak flat),
+    also with ``--isolate`` (4 workers) and ``--backend pallas`` (K8);
+    ``scalability`` (one-pass less two-pass within 10 % of k·n·4 bytes at
+    each n); ``stability`` in f64 (within 10× of the published CPU f64
+    errors) and in df at k = 200; ``orthogonality`` (``basis_drift_fro``
+    exactly 0); ``certificate_study``, ``reorth_study``,
+    ``dense_tradeoff``; ``tools.sol_bench`` (K7, 0 < sol_fraction_ideal ≤
+    1.05) and ``tools.scaling_bench --processes 1`` on NCCL; its wall
+    time printed.
 
 Every kernel's entry of the JSON line carries its launches on its main
 path, plus those of phases 21–23's paths (``capability_launches``, per
 path: K1's in the fused Chebyshev expansion, K2's and K6's in the SLQ
 methods, K8's under ``estimate_interval``, the generic expansion, the
 reorthogonalised and block solves and the arc-sharded interval, K7's in
-the arc-sharded SLQ methods and expansion). On the solve
+the arc-sharded SLQ methods and expansion) and of phase 24's
+(``tool_launches``: K1, K2, K3 and K4 under ``tradeoff`` and
+``scalability``, K8 under ``tradeoff --backend pallas``, K7 in
+``sol_bench``'s graphs). On the solve
 path K1 launches 0 times, since K2-K6 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
 on the main path, K4 in the one-pass solve, K5 in the callback solve and
@@ -2130,6 +2147,308 @@ def sparse_phase(card, dev, mesh, inst) -> None:
     del sop, op, s64
 
 
+#: phase 24: the published CSVs (the JAX package's runs) whose headers the
+#: port's CLIs must write, and the floor of the accuracy comparison
+RESULTS = ROOT / "results"
+PUBLISHED_HEADER = {
+    "tradeoff": "tradeoff_arcs500k_rho3.csv",
+    "scalability": "scalability_k500_rho3.csv",
+    "stability": "accuracy_inv_well-conditioned.csv",
+    "orthogonality": "orthogonality_inv_ill-conditioned.csv",
+    "certificate_study": "error_certificate_inv_well-conditioned.csv",
+    "reorth_study": "reorth_inv_ill-conditioned_f32.csv",
+    "dense_tradeoff": "dense_tradeoff.csv",
+}
+ACC_FLOOR = 1e-14
+
+
+def read_csv(path):
+    import csv
+    with open(path) as fh:
+        rows = list(csv.reader(fh))
+    return rows[0], [dict(zip(rows[0], r)) for r in rows[1:]]
+
+
+def run_cli(module: str, argv: list, out_path=None):
+    """``main(argv)`` of a CLI of the port in this process, its stdout
+    captured (its JSON lines are not this script's); returns (the CSV's
+    header and rows, or None; the captured stdout)."""
+    import contextlib
+    import importlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module(
+            f"two_pass_lanczos_tpu_torch.{module}").main(argv)
+    check(rc == 0, f"{module} {' '.join(argv)} exited {rc}")
+    return (read_csv(out_path) if out_path is not None else None,
+            buf.getvalue())
+
+
+def same_header(name: str, header) -> None:
+    want, _ = read_csv(RESULTS / PUBLISHED_HEADER[name])
+    check(header == want, f"{name} wrote {header}, the JAX CLI {want}")
+
+
+def within_10x(got: float, published: float) -> bool:
+    ratio = max(got, ACC_FLOOR) / max(published, ACC_FLOOR)
+    return 0.1 <= ratio <= 10.0
+
+
+def tools_phase(card, dev, inst, k7) -> dict:
+    """24. The experiment CLIs and the measurement tools on the card, each
+    in this process (the ``--isolate`` workers and the scaling bench's rank
+    in processes of their own) into a temporary directory, every CSV with
+    the header of the JAX CLI's published run under ``results/``:
+    ``tradeoff`` on the headline (``--backend fused``, k 100, 550, 1000,
+    3 repeats; K2, K3 and K4 exactly once a solve; the one-pass device peak
+    from k = 100 to 1000 within 10 % of 900·n·4 bytes, the two-pass peak
+    flat to 1 % of that), with ``--isolate`` at two k (4 worker processes,
+    4 rows) and with ``--backend pallas`` at k = 20 (K8 only);
+    ``scalability`` at 100k, 300k, 500k arcs, k = 500 (both variants at
+    every n, one-pass less two-pass within 10 % of k·n·4 bytes);
+    ``stability``, four scenarios in f64 at the published size and k grid
+    (each error within 10× of the published CPU f64 run's, both floored at
+    1e-14; the one-pass/two-pass deviation ≤ 1e-10) and ``--precision df``
+    at k = 200 (inv/ill, exp/well; the criterion of
+    ``test_df_accuracy_tracks_f64_oracle``); ``orthogonality`` (inv/ill, k
+    20–200 by 60: ``basis_drift_fro`` exactly 0, the losses at most 10×
+    the published ones below 1e-8, above 1e-8 where those are);
+    ``certificate_study``, ``reorth_study`` and ``dense_tradeoff`` at small
+    sizes; ``tools.sol_bench`` at 500k and 5M arcs (0 <
+    ``sol_fraction_ideal`` ≤ 1.05, K7's seconds per matvec beside phase
+    17's); ``tools.scaling_bench --processes 1`` on a one-rank NCCL group
+    (the record schema, ``meaningful`` false)."""
+    import tempfile
+
+    from two_pass_lanczos_tpu_torch.tools.sol_bench import record
+
+    t_phase = time.perf_counter()
+    m, p = inst.num_arcs, inst.num_nodes
+    n = m + p
+    paths = {}
+    head = ["--arcs", str(m), "--rho", "3", "--instance-id", "1"]
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+
+        def out(name):
+            return ["--output", str(tmp / f"{name}.csv")]
+
+        # tradeoff: K2 and K3 (two-pass), K4 (one-pass), K1 once for b
+        argv = [*head, "--backend", "fused", "--k-start", "100",
+                "--k-end", "1000", "--k-step", "450", "--repeats", "3",
+                *out("tradeoff")]
+        ((header, rows), _), paths["tradeoff"] = driven(
+            lambda: run_cli("experiments.tradeoff", argv,
+                            tmp / "tradeoff.csv"))
+        same_header("tradeoff", header)
+        solves = 3 * (1 + 3)
+        check(paths["tradeoff"] == {
+            "lanczos_pass_one": solves, "lanczos_pass_two": solves,
+            "lanczos_pass_one_basis": solves, "kkt_matvec": 1,
+            # a two-pass solve's 2k - 1 phases, a one-pass solve's k
+            "kkt_matvec_in_pass": 4 * sum(3 * k - 1 for k in (100, 550,
+                                                              1000))},
+            f"tradeoff launches {paths['tradeoff']}")
+        peak = {(r["variant"], int(r["k"])): 1024 * int(r["device_peak_kb"])
+                for r in rows}
+        slope = peak[("standard", 1000)] - peak[("standard", 100)]
+        basis = 900 * n * 4
+        flat = max(v for (var, _), v in peak.items() if var == "two-pass") \
+            - min(v for (var, _), v in peak.items() if var == "two-pass")
+        print(f"[24] on {card}: tradeoff (fused, headline) device peak, "
+              f"MB: " + ", ".join(f"{var} k={k} {v / 1e6:.1f}"
+                                  for (var, k), v in sorted(peak.items()))
+              + f"; one-pass k=100 -> 1000 +{slope / 1e6:.1f} MB against "
+              f"900·n·4 = {basis / 1e6:.1f} MB ({slope / basis:.4f}x); "
+              f"two-pass spread {flat / 1e6:.3f} MB")
+        print("     tradeoff times (median of 3, min): " + "; ".join(
+            f"{r['variant']} k={r['k']} {float(r['time_s']):.4f} s "
+            f"({float(r['time_min_s']):.4f})" for r in rows))
+        check(abs(slope - basis) <= 0.1 * basis,
+              f"one-pass peak slope {slope} B, expected {basis} B ± 10 %")
+        check(flat < 0.01 * basis, f"two-pass peak spread {flat} B")
+
+        t0 = time.perf_counter()
+        argv = [*head, "--backend", "fused", "--k-start", "100",
+                "--k-end", "550", "--k-step", "450", "--isolate",
+                *out("isolated")]
+        (header, rows), _ = run_cli("experiments.tradeoff", argv,
+                                    tmp / "isolated.csv")
+        same_header("tradeoff", header)
+        check(sorted((r["variant"], r["k"]) for r in rows) == [
+            ("standard", "100"), ("standard", "550"), ("two-pass", "100"),
+            ("two-pass", "550")], f"isolated rows {rows}")
+        print(f"     tradeoff --isolate (4 workers) in "
+              f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+                  f"{r['variant']} k={r['k']} {float(r['time_s']):.4f} s, "
+                  f"peak {int(r['device_peak_kb']) / 1e3:.1f} MB"
+                  for r in rows))
+
+        argv = [*head, "--backend", "pallas", "--k-start", "20",
+                "--k-end", "20", *out("pallas")]
+        ((header, rows), _), paths["tradeoff_pallas"] = driven(
+            lambda: run_cli("experiments.tradeoff", argv,
+                            tmp / "pallas.csv"))
+        # b = A·x_true, then per variant a warm and a timed solve: 20
+        # matvecs one-pass, 39 two-pass
+        check(paths["tradeoff_pallas"] == {
+            "kkt_operator_matvec": 1 + 2 * 20 + 2 * 39},
+            f"tradeoff --backend pallas launches {paths['tradeoff_pallas']}")
+
+        argv = ["--arcs-start", "100000", "--arcs-end", "500000",
+                "--arcs-step", "200000", "--k", str(K), "--backend",
+                "fused", *out("scalability")]
+        ((header, rows), _), paths["scalability"] = driven(
+            lambda: run_cli("experiments.scalability", argv,
+                            tmp / "scalability.csv"))
+        same_header("scalability", header)
+        check(paths["scalability"].get("lanczos_pass_one") == 6
+              and paths["scalability"].get("lanczos_pass_two") == 6
+              and paths["scalability"].get("lanczos_pass_one_basis") == 6,
+              f"scalability launches {paths['scalability']}")
+        by_n = {}
+        for r in rows:
+            by_n.setdefault(int(r["n"]), {})[r["variant"]] = \
+                1024 * int(r["device_peak_kb"])
+        check(len(by_n) == 3 and all(set(v) == {"standard", "two-pass"}
+                                     for v in by_n.values()),
+              f"scalability rows {rows}")
+        for nn, v in sorted(by_n.items()):
+            gap = v["standard"] - v["two-pass"]
+            check(abs(gap - K * nn * 4) <= 0.1 * K * nn * 4,
+                  f"scalability n={nn}: one-pass less two-pass {gap} B")
+        print("     scalability (fused, k=500): " + "; ".join(
+            f"n={nn} two-pass {v['two-pass'] / 1e6:.1f} MB, one-pass "
+            f"+{(v['standard'] - v['two-pass']) / (K * nn * 4):.4f}·k·n·4"
+            for nn, v in sorted(by_n.items())) + "; times " + ", ".join(
+            f"{r['variant']} n={r['n']} {float(r['time_s']):.4f} s"
+            for r in rows))
+
+        # stability in f64 on the card against the published CPU f64 runs
+        worst = {}
+        for f, sc in (("exp", "well"), ("exp", "ill"), ("inv", "well"),
+                      ("inv", "ill")):
+            name = f"accuracy_{f}_{sc}-conditioned"
+            (header, rows), _ = run_cli("experiments.stability", [
+                "--function", f, "--scenario", f"{sc}-conditioned",
+                *out(name)], tmp / f"{name}.csv")
+            same_header("stability", header)
+            _, pub = read_csv(RESULTS / f"{name}.csv")
+            pub = {r["k"]: r for r in pub}
+            check(len(rows) == 20 and all(r["k"] in pub for r in rows),
+                  f"{name}: k grid {[r['k'] for r in rows]}")
+            ratios = []
+            for r in rows:
+                for col in ("relative_error_standard",
+                            "relative_error_two_pass"):
+                    got, want = float(r[col]), float(pub[r["k"]][col])
+                    check(within_10x(got, want),
+                          f"{name} k={r['k']} {col}: {got:.3e} against the "
+                          f"published {want:.3e}")
+                    ratios.append(max(got, ACC_FLOOR) / max(want, ACC_FLOOR))
+                dev_ = float(r["relative_solution_deviation"])
+                check(dev_ <= 1e-10, f"{name} k={r['k']} deviation {dev_}")
+            worst[name] = (min(ratios), max(ratios), max(
+                float(r["relative_solution_deviation"]) for r in rows),
+                float(rows[-1]["relative_error_two_pass"]))
+        print("     stability f64 on the card against the published CPU "
+              "f64 (min, max error ratio; max deviation; error at k=200): "
+              + "; ".join(f"{nm[9:]} {a:.3g}, {b:.3g}; {d:.2e}; {e:.3e}"
+                          for nm, (a, b, d, e) in worst.items()))
+        for f, sc in (("inv", "ill"), ("exp", "well")):
+            name = f"accuracy_{f}_{sc}-conditioned"
+            (header, rows), _ = run_cli("experiments.stability", [
+                "--function", f, "--scenario", f"{sc}-conditioned",
+                "--k-min", "200", "--k-max", "200", "--precision", "df",
+                *out(name + "_df")], tmp / f"{name}_df.csv")
+            _, pub = read_csv(RESULTS / f"{name}.csv")
+            e_df = float(rows[0]["relative_error_two_pass"])
+            e_64 = float(next(r for r in pub if r["k"] == "200")[
+                "relative_error_two_pass"])
+            dev_ = float(rows[0]["relative_solution_deviation"])
+            print(f"     stability --precision df {f}/{sc} k=200: error "
+                  f"{e_df:.3e} (published f64 {e_64:.3e}), deviation "
+                  f"{dev_:.2e}")
+            check(e_df <= 10 * max(e_64, ACC_FLOOR) and dev_ < 1e-12,
+                  f"df {name}: {e_df} against {e_64}, deviation {dev_}")
+
+        name = "orthogonality_inv_ill-conditioned"
+        (header, rows), _ = run_cli("experiments.orthogonality", [
+            "--function", "inv", "--scenario", "ill-conditioned",
+            "--k-min", "20", "--k-max", "200", "--k-step", "60", *out(name)],
+            tmp / f"{name}.csv")
+        same_header("orthogonality", header)
+        _, pub = read_csv(RESULTS / f"{name}.csv")
+        pub = {r["k"]: r for r in pub}
+        for r in rows:
+            check(float(r["basis_drift_fro"]) == 0.0,
+                  f"basis_drift_fro {r['basis_drift_fro']} at k={r['k']}")
+            # the loss grows from the recurrence's rounding: the JAX CPU
+            # run's dots sum with ~10x the error of the port's, so below
+            # 1e-8 the card may only be up to 10x LESS orthogonal than it
+            for col in ("ortho_loss_standard", "ortho_loss_regenerated"):
+                got, want = float(r[col]), float(pub[r["k"]][col])
+                check(0 < got <= 10 * max(want, ACC_FLOOR) if want < 1e-8
+                      else got > 1e-8,
+                      f"{name} k={r['k']} {col}: {got:.3e} against the "
+                      f"published {want:.3e}")
+        print("     orthogonality inv/ill (f64, card | published): " + "; ".join(
+            f"k={r['k']} {float(r['ortho_loss_standard']):.3e} | "
+            f"{float(pub[r['k']]['ortho_loss_standard']):.3e}, drift "
+            f"{r['basis_drift_fro']}" for r in rows))
+
+        for name, module, argv in (
+                ("certificate_study", "experiments.certificate_study",
+                 ["--size", "500", "--k", "40"]),
+                ("reorth_study", "experiments.reorth_study",
+                 ["--function", "inv", "--scenario", "ill-conditioned",
+                  "--size", "500", "--k-min", "20", "--k-max", "60"]),
+                ("dense_tradeoff", "experiments.dense_tradeoff",
+                 ["--size", "2000", "--k-start", "20", "--k-end", "40",
+                  "--k-step", "20"])):
+            t0 = time.perf_counter()
+            (header, rows), _ = run_cli(module, [*argv, *out(name)],
+                                        tmp / f"{name}.csv")
+            same_header(name, header)
+            check(rows, f"{name} wrote no row")
+            print(f"     {name} {' '.join(argv)}: {len(rows)} rows in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+    # the K7 speed-of-light record at both sizes
+    sol, paths["sol_bench"] = driven(lambda: [
+        record(arcs, 3, 5, 64, None, dev) for arcs in (m, BIG["arcs"])])
+    for rec, label in zip(sol, ("headline", "5M")):
+        frac = rec["sol_fraction_ideal"]
+        print(f"     sol_bench {rec['metric']}: "
+              f"{1e3 * rec['seconds_per_matvec']:.5f} ms a matvec (the "
+              f"kernels line's K7: {k7[label]['ms']:.5f} ms), "
+              f"sol_fraction_ideal {frac:.4f}, layout "
+              f"{rec['sol_fraction_layout']:.4f}, pad_ratio "
+              f"{rec['pad_ratio']:.4f}, {rec['effective_gb_per_s']:.1f} "
+              f"GB/s, hi {rec['timing']['hi']}, card {rec['card']}")
+        check(0 < frac <= 1.05, f"sol_fraction_ideal {frac}")
+
+    t0 = time.perf_counter()
+    _, text = run_cli("tools.scaling_bench", [
+        "--processes", "1", "--arcs", "100000", "--k", "50", "--reps", "1"])
+    recs = [json.loads(ln) for ln in text.splitlines()
+            if ln.startswith('{"metric"')]
+    check(sorted(r["metric"] for r in recs) == [
+        "scaling_fused_nproc1", "scaling_generic_nproc1"]
+          and all(r["seconds_per_step"] > 0 and r["nnz_per_s"] > 0
+                  and r["ndev"] == 1 and r["meaningful"] is False
+                  and r["device"] == "cuda" for r in recs),
+          f"scaling_bench records {recs}")
+    print(f"     scaling_bench --processes 1 (NCCL, one rank) in "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{r['metric']} {1e3 * r['seconds_per_step']:.4f} ms a step"
+              for r in recs))
+    wall = time.perf_counter() - t_phase
+    print(f"     phase 24 wall {wall:.1f} s")
+    return {"paths": paths, "wall": wall}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3314,6 +3633,8 @@ def main() -> int:
     p22 = reorth_block_phase(card, dev, inst, b)
     p23 = sharded_capability_phase(card, dev, mesh, inst, solver, b)
     torch.distributed.destroy_process_group()
+    # 24. the experiment CLIs and the measurement tools
+    p24 = tools_phase(card, dev, inst, k7)
     for extra in (p22, p23):
         cap["paths"].update(extra["paths"])
     for name, got in (("kkt_streaming_matvec", k7["headline"]),
@@ -3372,6 +3693,15 @@ def main() -> int:
                  if r["name"] in got}
         if extra:
             r["capability_launches"] = extra
+            r["launches"] += sum(extra.values())
+    # phase 24's paths: K1, K2, K3 and K4 under tradeoff and scalability
+    # (fused), K8 under tradeoff --backend pallas, K7 in sol_bench's graphs
+    # (each captured launch once, however often its graph replays)
+    for r in rows:
+        extra = {path: got[r["name"]] for path, got in p24["paths"].items()
+                 if r["name"] in got}
+        if extra:
+            r["tool_launches"] = extra
             r["launches"] += sum(extra.values())
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     check(not below, f"timed below their bound (a bound of the wrong "

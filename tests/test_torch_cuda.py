@@ -1210,6 +1210,23 @@ def test_shard_matvec_kernel_matches_k1_on_card(case, cuda_device):
     assert LAUNCHES["kkt_streaming_matvec"] == 13 and LAUNCHES["kkt_matvec"] == 1
 
 
+def test_shard_matvec_kernel_writes_into_out_on_card(cuda_device):
+    """``out=`` (the speed-of-light graphs' alternating outputs) gives K7's
+    bits in place; x itself is refused."""
+    rng = np.random.default_rng(6)
+    d, u, v, p = CASES["random"](rng)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    x = torch.from_numpy(rng.standard_normal(len(d) + p).astype(
+        np.float32)).to(cuda_device)
+    out = torch.full_like(x, float("nan"))
+    assert kkt_shard_matvec_cuda(lay, x, out=out) is out
+    assert torch.equal(out, kkt_shard_matvec_cuda(lay, x))
+    with pytest.raises(ValueError, match="out must not be x"):
+        kkt_shard_matvec_cuda(lay, x, out=x)
+    with pytest.raises(ValueError, match="out"):
+        kkt_shard_matvec_cuda(lay, x, out=out[:-1])
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_df_shard_matvec_kernel_matches_k11_on_card(case, cuda_device):
     rng = np.random.default_rng(5)

@@ -72,6 +72,21 @@ def test_no_jax_checks_cover_the_distributed_tier():
             "probes/stages.py", "probes/pipeline.py"} <= checked
 
 
+def test_no_jax_checks_cover_the_experiments_and_tools():
+    checked = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {f"experiments/{m}.py" for m in (
+        "__init__", "common", "tradeoff", "scalability", "datagen",
+        "dense_tradeoff", "stability", "orthogonality", "certificate_study",
+        "reorth_study")} <= checked
+    assert {"utils/perf.py", "utils/sol_bench.py", "tools/__init__.py",
+            "tools/_spawn.py", "tools/sol_bench.py", "tools/scaling_bench.py",
+            "tools/multihost_smoke.py", "tools/collective_audit.py"} <= checked
+    # the nine CLIs of the JAX package, one for one
+    jax_cli = {p.name for p in (ROOT / "two_pass_lanczos_tpu" / "experiments")
+               .glob("*.py")}
+    assert jax_cli == {p.name for p in (PKG / "experiments").glob("*.py")}
+
+
 def test_import_leaves_jax_out():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
@@ -100,12 +115,11 @@ def test_port_exports_the_jax_names():
 
 
 #: names of each JAX subpackage's ``__all__`` the port does not have: the
-#: TPU layout (ROADMAP "Not ported") and ``utils/perf.py`` (ROADMAP Queue 1
-#: item 4)
+#: TPU layout (ROADMAP "Not ported")
 SUB_NOT_PORTED = {
     "algorithms": set(),
     "ops": {"SortedKKTLayout"},
-    "utils": {"get_peak_rss_kb", "device_memory_stats", "Timer"},
+    "utils": set(),
 }
 
 

@@ -228,15 +228,23 @@ def kkt_shard_matvec(lay: KKTLayout, x: torch.Tensor,
 
 
 def kkt_shard_matvec_cuda(lay: KKTLayout, x: torch.Tensor,
-                          e_scale: float = 1.0) -> torch.Tensor:
+                          e_scale: float = 1.0,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 (``csrc/kkt_shard_matvec.cu``): :func:`kkt_shard_matvec` for an
     (m_d + p,) f32 CUDA x on a CUDA shard layout. With ``e_scale = 1`` and
-    one shard it is bitwise K1."""
+    one shard it is bitwise K1. ``out``, an (m_d + p,) f32 tensor other
+    than x, receives y in place of a new tensor."""
     if lay.d.device.type != "cuda":
         raise ValueError(f"K7 takes a CUDA layout, not {lay.d.device}")
     _need(x, (lay.n,), torch.float32, lay.d.device, "x")
+    if out is None:
+        y = torch.empty_like(x)
+    else:
+        _need(out, (lay.n,), torch.float32, lay.d.device, "out")
+        if out.data_ptr() == x.data_ptr():
+            raise ValueError("out must not be x: K7 reads x while it writes")
+        y = out
     lib = load_library()
-    y = torch.empty_like(x)
     code = lib.tpl_kkt_shard_matvec(*_layout_args(lay), float(e_scale),
                                     _ptr(x), _ptr(y), _stream())
     _check(lib, code, "kkt_shard_matvec")

@@ -1,4 +1,4 @@
-"""Utilities: data loading."""
+"""Utilities: data loading, performance measurement."""
 
 from two_pass_lanczos_tpu_torch.utils.data_loader import (
     DataLoaderError,
@@ -7,6 +7,12 @@ from two_pass_lanczos_tpu_torch.utils.data_loader import (
     parse_dmx,
     parse_qfc,
 )
+from two_pass_lanczos_tpu_torch.utils.perf import (
+    Timer,
+    device_memory_stats,
+    get_peak_rss_kb,
+)
 
 __all__ = ["DataLoaderError", "KKTArrays", "parse_dmx", "parse_qfc",
-           "load_kkt_arrays"]
+           "load_kkt_arrays", "get_peak_rss_kb", "device_memory_stats",
+           "Timer"]

@@ -214,17 +214,33 @@ Phases (each one raises on failure, so the exit code is non-zero):
     exactly 0); ``certificate_study``, ``reorth_study``,
     ``dense_tradeoff``; ``tools.sol_bench`` (K7, 0 < sol_fraction_ideal ≤
     1.05) and ``tools.scaling_bench --processes 1`` on NCCL; its wall
-    time printed.
+    time printed;
+25. complex Hermitian operators and the twin of ``__graft_entry__.py``:
+    the Hofstadter magnetic Laplacian on a periodic 1024 × 1024 lattice
+    (flux 1/64, Landau gauge, ``models.hofstadter_triplets``; n =
+    1,048,576, nnz = 5,242,880, complex128) shifted by 0.5 (κ ≤ 17), f =
+    inv: the generic ``solve_fAb(SparseOperator, b, k=500)`` launches no
+    port kernel, replays its basis bit for bit (``basis_drift_fro`` 0) and
+    gives the same bits in two runs, its residual at most 1e-10, α and β
+    at k = 20 within 1e-11·max|α| of the CPU run, the one-pass solve at k
+    = 200 within 1e-12 of it; the row-sharded ``ShardedSparseOperator``
+    on a one-rank NCCL group within 1e-12 of it, and its ``eigsh(nev=2,
+    which="LA")`` pairs with ‖Hu − θu‖ ≤ 1e-7; medians of 3 of the
+    single-card and row-sharded complex solves beside phase 20's real
+    one; then ``entry()`` (exactly 31 K8 launches, x within 1e-3 of the
+    f64 CPU solve) and ``dryrun_multichip(1)`` (every leg's check, its K7,
+    K8 and K12 launches counted).
 
 Every kernel's entry of the JSON line carries its launches on its main
 path, plus those of phases 21–23's paths (``capability_launches``, per
 path: K1's in the fused Chebyshev expansion, K2's and K6's in the SLQ
 methods, K8's under ``estimate_interval``, the generic expansion, the
 reorthogonalised and block solves and the arc-sharded interval, K7's in
-the arc-sharded SLQ methods and expansion) and of phase 24's
+the arc-sharded SLQ methods and expansion), of phase 24's
 (``tool_launches``: K1, K2, K3 and K4 under ``tradeoff`` and
 ``scalability``, K8 under ``tradeoff --backend pallas``, K7 in
-``sol_bench``'s graphs). On the solve
+``sol_bench``'s graphs) and of phase 25's (``entry_launches``: K8 under
+``entry()``, K7, K8 and K12 under ``dryrun_multichip(1)``). On the solve
 path K1 launches 0 times, since K2-K6 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
 on the main path, K4 in the one-pass solve, K5 in the callback solve and
@@ -2025,7 +2041,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
     return {"paths": paths, "times": times}
 
 
-def sparse_phase(card, dev, mesh, inst) -> None:
+def sparse_phase(card, dev, mesh, inst) -> list:
     """Phase 20: the row-sharded ``ShardedSparseOperator`` on ``mesh`` (a
     one-rank NCCL group), on the f32 KKT triplets of ``inst``, with b on the
     card and the counters reset: ``solve_fAb(b, k=500, f="inv")`` issues
@@ -2035,7 +2051,8 @@ def sparse_phase(card, dev, mesh, inst) -> None:
     generic ``solve_fAb`` tier on a ``SparseOperator`` of the same matrix;
     device kernels per step counted by the profiler; medians of 5 solves
     beside the generic two-pass solve; and a small f64 instance within rel
-    1e-9 of the single-device generic solve."""
+    1e-9 of the single-device generic solve. Returns the row-sharded
+    solve's times."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2145,6 +2162,7 @@ def sparse_phase(card, dev, mesh, inst) -> None:
     print(f"     on {card}: row-sharded two-pass solve k={K}: {runs(t_sh)}; "
           f"generic two-pass solve_fAb(SparseOperator) k={K}: {runs(t_gen)}")
     del sop, op, s64
+    return t_sh
 
 
 #: phase 24: the published CSVs (the JAX package's runs) whose headers the
@@ -2447,6 +2465,187 @@ def tools_phase(card, dev, inst, k7) -> dict:
     wall = time.perf_counter() - t_phase
     print(f"     phase 24 wall {wall:.1f} s")
     return {"paths": paths, "wall": wall}
+
+
+#: phase 25: the Hofstadter lattice's side, flux denominator and shift
+HOF_SIDE, HOF_FLUX, HOF_SHIFT = 1024, 64, 0.5
+#: its solve steps: the one-pass solve's, and eigsh's tolerance and cap
+#: (those of tests/test_eigen_sharded.py's complex test)
+HOF_K_ONE, HOF_EIG_TOL, HOF_EIG_MAXITER = 200, 1e-9, 200
+
+
+def complex_phase(card, dev, t_real) -> dict:
+    """Phase 25, first half: the complex Hermitian sparse tiers at the
+    size of a lattice user's run (the module docstring lists the checks).
+    ``t_real`` are phase 20's real row-sharded solve times. Returns the
+    times."""
+    import numpy as np
+    import torch
+    import two_pass_lanczos_tpu_torch as tpl
+    from two_pass_lanczos_tpu_torch.models import hofstadter_triplets
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from two_pass_lanczos_tpu_torch.ops.spmv import csr_from_triplets
+    from two_pass_lanczos_tpu_torch.parallel import (
+        ShardedSparseOperator,
+        make_mesh,
+    )
+
+    t_phase = time.perf_counter()
+    n, rows, cols, vals = hofstadter_triplets(HOF_SIDE, HOF_FLUX, HOF_SHIFT)
+    coo = csr_from_triplets(n, n, rows, cols, vals, device="cpu")
+    op = tpl.SparseOperator(coo, device=dev)
+    rng = np.random.default_rng(25)
+    b_np = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    b = torch.from_numpy(b_np).to(dev)
+    build_s = time.perf_counter() - t_phase
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = tpl.solve_fAb(op, b, k=K, f="inv")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    check(not launched, f"the complex sparse solve launched port kernels "
+                        f"{launched}")
+    check(x.dtype == torch.complex128 and x.shape == (n,)
+          and bool(torch.isfinite(torch.view_as_real(x)).all()),
+          "complex x not a finite complex128 (n,) tensor")
+    resid = float(torch.linalg.norm(op.matvec(x) - b) / torch.linalg.norm(b))
+    check(resid <= 1e-10, f"complex solve residual {resid:.3e} > 1e-10")
+    x_again = tpl.solve_fAb(op, b, k=K, f="inv")
+    check(torch.equal(x, x_again), "two complex solves differ in their bits")
+    dec, v1 = tpl.lanczos_standard(op, b, K)
+    steps = dec.steps()
+    _, v2 = tpl.lanczos_pass_two_with_basis(
+        op, b, dec, torch.ones(K, dtype=b.dtype, device=dev))
+    drift = float(torch.linalg.norm(v1[:steps] - v2[:steps]) ** 2)
+    check(drift == 0.0 and torch.equal(v1[:steps], v2[:steps]),
+          f"complex basis_drift_fro {drift:.3e}, not 0")
+    del v1, v2
+    d20 = tpl.lanczos_pass_one(op, b, K_CHECK)
+    d20b = tpl.lanczos_pass_one(op, b, K_CHECK)
+    check(torch.equal(d20.alphas, d20b.alphas)
+          and torch.equal(d20.betas, d20b.betas),
+          "complex pass one not bitwise reproducible")
+    c20 = tpl.lanczos_pass_one(tpl.SparseOperator(coo, device="cpu"),
+                               torch.from_numpy(b_np), K_CHECK)
+    a_cpu = c20.alphas.numpy()
+    scale = float(np.abs(a_cpu).max())
+    gap = max(float(np.abs(d20.alphas.cpu().numpy() - a_cpu).max()),
+              float(np.abs(d20.betas.cpu().numpy()
+                           - c20.betas.numpy()).max()))
+    check(gap <= 1e-11 * scale, f"complex alpha, beta at k={K_CHECK} "
+                                f"{gap:.3e} from the CPU run")
+    x1 = tpl.solve_fAb(op, b, k=HOF_K_ONE, f="inv", method="one_pass")
+    rel_one = float(torch.linalg.norm(x1 - x) / torch.linalg.norm(x))
+    check(rel_one <= 1e-12, f"complex one-pass k={HOF_K_ONE} rel "
+                            f"{rel_one:.3e} from the two-pass solve")
+    del x1
+    torch.cuda.empty_cache()
+
+    formed = not torch.distributed.is_initialized()
+    mesh = make_mesh(1, device=dev)
+    t0 = time.perf_counter()
+    sop = ShardedSparseOperator(n, rows, cols, vals, mesh)
+    sop_build_s = time.perf_counter() - t0
+    reset_launches()
+    xs, dec_s = sop.solve_fAb(b, k=K, f="inv")
+    torch.cuda.synchronize()
+    check(not any(LAUNCHES.values()), "the complex row-sharded solve "
+                                      "launched port kernels")
+    x_np = x.cpu().numpy()
+    rel_sh = float(np.linalg.norm(xs - x_np) / np.linalg.norm(x_np))
+    check(xs.dtype == np.complex128 and rel_sh <= 1e-12,
+          f"complex row-sharded x rel {rel_sh:.3e} from one card")
+    t0 = time.perf_counter()
+    eig = sop.eigsh(nev=2, which="LA", tol=HOF_EIG_TOL,
+                    maxiter=HOF_EIG_MAXITER)
+    eig_s = time.perf_counter() - t0
+    eig_res = []
+    for theta, u in zip(eig.eigenvalues, eig.eigenvectors):
+        ut = torch.from_numpy(u).to(dev)
+        eig_res.append(float(torch.linalg.norm(op.matvec(ut) - theta * ut)))
+    check(eig.converged and max(eig_res) <= 1e-7,
+          f"complex row-sharded eigsh: converged {eig.converged}, "
+          f"residuals {eig_res}")
+    t_one = wall_s(lambda: tpl.solve_fAb(op, b, k=K, f="inv"), 3)
+    t_sh = wall_s(lambda: sop.solve_fAb(b, k=K, f="inv", raw=True), 3)
+    del sop
+    if formed:
+        torch.distributed.destroy_process_group()
+    print(f"[25] complex Hermitian sparse tiers: Hofstadter H + "
+          f"{HOF_SHIFT}I on the periodic {HOF_SIDE}x{HOF_SIDE} lattice, "
+          f"flux 1/{HOF_FLUX} (n={n}, nnz {coo.nnz}, complex128), built "
+          f"in {build_s:.2f} s (row-sharded operator {sop_build_s:.2f} s); "
+          f"solve_fAb(k={K}, f='inv') first call {first_s:.3f} s, no port "
+          f"kernel, residual {resid:.3e}, the same bits twice, "
+          f"basis_drift_fro {drift} over {steps} steps; alpha, beta at "
+          f"k={K_CHECK} max {gap:.3e} from the CPU run (max|alpha| "
+          f"{scale:.3f}); one-pass k={HOF_K_ONE} rel {rel_one:.3e}; "
+          f"row-sharded (one-rank NCCL) rel {rel_sh:.3e}, eigsh LA "
+          f"{[float(t) for t in eig.eigenvalues]} residuals "
+          f"{[f'{r:.2e}' for r in eig_res]} after {eig.restarts} restarts "
+          f"in {eig_s:.2f} s")
+    print(f"     on {card}: single-card complex two-pass solve k={K}: "
+          f"{runs(t_one)}; row-sharded complex k={K}: {runs(t_sh)}; "
+          f"phase 20's real f32 row-sharded k={K} (n=501155): "
+          f"{runs(t_real)}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"single_s": t_one, "sharded_s": t_sh}
+
+
+def entry_phase(card, dev) -> dict:
+    """Phase 25, second half: ``entry()`` on the card (exactly 31 K8
+    launches, x within 1e-3 of the f64 CPU solve) and
+    ``dryrun_multichip(1)`` (every leg's check holds). Returns each path's
+    launches, counters reset before it."""
+    import numpy as np
+    import torch
+    import two_pass_lanczos_tpu_torch as tpl
+    from two_pass_lanczos_tpu_torch.entry import (
+        _tiny_kkt,
+        dryrun_multichip,
+        entry,
+    )
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        LAUNCHES,
+        reset_launches,
+    )
+
+    forward, args = entry(device=dev)
+    check(all(t.device.type == "cuda" for t in args), "entry()'s args off "
+                                                      "the card")
+    reset_launches()
+    x = forward(*args)
+    torch.cuda.synchronize()
+    k8 = {k: v for k, v in LAUNCHES.items() if v}
+    check(k8 == {"kkt_operator_matvec": 31},
+          f"entry()'s forward launched {k8}, not 31 K8")
+    d, u, v, p, b = _tiny_kkt()
+    x64 = tpl.solve_fAb(tpl.KKTOperator(d.astype(np.float64), u, v, p,
+                                        device="cpu"),
+                        torch.from_numpy(b.astype(np.float64)), k=16,
+                        f="inv").numpy()
+    rel = float(np.linalg.norm(x.cpu().numpy() - x64) / np.linalg.norm(x64))
+    check(rel <= 1e-3, f"entry() x rel {rel:.3e} from the f64 CPU solve")
+    reset_launches()
+    t0 = time.perf_counter()
+    dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    dry = {k: v for k, v in LAUNCHES.items() if v}
+    for name, label in (("kkt_streaming_matvec", "K7"),
+                        ("df_kkt_streaming_matvec", "K12"),
+                        ("kkt_operator_matvec", "K8")):
+        check(dry.get(name, 0) > 0,
+              f"dryrun_multichip(1) launched no {label}: {dry}")
+    print(f"     entry() on {card}: forward x {tuple(x.shape)} "
+          f"{str(x.dtype).split('.')[-1]}, K8 launches 31, rel {rel:.3e} "
+          f"from the f64 CPU solve; dryrun_multichip(1) ok in {dry_s:.2f} s, "
+          f"launches {dry}")
+    return {"entry": k8, "dryrun_multichip": dry}
 
 
 def main() -> int:
@@ -3623,7 +3822,7 @@ def main() -> int:
                                              ("5M", big, None)])
     # 19. the K14 probes; 20. the row-sharded operator on the same group
     k14 = probes_phase(card, dev, [("headline", inst), ("5M", big)])
-    sparse_phase(card, dev, mesh, inst)
+    t_real = sparse_phase(card, dev, mesh, inst)
     # 21. the capability methods of the fused tier; 22. reorthogonalisation
     #     and block Lanczos on K8; 23. the sharded tiers' capability methods
     #     on the same one-rank group
@@ -3635,6 +3834,10 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     # 24. the experiment CLIs and the measurement tools
     p24 = tools_phase(card, dev, inst, k7)
+    # 25. complex Hermitian operators in the sparse tiers; the twin of
+    #     __graft_entry__.py
+    complex_phase(card, dev, t_real)
+    p25 = entry_phase(card, dev)
     for extra in (p22, p23):
         cap["paths"].update(extra["paths"])
     for name, got in (("kkt_streaming_matvec", k7["headline"]),
@@ -3702,6 +3905,14 @@ def main() -> int:
                  if r["name"] in got}
         if extra:
             r["tool_launches"] = extra
+            r["launches"] += sum(extra.values())
+    # phase 25's paths: K8 under entry(), K7, K8 and K12 under
+    # dryrun_multichip(1)
+    for r in rows:
+        extra = {path: got[r["name"]] for path, got in p25.items()
+                 if r["name"] in got}
+        if extra:
+            r["entry_launches"] = extra
             r["launches"] += sum(extra.values())
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     check(not below, f"timed below their bound (a bound of the wrong "

@@ -53,6 +53,8 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     pass_two_scan,
 )
 from two_pass_lanczos_tpu_torch.convert import decomposition_from_jax
+from two_pass_lanczos_tpu_torch.entry import dryrun_multichip
+from two_pass_lanczos_tpu_torch.entry import entry as step_entry
 from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
 from two_pass_lanczos_tpu_torch.ops.df import DF, df_add, df_from_f64
@@ -1545,7 +1547,8 @@ def test_block_on_card_runs_p_k8_a_step_and_takes_no_tf32(problem,
 @pytest.mark.parametrize("entry", [
     "FusedKKTSolver", "make_kkt_operator", "DiagonalOperator",
     "load_decomposition", "decomposition_from_jax", "DFFusedKKTSolver",
-    "DFKKTOperator", "make_mesh", "initialize_distributed", "probes"])
+    "DFKKTOperator", "make_mesh", "initialize_distributed", "probes",
+    "entry", "dryrun_multichip"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     # with no card, the default device="cuda" raises; it never falls back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -1567,6 +1570,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             f"file://{tmp_path / 'store'}", 1, 0),
         # the probes' entry point: the card or nothing
         "probes": lambda: probes_main(["stages", "--arcs", "100"]),
+        # the twin of __graft_entry__.py
+        "entry": lambda: step_entry(),
+        "dryrun_multichip": lambda: dryrun_multichip(1),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -81,6 +81,8 @@ def test_no_jax_checks_cover_the_experiments_and_tools():
     assert {"utils/perf.py", "utils/sol_bench.py", "tools/__init__.py",
             "tools/_spawn.py", "tools/sol_bench.py", "tools/scaling_bench.py",
             "tools/multihost_smoke.py", "tools/collective_audit.py"} <= checked
+    # the twin of __graft_entry__.py
+    assert "entry.py" in checked
     # the nine CLIs of the JAX package, one for one
     jax_cli = {p.name for p in (ROOT / "two_pass_lanczos_tpu" / "experiments")
                .glob("*.py")}

@@ -223,3 +223,25 @@ def test_spawned_ranks_are_killed_at_the_deadline():
     # the third rank never joins: both wait in the rendezvous and are
     # killed at the deadline, so no process outlives the call
     assert [r.returncode for r in ranks] == [-9, -9]
+
+
+@pytest.mark.parametrize("dtype,name,size", [
+    (torch.float32, "f32", 4), (torch.float64, "f64", 8),
+    (torch.complex64, "c64", 8), (torch.complex128, "c128", 16)])
+def test_collectives_record_each_dtype_at_its_bytes(dtype, name, size):
+    """A complex gather is recorded under its own dtype and its true bytes
+    (it moves its real view: two reals an element), so the audit's bytes
+    stay right for a complex operator."""
+    from two_pass_lanczos_tpu_torch.utils.collectives import (
+        collective_bytes,
+        record_call,
+        record_collectives,
+    )
+
+    with record_collectives() as log:
+        for _ in range(3):
+            record_call("all-gather-start", dtype, (4, 10))
+    (op,) = log.ops()
+    assert (op.kind, op.dtype, op.shape, op.count) == (
+        "all-gather-start", name, (4, 10), 3)
+    assert op.bytes_out == collective_bytes(log.ops()) == 3 * 40 * size

@@ -591,9 +591,22 @@ def case_sparse_reorth(device, spec, b, k, reorth, f="inv"):
                                "full" if reorth is True else reorth,
                                dot=sop._dot, reduce=sop._fold)
     s = dec.steps()
-    gram = sop._fold(basis[:s].double() @ basis[:s].double().T)
+    v = basis[:s].to(torch.complex128 if basis.is_complex()
+                     else torch.float64)
+    gram = sop._fold(v.conj() @ v.T)
     defect = float((gram - torch.eye(s, dtype=gram.dtype)).abs().max())
     return dict(_dec(dec), x=x, defect=defect)
+
+
+def case_sparse_dtype_errors(device, n):
+    """What the constructor says to each dtype of the values (None: it
+    takes them)."""
+    from two_pass_lanczos_tpu_torch.parallel import ShardedSparseOperator
+    mesh = _mesh(device)
+    idx = np.arange(n)
+    return {name: _raised(lambda: ShardedSparseOperator(
+                n, idx, idx, np.ones(n, name), mesh))
+            for name in ("complex64", "complex128", "float16", "int64")}
 
 
 def case_sparse_reorth_errors(device, spec):

@@ -21,13 +21,14 @@ One step is written once (:func:`lanczos_recurrence_step`, masked by
 :func:`_step`): :func:`pass_one_scan` runs ``k`` of them from ``b``,
 :func:`pass_one_chunk_scan` runs ``chunk`` of them from a carried
 :class:`ChunkCarry`, so chained chunks give α and β bitwise equal to one
-monolithic pass. The inner products go through ``dot``: ``torch.dot``,
-or :func:`dot_f64` as the plain version of the compensated (two-float)
-kernel reductions.
+monolithic pass. The inner products go through ``dot``: :func:`inner`
+(``torch.dot``, or ``Re(vdot)`` on complex tensors), :func:`dot_f64` as the
+plain version of the compensated (two-float) kernel reductions, or a
+sharded tier's ``inner`` of its rows folded over the ranks.
 
 All functions are dtype-generic (f32 and f64, and complex64/complex128 for
 a Hermitian A, as in the JAX package: α, β and ‖b‖ are then real, α is
-``Re⟨v, w⟩`` by ``torch.vdot`` and a norm is ``√Σ Re(x·x̄)``) and
+``Re⟨v, w⟩`` by ``torch.vdot`` and a norm is ``√Re⟨x, x⟩``) and
 device-generic. The fused solver (``ops/kkt_fused.py``) uses them for CPU
 tensors and the hand-written kernels for CUDA tensors; the generic solvers
 (``solvers.py``) run them on any operator's ``matvec``.
@@ -48,6 +49,7 @@ __all__ = [
     "real_dtype",
     "LanczosDecomposition",
     "ChunkCarry",
+    "inner",
     "dot_f64",
     "basis_product",
     "full_f32_matmul",
@@ -130,16 +132,14 @@ def dot_f64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.dot(x.to(torch.float64), y.to(torch.float64)).to(x.dtype)
 
 
-def _inner(dot: Dot, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``Re⟨x, y⟩``: ``dot`` for real tensors, ``Re(vdot)`` for complex."""
-    return torch.vdot(x, y).real if x.is_complex() else dot(x, y)
+def inner(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``Re⟨x, y⟩`` in the real dtype of x: ``torch.dot`` for real tensors,
+    ``Re(vdot)`` (x conjugated) for complex ones; the default ``dot``."""
+    return torch.vdot(x, y).real if x.is_complex() else torch.dot(x, y)
 
 
-def l2_norm(x: torch.Tensor, dot: Dot = torch.dot) -> torch.Tensor:
-    """‖x‖ in the real dtype of x: ``√dot(x, x)`` for real x, ``√Σ Re(x·x̄)``
-    for complex x."""
-    if x.is_complex():
-        return torch.sqrt(torch.sum((x * x.conj()).real))
+def l2_norm(x: torch.Tensor, dot: Dot = inner) -> torch.Tensor:
+    """‖x‖ in the real dtype of x: ``√dot(x, x)``."""
     return torch.sqrt(dot(x, x))
 
 
@@ -207,14 +207,14 @@ def _residual(matvec, v_curr: torch.Tensor, v_prev: torch.Tensor,
     recurrence sweeps it here, ``algorithms/reorth.py``)."""
     w = matvec(v_curr)
     w = w - beta_prev * v_prev
-    alpha = _inner(dot, v_curr, w)
+    alpha = dot(v_curr, w)
     w = w - alpha * v_curr
     return alpha, w
 
 
 def lanczos_recurrence_step(
         matvec, v_curr: torch.Tensor, v_prev: torch.Tensor,
-        beta_prev: torch.Tensor, dot: Dot = torch.dot
+        beta_prev: torch.Tensor, dot: Dot = inner
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One unmasked recurrence step, steps 1-5 of the module docstring in the
     reference's order: ``(α, β, w)`` with ``w`` the unnormalised next
@@ -258,7 +258,7 @@ def _advance(c: ChunkCarry, executed: torch.Tensor, alpha: torch.Tensor,
 
 def pass_one_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
                   b: torch.Tensor, k: int, *, emit_basis: bool = False,
-                  state: Optional[torch.Tensor] = None, dot: Dot = torch.dot
+                  state: Optional[torch.Tensor] = None, dot: Dot = inner
                   ) -> Tuple[LanczosDecomposition, Optional[torch.Tensor]]:
     """Run ``k`` masked recurrence steps from ``b``.
 
@@ -290,7 +290,7 @@ def pass_one_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
 def pass_one_chunk_scan(matvec: Callable[[torch.Tensor], torch.Tensor],
                         b: torch.Tensor, chunk: int,
                         carry: Optional[ChunkCarry], k_limit: int, *,
-                        dot: Dot = torch.dot,
+                        dot: Dot = inner,
                         basis: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, ChunkCarry]:
     """Run ``chunk`` masked steps from ``carry`` (from ``b`` when ``carry``

@@ -48,6 +48,7 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     _residual,
     _start,
     breakdown_tolerance,
+    inner,
     l2_norm,
     lanczos_recurrence_step,
     real_dtype,
@@ -93,7 +94,7 @@ def _cgs(prefix: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
 
 
 def make_pass_one_step_reorth(matvec, dtype: torch.dtype, *, sweeps: int = 2,
-                              dot: Dot = torch.dot, reduce: Reduce = None):
+                              dot: Dot = inner, reduce: Reduce = None):
     """Step factory of the fully reorthogonalised pass one:
     ``step((carry, basis), j) -> ((carry, basis), (α_j, β_j))`` with
     ``carry`` a :class:`~algorithms.core.ChunkCarry` and ``basis`` the
@@ -123,7 +124,7 @@ def _scan(step, b: torch.Tensor, k: int, state) -> Tuple:
 
 
 def pass_one_scan_reorth(matvec, b: torch.Tensor, k: int, *,
-                         sweeps: int = 2, dot: Dot = torch.dot,
+                         sweeps: int = 2, dot: Dot = inner,
                          reduce: Reduce = None
                          ) -> Tuple[LanczosDecomposition, torch.Tensor]:
     """Reorthogonalised pass one: ``(decomposition, basis)`` as
@@ -153,7 +154,7 @@ def _shift_right(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_pass_one_step_selective(matvec, dtype: torch.dtype, *,
-                                 sweeps: int = 2, dot: Dot = torch.dot,
+                                 sweeps: int = 2, dot: Dot = inner,
                                  reduce: Reduce = None):
     """Step factory of the selectively reorthogonalised pass one (Simon,
     1984): the ω rows estimate ⟨v_{j+1}, v_i⟩ from (α, β) alone,
@@ -211,7 +212,7 @@ def make_pass_one_step_selective(matvec, dtype: torch.dtype, *,
 
 
 def pass_one_scan_selective(matvec, b: torch.Tensor, k: int, *,
-                            sweeps: int = 2, dot: Dot = torch.dot,
+                            sweeps: int = 2, dot: Dot = inner,
                             reduce: Reduce = None
                             ) -> Tuple[LanczosDecomposition, torch.Tensor,
                                        torch.Tensor]:

@@ -36,6 +36,7 @@ import torch
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     basis_product,
     breakdown_tolerance,
+    inner,
     l2_norm,
 )
 from two_pass_lanczos_tpu_torch.devices import cpu_generator
@@ -74,10 +75,8 @@ def _project(v: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
 
 def _norm(x: torch.Tensor, reduce_sum=None) -> torch.Tensor:
     """‖x‖, its square reduced by ``reduce_sum`` when given."""
-    if reduce_sum is None:
-        return l2_norm(x)
-    sq = (x * x.conj()).real.sum() if x.is_complex() else torch.dot(x, x)
-    return torch.sqrt(reduce_sum(sq))
+    sq = inner(x, x)
+    return torch.sqrt(sq if reduce_sum is None else reduce_sum(sq))
 
 
 def _expand_and_ritz(matvec, v_basis: torch.Tensor, h_proj: torch.Tensor,

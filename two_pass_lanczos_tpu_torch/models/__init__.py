@@ -11,12 +11,14 @@ from two_pass_lanczos_tpu_torch.models.synthetic import (
     SCENARIOS,
     create_diagonal_problem,
     dense_random_symmetric,
+    hofstadter_triplets,
 )
 
 __all__ = [
     "create_diagonal_problem",
     "dense_random_symmetric",
     "SCENARIOS",
+    "hofstadter_triplets",
     "KKTSystem",
     "kkt_operator_from_arrays",
     "kkt_operator_from_files",

@@ -5,7 +5,9 @@ parity: ``create_diagonal_problem`` (``src/bin/stability.rs:98-157``) — four
 (function × conditioning) scenarios whose analytic ground truth
 ``x_true_i = f(λ_i)·b_i`` drives the accuracy and orthogonality
 experiments — and the dense random symmetric benchmark matrix of
-``dense_tradeoff`` (``src/bin/dense_tradeoff.rs:156-158``).
+``dense_tradeoff`` (``src/bin/dense_tradeoff.rs:156-158``). Besides them,
+the port's complex Hermitian sparse problem: the Hofstadter magnetic
+Laplacian (:func:`hofstadter_triplets`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE
 from two_pass_lanczos_tpu_torch.operators import DenseOperator, DiagonalOperator
 
-__all__ = ["create_diagonal_problem", "dense_random_symmetric", "SCENARIOS"]
+__all__ = ["create_diagonal_problem", "dense_random_symmetric", "SCENARIOS",
+           "hofstadter_triplets"]
 
 #: (function, scenario) pairs accepted by :func:`create_diagonal_problem`.
 SCENARIOS = [
@@ -79,3 +82,37 @@ def dense_random_symmetric(n: int, seed: int = 42, dtype=torch.float64,
     rng = np.random.default_rng(seed)
     b = rng.uniform(-1.0, 1.0, size=(n, n))
     return DenseOperator(torch.from_numpy(b + b.T).to(dtype), device=device)
+
+
+def hofstadter_triplets(side: int, flux_den: int, shift: float = 0.0):
+    """COO triplets ``(n, rows, cols, vals)`` of the magnetic Laplacian
+    ``H + shift·I`` of a particle on the periodic ``side`` × ``side`` square
+    lattice in a uniform field of flux ``1/flux_den`` quanta per plaquette
+    (Hofstadter, Phys. Rev. B 14, 2239, 1976), in the Landau gauge::
+
+        (Hψ)(x, y) = 4ψ(x, y) − ψ(x+1, y) − ψ(x−1, y)
+                     − e^{2πiφx} ψ(x, y+1) − e^{−2πiφx} ψ(x, y−1)
+
+    with φ = 1/flux_den; ``flux_den`` must divide ``side`` for the gauge to
+    close around the torus. Site (x, y) is row ``x·side + y``; the five
+    entries of a row are its diagonal and its four bonds, so
+    ``nnz = 5·side²``, and the values are complex128. H is Hermitian with
+    its spectrum in [0, 8], so ``shift > 0`` makes it positive definite
+    with κ ≤ (8 + shift)/shift. Built on the host with NumPy."""
+    if side < 3 or flux_den < 1 or side % flux_den:
+        raise ValueError(f"flux 1/{flux_den} does not close on a "
+                         f"{side} x {side} torus (side >= 3)")
+    x, y = np.divmod(np.arange(side * side, dtype=np.int64), side)
+    site = x * side + y
+    phase = np.exp(2j * np.pi * x / flux_den)
+
+    def at(xx, yy):
+        return (xx % side) * side + (yy % side)
+
+    rows = np.concatenate([site] * 5)
+    cols = np.concatenate([site, at(x + 1, y), at(x - 1, y), at(x, y + 1),
+                           at(x, y - 1)])
+    ones = np.ones(site.size, np.complex128)
+    vals = np.concatenate([(4.0 + shift) * ones, -ones, -ones, -phase,
+                           -phase.conj()])
+    return side * side, rows, cols, vals

@@ -115,8 +115,14 @@ def csr_from_triplets(n_rows: int, n_cols: int, rows, cols, vals, dtype=None,
 
 
 def coo_spmv(a: SortedCOO, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x``: gather, multiply, and one fixed-order sum per row."""
-    return torch.segment_reduce(a.vals * x[a.cols], "sum", offsets=a.indptr)
+    """``y = A @ x``: gather, multiply, and one fixed-order sum per row.
+    A complex product is summed as its ``(nnz, 2)`` real view, the real
+    and imaginary parts of each row in the same fixed order."""
+    prod = a.vals * x[a.cols]
+    if prod.is_complex():
+        return torch.view_as_complex(torch.segment_reduce(
+            torch.view_as_real(prod), "sum", offsets=a.indptr, axis=0))
+    return torch.segment_reduce(prod, "sum", offsets=a.indptr)
 
 
 def kkt_matvec(d: torch.Tensor, arc_u: torch.Tensor, arc_v: torch.Tensor,

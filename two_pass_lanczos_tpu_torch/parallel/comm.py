@@ -41,12 +41,18 @@ _gather_flat = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 
 
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """``t`` flat, a complex tensor as its interleaved real view: NCCL has
+    no complex type, and a gather moves the same bytes either way."""
+    return (torch.view_as_real(t) if t.is_complex() else t).view(-1)
+
+
 def all_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``(D, *t.shape)``: row r is rank r's ``t``."""
+    """``(D, *t.shape)``: row r is rank r's ``t`` (real or complex)."""
     t = t.contiguous()
     out = torch.empty((mesh.size,) + tuple(t.shape), dtype=t.dtype,
                       device=t.device)
-    _gather_flat(out.view(-1), t.view(-1), group=mesh.group)
+    _gather_flat(_flat(out), _flat(t), group=mesh.group)
     record_call("all-gather", out.dtype, out.shape)
     return out
 
@@ -74,7 +80,7 @@ def all_gather_start(t: torch.Tensor, mesh: Mesh) -> PendingGather:
     t = t.contiguous()
     out = torch.empty((mesh.size,) + tuple(t.shape), dtype=t.dtype,
                       device=t.device)
-    work = _gather_flat(out.view(-1), t.view(-1), group=mesh.group,
+    work = _gather_flat(_flat(out), _flat(t), group=mesh.group,
                         async_op=True)
     record_call("all-gather-start", out.dtype, out.shape)
     return PendingGather(out, work)

@@ -38,8 +38,10 @@ form: its only collectives are the folded p×p Gram matrices),
 inner product at all); ``solve_fAb(reorth=...)`` reorthogonalises against
 the row-split basis, folding the ``(j+1,)`` projection partials.
 
-Real f32 and f64 operators only (the JAX package also takes complex
-triplets here).
+Real (f32, f64) and complex Hermitian (c64, c128) triplets, as in the JAX
+package: a complex operator keeps α, β and ‖b‖ real (each rank's partial
+is ``Re⟨a, b⟩``), its projections conjugate the basis, and its collectives
+gather the complex vectors as their real views.
 """
 
 from __future__ import annotations
@@ -68,9 +70,11 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     basis_product,
     breakdown_tolerance,
     full_f32_matmul,
+    inner,
     pass_one_chunk_scan,
     pass_one_scan,
     pass_two_scan,
+    real_dtype,
 )
 from two_pass_lanczos_tpu_torch.devices import cpu_generator
 from two_pass_lanczos_tpu_torch.eigen import (
@@ -135,8 +139,10 @@ class ShardedSparseOperator:
         vals = np.asarray(vals)
         if dtype is not None:
             vals = vals.astype(dtype)
-        if vals.dtype not in (np.float32, np.float64):
-            raise ValueError(f"real f32 or f64 values only, not {vals.dtype}")
+        if vals.dtype not in (np.float32, np.float64, np.complex64,
+                              np.complex128):
+            raise ValueError(f"f32, f64, c64 or c128 values only, not "
+                             f"{vals.dtype}")
         self.dtype = torch.from_numpy(vals[:0]).dtype
 
         nnz_per_row = np.bincount(rows, minlength=n)
@@ -233,8 +239,9 @@ class ShardedSparseOperator:
         return y
 
     def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """⟨a, b⟩ over the mesh: the (D,) partials folded in rank order."""
-        return gather_fold(torch.dot(a, b), self.mesh)
+        """⟨a, b⟩ (``Re⟨a, b⟩`` for complex shards) over the mesh: the
+        (D,) partials folded in rank order."""
+        return gather_fold(inner(a, b), self.mesh)
 
     def _fold(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over ranks of this rank's partials ``t``, in rank
@@ -276,7 +283,7 @@ class ShardedSparseOperator:
                     not host[2 * c + 1], host[2 * c + 2])
 
         decomp, stopped, self._last_p1_launches = run_chunks(
-            run, k, chunk, callback, self.device, self.dtype)
+            run, k, chunk, callback, self.device, real_dtype(self.dtype))
         return decomp, stopped
 
     def solve_fAb(self, b, *, k: int, f="exp", method: str = "two_pass",
@@ -503,16 +510,17 @@ class ShardedSparseOperator:
                 f"b_block has {n} rows, operator is {self.part.n_orig}")
         if p < 1 or p > n:
             raise ValueError(f"block width p={p} must be in [1, n={n}]")
-        if t.is_complex():
+        if t.is_complex() and not self.dtype.is_complex:
             raise TypeError(
-                "complex b_block with a real operator; the row-sharded "
-                "operator takes real f32 or f64 values only")
+                "complex b_block with a real operator; build the "
+                "ShardedSparseOperator with complex vals for a "
+                "Hermitian A (the block path is self-adjoint-generic)")
         bl = self._prepare_b(t.T).T.contiguous()  # (rows_per, p)
         dt, dev = bl.dtype, bl.device
         tol = breakdown_tolerance(dt)
         block_mv = _block_matvec(self._matvec)
-        v0, r0, ok0 = self._chol_qr2(bl, torch.zeros((), dtype=dt,
-                                                    device=dev), tol)
+        v0, r0, ok0 = self._chol_qr2(
+            bl, torch.zeros((), dtype=real_dtype(dt), device=dev), tol)
         v_curr = torch.where(ok0, v0, torch.zeros_like(v0))
         v_prev = torch.zeros_like(v_curr)
         b_prev = torch.zeros((p, p), dtype=dt, device=dev)
@@ -544,7 +552,7 @@ class ShardedSparseOperator:
         self._last_block_steps = s
         if s == 0:  # a zero or rank-deficient B: zeros
             return (torch.zeros_like(bl) if raw
-                    else np.zeros((n, p), t.numpy().dtype))
+                    else torch.zeros((n, p), dtype=dt).numpy())
         y = torch.from_numpy(host_f_e1_r0(decomp, f, k)).to(device=dev,
                                                             dtype=dt)
         x = _contract(basis, y, s)

@@ -34,6 +34,7 @@ import torch
 from two_pass_lanczos_tpu_torch.algorithms.core import (
     LanczosDecomposition,
     basis_product,
+    inner,
     pass_one_scan,
     zero_tolerance,
 )
@@ -86,7 +87,7 @@ def reorth_mode(reorth):
 
 
 def pass_one_reorth(matvec, b: torch.Tensor, k: int, mode: str, *,
-                    sweeps: int = 2, dot=torch.dot, reduce=None):
+                    sweeps: int = 2, dot=inner, reduce=None):
     """The reorthogonalised pass one of ``mode``: ``(decomposition,
     basis)``."""
     from two_pass_lanczos_tpu_torch.algorithms.reorth import (

@@ -12,7 +12,8 @@ the final gather of x once.
 
 ``CollectiveOp`` and :func:`collective_bytes` keep the JAX package's names
 and units: ``kind`` is XLA's (``"all-gather"``, or ``"all-gather-start"``
-for an asynchronous gather), ``dtype`` its short name (``"f32"``),
+for an asynchronous gather), ``dtype`` its short name (``"f32"``, and
+``"c64"``/``"c128"`` for a complex gather, 8 and 16 bytes an element),
 ``shape`` the gathered output with the rank axis first.
 
 Besides the calls, a log keeps ``events``, the order of everything reported
@@ -36,11 +37,12 @@ __all__ = ["CollectiveOp", "CollectiveLog", "record_collectives",
 
 _DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "bf16": 2, "f16": 2, "s16": 2,
                 "u16": 2, "f32": 4, "s32": 4, "u32": 4, "f64": 8, "s64": 8,
-                "u64": 8}
+                "u64": 8, "c64": 8, "c128": 16}
 _DTYPE_NAMES = {torch.bool: "pred", torch.int8: "s8", torch.uint8: "u8",
                 torch.bfloat16: "bf16", torch.float16: "f16",
                 torch.int16: "s16", torch.float32: "f32", torch.int32: "s32",
-                torch.float64: "f64", torch.int64: "s64"}
+                torch.float64: "f64", torch.int64: "s64",
+                torch.complex64: "c64", torch.complex128: "c128"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,9 @@ Phases (each one raises on failure, so the exit code is non-zero):
 2. build the port's CUDA kernels from ``two_pass_lanczos_tpu_torch/csrc``;
    print the registers and spills ``ptxas`` reports for every instance of
    the persistent kernels (K2, K4, K5, K6's instances of those three, K3,
-   K9 and K10, those with the phase timer too), their
+   K9 and K10, those with the phase timer too) and of the matvecs whose
+   node rows are warp rows (K1/K8 in f32 and f64, K7) and their block-row
+   references, their
    cooperative grids (resident blocks per SM x SMs) and one digest of the
    SASS of each source's kernels (``ops/_build.sass_digests``);
 3. K1, the KKT matvec, against its plain PyTorch version on the headline
@@ -38,10 +40,11 @@ Phases (each one raises on failure, so the exit code is non-zero):
    with the basis rows and in the same chunk loop, in turns; K6 (the
    compensated K2 instance) beside the compensated per-step launches, in
    turns; the phase
-   split of a K2, a compensated K2 and a K3 step (the passes' phase timer,
-   ``ops/kkt_fused.phase_clock``: every resident block's time in each
-   phase of 8 steps from k/2, max, median and mean over the blocks), which
-   checks that the timer changes no bit;
+   split of a K2, a compensated K2, a K4, a K5 (chunks of 64) and a K3 step
+   (the passes' phase timer, ``ops/kkt_fused.phase_clock``: every resident
+   block's time in each phase of 8 steps from k/2, max, median and mean
+   over the blocks; a block's node rows end with its slowest row warp),
+   which checks that the timer changes no bit;
 7b. the fused solver on ``generate_mcf_instance(5_000_000, rho=3,
    instance_id=1)``: K2, K4 (every basis row too) and K5 (chunks of 7)
    bitwise the per-step launches and K3 bitwise the plain pass two on K1's
@@ -50,6 +53,13 @@ Phases (each one raises on failure, so the exit code is non-zero):
    through K2
    and K3 only, x finite, the median of 3 solves, K2 and K3 per pass and per
    step, and the phase split;
+7c. the warp rows (``kkt_node_row_warp``: one warp a node row) of K1, K8
+   in f32 and f64 and K7 at e = 1 and 0.3, each bitwise its block-row
+   reference entry point (``kkt_matvec_blockrows_cuda``,
+   ``kkt_shard_matvec_blockrows_cuda``: one block a node row, the kernel
+   they replaced) on the headline, at 5M and on the node walk's edge cases
+   (a hub past 4·256 entries, loops, degree-0 nodes); K1, K8 f64 and K7
+   and their references timed in turns at both sizes;
 8. K4, pass one with the basis (one cooperative launch): alpha, beta,
    ||b||, steps, the final state and every basis row bitwise the per-step
    launches at k = 20 and 500, alpha, beta
@@ -245,14 +255,17 @@ path K1 launches 0 times, since K2-K6 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
 on the main path, K4 in the one-pass solve, K5 in the callback solve and
 K6 in the compensated solve,
-and ``in_pass_us``, the phase timer's µs of one such phase a step in K2 and
-in K3, from the step's start to the slowest block's first barrier: the
+and ``in_pass_us``, the phase timer's µs of one such phase a step in K2,
+K6's K2 instance, K4, K5 and K3, from the step's start to the slowest
+block's first barrier: the
 node and arc rows with the elementwise work fused into them, in K2
 w -= beta_prev v_prev and <v, w>, in K3 the update of v_next and x; K11's
 likewise: 0 launches, and its phases inside K9 and K10; K4's, K5's and
 K6's entries carry their own ``in_pass_matvecs`` and ``step_us``, their
 ``ms`` over k, and K6's ``steps_ms``, the compensated per-step launches'
-time in the same run; K11's ``ms`` is its pair instance's, its
+time in the same run; K1's, K8's (its f64 instance) and K7's carry
+``warp_rows_ms`` and ``blockrows_ms``, phase 7c's times of the kernel and
+of its block-row reference at the headline and at 5M; K11's ``ms`` is its pair instance's, its
 ``planar_ms`` the planar instance's),
 its max_abs_err against its plain version,
 its time
@@ -474,13 +487,19 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
 
 
 def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
-    """K2, K6's K2 instance and K3 once more on ``dec``'s run, with the
-    phase timer: every resident block stamps each phase end of TIMED_STEPS
-    steps from step K // 2. Checks that the timer changed no bit (against
-    ``dec``, an untimed compensated run and K3's ``x_ref``), prints the
-    split and returns ``phase_split`` of each pass."""
+    """K2, K6's K2 instance, K4, K5 (chunks of CHUNK) and K3 once more on
+    ``dec``'s run, with the phase timer: every resident block stamps each
+    phase end of TIMED_STEPS steps from step K // 2 (the node rows' end is
+    the latest of the block's warps, stamped with no barrier). Checks that
+    the timer changed no bit (against ``dec``, an untimed compensated run,
+    K4's untimed decomposition, state and final basis row and K3's
+    ``x_ref``), prints the split and returns ``phase_split`` of each
+    pass."""
     import torch
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        PassOneBuffers,
+        pass_one_basis_cuda,
+        pass_one_chunk_cuda,
         pass_one_cuda,
         pass_two_cuda,
         phase_clock,
@@ -489,7 +508,8 @@ def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
     dev = b.device
     k = dec.k_max
     clk = {name: phase_clock(name, dev) for name in (
-        "lanczos_pass_one", "lanczos_pass_one_comp", "lanczos_pass_two")}
+        "lanczos_pass_one", "lanczos_pass_one_comp", "lanczos_pass_one_basis",
+        "lanczos_pass_one_chunk", "lanczos_pass_two")}
     dec_t = pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
                           phase_clock=clk["lanczos_pass_one"])
     dec_c = pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
@@ -497,12 +517,32 @@ def timed_split(lay, b, solver, dec, y_full, x_ref) -> dict:
     dec_ct = pass_one_cuda(lay, b, k, solver.tol, solver.ztol,
                            compensated=True,
                            phase_clock=clk["lanczos_pass_one_comp"])
+    st4, st4_t = (torch.empty(2, lay.n, device=dev) for _ in range(2))
+    dec4, basis = pass_one_basis_cuda(lay, b, k, solver.tol, solver.ztol,
+                                      state=st4)
+    last = basis[dec4.steps() - 1].clone()
+    del basis
+    dec4_t, basis_t = pass_one_basis_cuda(
+        lay, b, k, solver.tol, solver.ztol, state=st4_t,
+        phase_clock=clk["lanczos_pass_one_basis"])
+    last_t = basis_t[dec4_t.steps() - 1].clone()
+    del basis_t
+    bufs5 = PassOneBuffers.alloc(lay, k, persistent=True)
+    for j0 in range(0, k, CHUNK):
+        pass_one_chunk_cuda(lay, bufs5, b, j0, min(CHUNK, k - j0),
+                            solver.tol, solver.ztol,
+                            phase_clock=clk["lanczos_pass_one_chunk"])
     x_t = pass_two_cuda(lay, b, dec, y_full, solver.ztol,
                         phase_clock=clk["lanczos_pass_two"])
     torch.cuda.synchronize()
     check(torch.equal(dec_t.alphas, dec.alphas)
           and torch.equal(dec_ct.alphas, dec_c.alphas)
           and torch.equal(dec_ct.betas, dec_c.betas)
+          and torch.equal(dec4_t.alphas, dec4.alphas)
+          and torch.equal(dec4_t.betas, dec4.betas)
+          and torch.equal(st4_t, st4) and torch.equal(last_t, last)
+          and torch.equal(bufs5.alphas, dec.alphas)
+          and torch.equal(bufs5.betas, dec.betas)
           and torch.equal(x_t, x_ref), "the phase timer changed the passes")
     check(all(bool((c > 0).all()) for c in clk.values()),
           "the phase timer left a stamp unwritten")
@@ -701,11 +741,20 @@ PERSISTENT_INSTANCES = (
     ("pass_one_persistent_kernelILb0ELb0ELb1E", "K6 (K2's instance)"),
     ("pass_one_persistent_kernelILb1ELb0ELb1E", "K6 (K4's instance)"),
     ("pass_one_persistent_kernelILb0ELb1ELb1E", "K6 (K5's instance)"),
-    ("pass_two_persistent_kernel", "K3"))
+    ("pass_two_persistent_kernel", "K3"),
+    # the matvecs whose node rows are warp rows, and their block-row
+    # references (the length prefix keeps the df kernels out)
+    ("17kkt_matvec_kernelIfLb0E", "K1/K8 f32"),
+    ("17kkt_matvec_kernelIdLb0E", "K8 f64"),
+    ("17kkt_matvec_kernelIfLb1E", "K1/K8 f32 block-row reference"),
+    ("17kkt_matvec_kernelIdLb1E", "K8 f64 block-row reference"),
+    ("23kkt_shard_matvec_kernelILb0E", "K7"),
+    ("23kkt_shard_matvec_kernelILb1E", "K7 block-row reference"))
 
 
 def persistent_instance(mangled: str) -> str:
-    """The kernel a persistent instance's mangled name is, or the name."""
+    """The kernel a persistent instance's (or a matvec's) mangled name is,
+    or the name."""
     return next((label for part, label in PERSISTENT_INSTANCES
                  if part in mangled), mangled)
 
@@ -887,6 +936,103 @@ def fused_big_phase(card, dev, big) -> None:
           f"step; K6 (K2's instance) {k6:.4f} ms a pass, "
           f"{1e3 * k6 / K:.3f} us a step")
     timed_split(lay, b, s, dec, y, pass_two_cuda(lay, b, dec, y, s.ztol))
+
+
+def walk_cases():
+    """The node walk's edge cases of the CPU tests (``tests/torch_cases.py``
+    ``NODE_WALK_CASES``), made from the same seed: ``(name, d, u, v, p)``
+    of a hub past 4·256 entries, of loops (u == v: a node's + and - entry
+    of one arc) and of degree-0 nodes."""
+    import numpy as np
+
+    def random_kkt(rng, m, p):
+        u = rng.integers(0, p, m).astype(np.int32)
+        v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
+        return rng.uniform(1.0, 3.0, m).astype(np.float32), u, v, p
+
+    rng = np.random.default_rng(42)
+    m, p = 1500, 100
+    u = np.where(rng.random(m) < 0.8, 0, rng.integers(0, p, m)).astype(
+        np.int32)
+    v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
+    hub = ("wide_hub", rng.uniform(0.5, 4.0, m).astype(np.float32), u, v, p)
+    d, u, v, p = random_kkt(np.random.default_rng(42), 700, 300)
+    v[::7] = u[::7]
+    loops = ("self_loop", d, u, v, p)
+    rng = np.random.default_rng(42)
+    m, p = 50, 40
+    u = rng.integers(0, 10, m).astype(np.int32)  # only nodes 0..9 as tails
+    v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
+    zero = ("degree_zero", rng.uniform(1.0, 2.0, m).astype(np.float32), u, v,
+            p)
+    return [hub, loops, zero]
+
+
+def warp_rows_phase(card, dev, sizes) -> dict:
+    """Phase 7c: K1, K8 (f32 and f64) and K7 (e = 1, the solver's and
+    ``sol_bench``'s, and e = 0.3) bitwise their block-row reference entry
+    points (the kernel with one block a node row that their warp rows
+    replaced) on each ``(label, instance)`` of ``sizes`` and on the walk's
+    edge cases; on ``sizes``, each kernel and its reference timed as device
+    time in turns (kernel, reference, reference, kernel). Returns
+    ``{label: {kernel: {"ms": t, "blockrows_ms": t}}}``."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+        KKTLayout,
+        kkt_matvec_blockrows_cuda,
+        kkt_matvec_cuda,
+        kkt_shard_matvec_blockrows_cuda,
+        kkt_shard_matvec_cuda,
+    )
+    from two_pass_lanczos_tpu_torch.ops.spmv_kernel import (
+        kkt_operator_matvec_cuda,
+    )
+    pairs = {
+        "K1": (kkt_matvec_cuda, kkt_matvec_blockrows_cuda, np.float32),
+        "K8 f32": (kkt_operator_matvec_cuda, kkt_matvec_blockrows_cuda,
+                   np.float32),
+        "K8 f64": (kkt_operator_matvec_cuda, kkt_matvec_blockrows_cuda,
+                   np.float64),
+        "K7": (kkt_shard_matvec_cuda, kkt_shard_matvec_blockrows_cuda,
+               np.float32),
+        "K7 e=0.3": (lambda lay, x: kkt_shard_matvec_cuda(lay, x, 0.3),
+                     lambda lay, x: kkt_shard_matvec_blockrows_cuda(
+                         lay, x, 0.3), np.float32)}
+    timed = ("K1", "K8 f64", "K7")
+    cases = [(label, inst.quad_costs, inst.arc_u, inst.arc_v,
+              inst.num_nodes) for label, inst in sizes] + walk_cases()
+    out = {}
+    for label, d, u, v, p in cases:
+        rng = np.random.default_rng(3)
+        x = rng.standard_normal(len(d) + p)
+        lays = {dt: KKTLayout.build(d, u, v, p, dev, dtype=dt)
+                for dt in (np.float32, np.float64)}
+        for name, (run, ref, dt) in pairs.items():
+            lay = lays[dt]
+            xd = torch.from_numpy(x.astype(dt)).to(dev)
+            y, y_ref = run(lay, xd), ref(lay, xd)
+            torch.cuda.synchronize()
+            bits = torch.int64 if dt == np.float64 else torch.int32
+            check(torch.equal(y.view(bits), y_ref.view(bits)),
+                  f"{label}: {name}'s warp rows differ from its block rows")
+            if label in dict(sizes) and name in timed:
+                got = {"ms": [], "blockrows_ms": []}
+                for key in ("ms", "blockrows_ms", "blockrows_ms", "ms"):
+                    fn = run if key == "ms" else ref
+                    got[key].append(device_ms(lambda: fn(lay, xd), 200))
+                out.setdefault(label, {})[name] = {
+                    key: statistics.mean(t) for key, t in got.items()}
+        del lays
+        torch.cuda.empty_cache()
+    print(f"[7c] warp rows on {card}: K1, K8 (f32, f64) and K7 (e = 1, 0.3) "
+          f"bitwise their block-row references on "
+          + ", ".join(c[0] for c in cases))
+    for label, got in out.items():
+        print(f"    {label}: " + "; ".join(
+            f"{name} {t['ms']:.5f} ms (block rows {t['blockrows_ms']:.5f})"
+            for name, t in got.items()) + " (device time, in turns)")
+    return out
 
 
 def wall_s(fn, reps: int) -> list:
@@ -2723,7 +2869,8 @@ def main() -> int:
             regs.append(int(used.group(1)))
         elif stores and int(stores.group(1)):
             spills.append(f"{name}: {line.strip()}")
-        if "persistent" in name and (used or "spill stores" in line):
+        if (persistent_instance(name) != name
+                and (used or "spill stores" in line)):
             print(f"    ptxas {persistent_instance(name)}: {line.strip()}")
     print(f"    ptxas: {entries} kernel instances, registers <= "
           f"{max(regs, default=0)} a thread, {len(spills)} with spills")
@@ -3058,6 +3205,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     fused_big_phase(card, dev, big)
     torch.cuda.empty_cache()
+    # 7c. the warp rows of K1, K8 and K7 against their block-row references
+    rows_ms = warp_rows_phase(card, dev, [("headline", inst), ("5M", big)])
 
     # 8. K4: pass one with the basis, bitwise the per-step launches it
     #    replaced (every row), K2 and both passes' v_steps
@@ -3879,6 +4028,15 @@ def main() -> int:
         if r["name"] in in_pass:
             r["in_pass_matvecs"] = in_pass[r["name"]]
             r["step_us"] = 1e3 * r["ms"] / K
+    # K1, K8 and K7 beside their block-row references (phase 7c), in turns
+    for r in rows:
+        name = {"kkt_matvec": "K1", "kkt_operator_matvec": "K8 f64",
+                "kkt_streaming_matvec": "K7"}.get(r["name"])
+        if name:
+            r["blockrows_ms"] = {label: got[name]["blockrows_ms"]
+                                 for label, got in rows_ms.items()}
+            r["warp_rows_ms"] = {label: got[name]["ms"]
+                                 for label, got in rows_ms.items()}
     # K6 beside the compensated per-step launches it replaced, in turns
     next(r for r in rows if r["name"] == "lanczos_pass_one_comp")[
         "steps_ms"] = k6_ms["per-step"]

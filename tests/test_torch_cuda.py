@@ -64,8 +64,10 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     KKTLayout,
     PassOneBuffers,
     eft_check_cuda,
+    kkt_matvec_blockrows_cuda,
     kkt_matvec_cuda,
     kkt_shard_matvec,
+    kkt_shard_matvec_blockrows_cuda,
     kkt_shard_matvec_cuda,
     pass_one_basis_cuda,
     pass_one_chunk_cuda,
@@ -89,6 +91,9 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused_df import (
     df_pass_two_steps_cuda,
 )
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
+from two_pass_lanczos_tpu_torch.ops.spmv_kernel import (
+    kkt_operator_matvec_cuda,
+)
 from two_pass_lanczos_tpu_torch.parallel import (
     initialize_distributed,
     make_mesh,
@@ -245,20 +250,115 @@ def test_phase_timer_stamps_without_changing_a_bit_on_card(cuda_device):
     dec = s.pass_one(bt, k)
     y = torch.from_numpy(_y_full(dec, 2, seed=4)).to(cuda_device)
     x = s.pass_two(bt, dec, y)
-    clocks = {name: phase_clock(name, cuda_device)
-              for name in ("lanczos_pass_one", "lanczos_pass_two")}
+    _, basis = pass_one_basis_cuda(lay, bt, k, s.tol, s.ztol)
+    chunked = _chunked(s, bt, k, 7)
+    clocks = {name: phase_clock(name, cuda_device) for name in (
+        "lanczos_pass_one", "lanczos_pass_two", "lanczos_pass_one_basis",
+        "lanczos_pass_one_chunk")}
     dec_t = pass_one_cuda(lay, bt, k, s.tol, s.ztol,
                           phase_clock=clocks["lanczos_pass_one"])
     x_t = pass_two_cuda(lay, bt, dec, y, s.ztol,
                         phase_clock=clocks["lanczos_pass_two"])
+    # K4 and K5 (chunks of 7: the timed steps 20..27 span two chunks)
+    dec4, basis_t = pass_one_basis_cuda(
+        lay, bt, k, s.tol, s.ztol,
+        phase_clock=clocks["lanczos_pass_one_basis"])
+    bufs5 = PassOneBuffers.alloc(lay, k, persistent=True)
+    for j0 in range(0, k, 7):
+        pass_one_chunk_cuda(lay, bufs5, bt, j0, min(7, k - j0), s.tol,
+                            s.ztol,
+                            phase_clock=clocks["lanczos_pass_one_chunk"])
     torch.cuda.synchronize()
     assert torch.equal(dec_t.alphas, dec.alphas)
     assert torch.equal(dec_t.betas, dec.betas) and torch.equal(x_t, x)
+    assert torch.equal(dec4.alphas, dec.alphas)
+    assert torch.equal(basis_t, basis)
+    _assert_same_run(bufs5, chunked)
     for name, clk in clocks.items():
         assert bool((clk > 0).all())  # every block stamped every phase
         assert bool((clk.diff(dim=2) >= 0).all())  # in order
         split = phase_split(clk, name)
         assert split["step"]["max_us"] > 0
+
+
+#: the matvecs whose warp rows replaced a block-row kernel, each with its
+#: block-row reference entry point: (kernel, reference) on (lay, x)
+_WARP_ROWS = {
+    "K1": (kkt_matvec_cuda, kkt_matvec_blockrows_cuda),
+    "K8_f32": (kkt_operator_matvec_cuda, kkt_matvec_blockrows_cuda),
+    "K8_f64": (kkt_operator_matvec_cuda, kkt_matvec_blockrows_cuda),
+    # e = 1 (the solver's, and sol_bench's) and a scale that is not exact
+    "K7": (kkt_shard_matvec_cuda, kkt_shard_matvec_blockrows_cuda),
+    "K7_e0.3": (lambda lay, x: kkt_shard_matvec_cuda(lay, x, e_scale=0.3),
+                lambda lay, x: kkt_shard_matvec_blockrows_cuda(
+                    lay, x, e_scale=0.3)),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_WARP_ROWS))
+@pytest.mark.parametrize("case", sorted(NODE_WALK_CASES))
+def test_warp_rows_bitwise_their_block_row_reference_on_card(cuda_device,
+                                                             case, kernel):
+    # one warp a node row (kkt_node_row_warp) gives the bits of one block a
+    # node row (kkt_node_row), for every node of the walk's edge cases
+    d, u, v, p, x = _walk_problem(case)
+    dt = np.float64 if kernel == "K8_f64" else np.float32
+    lay = KKTLayout.build(d, u, v, p, cuda_device, dtype=dt)
+    xd = torch.from_numpy(x.astype(dt)).to(cuda_device)
+    run, ref = _WARP_ROWS[kernel]
+    reset_launches()
+    y, y_ref = run(lay, xd), ref(lay, xd)
+    torch.cuda.synchronize()
+    bits = torch.int64 if dt == np.float64 else torch.int32
+    assert torch.equal(y.view(bits), y_ref.view(bits))
+    counted = {name: c for name, c in LAUNCHES.items() if c}
+    want_ref = ("kkt_operator_matvec_blockrows" if kernel == "K8_f64" else
+                "kkt_streaming_matvec_blockrows" if kernel.startswith("K7")
+                else "kkt_matvec_blockrows")
+    want = ("kkt_matvec" if kernel == "K1" else "kkt_streaming_matvec"
+            if kernel.startswith("K7") else "kkt_operator_matvec")
+    assert counted == {want: 1, want_ref: 1}
+
+
+def _rows_problem(rows, warps):
+    """An instance with fewer node rows than the persistent pass one has
+    warps (the walk's random case) or more (``warps + 8`` rows)."""
+    if rows == "fewer":
+        return _walk_problem("random")
+    rng = np.random.default_rng(7)
+    d, u, v, p = random_kkt(rng, m=3 * (warps + 8), p=warps + 8)
+    return d, u, v, p, rng.standard_normal(len(d) + p).astype(np.float32)
+
+
+@pytest.mark.parametrize("rows", ["fewer", "more"])
+def test_warp_rows_bitwise_the_references_at_any_row_count_on_card(
+        cuda_device, rows):
+    # K2 (one warp a node row, dealt over the grid's warps) against the
+    # per-step launches, and K3 against the plain pass two on K1's matvec,
+    # with fewer rows than warps (most warps go straight to the dot) and
+    # more (some warps run two rows): the same bits either way
+    per_sm, sms = persistent_grid()["lanczos_pass_one"]
+    d, u, v, p, b = _rows_problem(rows, 8 * per_sm * sms)
+    assert (p > 8 * per_sm * sms) == (rows == "more")
+    s = FusedKKTSolver(d, u, v, p, device=cuda_device)
+    lay, k = s.layout, 60
+    bt = torch.from_numpy(b).to(cuda_device)
+    state = torch.empty(2, s.n, device=cuda_device)
+    dec = s.pass_one(bt, k, state=state)
+    ref = _six_launch_pass_one(s, bt, k)
+    y = torch.from_numpy(_y_full(dec, 2, seed=5)).to(cuda_device)
+    st2 = torch.empty(2, s.n, device=cuda_device)
+    x = s.pass_two(bt, dec, y, state=st2)
+    ref_state = torch.empty_like(st2)
+    x_ref, _ = pass_two_scan(lambda z: kkt_matvec_cuda(lay, z), bt, dec, y,
+                             state=ref_state)
+    torch.cuda.synchronize()
+    assert dec.steps() == int(ref.steps[0]) == k
+    assert torch.equal(dec.alphas, ref.alphas)
+    assert torch.equal(dec.betas, ref.betas)
+    assert torch.equal(state, ref.state)
+    assert torch.equal(x, x_ref) and torch.equal(st2, ref_state)
+    assert torch.equal(pass_one_last_vector(dec, state), st2[1])
 
 
 def _six_launch_pass_one(s, bt, k, chunk=None, basis=None):

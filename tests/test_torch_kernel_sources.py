@@ -202,8 +202,8 @@ def test_df_persistent_passes_launch_cooperatively_without_fallback(
 
 #: the shared routines that read a vector through a trailing ``load``
 #: argument, and the arguments a call passes when it names the load
-_LOADED = {"kkt_node_row": 6, "fold_partials": 5, "df_kkt_node_row": 6,
-           "df_fold_partials": 5}
+_LOADED = {"kkt_node_row": 6, "kkt_node_row_warp": 5, "fold_partials": 5,
+           "df_kkt_node_row": 6, "df_fold_partials": 5}
 
 
 def _call_args(code: str, name: str):
@@ -668,7 +668,9 @@ class _RecordingLibrary:
             count = args[8]  # k
             if entry in ("tpl_lanczos_pass_one_chunk",
                          "tpl_lanczos_pass_one_steps"):
-                j0, count = args[-4], args[-3]
+                # K5's chunk is followed by its clock
+                at = -5 if entry == "tpl_lanczos_pass_one_chunk" else -4
+                j0, count = args[at], args[at + 1]
                 ctypes.c_float.from_address(args[13].value).value = 1.0
                 ctypes.c_int.from_address(args[14].value).value = j0 + count
                 ctypes.c_int.from_address(args[20].value).value = 1
@@ -801,16 +803,17 @@ def test_pass_one_wrappers_refuse_the_other_routes_scratch(route):
 @pytest.mark.parametrize("entry,has,lacks", [
     ("tpl_lanczos_pass_one", ["int comp", "long long* clock"],
      ["basis", "j0"]),
-    ("tpl_lanczos_pass_one_basis", ["int comp", "float* basis"],
-     ["clock", "j0"]),
-    ("tpl_lanczos_pass_one_chunk", ["int comp", "int j0", "int count"],
-     ["clock", "basis"]),
+    ("tpl_lanczos_pass_one_basis", ["int comp", "float* basis",
+                                    "long long* clock"], ["j0"]),
+    ("tpl_lanczos_pass_one_chunk", ["int comp", "int j0", "int count",
+                                    "long long* clock"], ["basis"]),
     ("tpl_lanczos_pass_one_steps", ["int comp", "float* basis", "int j0",
                                     "int count"], ["clock"])])
 def test_pass_one_signatures_name_each_routes_arguments(entry, has, lacks):
     # every pass-one entry point takes comp (K6: the compensated instance);
     # the per-step entry point takes what K4 and K5 add (a basis, a chunk);
-    # only K2 (either instance) takes the phase timer's clock
+    # the persistent K2, K4 and K5 (each instance) take the phase timer's
+    # clock, the per-step reference none
     _, decls = ENTRIES[entry]
     for decl in has:
         assert decl in decls, (entry, decl)
@@ -841,24 +844,156 @@ def _kernel_body(code: str, name: str) -> str:
     return body[:body.index("\n}\n")]
 
 
-@pytest.mark.parametrize("path,kernel,name", [
-    ("lanczos_pass_one.cu", "pass_one_persistent_kernel", "lanczos_pass_one"),
-    ("lanczos_pass_two.cu", "pass_two_persistent_kernel", "lanczos_pass_two"),
+@pytest.mark.parametrize("path,kernel,name,entry", [
+    ("lanczos_pass_one.cu", "pass_one_persistent_kernel", "lanczos_pass_one",
+     "tpl_lanczos_pass_one"),
+    ("lanczos_pass_one.cu", "pass_one_persistent_kernel",
+     "lanczos_pass_one_basis", "tpl_lanczos_pass_one_basis"),
+    ("lanczos_pass_one.cu", "pass_one_persistent_kernel",
+     "lanczos_pass_one_chunk", "tpl_lanczos_pass_one_chunk"),
+    ("lanczos_pass_two.cu", "pass_two_persistent_kernel", "lanczos_pass_two",
+     "tpl_lanczos_pass_two"),
     ("df_lanczos_pass_one.cu", "df_pass_one_persistent_kernel",
-     "df_lanczos_pass_one"),
+     "df_lanczos_pass_one", "tpl_df_lanczos_pass_one"),
     ("df_lanczos_pass_two.cu", "df_pass_two_persistent_kernel",
-     "df_lanczos_pass_two")])
-def test_phase_timer_stamps_every_phase_once(path, kernel, name):
-    # a step stamps its start and the end of each phase of PHASES, in order,
-    # and the entry point sizes the clock for as many stamps: phase_split
-    # reads stamp e + 1 - stamp e as phase e
+     "df_lanczos_pass_two", "tpl_df_lanczos_pass_two")],
+    ids=["K2", "K4", "K5", "K3", "K9", "K10"])
+def test_phase_timer_stamps_every_phase_once(path, kernel, name, entry):
+    # a step stamps its start and the end of each phase of PHASES, in order
+    # (the node rows of K2-K6 and K3, ended by each warp on its own, with
+    # warp_stamp, and the next stamp writes the latest warp's end), and the
+    # entry point sizes the clock for as many stamps: phase_split reads
+    # stamp e + 1 - stamp e as phase e
     code = _code(CSRC / path)
+    body = _kernel_body(code, kernel)
     stamps = [int(e) for e in re.findall(
-        r"a\.clock\.stamp\(j, (\d+)\)", _kernel_body(code, kernel))]
+        r"a\.clock\.(?:warp_)?stamp\(j, (\d+)[,)]", body)]
     assert stamps == list(range(len(PHASES[name]) + 1))
-    assert f"PhaseClock{{clock, k / 2, {len(stamps)}}}" in code
+    assert f"PhaseClock{{clock, k / 2, {len(stamps)}}}" in _entry_body(
+        code, entry)
+    for warp in re.findall(r"a\.clock\.warp_stamp\(j, (\d+), (\w+)\)", body):
+        # the stamp after a warp stamp folds the same warps' ends
+        assert f"a.clock.stamp(j, {int(warp[0]) + 1}, {warp[1]})" in body
     # a null clock returns before the stamp's __syncthreads: a solve pays
-    # one uniform branch a stamp
+    # one uniform branch a stamp; the warp stamp and its fold check it too
     header = _code(CSRC / "lanczos_persistent.cuh")
     stamp = _kernel_body(header, "void stamp")
     assert stamp.index("clock == nullptr") < stamp.index("__syncthreads")
+    clock = header[header.index("struct PhaseClock {"):]
+    clock = clock[:clock.index("\n};")]
+    timed = clock[clock.index("bool timed("):]
+    assert "clock != nullptr" in timed[:timed.index("}")]
+    for method in ("void warp_stamp(", "const long long* ends) const {"):
+        part = clock[clock.index(method):]
+        part = part[:part.index("\n  }")]
+        assert "if (!timed(j)) return;" in part
+        assert ("__syncthreads" not in part) == (method == "void warp_stamp(")
+
+
+def _routine(code: str, name: str) -> str:
+    """The body of the device routine ``name`` in ``code``."""
+    body = code[re.search(rf"__forceinline__ \w+ {name}\(", code).start():]
+    return body[:body.index("\n}\n")]
+
+
+def test_warp_row_needs_no_block_and_shuffles_the_whole_warp():
+    # kkt_node_row_warp is one warp's: no barrier, no shared memory, no
+    # atomic, so the block's other warps never wait for it; each tree level
+    # past the registers is a shuffle of all 32 lanes (the row has them all)
+    routine = _routine(_code(CSRC / "lanczos_common.cuh"),
+                       "kkt_node_row_warp")
+    for word in ("__syncthreads", "__shared__", "atomic", "block_sum",
+                 "__syncwarp"):
+        assert word not in routine, word
+    shuffles = re.findall(r"__shfl\w*\(([^,]*),", routine)
+    assert shuffles and set(shuffles) == {"0xffffffffu"}
+    assert re.findall(r"__shfl(\w*)\(", routine) == ["_down_sync"]
+    # the partials start at +0, walk 256 apart (kThreads) from the lane's
+    # first entry and are added in the block row's pairs
+    assert "ptr[node] + threadIdx.x % kLanes" in routine
+    assert "q0 += kThreads" in routine
+    assert "acc[r] = add_rn(acc[r], acc[r + s])" in routine
+    assert "add_rn(acc[0], __shfl_down_sync(" in routine
+
+
+#: each site of the node walk, the kernel that runs it and the routine its
+#: rows go through
+_WALK_SITES = {
+    "K1/K8": ("kkt_matvec.cu", "kkt_matvec_kernel", "kkt_node_row_warp"),
+    "K7": ("kkt_shard_matvec.cu", "kkt_shard_matvec_kernel",
+           "kkt_node_row_warp"),
+    "K2-K6": ("lanczos_pass_one.cu", "pass_one_persistent_kernel",
+              "kkt_node_row_warp"),
+    # K3 kept the block row: one warp a row was slower there
+    "K3": ("lanczos_pass_two.cu", "pass_two_persistent_kernel",
+           "kkt_node_row"),
+}
+
+
+@pytest.mark.parametrize("site", sorted(_WALK_SITES))
+def test_each_site_runs_the_node_row_it_kept(site):
+    # the solves' and operators' matvecs run the routine their site kept;
+    # the block row is left to the references (the BlockRows instances)
+    src, kernel, routine = _WALK_SITES[site]
+    body = _kernel_body(_code(CSRC / src), kernel)
+    rows = re.findall(r"\b(kkt_node_row(?:_warp)?)\s*\(", body)
+    assert routine in rows
+    if "BlockRows" in body:  # K1/K8 and K7 carry their reference
+        main = body[body.index("} else {"):]
+        assert re.findall(r"\b(kkt_node_row(?:_warp)?)\s*\(", main) == [
+            routine]
+    else:
+        assert set(rows) == {routine}
+        # pass one deals its rows to warps, K3 to blocks
+        warps = routine == "kkt_node_row_warp"
+        assert ("row_share(" in body) == warps
+        assert ("share_of(s.p)" in body or "share_of(a.p)" in body) != warps
+
+
+@pytest.mark.parametrize("entry,reaches", [
+    ("tpl_kkt_matvec", "launch_kkt_matvec("),
+    ("tpl_kkt_matvec_f64", "launch_kkt_matvec("),
+    ("tpl_kkt_matvec_blockrows", "launch_rows<float, true>("),
+    ("tpl_kkt_matvec_blockrows_f64", "launch_rows<double, true>("),
+    ("tpl_kkt_shard_matvec", "launch<false>("),
+    ("tpl_kkt_shard_matvec_blockrows", "launch<true>(")])
+def test_reference_entry_points_reach_the_block_row(entry, reaches):
+    # each reference entry point launches the BlockRows instance, whose node
+    # blocks run kkt_node_row (one block a row, the node blocks after the
+    # arc blocks); the other entry points launch the warp rows
+    src, _ = ENTRIES[entry]
+    code = _code(CSRC / src)
+    assert reaches in _entry_body(code, entry)
+    kernel = _kernel_body(code, "kkt_matvec_kernel" if src == "kkt_matvec.cu"
+                          else "kkt_shard_matvec_kernel")
+    reference = kernel[kernel.index("if constexpr (BlockRows) {"):
+                       kernel.index("} else {")]
+    assert re.findall(r"\b(kkt_node_row(?:_warp)?)\s*\(", reference) == [
+        "kkt_node_row"]
+    # the warp rows' node blocks come first; the reference keeps its
+    # numbering, after the arc blocks
+    assert "const bool first = !BlockRows;" in kernel
+    if src == "kkt_matvec.cu":
+        launch = _kernel_body(code, "cudaError_t launch_kkt_matvec")
+        assert "launch_rows<T, false>(" in launch
+
+
+@pytest.mark.parametrize("rows,blocks", [
+    (1155, 528), (3651, 528), (5, 528), (4224, 528), (4225, 528),
+    (300, 3)])
+def test_row_share_deals_each_row_to_one_warp(rows, blocks):
+    # pass one's row_share: warp at = block * 8 + warp of the grid's warps
+    # takes rows [at * rows / warps, (at + 1) * rows / warps): every row to
+    # exactly one warp, in order, the shares within one row of each other
+    share = _routine(_code(CSRC / "lanczos_persistent.cuh"), "row_share")
+    assert "blockIdx.x) * kWarps" in share
+    assert "threadIdx.x / kWarpSize" in share
+    assert "gridDim.x) * kWarps" in share
+    assert "at * rows / warps" in share and "(at + 1) * rows / warps" in share
+    warps = blocks * 8
+    bounds = [(at * rows // warps, (at + 1) * rows // warps)
+              for at in range(warps)]
+    dealt = [r for lo, hi in bounds for r in range(lo, hi)]
+    assert dealt == list(range(rows))
+    sizes = {hi - lo for lo, hi in bounds}
+    assert max(sizes) - min(sizes) <= 1

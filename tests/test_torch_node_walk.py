@@ -7,7 +7,13 @@ pairwise tree. ``tests/torch_cases.node_rows_in_kernel_order`` emulates that
 order in plain PyTorch; here it is held to the exact sum and to the JAX
 package's interpret-mode fused matvec at ``tests/test_fused.py``'s tolerance
 (2e-5·max|y|), and ``tests/test_torch_cuda.py`` holds K1 to it bit for bit.
-The phase timer of the persistent passes is read by ``phase_split``.
+``kkt_node_row_warp``, the warp row that K1, K8, K7 and the persistent
+passes run, computes the same sum in one warp: 8 partials a lane, three
+tree levels in registers and five by shuffle.
+``tests/torch_cases.node_rows_in_warp_order`` does that lane by lane, and is
+held here to the block order bit for bit, in f32 (with and without K2's
+scale) and f64. The phase timer of the persistent passes is read by
+``phase_split``.
 """
 
 import numpy as np
@@ -18,6 +24,7 @@ from tests.torch_cases import (
     NODE_ROW_THREADS,
     NODE_WALK_CASES,
     node_rows_in_kernel_order,
+    node_rows_in_warp_order,
 )
 from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver as JaxFused
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
@@ -75,17 +82,67 @@ def test_walk_order_is_one_fixed_summation(case, scaled):
     assert torch.equal(got_i.double(), exact_i)
 
 
+#: the two emulated orders: the block row and the warp row
+ORDERS = {"block": node_rows_in_kernel_order, "warp": node_rows_in_warp_order}
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
 @pytest.mark.parametrize("case", CASES)
-def test_walk_order_matches_jax_fused_matvec(case):
+def test_walk_order_matches_jax_fused_matvec(case, order):
     d, u, v, p, rng = _instance(case, 5)
     m = len(d)
     x = rng.standard_normal(m + p).astype(np.float32)
     y_ref = np.asarray(JaxFused(d, u, v, p, interpret=True).matvec(x))
     lay = KKTLayout.build(d, u, v, p, "cpu")
-    y_n = node_rows_in_kernel_order(lay.ptr, lay.ent,
-                                    torch.from_numpy(x[:m])).numpy()
+    y_n = ORDERS[order](lay.ptr, lay.ent, torch.from_numpy(x[:m])).numpy()
     np.testing.assert_allclose(y_n, y_ref[m:], rtol=0,
                                atol=2e-5 * np.abs(y_ref).max())
+
+
+@pytest.mark.parametrize("dtype,scaled", [
+    (torch.float32, False), (torch.float32, True), (torch.float64, False)],
+    ids=["f32", "f32_K2_scaled", "f64"])
+@pytest.mark.parametrize("case", CASES)
+def test_warp_order_is_bitwise_the_block_order(case, dtype, scaled):
+    # kkt_node_row_warp adds the same pairs as kkt_node_row: the same 256
+    # partials, and block_sum's tree with its first three levels in
+    # registers and its last five by shuffle, so every row has the block
+    # row's bits, whatever the degree (a hub past 4·256 entries, degree 0,
+    # a loop's + and - in one segment)
+    d, u, v, p, rng = _instance(case, 6)
+    lay = KKTLayout.build(d, u, v, p, "cpu")
+    m = len(d)
+    x_a = torch.from_numpy(rng.standard_normal(m)).to(dtype)
+    scale = (torch.tensor(1.0, dtype=dtype) / torch.tensor(3.7, dtype=dtype)
+             if scaled else None)
+    warp = node_rows_in_warp_order(lay.ptr, lay.ent, x_a, scale)
+    block = node_rows_in_kernel_order(lay.ptr, lay.ent, x_a, scale)
+    assert warp.dtype == dtype and warp.shape == (p,)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(warp.view(bits), block.view(bits))
+    # degree-0 rows are +0 in both, not -0
+    deg = lay.ptr[1:] - lay.ptr[:-1]
+    assert bool((warp[deg == 0].view(bits) == 0).all())
+
+
+def test_warp_order_differs_from_a_plain_sequential_sum():
+    # the emulation is a tree, not a running sum: on the hub a sequential
+    # fold of the same terms rounds otherwise, so the bitwise check above
+    # can fail
+    d, u, v, p, rng = _instance("wide_hub", 6)
+    lay = KKTLayout.build(d, u, v, p, "cpu")
+    x_a = torch.from_numpy(rng.standard_normal(len(d)).astype(np.float32))
+    warp = node_rows_in_warp_order(lay.ptr, lay.ent, x_a)
+    ent = lay.ent.long()
+    seq = torch.zeros(p)
+    for i in range(p):
+        acc = torch.zeros((), dtype=torch.float32)
+        for a in ent[lay.ptr[i]:lay.ptr[i + 1]].tolist():
+            acc = acc + x_a[a] if a >= 0 else acc - x_a[~a]
+        seq[i] = acc
+    assert not torch.equal(warp, seq)
+    np.testing.assert_allclose(warp.numpy(), seq.numpy(), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_phase_split_reads_the_stamps():

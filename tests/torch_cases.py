@@ -91,6 +91,55 @@ def node_rows_in_kernel_order(ptr, ent, x_a, scale=None):
     return acc[:, 0]
 
 
+#: lanes of a warp; a warp row's lane holds NODE_ROW_THREADS // WARP_LANES
+#: partials
+WARP_LANES = 32
+
+
+def node_rows_in_warp_order(ptr, ent, x_a, scale=None):
+    """``y_n = E·x_a`` rounded as ``kkt_node_row_warp``
+    (``csrc/lanczos_common.cuh``) rounds it, done literally lane by lane:
+    lane l of a node's warp holds the 8 partials of the virtual threads vt =
+    l + 32 r. Each round the lane loads its entries ``ptr[i] + l + 32 r +
+    256 i`` (r = 0..7), then gathers, then adds ``x_a[a]`` for ``a`` and
+    subtracts ``x_a[~a]`` for ``~a`` into partial r (each times ``scale``
+    first). Then the register levels: ``acc[r] += acc[r + s]`` for r < s, s
+    = 4, 2, 1; then the shuffle levels s = 16, 8, 4, 2, 1: lane l adds what
+    ``__shfl_down_sync`` hands it, lane l + s's value, or its own where l + s
+    is past the warp. Lane 0's value is the row."""
+    ptr, ent = ptr.long(), ent.long()
+    start, deg = ptr[:-1], ptr[1:] - ptr[:-1]
+    p, lanes = deg.numel(), WARP_LANES
+    per = NODE_ROW_THREADS // lanes
+    acc = torch.zeros((p, lanes, per), dtype=x_a.dtype)
+    vt = torch.arange(lanes)[:, None] + lanes * torch.arange(per)[None, :]
+    rounds = -(-int(deg.max()) // NODE_ROW_THREADS) if p else 0
+    for i in range(rounds):
+        off = (vt + NODE_ROW_THREADS * i)[None]  # (1, lanes, per)
+        live = off < deg[:, None, None]
+        a = ent[torch.where(live, start[:, None, None] + off, 0)]
+        x = x_a[torch.where(a >= 0, a, ~a)]
+        if scale is not None:
+            x = x * torch.as_tensor(scale, dtype=x_a.dtype)
+        acc = torch.where(live, torch.where(a >= 0, acc + x, acc - x), acc)
+    parts = list(acc.unbind(dim=2))  # per (p, lanes) partials, r = 0..7
+    s = per // 2
+    while s:
+        for r in range(s):
+            parts[r] = parts[r] + parts[r + s]
+        s //= 2
+    val = parts[0]
+    lane = torch.arange(lanes)
+    s = lanes // 2
+    while s:
+        src = lane + s
+        shuffled = torch.where(src < lanes, val[:, src.clamp(max=lanes - 1)],
+                               val)
+        val = val + shuffled
+        s //= 2
+    return val[:, 0]
+
+
 def breakdown_kkt():
     """All arcs share their endpoints, so the Krylov space of b = e_1 is
     tiny and pass one breaks down after a few steps: (d, u, v, p, b)."""

@@ -20,16 +20,25 @@
 //              one thread per arc; the node table (4.6 KB in f32 at 1,155
 //              nodes) stays in L1/L2 and is read through the read-only path;
 //   node part  y_n[i] = sum over node i's incidence entries of +-x_a[arc]
-//              one block per node walks its CSR segment (ptr/ent, entry
-//              ~a means arc a with sign -1) in a fixed strided order and
-//              folds it with the fixed tree of block_sum: deterministic, no
-//              atomics. A degree-0 node gives 0; a hub node is just a
-//              longer strided loop.
-// Both parts are one launch: blocks [0, arc_blocks) are arc blocks, the
-// next p blocks are node blocks. Every operation is an explicit
-// round-to-nearest intrinsic (add_rn, sub_rn, mul_rn), so nvcc contracts
-// nothing differently between pass one and pass two; the float instance is
-// the same arithmetic as the untemplated K1 it replaced.
+//              one warp per node (kkt_node_row_warp) walks its CSR segment
+//              (ptr/ent, entry ~a means arc a with sign -1) in a fixed
+//              strided order and folds it with block_sum's fixed tree:
+//              deterministic, no atomics. A degree-0 node gives 0; a hub
+//              node is just a longer strided loop.
+// Both parts are one launch: ceil(p / 8) node blocks of 8 warp rows each,
+// numbered before the arc blocks, so that the longest jobs start first
+// (numbered after them, as the block rows were, K1 took 0.0156 ms against
+// 0.0124 on the H100; PERF.md §6); the bits are the same either way.
+// Every operation is an explicit round-to-nearest intrinsic (add_rn,
+// sub_rn, mul_rn), so nvcc contracts nothing differently between pass one
+// and pass two; the float instance is the same arithmetic as the
+// untemplated K1 it replaced.
+//
+// The warp row is bitwise the block row it replaced (kkt_node_row: one
+// block of 256 threads a node, the node blocks after the arc blocks). That
+// kernel stays as the reference, the BlockRows instance, which only the
+// entry points tpl_kkt_matvec_blockrows{,_f64} reach (chip_smoke.py and the
+// card tests hold K1 and K8 to it bit for bit).
 //
 // What bounds it on the H100: at the headline size (m = 500,000, p = 1,155)
 // one f32 matvec reads d, u, v, ent and x (~14 MB) and writes y (2 MB), the
@@ -42,25 +51,52 @@
 
 namespace tpl {
 
-template <typename T>
+
+// BlockRows: the reference, one block row (kkt_node_row) a node, the node
+// blocks after the arc blocks. Otherwise K1/K8: 8 warp rows a node block.
+template <typename T, bool BlockRows>
 __global__ void __launch_bounds__(kThreads)
 kkt_matvec_kernel(const T* __restrict__ d, const int* __restrict__ u,
                   const int* __restrict__ v, const int* __restrict__ ptr,
-                  const int* __restrict__ ent, int m, int arc_blocks,
-                  const T* __restrict__ x, T* __restrict__ y,
-                  const int* __restrict__ gate, int gate_lt) {
+                  const int* __restrict__ ent, int m, int p, int arc_blocks,
+                  int node_blocks, const T* __restrict__ x,
+                  T* __restrict__ y, const int* __restrict__ gate,
+                  int gate_lt) {
   if (gate != nullptr && !(gate_lt < *gate)) return;
-  __shared__ T sh[kThreads];
   const T* xn = x + m;
-  if (blockIdx.x < arc_blocks) {
-    const int j = blockIdx.x * kThreads + threadIdx.x;
+  const bool first = !BlockRows;  // the longest jobs first
+  const int b = blockIdx.x;
+  const int nb = first ? b : b - arc_blocks;  // node block, if in range
+  if (nb < 0 || nb >= node_blocks) {
+    const int j = (first ? b - node_blocks : b) * kThreads + threadIdx.x;
     if (j < m)
       y[j] = kkt_arc_row(d[j], x[j], __ldg(xn + u[j]), __ldg(xn + v[j]));
-    return;  // block-uniform: arc blocks never reach block_sum
+    return;  // block-uniform: arc blocks never reach a node row
   }
-  const int node = blockIdx.x - arc_blocks;
-  const T total = kkt_node_row(ptr, ent, x, node, sh);
-  if (threadIdx.x == 0) y[m + node] = total;
+  if constexpr (BlockRows) {
+    __shared__ T sh[kThreads];
+    const T total = kkt_node_row(ptr, ent, x, nb, sh);
+    if (threadIdx.x == 0) y[m + nb] = total;
+  } else {
+    const int node = nb * kWarps + threadIdx.x / kWarpSize;
+    if (node >= p) return;  // warp-uniform
+    const T total = kkt_node_row_warp(ptr, ent, x, node);
+    if (threadIdx.x % kWarpSize == 0) y[m + node] = total;
+  }
+}
+
+template <typename T, bool BlockRows>
+cudaError_t launch_rows(const T* d, const int* u, const int* v,
+                        const int* ptr, const int* ent, int m, int p,
+                        const T* x, T* y, const int* gate, int gate_lt,
+                        cudaStream_t stream) {
+  const int arc_blocks = (m + kThreads - 1) / kThreads;
+  const int node_blocks = BlockRows ? p : (p + kWarps - 1) / kWarps;
+  kkt_matvec_kernel<T, BlockRows>
+      <<<arc_blocks + node_blocks, kThreads, 0, stream>>>(
+          d, u, v, ptr, ent, m, p, arc_blocks, node_blocks, x, y, gate,
+          gate_lt);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -68,10 +104,8 @@ cudaError_t launch_kkt_matvec(const T* d, const int* u, const int* v,
                               const int* ptr, const int* ent, int m, int p,
                               const T* x, T* y, const int* gate, int gate_lt,
                               cudaStream_t stream) {
-  const int arc_blocks = (m + kThreads - 1) / kThreads;
-  kkt_matvec_kernel<T><<<arc_blocks + p, kThreads, 0, stream>>>(
-      d, u, v, ptr, ent, m, arc_blocks, x, y, gate, gate_lt);
-  return cudaGetLastError();
+  return launch_rows<T, false>(d, u, v, ptr, ent, m, p, x, y, gate, gate_lt,
+                               stream);
 }
 
 template cudaError_t launch_kkt_matvec<float>(
@@ -97,6 +131,25 @@ extern "C" int tpl_kkt_matvec_f64(const double* d, const int* u,
                                   cudaStream_t stream) {
   return static_cast<int>(tpl::launch_kkt_matvec(d, u, v, ptr, ent, m, p, x,
                                                  y, nullptr, 0, stream));
+}
+
+// The reference: the block-row kernel K1 and K8 replaced, bitwise theirs.
+extern "C" int tpl_kkt_matvec_blockrows(const float* d, const int* u,
+                                        const int* v, const int* ptr,
+                                        const int* ent, int m, int p,
+                                        const float* x, float* y,
+                                        cudaStream_t stream) {
+  return static_cast<int>(tpl::launch_rows<float, true>(
+      d, u, v, ptr, ent, m, p, x, y, nullptr, 0, stream));
+}
+
+extern "C" int tpl_kkt_matvec_blockrows_f64(const double* d, const int* u,
+                                            const int* v, const int* ptr,
+                                            const int* ent, int m, int p,
+                                            const double* x, double* y,
+                                            cudaStream_t stream) {
+  return static_cast<int>(tpl::launch_rows<double, true>(
+      d, u, v, ptr, ent, m, p, x, y, nullptr, 0, stream));
 }
 
 extern "C" const char* tpl_error_string(int code) {

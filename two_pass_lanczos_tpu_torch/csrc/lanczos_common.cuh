@@ -122,7 +122,9 @@ __device__ __forceinline__ T kkt_arc_row(T d, T x, T gu, T gv) {
 // Node row: the sum of +-x_a over the node's CSR segment ptr/ent (entry ~a
 // is arc a with sign -1), walked in a fixed strided order and folded with
 // block_sum: deterministic, no atomics. Every thread of the block must call
-// it; returns the sum in every thread. x_a is read through `load`.
+// it; returns the sum in every thread. x_a is read through `load`. The
+// block-row reference entry points and the K14 probes run it; every other
+// matvec runs kkt_node_row_warp, which gives the same bits.
 template <typename T, typename Load = DirectLoad>
 __device__ __forceinline__ T kkt_node_row(const int* __restrict__ ptr,
                                           const int* __restrict__ ent,
@@ -135,6 +137,58 @@ __device__ __forceinline__ T kkt_node_row(const int* __restrict__ ptr,
     acc = a >= 0 ? add_rn(acc, load(xa + a)) : sub_rn(acc, load(xa + ~a));
   }
   return block_sum(acc, sh);
+}
+
+constexpr int kWarpSize = 32;
+constexpr int kWarps = kThreads / kWarpSize;  // warps of a block: 8
+
+// The same node row computed by ONE warp, bitwise kkt_node_row. Lane l
+// stands for the threads vt = l + 32 r (r = 0..7) of kkt_node_row's block:
+// each folds the entries ptr[node] + vt + 256 i in increasing i with the
+// same add_rn / sub_rn, so each of the 256 partials is kkt_node_row's. Then
+// block_sum's tree, pair for pair: its levels s = 128, 64, 32 add partial
+// vt + s into partial vt, here acc[r + s / 32] into acc[r] in registers;
+// its levels s = 16 .. 1 add lane l + s into lane l by a full-mask shuffle,
+// the lane's own value first. A round issues the lane's 8 entry loads, then
+// its 8 x_a loads, then the 8 adds: 8 gathers in flight a lane where the
+// block row had one. Every lane of the warp must call it; lane 0 returns
+// the row (a degree-0 node gives +0, as kkt_node_row). No shared memory,
+// no barrier, no atomic: the warp's other work and the block's other warps
+// never wait for it.
+template <typename T, typename Load = DirectLoad>
+__device__ __forceinline__ T kkt_node_row_warp(const int* __restrict__ ptr,
+                                               const int* __restrict__ ent,
+                                               const T* __restrict__ xa,
+                                               int node, Load load = Load()) {
+  constexpr int kLanes = kWarpSize;
+  constexpr int kPer = kThreads / kLanes;  // partials a lane holds: 8
+  const int end = ptr[node + 1];
+  T acc[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) acc[r] = T(0);
+  for (int q0 = ptr[node] + threadIdx.x % kLanes; q0 < end; q0 += kThreads) {
+    int a[kPer];
+    T x[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r)
+      a[r] = q0 + r * kLanes < end ? ent[q0 + r * kLanes] : 0;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r)
+      x[r] = q0 + r * kLanes < end ? load(xa + (a[r] >= 0 ? a[r] : ~a[r]))
+                                   : T(0);
+#pragma unroll
+    for (int r = 0; r < kPer; ++r)
+      if (q0 + r * kLanes < end)
+        acc[r] = a[r] >= 0 ? add_rn(acc[r], x[r]) : sub_rn(acc[r], x[r]);
+  }
+#pragma unroll
+  for (int s = kPer / 2; s > 0; s >>= 1)
+#pragma unroll
+    for (int r = 0; r < s; ++r) acc[r] = add_rn(acc[r], acc[r + s]);
+#pragma unroll
+  for (int s = kLanes / 2; s > 0; s >>= 1)
+    acc[0] = add_rn(acc[0], __shfl_down_sync(0xffffffffu, acc[0], s));
+  return acc[0];
 }
 
 // Error-free transformations of the compensated (two-float) reductions,

@@ -11,11 +11,16 @@
 // instance of one template, that runs the start from b and the steps; K6
 // is their compensated instances (Comp), chosen by the entry points' comp. A
 // step has the two grid barriers its two dots need, and no launch:
-//   phase 1  the node rows of w = A v, each published by a release store;
-//            then the first dot's virtual blocks: an arc element rotates
-//            (v_prev = v; v = w_last * (1/beta), the previous step's
-//            rotate) and forms its arc row, a node element waits for its
-//            published row; w -= beta_prev * v_prev; partials of <v, w>
+//   phase 1  the node rows of w = A v, one warp a row (kkt_node_row_warp,
+//            dealt by row_share), each published by a release store; the
+//            block's other warps start the first dot's virtual blocks at
+//            once, with no block barrier before its first block_sum: an arc
+//            element rotates (v_prev = v; v = w_last * (1/beta), the
+//            previous step's rotate) and forms its arc row, a node element
+//            waits for its published row; w -= beta_prev * v_prev; partials
+//            of <v, w>. A row warp computes its row before it enters the
+//            dot, and every block is resident (a cooperative launch), so
+//            every awaited row is in progress: no deadlock
 //   phase 2  every block folds the alpha partials; w -= alpha * v;
 //            partials of <w, w>
 //   then     every block folds the beta partials (breakdown, steps)
@@ -33,8 +38,9 @@
 //   K4 tpl_lanczos_pass_one_basis  the same, and row j of a (k, n) basis is
 //      v_{j+1}: row 0 is stored by the start, row j by step j's phase 1,
 //      where the rotate of step j - 1 first forms each element (arcs in
-//      the dot's body, nodes by the row's thread 0). A step that does not
-//      advance stores nothing, so the caller must pass a zeroed basis. The
+//      the dot's body, nodes by lane 0 of the row's warp). A step that
+//      does not advance stores nothing, so the caller must pass a zeroed
+//      basis. The
 //      rows (2 MB a step, 1 GB at k = 500) go to HBM with streaming stores
 //      (st.global.cs), so that they do not evict the L2-resident working
 //      set;
@@ -97,6 +103,13 @@
 
 namespace tpl {
 namespace {
+
+// The persistent pass one's resident blocks per SM, at most, and the
+// minimum its build is held to (__launch_bounds__), so that every instance
+// reaches it (at most 64 registers a thread). With the warp rows, 4 was
+// faster on the H100 than 3, 5 or more, at the headline and at 5M
+// (PERF.md §6). The sums do not depend on it.
+constexpr int kPassOneBlocksPerSM = 4;
 
 // scal[0] = beta_prev, scal[1] = alpha, scal[2] = 1/beta (or 1/||b||)
 // flags[0] = live (1 until a breakdown or a zero b)
@@ -338,11 +351,12 @@ __device__ __forceinline__ void reduce_phase(int g, int n, float* partials,
 // out with streaming stores (__stcs, st.global.cs: evict first, so that
 // they do not push the working set out of the L2).
 template <bool Basis, bool Resume, bool Comp>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kPassOneBlocksPerSM)
 pass_one_persistent_kernel(Persistent a) {
   static_assert(!(Basis && Resume), "K4 runs from b in one launch");
   __shared__ float sh[kThreads];
   __shared__ float sl[Comp ? kThreads : 1];  // the lo parts (Comp)
+  __shared__ long long row_ends[kWarps];      // the phase timer's
   const PassOne& s = a.s;
   const CachedLoad ld;
   const int m = s.m, n = s.n, g = a.g;
@@ -414,14 +428,15 @@ pass_one_persistent_kernel(Persistent a) {
     float* const row =  // K4's row j: v_{j+1}, formed by this step's rotate
         Basis ? s.basis + static_cast<size_t>(j) * n : nullptr;
     a.clock.stamp(j, 0);
-    // 1. one phase for w = A v and the first sub_dot. First this block's
-    //    node rows (K1's node blocks, gathering v from src): thread 0
-    //    rotates the node's element, leaves the row in wn and publishes it
-    const Share nodes = share_of(s.p);
-    for (int node = nodes.begin; node < nodes.end; ++node) {
-      const float total = kkt_node_row(s.ptr, s.ent, src, node, sh,
-                                       ScaledLoad{inv_b});
-      if (threadIdx.x == 0) {
+    // 1. one phase for w = A v and the first sub_dot. First this warp's
+    //    node rows (row_share: one warp a row, gathering v from src): lane 0
+    //    rotates the node's element, leaves the row in wn and publishes it.
+    //    No barrier follows: the block's other warps start the dot at once
+    const Share rows = row_share(s.p);
+    for (int node = rows.begin; node < rows.end; ++node) {
+      const float total = kkt_node_row_warp(s.ptr, s.ent, src, node,
+                                            ScaledLoad{inv_b});
+      if (threadIdx.x % kWarpSize == 0) {
         const int i = m + node;
         if (rotate) {
           vp[i] = ld(vc + i);
@@ -433,12 +448,13 @@ pass_one_persistent_kernel(Persistent a) {
         publish(ready + node, j + 1);
       }
     }
-    a.clock.stamp(j, 1);
+    a.clock.warp_stamp(j, 1, row_ends);
     //    Then its share of the dot's virtual blocks, in sub_dot's order: an
     //    arc element rotates and forms its row (K1's arc row, x_n gathered
     //    from src), a node element waits for its row; then w -= beta_prev
-    //    v_prev, and v * w joins the sum. A block waits only after its own
-    //    node rows, so every awaited row is being computed: no deadlock.
+    //    v_prev, and v * w joins the sum. A warp waits only after its own
+    //    node rows, and every block is resident, so every awaited row is
+    //    being computed: no deadlock.
     reduce_phase<Comp>(g, n, pa, sh, sl, [&](float2 acc, int i) {
       float y, vpi, vci;
       if (i < m) {
@@ -461,7 +477,7 @@ pass_one_persistent_kernel(Persistent a) {
       wn[i] = wi;
       return accumulate<Comp>(acc, vci, wi);
     });
-    a.clock.stamp(j, 2);
+    a.clock.stamp(j, 2, row_ends);
     grid_sync();
     a.clock.stamp(j, 3);
     // 2. every block folds alpha (finalize_alpha_kernel); the second sub_dot
@@ -617,7 +633,8 @@ int launch_pass_one(PersistentKernel kernel, const PassOne& s,
                     int* matvec_launches, cudaStream_t stream) {
   *matvec_launches = 0;
   const Persistent args{s, b, reduction_blocks(s.n), clock, j0, count};
-  const cudaError_t err = launch_persistent(kernel, args, stream);
+  const cudaError_t err =
+      launch_persistent(kernel, args, stream, kPassOneBlocksPerSM);
   if (err == cudaSuccess) *matvec_launches = count;
   return static_cast<int>(err);
 }
@@ -639,25 +656,29 @@ extern "C" int tpl_lanczos_pass_one(TPL_PASS_ONE_ARGS, int comp,
 
 // K4: k steps from b; row j of basis (k x n, zeroed by the caller) becomes
 // v_{j+1} for every executed step j (comp != 0: the compensated instance).
+// clock: as K2's.
 extern "C" int tpl_lanczos_pass_one_basis(TPL_PASS_ONE_ARGS, int comp,
-                                          float* basis, int* matvec_launches,
+                                          float* basis, long long* clock,
+                                          int* matvec_launches,
                                           cudaStream_t stream) {
   return tpl::launch_pass_one(tpl::pass_one_instance<true, false>(comp),
                               TPL_PASS_ONE_STATE(basis), b,
-                              tpl::PhaseClock{nullptr, 0, 6}, 0, k,
+                              tpl::PhaseClock{clock, k / 2, 6}, 0, k,
                               matvec_launches, stream);
 }
 
 // K5: steps [j0, j0 + count) of a k-step run (j0 + count <= k) on scratch
 // and outputs kept by the caller between calls; j0 == 0 starts from b
 // (comp != 0: the compensated instance, on the scratch of its own runs).
+// clock: as K2's, stamped by the chunks that run steps k/2 .. k/2 + 7 (the
+// steps' global numbers).
 extern "C" int tpl_lanczos_pass_one_chunk(TPL_PASS_ONE_ARGS, int comp,
-                                          int j0, int count,
+                                          int j0, int count, long long* clock,
                                           int* matvec_launches,
                                           cudaStream_t stream) {
   return tpl::launch_pass_one(tpl::pass_one_instance<false, true>(comp),
                               TPL_PASS_ONE_STATE(nullptr), b,
-                              tpl::PhaseClock{nullptr, 0, 6}, j0, count,
+                              tpl::PhaseClock{clock, k / 2, 6}, j0, count,
                               matvec_launches, stream);
 }
 
@@ -681,15 +702,18 @@ extern "C" int tpl_lanczos_pass_one_steps(TPL_PASS_ONE_ARGS, int comp,
 extern "C" int tpl_lanczos_pass_one_grid(int comp, int* blocks_per_sm,
                                          int* sms) {
   return static_cast<int>(tpl::persistent_grid(
-      tpl::pass_one_instance<false, false>(comp), blocks_per_sm, sms));
+      tpl::pass_one_instance<false, false>(comp), blocks_per_sm, sms,
+      tpl::kPassOneBlocksPerSM));
 }
 extern "C" int tpl_lanczos_pass_one_basis_grid(int comp, int* blocks_per_sm,
                                                int* sms) {
   return static_cast<int>(tpl::persistent_grid(
-      tpl::pass_one_instance<true, false>(comp), blocks_per_sm, sms));
+      tpl::pass_one_instance<true, false>(comp), blocks_per_sm, sms,
+      tpl::kPassOneBlocksPerSM));
 }
 extern "C" int tpl_lanczos_pass_one_chunk_grid(int comp, int* blocks_per_sm,
                                                int* sms) {
   return static_cast<int>(tpl::persistent_grid(
-      tpl::pass_one_instance<false, true>(comp), blocks_per_sm, sms));
+      tpl::pass_one_instance<false, true>(comp), blocks_per_sm, sms,
+      tpl::kPassOneBlocksPerSM));
 }

@@ -23,6 +23,11 @@
 // the final state are bitwise those of the two launches a step this kernel
 // replaced (K1, then the update).
 //
+// K3 keeps K1's block rows (kkt_node_row, one block a row): one warp a row
+// (kkt_node_row_warp, as in K1 and pass one) gave the same bits but was
+// slower here on the H100 at every grid tried, 3 to 5 blocks an SM, at the
+// headline or at 5M (PERF.md §6).
+//
 // What bounds it on the H100: per step one matvec, whose node rows gather
 // v from all over the 50 MB L2, and the update's stream over v_prev, v and
 // the nf accumulators (L2-resident at the headline size), then one grid

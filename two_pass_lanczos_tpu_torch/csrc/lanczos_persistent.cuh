@@ -19,10 +19,12 @@
 // computes exactly what the block of the same number did (same elements,
 // same per-thread order, the same block_sum tree, its partial stored at its
 // own number), so the result does not depend on how many blocks are
-// resident, and the passes are bitwise the launches they replace. Vectors
-// that another block wrote earlier in the launch are read with CachedLoad
-// (never the read-only path); data that no block writes (the layout, b,
-// alpha, beta, y) is read straight.
+// resident, and the passes are bitwise the launches they replace. Pass
+// one deals its node rows to warps, not blocks (row_share): each is one
+// warp's kkt_node_row_warp, bitwise K1's block row, whichever warp runs it.
+// Vectors that another block wrote earlier in the launch are read with
+// CachedLoad (never the read-only path); data that no block writes (the
+// layout, b, alpha, beta, y) is read straight.
 //
 // What bounds it on the H100: at the headline size (n = 501,155) one step
 // moves ~30 MB through the 50 MB L2 (the matvec and the passes over the
@@ -42,10 +44,10 @@
 
 namespace tpl {
 
-// Resident blocks per SM, at most. Fewer than the occupancy allows (8 for
-// K2, 6 for K3 at kThreads) is faster on the H100: grids of 3 to 8 blocks an
-// SM were tried and 5 was fastest for both passes. The sums do not depend
-// on it.
+// Resident blocks per SM, at most, of K3 (pass one has its own,
+// kPassOneBlocksPerSM in lanczos_pass_one.cu). Fewer than the occupancy
+// allows (6 for K3 at kThreads) is faster on the H100: grids of 3 to 8
+// blocks an SM were tried and 5 was fastest. The sums do not depend on it.
 constexpr int kPersistentBlocksPerSM = 5;
 // The df passes' own cap (K9, K10). Their kernels are built with it as
 // __launch_bounds__' minimum blocks per SM, so that every build of them
@@ -66,6 +68,20 @@ __device__ __forceinline__ Share share_of(int count) {
   const long long b = blockIdx.x, g = gridDim.x;
   return {static_cast<int>(b * count / g),
           static_cast<int>((b + 1) * count / g)};
+}
+
+// The node rows [begin, end) of `rows` that THIS WARP computes (one warp a
+// row, kkt_node_row_warp): an even, contiguous share over all the grid's
+// warps, so that the rows spread over every SM. The bits do not depend on
+// it: a row is one warp's, whichever. (Putting the rows only on the blocks
+// that share_of leaves without dot work was slower at the headline;
+// PERF.md §6.)
+__device__ __forceinline__ Share row_share(int rows) {
+  const long long at = static_cast<long long>(blockIdx.x) * kWarps +
+                       threadIdx.x / kWarpSize;
+  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
+  return {static_cast<int>(at * rows / warps),
+          static_cast<int>((at + 1) * rows / warps)};
 }
 
 // A hand-over from one thread to another inside a phase, with no atomic:
@@ -94,19 +110,53 @@ __device__ __forceinline__ void wait_for(const int* flag, int tag) {
 // resident block stamps %globaltimer (ns) at the end of each phase:
 // thread 0 writes clock[(s * gridDim.x + blockIdx.x) * stamps + e] for
 // sampled step s and stamp e, after a __syncthreads so that the whole
-// block has finished the phase. It changes no value the pass computes.
+// block has finished the phase. A phase that each warp ends on its own (the
+// warp rows of K2-K6) is stamped with no barrier: warp_stamp leaves
+// each warp's end in the block's `ends`, and the next stamp writes the
+// latest of them, so that the block's other warps never wait for its row
+// warps. It changes no value the pass computes.
 constexpr int kTimedSteps = 8;
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 struct PhaseClock {
   long long* clock;
   int first, stamps;
+  __device__ __forceinline__ bool timed(int j) const {
+    return clock != nullptr && j >= first && j < first + kTimedSteps;
+  }
+  __device__ __forceinline__ long long* at(int j) const {
+    return clock +
+           (static_cast<long long>(j - first) * gridDim.x + blockIdx.x) *
+               stamps;
+  }
   __device__ __forceinline__ void stamp(int j, int e) const {
     if (clock == nullptr || j < first || j >= first + kTimedSteps) return;
     __syncthreads();  // j is the same in every thread: no divergence
+    if (threadIdx.x == 0) at(j)[e] = global_ns();
+  }
+  // stamp e of a phase each warp ends on its own: no barrier; lane 0 leaves
+  // the warp's end in ends[warp] (kWarps slots in shared memory)
+  __device__ __forceinline__ void warp_stamp(int j, int e,
+                                             long long* ends) const {
+    if (!timed(j)) return;
+    if (threadIdx.x % kWarpSize == 0)
+      ends[threadIdx.x / kWarpSize] = global_ns();
+  }
+  // stamp e after a warp_stamp(j, e - 1, ends): that stamp is the latest
+  // warp's end
+  __device__ __forceinline__ void stamp(int j, int e,
+                                        const long long* ends) const {
+    if (!timed(j)) return;
+    __syncthreads();
     if (threadIdx.x == 0) {
-      long long t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      clock[(static_cast<long long>(j - first) * gridDim.x + blockIdx.x) *
-                stamps + e] = t;
+      const long long t = global_ns();
+      long long last = ends[0];
+      for (int w = 1; w < kWarps; ++w) last = last > ends[w] ? last : ends[w];
+      at(j)[e - 1] = last;
+      at(j)[e] = t;
     }
   }
 };

@@ -47,18 +47,25 @@ _F = ctypes.c_float
 _PASS_ONE = [_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _F,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
-    # d, u, v, ptr, ent, m, p, x, y, stream (f32 and f64 instances)
+    # d, u, v, ptr, ent, m, p, x, y, stream (f32 and f64 instances; the
+    # block-row references of K1 and K8 take the same)
     "tpl_kkt_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "tpl_kkt_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "tpl_kkt_matvec_blockrows": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "tpl_kkt_matvec_blockrows_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P,
+                                     _P],
     # one shard's layout (d, u, v, ptr, ent, m, p), e_scale, x, y, stream
+    # (K7 and its block-row reference)
     "tpl_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
+    "tpl_kkt_shard_matvec_blockrows": [_P, _P, _P, _P, _P, _I, _I, _F, _P,
+                                       _P, _P],
     # *_PASS_ONE, comp, clock, *matvec_launches, stream
     "tpl_lanczos_pass_one": [*_PASS_ONE, _I, _P, ctypes.POINTER(_I), _P],
-    # *_PASS_ONE, comp, basis, *matvec_launches, stream
-    "tpl_lanczos_pass_one_basis": [*_PASS_ONE, _I, _P, ctypes.POINTER(_I),
-                                   _P],
-    # *_PASS_ONE, comp, j0, count, *matvec_launches, stream
-    "tpl_lanczos_pass_one_chunk": [*_PASS_ONE, _I, _I, _I,
+    # *_PASS_ONE, comp, basis, clock, *matvec_launches, stream
+    "tpl_lanczos_pass_one_basis": [*_PASS_ONE, _I, _P, _P,
+                                   ctypes.POINTER(_I), _P],
+    # *_PASS_ONE, comp, j0, count, clock, *matvec_launches, stream
+    "tpl_lanczos_pass_one_chunk": [*_PASS_ONE, _I, _I, _I, _P,
                                    ctypes.POINTER(_I), _P],
     # *_PASS_ONE, comp, basis, j0, count, *matvec_launches, stream (the
     # per-step launches: the reference of K2, K4, K5 and of K6)

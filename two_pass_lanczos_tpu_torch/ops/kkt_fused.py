@@ -19,11 +19,14 @@ one with the basis (``method="one_pass"``) and K5 the resumable pass one
 chunk): each of K2-K5 one persistent cooperative launch
 (``csrc/lanczos_persistent.cuh``) that runs K1's matvec as a phase of every
 step; K6 is the compensated instance of each of K2, K4 and K5
-(``compensated=True``), one cooperative launch alike; K2 (both instances)
-and K3 carry a phase timer that only ``chip_smoke.py`` switches on
+(``compensated=True``), one cooperative launch alike; K2, K4, K5 (each
+instance) and K3 carry a phase timer that only ``chip_smoke.py`` switches on
 (:func:`phase_clock`, :func:`phase_split`). The per-step launches that K2,
 K4, K5 and K6 replaced, :func:`pass_one_steps_cuda`, stay as their bitwise
-reference, which only ``chip_smoke.py`` and the card tests call; K13 is the
+reference, which only ``chip_smoke.py`` and the card tests call; so does
+the block-row matvec (one block a node row) that the warp rows of K1, K8
+and K7 replaced (:func:`kkt_matvec_blockrows_cuda`,
+:func:`kkt_shard_matvec_blockrows_cuda`); K13 is the
 tripwire of K6's error-free transformations; K7, one shard's matvec with
 a node partial, serves the sharded solver (``parallel/fused_sharded.py``).
 Each kernel has a wrapper here that launches it for CUDA tensors and raises
@@ -96,8 +99,13 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
 #: solvers (``parallel/``), as ``kkt_streaming_matvec`` and
 #: ``df_kkt_streaming_matvec``, the names of the TPU kernels' wrappers; the
 #: K14 micro-kernels (``probes/``) as ``probe_gather``, ``probe_stream``,
-#: ``probe_stages`` and ``probe_pipeline``
+#: ``probe_stages`` and ``probe_pipeline``; the block-row references of K1,
+#: K8 and K7 (one block a node row, which their warp rows replaced; no solve
+#: calls them) as ``kkt_matvec_blockrows``, ``kkt_operator_matvec_blockrows``
+#: and ``kkt_streaming_matvec_blockrows``
 LAUNCHES = {"kkt_matvec": 0, "kkt_matvec_in_pass": 0,
+            "kkt_matvec_blockrows": 0, "kkt_operator_matvec_blockrows": 0,
+            "kkt_streaming_matvec_blockrows": 0,
             "lanczos_pass_one": 0, "lanczos_pass_two": 0,
             "lanczos_pass_one_basis": 0, "lanczos_pass_one_chunk": 0,
             "lanczos_pass_one_comp": 0, "lanczos_pass_one_steps": 0,
@@ -212,6 +220,28 @@ def kkt_matvec_cuda(lay: KKTLayout, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def kkt_matvec_blockrows_cuda(lay: KKTLayout, x: torch.Tensor
+                              ) -> torch.Tensor:
+    """The reference of K1 and K8: the block-row kernel they replaced (one
+    block of 256 threads a node row, ``kkt_node_row``), bitwise theirs. For
+    an (n,) CUDA x in the layout's dtype (f32 or f64); no solve calls it."""
+    dt = lay.d.dtype
+    entry = {torch.float32: "tpl_kkt_matvec_blockrows",
+             torch.float64: "tpl_kkt_matvec_blockrows_f64"}.get(dt)
+    if entry is None:
+        raise ValueError(f"the block-row reference has f32 and f64 "
+                         f"instances, not {dt}")
+    _need(x, (lay.n,), dt, lay.d.device, "x")
+    lib = load_library()
+    y = torch.empty_like(x)
+    code = getattr(lib, entry)(*_layout_args(lay), _ptr(x), _ptr(y),
+                               _stream())
+    _check(lib, code, entry)
+    LAUNCHES["kkt_matvec_blockrows" if dt == torch.float32
+             else "kkt_operator_matvec_blockrows"] += 1
+    return y
+
+
 def kkt_shard_matvec(lay: KKTLayout, x: torch.Tensor,
                      e_scale: float = 1.0) -> torch.Tensor:
     """The plain version of K7 on any device: for one shard's layout (its
@@ -249,6 +279,23 @@ def kkt_shard_matvec_cuda(lay: KKTLayout, x: torch.Tensor,
                                     _ptr(x), _ptr(y), _stream())
     _check(lib, code, "kkt_shard_matvec")
     LAUNCHES["kkt_streaming_matvec"] += 1
+    return y
+
+
+def kkt_shard_matvec_blockrows_cuda(lay: KKTLayout, x: torch.Tensor,
+                                    e_scale: float = 1.0) -> torch.Tensor:
+    """The reference of K7: the block-row kernel it replaced, bitwise K7,
+    for the arguments of :func:`kkt_shard_matvec_cuda` (no ``out``); no
+    solve calls it."""
+    if lay.d.device.type != "cuda":
+        raise ValueError(f"K7 takes a CUDA layout, not {lay.d.device}")
+    _need(x, (lay.n,), torch.float32, lay.d.device, "x")
+    y = torch.empty_like(x)
+    lib = load_library()
+    code = lib.tpl_kkt_shard_matvec_blockrows(
+        *_layout_args(lay), float(e_scale), _ptr(x), _ptr(y), _stream())
+    _check(lib, code, "kkt_shard_matvec_blockrows")
+    LAUNCHES["kkt_streaming_matvec_blockrows"] += 1
     return y
 
 
@@ -340,6 +387,11 @@ def _comp(name: str, compensated: bool) -> str:
     return "lanczos_pass_one_comp" if compensated else name
 
 
+def _grid(name: str, compensated: bool) -> str:
+    """The :func:`persistent_grid` key of pass-one instance ``name``."""
+    return name + "_comp" if compensated else name
+
+
 def pass_one_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                   ztol: float, state: Optional[torch.Tensor] = None,
                   compensated: bool = False,
@@ -385,19 +437,23 @@ def pass_one_batched_cuda(lay: KKTLayout, probes: torch.Tensor, k: int,
 
 def pass_one_basis_cuda(lay: KKTLayout, b: torch.Tensor, k: int, tol: float,
                         ztol: float, compensated: bool = False,
-                        state: Optional[torch.Tensor] = None
+                        state: Optional[torch.Tensor] = None,
+                        phase_clock: Optional[torch.Tensor] = None
                         ) -> Tuple[LanczosDecomposition, torch.Tensor]:
     """K4 (compensated: its K6 instance): K2 that also returns the ``(k,
     n)`` basis, row ``j`` = v_{j+1} and zero beyond ``steps_taken`` (k·n·4
     bytes on the card), in one cooperative launch. ``state`` receives the
-    final ``(v_prev, v_curr)``."""
+    final ``(v_prev, v_curr)``; a ``phase_clock`` of the instance's grid
+    the stamps of :func:`phase_split`."""
     bufs = PassOneBuffers.alloc(lay, k, state, persistent=True)
     # zeros, not empty: the kernel stores no row for a step that does not
     # advance, and a garbage row times a zero coefficient is NaN in V·y
     basis = torch.zeros((k, lay.n), dtype=torch.float32, device=lay.d.device)
     _launch_pass_one("tpl_lanczos_pass_one_basis",
                      _comp("lanczos_pass_one_basis", compensated), lay, bufs,
-                     b, tol, ztol, int(compensated), _ptr(basis))
+                     b, tol, ztol, int(compensated), _ptr(basis),
+                     _clock_ptr(phase_clock, _grid("lanczos_pass_one_basis",
+                                                   compensated)))
     return bufs.decomposition(), basis
 
 
@@ -409,16 +465,21 @@ def _check_chunk(bufs: PassOneBuffers, j0: int, count: int) -> None:
 
 def pass_one_chunk_cuda(lay: KKTLayout, bufs: PassOneBuffers,
                         b: torch.Tensor, j0: int, count: int, tol: float,
-                        ztol: float, compensated: bool = False) -> None:
+                        ztol: float, compensated: bool = False,
+                        phase_clock: Optional[torch.Tensor] = None) -> None:
     """K5 (compensated: its K6 instance): enqueue steps ``[j0, j0 +
     count)`` of a ``k``-step run on the carried ``bufs`` (``k =
     len(bufs.alphas)``; the persistent scratch) in one cooperative launch;
     ``j0 == 0`` starts from b. α and β land at their global indices;
-    nothing is read back."""
+    nothing is read back. A ``phase_clock`` of the instance's grid, passed
+    to every chunk of the run, receives the stamps of :func:`phase_split`
+    from the chunks that hold steps ``k // 2`` on."""
     _check_chunk(bufs, j0, count)
     _launch_pass_one("tpl_lanczos_pass_one_chunk",
                      _comp("lanczos_pass_one_chunk", compensated), lay, bufs,
-                     b, tol, ztol, int(compensated), j0, count)
+                     b, tol, ztol, int(compensated), j0, count,
+                     _clock_ptr(phase_clock, _grid("lanczos_pass_one_chunk",
+                                                   compensated)))
 
 
 def pass_one_steps_cuda(lay: KKTLayout, bufs: PassOneBuffers,
@@ -449,8 +510,12 @@ TIMED_STEPS = 8
 PHASES = {"lanczos_pass_one": ("node rows", "arc rows + <v,w>", "barrier 1",
                                "alpha + <w,w>", "barrier 2"),
           "lanczos_pass_two": ("node rows", "arc rows", "barrier")}
-# K6's K2 instance, K9 and K10 (``ops/kkt_fused_df.py``) step as K2 and K3
-PHASES["lanczos_pass_one_comp"] = PHASES["lanczos_pass_one"]
+# K4, K5, K6's instances of K2, K4 and K5, K9 and K10
+# (``ops/kkt_fused_df.py``) step as K2 and K3
+PHASES.update({name: PHASES["lanczos_pass_one"] for name in (
+    "lanczos_pass_one_comp", "lanczos_pass_one_basis",
+    "lanczos_pass_one_basis_comp", "lanczos_pass_one_chunk",
+    "lanczos_pass_one_chunk_comp")})
 PHASES["df_lanczos_pass_one"] = PHASES["lanczos_pass_one"]
 PHASES["df_lanczos_pass_two"] = PHASES["lanczos_pass_two"]
 

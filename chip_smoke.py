@@ -161,10 +161,15 @@ Phases (each one raises on failure, so the exit code is non-zero):
 19. K14, the probes (``two_pass_lanczos_tpu_torch.probes``: gather, stream,
     stages, pipeline), their main path ``probes.run`` at both sizes with the
     counters reset: every variant checked against its plain version
-    (``probe_stages`` full and ``probe_pipeline`` bitwise K7, every gather
-    bitwise ``tab[idx]``, ``probe_stream`` bitwise) and timed warm and
-    cold-L2; K7's stage split at each size, which says whether its node
-    blocks' x_a gather or its arc stream bounds it;
+    (``probe_stages`` full and ``probe_pipeline`` bitwise K7, the stage
+    ``node_sorted``'s y_n bitwise K7's, every gather tier bitwise
+    ``tab[idx]``, the cluster tier at least on x_n, and on x_a where the
+    card holds its cluster, ``probe_stream`` bitwise) and timed warm and
+    cold-L2; ``full``'s time beside K7's from the same run; the cluster
+    tier's shapes and the tables it could not run, with the reason; K7's
+    stage split at each size, which says whether its node blocks' x_a
+    gather or its arc stream bounds it and what the gather costs beyond a
+    contiguous read (``node_sorted``);
 20. the row-sharded ``ShardedSparseOperator`` on the same one-rank NCCL
     group, on the headline's f32 KKT triplets: ``solve_fAb(b, k=500,
     f="inv")`` with 999 asynchronous gathers and owned SpMVs and no port
@@ -1450,18 +1455,32 @@ def probes_phase(card, dev, sizes) -> dict:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "probes.json").write_text(json.dumps(
         {"card": card, "records": recs}, indent=1))
+    # the stage probe's checks run inside probes.run (it raises on a
+    # failure); the cluster tier must have gathered, bitwise, at least x_n
+    for label, by in recs.items():
+        ran = {r["variant"] for r in by["gather"] if "not_run" not in r}
+        check("arc_u/cluster/int32" in ran,
+              f"{label}: the cluster tier did not run on x_n")
+        check({"full", "node_sorted", "k7"} <= {
+            r["variant"] for r in by["stages"]}, f"{label}: stage records")
     print(f"[19] K14 probes at {', '.join(inputs)} in {run_s:.1f} s: every "
-          f"variant checked (stages full and pipeline bitwise K7, gathers "
-          f"bitwise tab[idx], stream bitwise its plain version); launches "
+          f"variant checked (stages full and pipeline bitwise K7, "
+          f"node_sorted's y_n bitwise K7's, gathers of every tier bitwise "
+          f"tab[idx], stream bitwise its plain version); launches "
           f"{ {k: launches[k] for k in PROBE_MAIN} }; records in "
           f"chiprun_out/probes.json")
 
     def line(r):
+        if "not_run" in r:
+            return f"{r['variant']}: not run: {r['not_run']}"
         lib = (f", index_select {r['library_us']:.3f} us"
                if "library_us" in r else "")
+        shape = (f", clusters of {r['cluster']} x {r['slice_entries']} "
+                 f"floats, {r['active_clusters']} resident"
+                 if "cluster" in r else "")
         return (f"{r['variant']}: {r['us']:.3f} us ({_pct(r['share'])} of "
                 f"bound, {r['gbps']:.0f} GB/s), cold {r['us_cold']:.3f} us "
-                f"({_pct(r['share_cold'])}){lib}")
+                f"({_pct(r['share_cold'])}){lib}{shape}")
 
     for label, by in recs.items():
         lay = inputs[label][0]
@@ -1474,6 +1493,7 @@ def probes_phase(card, dev, sizes) -> dict:
             if r["variant"].startswith("sweep"):
                 size, mode, idx = r["variant"][5:].split("/")
                 sweep.setdefault(size, []).append(
+                    f"{mode}/{idx} not run" if "not_run" in r else
                     f"{mode}/{idx} {r['us']:.2f} (cold {r['us_cold']:.2f})")
         for size, cells in sweep.items():
             print(f"       gather sweep, table {size}: " + "; ".join(cells)
@@ -1485,6 +1505,14 @@ def probes_phase(card, dev, sizes) -> dict:
             print("       stream " + line(r))
         for r in by["pipeline"]:
             print("       pipeline " + line(r))
+        stage = {r["variant"]: r for r in by["stages"]}
+        print(f"       stages full {stage['full']['us']:.3f} us, cold "
+              f"{stage['full']['us_cold']:.3f} us beside K7's "
+              f"{stage['k7']['us']:.3f} us, cold "
+              f"{stage['k7']['us_cold']:.3f} us in the same run")
+        for r in by["gather"]:
+            if "not_run" in r and r["variant"].startswith("sweep"):
+                print(f"       gather {line(r)}")
         print("       K7 stage split:")
         for row in probes.stage_split(by["stages"]).splitlines():
             print("         " + row)

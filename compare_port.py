@@ -6,7 +6,7 @@ Usage, from the root of a checkout, on a machine with one card::
 
     python3 compare_port.py --tree parent=PATH --tree tree=. \\
         [--derive NAME=BASE:CONST=VALUE[,CONST=VALUE]] \\
-        [--order parent,tree,tree,parent] [--quick] \\
+        [--order parent,tree,tree,parent] [--quick | --probes] \\
         [--out chiprun_out/compare_port.json]
 
 ``--tree NAME=PATH`` names a checkout (a ``git archive`` of another commit
@@ -41,6 +41,13 @@ instance (m = 5,000,000, p = 3,651), b and x from ``default_rng(0)``:
   (``ShardedFusedKKTSolver`` on a one-rank NCCL group, 5) and the generic
   ``solve_fAb(make_kkt_operator(...))`` (5), and ``sol_bench``'s K7 per
   matvec and ``sol_fraction_ideal`` at both sizes.
+
+With ``--probes`` a turn measures only the K14 probes that a probe
+redesign changes, at both sizes, x from ``default_rng(19)``: the gather
+K14a (``gather_cuda``) of x_n[u] and of x_a[arc of ent] through ``ldg``,
+and the stage probe K14c (``stages_cuda``) ``full`` and ``node_only``
+beside K7, each by the checkout's own ``probes.Timer`` cold-L2 and warm,
+in ms.
 
 Prints the card's ``nvidia-smi`` name and power limit, a table of every
 number by turn and the mean of each checkout's turns, and writes the
@@ -271,6 +278,45 @@ def worker(root: Path, quick: bool) -> dict:
     return out
 
 
+def probe_worker(root: Path) -> dict:
+    """One ``--probes`` turn on the checkout at ``root``."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+    import two_pass_lanczos_tpu_torch as tpl
+    from two_pass_lanczos_tpu_torch.ops import kkt_fused as kf
+    from two_pass_lanczos_tpu_torch.probes.bench import Timer
+    from two_pass_lanczos_tpu_torch.probes.gather import gather_cuda
+    from two_pass_lanczos_tpu_torch.probes.stages import stages_cuda
+    if not Path(tpl.__file__).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {tpl.__file__}, not from {root}")
+    dev = torch.device("cuda", 0)
+    ms = {}
+    for tag, spec in (("", HEADLINE), (" 5M", BIG)):
+        inst = tpl.generate_mcf_instance(**spec)
+        lay = kf.KKTLayout.build(inst.quad_costs, inst.arc_u, inst.arc_v,
+                                 inst.num_nodes, dev)
+        m = lay.m
+        x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+            lay.n).astype(np.float32)).to(dev)
+        arcs = torch.where(lay.ent >= 0, lay.ent, ~lay.ent)
+        buf, buf7 = torch.zeros_like(x), torch.zeros_like(x)
+        timer = Timer(dev)
+        runs = {
+            "K14a arc_u ldg": lambda: gather_cuda(x[m:], lay.u, None, "ldg"),
+            "K14a node ldg": lambda: gather_cuda(x[:m], arcs, None, "ldg"),
+            "K14c full": lambda: stages_cuda(lay, x, "full", out=buf),
+            "K14c node_only": lambda: stages_cuda(lay, x, "node_only",
+                                                  out=buf),
+            "K7": lambda: kf.kkt_shard_matvec_cuda(lay, x, out=buf7)}
+        for name, fn in runs.items():
+            ms[f"{name} cold{tag}"] = timer.cold(fn) / 1e3
+            ms[f"{name} warm{tag}"] = timer.warm(fn) / 1e3
+        del lay, x, arcs, buf, buf7, timer
+        torch.cuda.empty_cache()
+    return {"ms": ms, "split": {}, "solve_s": {}, "grid": {}}
+
+
 def _derive(name: str, spec: str, trees: dict) -> Path:
     """A copy of checkout BASE's package with constants set (see --derive)."""
     base, _, sets = spec.partition(":")
@@ -335,11 +381,15 @@ def main() -> int:
     ap.add_argument("--order", default=None)
     ap.add_argument("--quick", action="store_true",
                     help="skip the sharded and generic solves and sol_bench")
+    ap.add_argument("--probes", action="store_true",
+                    help="time only the K14a and K14c probes (see above)")
     ap.add_argument("--out", default="chiprun_out/compare_port.json")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(Path(args.worker), args.quick)))
+        rec = (probe_worker(Path(args.worker)) if args.probes
+               else worker(Path(args.worker), args.quick))
+        print(json.dumps(rec))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -368,7 +418,8 @@ def main() -> int:
     for i, name in enumerate(order):
         t0 = time.perf_counter()
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
-               str(trees[name])] + (["--quick"] if args.quick else [])
+               str(trees[name])] + (["--quick"] if args.quick else []) + (
+                   ["--probes"] if args.probes else [])
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               cwd=trees[name], env={**os.environ})
         if proc.returncode != 0:

@@ -103,6 +103,8 @@ from two_pass_lanczos_tpu_torch.probes import stage_split, stream_records
 from two_pass_lanczos_tpu_torch.probes.bench import REPLAYS as PROBE_REPLAYS
 from two_pass_lanczos_tpu_torch.probes.bench import main as probes_main
 from two_pass_lanczos_tpu_torch.probes.gather import (
+    STAGE_ONLY,
+    cluster_shape,
     gather_cuda as probe_gather_cuda,
     gather_plain as probe_gather_plain,
     two_level,
@@ -111,6 +113,7 @@ from two_pass_lanczos_tpu_torch.probes.pipeline import (
     pipeline_cuda as probe_pipeline_cuda,
 )
 from two_pass_lanczos_tpu_torch.probes.stages import (
+    node_sorted_copy,
     stages_cuda as probe_stages_cuda,
     stages_plain,
 )
@@ -1496,6 +1499,95 @@ def test_probe_stages_and_pipeline_match_k7_on_card(case, cuda_device):
     torch.cuda.synchronize()
     assert LAUNCHES["probe_stages"] == 1 + len(modes)
     assert LAUNCHES["probe_pipeline"] == 1
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_probe_stages_full_and_node_sorted_bitwise_k7_on_card(case,
+                                                              cuda_device):
+    # full is K7's instruction stream; node_sorted walks the signed copy
+    # through the identity index, and its y_n is K7's bit for bit (with and
+    # without a prebuilt copy), its y_a untouched
+    rng = np.random.default_rng(10)
+    d, u, v, p = CASES[case](rng)
+    m = len(d)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    x = torch.from_numpy(rng.standard_normal(m + p).astype(np.float32)).to(
+        cuda_device)
+    for e in (1.0, 0.5):
+        y7 = kkt_shard_matvec_cuda(lay, x, e)
+        assert torch.equal(probe_stages_cuda(lay, x, "full", e_scale=e), y7)
+        copy = node_sorted_copy(lay, x)
+        out = torch.full_like(x, 7.0)
+        y = probe_stages_cuda(lay, x, "node_sorted", e_scale=e, out=out,
+                              copy=copy)
+        assert torch.equal(y[m:], y7[m:]) and bool((y[:m] == 7.0).all())
+        assert torch.equal(
+            probe_stages_cuda(lay, x, "node_sorted", e_scale=e)[m:], y7[m:])
+
+
+def _gather_views(dev, n, off, table):
+    """A table, and int32, int16, uint8 and two-level index views of n
+    entries starting ``off`` elements into their buffers."""
+    rng = np.random.default_rng(n * 7 + off)
+    tab = torch.from_numpy(rng.standard_normal(table + 3).astype(
+        np.float32)).to(dev)[off % 3:off % 3 + table]
+    flat = rng.integers(0, table, n + 4)
+    out = {}
+    out["int32"] = (torch.from_numpy(flat.astype(np.int32)).to(dev)[
+        off:off + n], None)
+    if table <= 32767:
+        out["int16"] = (torch.from_numpy(flat.astype(np.int16)).to(dev)[
+            off:off + n], None)
+    if table <= 256:
+        out["uint8"] = (torch.from_numpy(flat.astype(np.uint8)).to(dev)[
+            off:off + n], None)
+    hi, lo = two_level(torch.from_numpy(flat).to(dev))
+    out["two_level"] = (lo[off:off + n], hi[off:off + n])
+    # the same hi at another phase than lo: every entry scalar
+    skew = (off + 1) % 4
+    buf = torch.zeros(n + 4, dtype=torch.int16, device=dev)
+    buf[skew:skew + n] = hi[off:off + n]
+    out["two_level_skew"] = (lo[off:off + n], buf[skew:skew + n])
+    return tab, out
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 1001, 4099, 70001])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_probe_gather_tiers_bitwise_on_ragged_and_offset_views_on_card(
+        n, off, cuda_device):
+    # every tier, every index type, ragged lengths (n mod 4 of 0..3) and
+    # views at offsets 0..3: bitwise tab[idx]; the cluster tier also on a
+    # table past one block's shared memory
+    for table in (200, 5000, 200_000):
+        tab, views = _gather_views(cuda_device, n, off, table)
+        for name, (idx, hi) in views.items():
+            for mode in ("smem", "ldg", "plain", "cluster"):
+                if mode == "smem" and table > 58_104:
+                    continue
+                g = probe_gather_cuda(tab, idx, hi, mode)
+                assert torch.equal(g, probe_gather_plain(tab, idx, hi)), (
+                    table, name, mode)
+
+
+def test_probe_gather_cluster_shapes_and_stage_only_on_card(cuda_device):
+    # the headline's x_a (500,000 floats) goes to 16 slices of 32,768, if
+    # the card holds such a cluster; staging alone writes nothing
+    tab = torch.randn(500_000, device=cuda_device)
+    idx = torch.randint(0, 500_000, (1_000_003,), device=cuda_device,
+                        dtype=torch.int32)
+    try:
+        shape = cluster_shape(tab.numel())
+    except ValueError as why:
+        assert "resident" in str(why)
+        return
+    assert (shape["cluster"], shape["slice_entries"]) == (16, 32768)
+    assert shape["active_clusters"] >= 1
+    reset_launches()
+    assert probe_gather_cuda(tab, idx, None, STAGE_ONLY) is None
+    assert torch.equal(probe_gather_cuda(tab, idx, None, "cluster"),
+                       tab[idx.long()])
+    torch.cuda.synchronize()
+    assert LAUNCHES["probe_gather"] == 2
 
 
 def test_probe_runs_check_and_time_on_card(cuda_device):

@@ -997,3 +997,136 @@ def test_row_share_deals_each_row_to_one_warp(rows, blocks):
     assert dealt == list(range(rows))
     sizes = {hi - lo for lo, hi in bounds}
     assert max(sizes) - min(sizes) <= 1
+
+
+# --- K14a and K14c, the redesigned probes -----------------------------------
+
+def _enum(code: str, name: str) -> dict:
+    """The members of C enum ``name`` in ``code`` and their values."""
+    body = code[code.index(f"enum {name} {{"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    return {k: int(v) for k, v in re.findall(r"(\w+)\s*=\s*(\d+)", body)}
+
+
+#: the stage probe's modes (probes/stages.MODES) and their enum members
+_STAGE_MEMBERS = {"full": "kFull", "arc_only": "kArcOnly",
+                  "node_only": "kNodeOnly", "node_no_gather": "kNodeNoGather",
+                  "no_gather": "kNoGather", "stream_only": "kStreamOnly",
+                  "alu": "kAlu", "gather": "kGather",
+                  "node_sorted": "kNodeSorted"}
+
+
+@pytest.mark.parametrize("mode", sorted(_STAGE_MEMBERS))
+def test_each_stage_is_an_instance_the_entry_point_dispatches(mode):
+    # the Python mode's number is the enum member's, and the entry point
+    # launches that member's own instance of the kernel
+    from two_pass_lanczos_tpu_torch.probes.stages import MODES
+    code = _code(CSRC / "probe_stages.cu")
+    member = _STAGE_MEMBERS[mode]
+    assert _enum(code, "StagesMode")[member] == MODES[mode]
+    entry = _entry_body(code, "tpl_probe_stages")
+    assert re.search(rf"TPL_STAGE\({member}\);", entry)
+    assert "return tpl::launch<tpl::M>(" in code
+    assert set(MODES) == set(_STAGE_MEMBERS)
+
+
+def test_stage_instances_run_k7s_routines_in_k7s_block_order():
+    # every stage runs K7's warp rows and K7's arc row, never the block row;
+    # the node blocks are numbered first; the stage is a template argument,
+    # so no thread branches on it at run time
+    code = _code(CSRC / "probe_stages.cu")
+    kernel = _kernel_body(code, "probe_stages_kernel")
+    assert "template <int Mode>" in code[:code.index("probe_stages_kernel(")]
+    rows = re.findall(r"\b(kkt_node_row(?:_warp)?|kkt_arc_row)\s*\(", kernel)
+    assert set(rows) == {"kkt_node_row_warp", "kkt_arc_row"}
+    for word in ("block_sum", "__syncthreads", "__shared__", "switch"):
+        assert word not in kernel, word
+    assert not re.search(r"\bmode\b", kernel)
+    branches = re.findall(r"\bif\s*(constexpr\s*)?\(([^)]*)", kernel)
+    assert all(c or "Mode" not in cond for c, cond in branches)
+    # K7's block order and row numbering
+    assert "if (b >= node_blocks)" in kernel
+    assert "(b - node_blocks) * kThreads + threadIdx.x" in kernel
+    assert "b * kWarps + threadIdx.x / kWarpSize" in kernel
+    k7 = _kernel_body(_code(CSRC / "kkt_shard_matvec.cu"),
+                      "kkt_shard_matvec_kernel")
+    arc = ("kkt_arc_row(d[j], x[j], __fmul_rn(e, __ldg(xn + u[j])),\n"
+           "                         __fmul_rn(e, __ldg(xn + v[j])))")
+    assert arc in k7
+    assert "__fmul_rn(e, __ldg(xn + uj))" in kernel
+    assert "y[m + node] = __fmul_rn(e, total)" in kernel
+    launch = _kernel_body(code, "int launch")
+    assert "(p + kWarps - 1) / kWarps" in launch
+    assert "<<<node_blocks + arc_blocks, kThreads, 0, stream>>>" in launch
+
+
+def test_gather_modes_match_the_kernels():
+    import importlib
+    g = importlib.import_module("two_pass_lanczos_tpu_torch.probes.gather")
+    code = _code(CSRC / "probe_gather.cu")
+    members = _enum(code, "GatherMode")
+    assert [members[k] for k in ("kGatherSmem", "kGatherLdg", "kGatherPlain",
+                                 "kGatherCluster", "kGatherClusterStage")] \
+        == [g.MODES["smem"], g.MODES["ldg"], g.MODES["plain"],
+            g.MODES["cluster"], g._KERNEL_MODES[g.STAGE_ONLY]]
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", code)[1])
+    assert const("kSmemBytes") == g.SMEM_BYTES
+    assert const("kStageHeader") == g.STAGE_HEADER
+    assert (const("kSmemBytes") - const("kStageHeader") - 16) // 4 \
+        == g.SMEM_MAX_ENTRIES == 58_104
+    assert const("kMaxCluster") == g.MAX_CLUSTER
+    assert (const("kVec"), const("kUnroll")) == (g.VEC, g.UNROLL)
+
+
+def test_gather_stages_by_bulk_copy_on_an_mbarrier():
+    # the smem and cluster tiers stage with one bulk copy completing an
+    # mbarrier's phase (initialised, fenced, waited on by parity), not by a
+    # thread loop over the table
+    code = _code(CSRC / "probe_gather.cu")
+    stage = _kernel_body(code, "float* stage_slice")
+    for ptx in ("mbarrier.init.shared::cta.b64",
+                "fence.mbarrier_init.release.cluster",
+                "mbarrier.arrive.expect_tx.shared::cta.b64",
+                "cp.async.bulk.shared::cluster.global.mbarrier::"
+                "complete_tx::bytes",
+                "mbarrier.try_wait.parity.shared::cta.b64"):
+        assert stage.count(ptx) == 1, ptx
+    assert stage.index("mbarrier.init") < stage.index("__syncthreads()") \
+        < stage.index("expect_tx")
+    assert "i < count - body" in stage  # the threads copy the ragged ends
+    kernel = _kernel_body(code, "probe_gather_kernel")
+    assert kernel.count("stage_slice(") == 2
+    assert "i < ntab" not in kernel and "stab[i] = tab[i]" not in kernel
+    # the vector body: a quad's indices in one load, a 16-byte store
+    assert "__ldcs(reinterpret_cast<const typename QuadOf<I>::T*>(p))" \
+        in code
+    assert "__stcs(reinterpret_cast<float4*>(g + head" in kernel
+
+
+def test_gather_cluster_launch_returns_its_error_without_fallback():
+    # the cluster tiers launch with cudaLaunchKernelEx and a cluster
+    # dimension, and return its error as it is; no <<< launch and no other
+    # tier on that branch; the occupancy query is its own entry point
+    code = _code(CSRC / "probe_gather.cu")
+    launch = _kernel_body(code, "cudaError_t launch_gather")
+    branch = launch[launch.index("if constexpr (clustered<kMode>())"):
+                    launch.index("} else {")]
+    assert "return cudaLaunchKernelEx(&cfg, kernel," in branch
+    assert "<<<" not in branch and "resident_grid" not in branch
+    assert "cudaLaunchAttributeClusterDimension" in code
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in code
+    assert "cudaOccupancyMaxActiveClusters(" in _kernel_body(
+        code, "cudaError_t active_clusters")
+    entry = _entry_body(code, "tpl_probe_gather")
+    assert "return static_cast<int>(\n      tpl::dispatch_type(" in entry
+    assert "cluster.sync()" in _kernel_body(code, "probe_gather_kernel")
+
+
+@pytest.mark.parametrize("src", ["probe_gather.cu", "probe_stages.cu"])
+def test_redesigned_probes_use_no_atomics(src):
+    code = _code(CSRC / src)
+    assert not re.search(r"\batomic\w*\s*\(", code)
+    assert not re.search(r"\b(atom|red)(\.\w+)*\.\w+\b", code)
+    assert "red.async" not in code and "cp.reduce" not in code

@@ -28,7 +28,7 @@ from two_pass_lanczos_tpu.ops.kkt_fused import (
     kkt_streaming_matvec,
 )
 
-from torch_cases import CASES, CPU
+from torch_cases import CASES, CPU, node_rows_in_warp_order
 from two_pass_lanczos_tpu_torch import probes
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     KKTLayout,
@@ -36,11 +36,18 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
 )
 from two_pass_lanczos_tpu_torch.probes import bench
 from two_pass_lanczos_tpu_torch.probes.gather import (
+    MAX_CLUSTER,
     MODES as GATHER_MODES,
+    SMEM_MAX_ENTRIES,
+    TableNotStaged,
+    cluster_plan,
+    cluster_slices,
     gather,
     gather_cuda,
     gather_plain,
     two_level,
+    vector_plan,
+    walk,
 )
 from two_pass_lanczos_tpu_torch.probes.pipeline import (
     pipeline,
@@ -50,6 +57,7 @@ from two_pass_lanczos_tpu_torch.probes.stages import (
     ARC_MODES,
     MODES as STAGE_MODES,
     NODE_MODES,
+    node_sorted_copy,
     stages,
     stages_cuda,
     stages_plain,
@@ -155,6 +163,62 @@ def test_two_level_covers_eight_million_entries():
         ((hi.long() & 0xFFFF) * 128 + lo.long()).numpy(), idx.numpy())
     with pytest.raises(ValueError, match="2\\^23"):
         two_level(torch.tensor([2 ** 23]))
+
+
+@pytest.mark.parametrize("rem", [0, 1, 2, 3])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_vector_plan_covers_every_entry_once(rem, off):
+    """The kernel's walk (vector_plan's scalar head, its quads and the
+    tail, strided over the grid's threads, two quads a thread a round)
+    writes every entry exactly once, for n mod 4 = rem and indices starting
+    at phase off; the quads start aligned; a two-level hi at another phase
+    leaves every entry scalar."""
+    for n in (rem, 4 + rem, 40 + rem, 1000 + rem):
+        for hi_phase in (None, off, (off + 1) % 4):
+            head, quads = vector_plan(n, off, hi_phase)
+            assert 0 <= head and head + 4 * quads <= n
+            assert n - head - 4 * quads < 4 or quads == 0
+            if quads:
+                assert (off + head) % 4 == 0 and head < 4
+            if hi_phase is not None and hi_phase != off:
+                assert (head, quads) == (n, 0)
+            for threads in (1, 3, 256):
+                got = [j for t in walk(n, head, quads, threads) for j in t]
+                assert sorted(got) == list(range(n)), (n, hi_phase, threads)
+
+
+@pytest.mark.parametrize("ntab", [1, 4, 5, 1155, 3651, 58_104, 58_105,
+                                  65_536, 200_000, 500_000, 524_288])
+def test_cluster_slices_are_a_bijection_onto_the_table(ntab):
+    """Every table entry t lives in exactly one slice, rank t >> s at
+    t & (2^s - 1); each slice (with the staging header and its alignment)
+    fits a block's 232,448 bytes; the cluster is the smallest power of two
+    that holds the table."""
+    cluster, slice_log2 = cluster_plan(ntab)
+    assert cluster & (cluster - 1) == 0 and 1 <= cluster <= MAX_CLUSTER
+    slices = cluster_slices(ntab, cluster, slice_log2)
+    assert [r for r, _, _ in slices] == list(range(cluster))
+    owner = np.full(ntab, -1)
+    for rank, first, count in slices:
+        assert 16 + 4 * (3 + (1 << slice_log2)) <= 232_448
+        assert 0 <= count <= 1 << slice_log2 <= SMEM_MAX_ENTRIES
+        assert (owner[first:first + count] == -1).all()
+        owner[first:first + count] = rank
+    t = np.arange(ntab)
+    np.testing.assert_array_equal(owner, t >> slice_log2)
+    rank, at = t >> slice_log2, t & ((1 << slice_log2) - 1)
+    np.testing.assert_array_equal(
+        np.array([slices[r][1] for r in rank]) + at, t)
+    if cluster > 1:  # half the cluster would not hold it
+        half = -(-ntab // (cluster // 2))
+        assert 1 << max(2, (half - 1).bit_length()) > SMEM_MAX_ENTRIES
+    assert cluster_plan(500_000) == (16, 15)  # x_a at the headline
+
+
+@pytest.mark.parametrize("ntab", [524_289, 929_792, 5_000_000, 1 << 23])
+def test_cluster_plan_refuses_a_table_past_16_slices(ntab):
+    with pytest.raises(TableNotStaged, match="16 slices"):
+        cluster_plan(ntab)
 
 
 # --- K14b: the stream -------------------------------------------------------
@@ -265,6 +329,33 @@ def test_stage_modes_split_k7(mode):
         assert torch.equal(nodes, full[m:])
 
 
+@pytest.mark.parametrize("scale", [None, 0.5])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_node_sorted_copy_sums_bitwise_as_the_gather(case, scale):
+    """node_sorted's walk: the signed copy read through the identity index,
+    in kkt_node_row_warp's order (node_rows_in_warp_order), is bitwise the
+    same walk gathering x_a through ent, in f32 and scaled f32; and the
+    plain node_sorted's y_n is the plain full's."""
+    d, u, v, p, x = _instance(case)
+    m = len(d)
+    lay = KKTLayout.build(d, u, v, p, CPU)
+    xt = T(x)
+    copy = node_sorted_copy(lay, xt)
+    assert copy.index.dtype == torch.int32 and copy.xs.dtype == torch.float32
+    assert torch.equal(copy.index, torch.arange(2 * m, dtype=torch.int32))
+    ent = lay.ent.long()
+    arcs = torch.where(ent >= 0, ent, ~ent)
+    assert torch.equal(copy.xs.abs(), xt[:m][arcs].abs())
+    assert bool((torch.sign(copy.xs) * torch.where(ent >= 0, 1.0, -1.0)
+                 == torch.sign(xt[:m][arcs])).all())
+    want = node_rows_in_warp_order(lay.ptr, lay.ent, xt[:m], scale)
+    got = node_rows_in_warp_order(lay.ptr, copy.index, copy.xs, scale)
+    assert torch.equal(got, want)
+    e = 1.0 if scale is None else scale
+    assert torch.equal(stages_plain(lay, xt, "node_sorted", e_scale=e)[m:],
+                       kkt_shard_matvec(lay, xt, e)[m:])
+
+
 @pytest.mark.parametrize("n_alu", [1, 4, 16])
 def test_stage_alu_chain(n_alu):
     d, u, v, p, x = _instance("hub")
@@ -366,3 +457,17 @@ def test_stage_split_names_the_wall():
     base["arc_only"] = 100.0
     text = probes.stage_split([rec(k, v) for k, v in base.items()])
     assert "bound by the arc part" in text
+    assert "node-sorted" not in text
+
+
+def test_stage_split_prints_the_node_sorted_floor():
+    def rec(variant, us):
+        return bench._record("stages", variant, 100_000_000, us, us + 5)
+    base = {"full": 120.0, "arc_only": 40.0, "node_only": 90.0,
+            "node_no_gather": 20.0, "node_sorted": 45.0}
+    text = probes.stage_split([rec(k, v) for k, v in base.items()])
+    last = text.splitlines()[-1]
+    assert "node-sorted copy: 45.000 us" in last
+    assert "sector waste 45.000 us (50.0% of node_only" in last
+    assert "cold 50.000 against 95.000 us" in last
+    assert ("node_sorted", 0) in bench.STAGES

@@ -119,8 +119,12 @@ _SIGNATURES = {
     "tpl_df_lanczos_pass_one_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "tpl_df_lanczos_pass_two_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     # the K14 probes (csrc/probe_*.cu): tab, ntab, idx, idx_type, hi, n,
-    # mode, g, stream
-    "tpl_probe_gather": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
+    # head, quads, mode, cluster, slice_log2, clusters, g, stream
+    "tpl_probe_gather": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _P],
+    # idx_type, two, mode, ntab, cluster, slice_log2, *active
+    "tpl_probe_gather_clusters": [_I, _I, _I, _I, _I, _I,
+                                  ctypes.POINTER(_I)],
     # d, u, v, x, rec, m, threads, arcs per thread, y, stream
     "tpl_probe_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # K7's arguments, then mode, param, stream

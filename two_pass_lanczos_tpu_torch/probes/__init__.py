@@ -7,12 +7,15 @@ levers. Each probe here is a hand-written CUDA kernel (``csrc/probe_*.cu``)
 with a plain PyTorch version in its module and a launch counter in
 ``ops/kkt_fused.LAUNCHES``:
 
-* :mod:`.gather` (K14a): ``g = tab[idx]`` from shared memory, through
-  ``__ldg`` or a plain load; int32, int16, uint8 and two-level indices;
+* :mod:`.gather` (K14a): ``g = tab[idx]``, 4 entries a thread a step,
+  from shared memory staged by one bulk copy, through ``__ldg`` or a plain
+  load, or from a thread-block cluster's distributed shared memory; int32,
+  int16, uint8 and two-level indices;
 * :mod:`.stream` (K14b): the arc stream of K7 without its gathers, over
   block shapes, four planes or one interleaved record;
-* :mod:`.stages` (K14c): K7 with each stage switched, plus extra ALU or
-  gather work per arc;
+* :mod:`.stages` (K14c): K7's routines in K7's block order with each
+  stage switched at compile time, plus extra ALU or gather work per arc,
+  and the node walk on a node-sorted signed copy of x_a (``node_sorted``);
 * :mod:`.pipeline` (K14d): K7 with its arc part fed by a double-buffered
   ``cp.async`` pipeline, bitwise K7.
 

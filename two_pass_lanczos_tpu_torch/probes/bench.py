@@ -23,7 +23,10 @@ function moves (each input read once, each output written once),
 ``library_us_cold`` where one PyTorch call computes the same function,
 ``max_abs_err`` of the checked call against its plain version, and the
 card's ``nvidia-smi`` name and power limit. The bound is HBM's: only the
-cold time is held to it, since a warm call may read its inputs from L2.
+cold time is held to it, since a warm call may read its inputs from L2. A
+gather of the cluster tier carries its ``cluster``, ``slice_entries`` and
+``active_clusters``; a table that no resident cluster holds gets a record
+with ``not_run`` (the reason) and no time.
 ``LAUNCHES`` counts the kernels the timing graphs ran, once per replay.
 Without a card it raises; nothing runs on the CPU.
 """
@@ -47,6 +50,9 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
 )
 from two_pass_lanczos_tpu_torch.probes.gather import (
     SMEM_MAX_ENTRIES,
+    STAGE_ONLY,
+    TableNotStaged,
+    cluster_shape,
     gather_cuda,
     gather_plain,
     two_level,
@@ -58,6 +64,7 @@ from two_pass_lanczos_tpu_torch.probes.pipeline import (
 from two_pass_lanczos_tpu_torch.probes.stages import (
     ARC_MODES,
     NODE_MODES,
+    node_sorted_copy,
     stages_cuda,
     stages_plain,
 )
@@ -87,7 +94,7 @@ SWEEP = tuple(1 << s for s in (10, 12, 14, 16, 18, 20, 22, 23))
 STAGES = (("full", 0), ("arc_only", 0), ("node_only", 0),
           ("node_no_gather", 0), ("no_gather", 0), ("stream_only", 0),
           ("alu", 4), ("alu", 16), ("alu", 64), ("gather", 1), ("gather", 2),
-          ("gather", 4))
+          ("gather", 4), ("node_sorted", 0))
 
 
 def card_name() -> str:
@@ -192,11 +199,14 @@ def _node_bound(lay: KKTLayout, terms: torch.Tensor) -> torch.Tensor:
 def run_gather(lay: KKTLayout, x: torch.Tensor, timer: Timer,
                seed: int = 0, **_) -> List[dict]:
     """K14a on the instance's gathers (x_n[u], x_n[v], x_a in the CSR's
-    node order) and on uniform random indices over 1K to 8M entries."""
+    node order) and on uniform random indices over 1K to 8M entries, each
+    table on every tier that can hold it; the cluster tier also stages
+    alone (``cluster_stage_only``), and a table it cannot hold gets a
+    ``not_run`` record with the reason."""
     m = lay.m
     xa, xn = x[:m], x[m:]
     cases = []  # (variant, table, idx, hi, mode)
-    for mode in ("smem", "ldg", "plain"):
+    for mode in ("smem", "ldg", "plain", "cluster"):
         cases.append((f"arc_u/{mode}/int32", xn, lay.u, None, mode))
     cases.append(("arc_v/ldg/int32", xn, lay.v, None, "ldg"))
     if lay.p <= 32767:
@@ -205,14 +215,14 @@ def run_gather(lay: KKTLayout, x: torch.Tensor, timer: Timer,
     hi, lo = two_level(lay.u)
     cases.append(("arc_u/ldg/two_level", xn, lo, hi, "ldg"))
     arcs_of_ent = torch.where(lay.ent >= 0, lay.ent, ~lay.ent)
-    for mode in ("ldg", "plain"):
+    for mode in ("ldg", "plain", "cluster", STAGE_ONLY):
         cases.append((f"node/{mode}/int32", xa, arcs_of_ent, None, mode))
     gen = torch.Generator(device=x.device).manual_seed(seed)
     for ntab in SWEEP:
         tab = torch.randn(ntab, generator=gen, device=x.device)
         idx = torch.randint(0, ntab, (m,), generator=gen, device=x.device,
                             dtype=torch.int32)
-        for mode in ("smem", "ldg", "plain"):
+        for mode in ("smem", "ldg", "plain", "cluster", STAGE_ONLY):
             if mode != "smem" or ntab <= SMEM_MAX_ENTRIES:
                 cases.append((f"sweep{ntab}/{mode}/int32", tab, idx, None,
                               mode))
@@ -221,15 +231,33 @@ def run_gather(lay: KKTLayout, x: torch.Tensor, timer: Timer,
                           None, "ldg"))
     out = []
     for variant, tab, idx, hi_, mode in cases:
-        g = gather_cuda(tab, idx, hi_, mode)
+        extra = {}
+        if mode in ("cluster", STAGE_ONLY):
+            try:
+                extra = cluster_shape(tab.numel(), idx.dtype, hi_ is not None,
+                                      mode)
+            except TableNotStaged as why:
+                out.append({"probe": "gather", "variant": variant,
+                            "entries": idx.numel(), "table": tab.numel(),
+                            "not_run": str(why)})
+                continue
+            del extra["slice_log2"]
+
+        def fn(t=tab, i=idx, h=hi_, mo=mode):
+            return gather_cuda(t, i, h, mo)
+        if mode == STAGE_ONLY:  # writes nothing: no check; the table once
+            fn()
+            out.append(_record("gather", variant, 4 * tab.numel(),
+                               timer.warm(fn), timer.cold(fn),
+                               entries=idx.numel(), table=tab.numel(),
+                               **extra))
+            continue
+        g = fn()
         ref = gather_plain(tab, idx, hi_)
         _require(torch.equal(g, ref), f"gather {variant} is not tab[idx]")
         flat = gather_plain(torch.arange(tab.numel(), device=tab.device,
                                          dtype=torch.int32), idx, hi_)
         per = idx.element_size() + (2 if hi_ is not None else 0) + 4
-
-        def fn(t=tab, i=idx, h=hi_, mo=mode):
-            return gather_cuda(t, i, h, mo)
 
         def lib(t=tab, f=flat):
             return torch.index_select(t, 0, f)
@@ -237,7 +265,8 @@ def run_gather(lay: KKTLayout, x: torch.Tensor, timer: Timer,
             "gather", variant, per * idx.numel() + 4 * tab.numel(),
             timer.warm(fn), timer.cold(fn), entries=idx.numel(),
             table=tab.numel(), max_abs_err=float((g - ref).abs().max()),
-            library_us=timer.warm(lib), library_us_cold=timer.cold(lib)))
+            library_us=timer.warm(lib), library_us_cold=timer.cold(lib),
+            **extra))
     return out
 
 
@@ -284,14 +313,18 @@ def run_stages(lay: KKTLayout, x: torch.Tensor, timer: Timer,
     m = lay.m
     nbytes = kkt_function_bytes(m, lay.p)
     y7 = kkt_shard_matvec_cuda(lay, x)
+    copy = node_sorted_copy(lay, x)  # built once, outside every timing
     buf = torch.zeros_like(x)
     out = []
     for mode, param in STAGES:
-        y = stages_cuda(lay, x, mode, param)
+        y = stages_cuda(lay, x, mode, param, copy=copy)
         ref = stages_plain(lay, x, mode, param)
         err = float((y - ref).abs().max())
         if mode == "full":
             _require(torch.equal(y, y7), "stages full is not bitwise K7")
+        if mode == "node_sorted":
+            _require(torch.equal(y[m:], y7[m:]),
+                     "stages node_sorted's y_n is not bitwise K7's")
         if mode in ARC_MODES:
             _require(torch.equal(y[:m], ref[:m]),
                      f"stages {mode} arc part is not bitwise its plain "
@@ -304,7 +337,7 @@ def run_stages(lay: KKTLayout, x: torch.Tensor, timer: Timer,
                      f"stages {mode} node part outside 2·deg·eps·Σ|x|")
 
         def fn(mo=mode, pa=param):
-            return stages_cuda(lay, x, mo, pa, out=buf)
+            return stages_cuda(lay, x, mo, pa, out=buf, copy=copy)
         out.append(_record("stages", mode if not param else f"{mode}{param}",
                            nbytes, timer.warm(fn), timer.cold(fn),
                            max_abs_err=err))
@@ -360,7 +393,10 @@ def run(name: str, lay: KKTLayout, x: torch.Tensor, *, reps: int = REPS,
 
 def stage_split(records: List[dict]) -> str:
     """K7's stage split from :func:`run_stages`' records: each stage's µs
-    and share of K7's bound, warm and cold, and which part bounds K7."""
+    and share of K7's bound, warm and cold, which part bounds K7 and,
+    where the records have ``node_sorted``, what the node walk's x_a gather
+    costs beyond a contiguous read (the most an arc relabelling could give
+    the node walk: it makes one endpoint's entries contiguous, not both)."""
     by = {r["variant"]: r for r in records if r["probe"] == "stages"}
     lines = [f"{name:>15}: {r['us']:9.3f} us ({100 * r['share']:5.1f} % of "
              f"bound), cold {r['us_cold']:9.3f} us "
@@ -373,6 +409,15 @@ def stage_split(records: List[dict]) -> str:
         f": node blocks {node['us']:.3f} us (their x_a gather "
         f"{gather:.3f} us of it) against the arc stream {arc['us']:.3f} us "
         f"of K7's {by['full']['us']:.3f} us")
+    if "node_sorted" in by:
+        srt = by["node_sorted"]
+        lines.append(
+            f"node walk on the node-sorted copy: {srt['us']:.3f} us against "
+            f"node_only's {node['us']:.3f} us, the gather's sector waste "
+            f"{node['us'] - srt['us']:.3f} us ({srt['us'] / node['us']:.1%} "
+            f"of node_only; cold {srt['us_cold']:.3f} against "
+            f"{node['us_cold']:.3f} us): the most an arc relabelling could "
+            "give the node walk")
     return "\n".join(lines)
 
 

@@ -161,15 +161,23 @@ Phases (each one raises on failure, so the exit code is non-zero):
 19. K14, the probes (``two_pass_lanczos_tpu_torch.probes``: gather, stream,
     stages, pipeline), their main path ``probes.run`` at both sizes with the
     counters reset: every variant checked against its plain version
-    (``probe_stages`` full and ``probe_pipeline`` bitwise K7, the stage
-    ``node_sorted``'s y_n bitwise K7's, every gather tier bitwise
-    ``tab[idx]``, the cluster tier at least on x_n, and on x_a where the
-    card holds its cluster, ``probe_stream`` bitwise) and timed warm and
-    cold-L2; ``full``'s time beside K7's from the same run; the cluster
-    tier's shapes and the tables it could not run, with the reason; K7's
-    stage split at each size, which says whether its node blocks' x_a
-    gather or its arc stream bounds it and what the gather costs beyond a
-    contiguous read (``node_sorted``);
+    (``probe_stages`` full and ``probe_pipeline`` full bitwise K7, every
+    pipeline mode (full, arc_only, stream_only, no_gather, alu 4/16/64)
+    with both stores and every ring shape of its sweep bitwise its
+    ``probe_stages`` twin, the stage ``node_sorted``'s y_n bitwise K7's,
+    every gather tier bitwise ``tab[idx]``, the cluster tier at least on
+    x_n, and on x_a where the card holds its cluster, ``probe_stream``
+    bitwise) and timed warm and cold-L2; ``full``'s time beside K7's from
+    the same run; the cluster tier's shapes and the tables it could not
+    run, with the reason; K7's stage split at each size, which says
+    whether its node blocks' x_a gather or its arc stream bounds it and
+    what the gather costs beyond a contiguous read (``node_sorted``);
+    K14d's split (``probes.pipeline_split``: the ring's T × S × store
+    sweep with its blocks per SM, its node and arc kernels concurrent and
+    serialised, its arc stream's share of the bound, and for each ALU
+    chain whether the ring is nearer max(stream, ALU) or their sum); K13
+    beside a launch of an empty kernel, each alone and one of each in one
+    CUDA graph, by the same timer;
 20. the row-sharded ``ShardedSparseOperator`` on the same one-rank NCCL
     group, on the headline's f32 KKT triplets: ``solve_fAb(b, k=500,
     f="inv")`` with 999 asynchronous gathers and owned SpMVs and no port
@@ -271,7 +279,9 @@ K6's entries carry their own ``in_pass_matvecs`` and ``step_us``, their
 time in the same run; K1's, K8's (its f64 instance) and K7's carry
 ``warp_rows_ms`` and ``blockrows_ms``, phase 7c's times of the kernel and
 of its block-row reference at the headline and at 5M; K11's ``ms`` is its pair instance's, its
-``planar_ms`` the planar instance's),
+``planar_ms`` the planar instance's; K13's carries phase 19's
+``graph_ms``, ``empty_launch_ms`` and ``with_empty_launch_ms``, its
+launch beside an empty kernel's),
 its max_abs_err against its plain version,
 its time
 (``ms``), the plain version's (``plain_ms``), ``bound_ms`` (the larger of
@@ -1401,16 +1411,19 @@ def _pct(share: float) -> str:
     return f"{100 * share:.1f} %"
 
 
-def probes_phase(card, dev, sizes) -> dict:
+def probes_phase(card, dev, sizes) -> tuple:
     """Phase 19: the K14 probes' main path, ``probes.run`` of every probe on
     each ``(label, instance)`` of ``sizes``, with the counters reset just
     before it. Each run checks its variants against their plain versions
-    (``probe_stages`` full and ``probe_pipeline`` bitwise K7, every gather
-    bitwise ``tab[idx]``, ``probe_stream`` bitwise its plain version) and
-    raises on a failure. Prints a summary and K7's stage split, writes every
-    record to ``chiprun_out/probes.json`` and returns, per kernel, the
-    cold-L2 numbers of its ``PROBE_MAIN`` variant at the first size, and
-    its plain version's, timed cold alike."""
+    (``probe_stages`` full and ``probe_pipeline`` full bitwise K7, every
+    ``probe_pipeline`` mode, store and ring shape bitwise its
+    ``probe_stages`` twin, every gather bitwise ``tab[idx]``,
+    ``probe_stream`` bitwise its plain version) and raises on a failure. Prints a summary, K7's stage split and K14d's
+    split (``probes.pipeline_split``), writes every record to
+    ``chiprun_out/probes.json`` and returns, per kernel, the cold-L2
+    numbers of its ``PROBE_MAIN`` variant at the first size, and its plain
+    version's, timed cold alike; and the ms of a K13 launch, of an empty
+    launch and of one of each, each by the same timer's CUDA graph."""
     import numpy as np
     import torch
     from two_pass_lanczos_tpu_torch import probes
@@ -1418,6 +1431,8 @@ def probes_phase(card, dev, sizes) -> dict:
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
         LAUNCHES,
         KKTLayout,
+        eft_check_cuda,
+        empty_launch_cuda,
         kkt_shard_matvec,
         reset_launches,
     )
@@ -1464,7 +1479,8 @@ def probes_phase(card, dev, sizes) -> dict:
         check({"full", "node_sorted", "k7"} <= {
             r["variant"] for r in by["stages"]}, f"{label}: stage records")
     print(f"[19] K14 probes at {', '.join(inputs)} in {run_s:.1f} s: every "
-          f"variant checked (stages full and pipeline bitwise K7, "
+          f"variant checked (stages full and pipeline full bitwise K7, "
+          f"every pipeline mode and store bitwise its K14c twin, "
           f"node_sorted's y_n bitwise K7's, gathers of every tier bitwise "
           f"tab[idx], stream bitwise its plain version); launches "
           f"{ {k: launches[k] for k in PROBE_MAIN} }; records in "
@@ -1503,8 +1519,22 @@ def probes_phase(card, dev, sizes) -> dict:
             "soa/256x1", "aos/256x1", "copy_d2d")] + streams[-1:]
         for r in {r["variant"]: r for r in shown}.values():
             print("       stream " + line(r))
-        for r in by["pipeline"]:
-            print("       pipeline " + line(r))
+        pipe = {r["variant"]: r for r in by["pipeline"]}
+        for variant, r in pipe.items():
+            if not variant.startswith("sweep/full/"):
+                continue
+            arc = pipe[variant.replace("/full/", "/arc_only/")]
+            print(f"       pipeline {variant[11:]} ({r['blocks_per_sm']}/SM, "
+                  f"{r['smem_bytes']} B): full {r['us']:.3f} us, cold "
+                  f"{r['us_cold']:.3f}; arc_only {arc['us']:.3f}, cold "
+                  f"{arc['us_cold']:.3f}")
+        for variant, r in pipe.items():
+            if not variant.startswith("sweep/"):
+                print("       pipeline " + line(r))
+        print("       K14d:")
+        for row in probes.pipeline_split(by["pipeline"], lay.m,
+                                         lay.p).splitlines():
+            print("         " + row)
         stage = {r["variant"]: r for r in by["stages"]}
         print(f"       stages full {stage['full']['us']:.3f} us, cold "
               f"{stage['full']['us_cold']:.3f} us beside K7's "
@@ -1536,7 +1566,18 @@ def probes_phase(card, dev, sizes) -> dict:
                      "ms": r["us_cold"] / 1e3,
                      "plain_ms": timer.cold(plain[name]) / 1e3,
                      "library_ms": None if lib is None else lib / 1e3}
-    return out
+    # K13 beside a launch of a kernel that does nothing, by the same timer:
+    # each alone, and one of each a call in the same CUDA graph
+    ea = torch.full((128,), 1.0 + 2.0 ** -12, device=dev)
+    eb = torch.full((128,), 2.0 ** -30, device=dev)
+    floor = {"eft_check": timer.warm(lambda: eft_check_cuda(ea, eb)) / 1e3,
+             "empty": timer.warm(lambda: empty_launch_cuda(dev)) / 1e3,
+             "both": timer.warm(lambda: (eft_check_cuda(ea, eb),
+                                         empty_launch_cuda(dev))) / 1e3}
+    print(f"     K13 {floor['eft_check']:.6f} ms a launch, an empty launch "
+          f"{floor['empty']:.6f} ms, one of each in one graph "
+          f"{floor['both']:.6f} ms ({card})")
+    return out, floor
 
 
 #: the capability phase (21): SLQ probes and steps, density probes and grid
@@ -3998,7 +4039,8 @@ def main() -> int:
     k12 = sharded_df_phase(card, dev, mesh, [("headline", inst, dfop),
                                              ("5M", big, None)])
     # 19. the K14 probes; 20. the row-sharded operator on the same group
-    k14 = probes_phase(card, dev, [("headline", inst), ("5M", big)])
+    k14, k13_floor = probes_phase(card, dev,
+                                  [("headline", inst), ("5M", big)])
     t_real = sparse_phase(card, dev, mesh, inst)
     # 21. the capability methods of the fused tier; 22. reorthogonalisation
     #     and block Lanczos on K8; 23. the sharded tiers' capability methods
@@ -4065,6 +4107,11 @@ def main() -> int:
                                  for label, got in rows_ms.items()}
             r["warp_rows_ms"] = {label: got[name]["ms"]
                                  for label, got in rows_ms.items()}
+    # K13 beside an empty launch (phase 19's timer): its launch floor
+    k13_row = next(r for r in rows if r["name"] == "eft_check")
+    k13_row["graph_ms"] = k13_floor["eft_check"]
+    k13_row["empty_launch_ms"] = k13_floor["empty"]
+    k13_row["with_empty_launch_ms"] = k13_floor["both"]
     # K6 beside the compensated per-step launches it replaced, in turns
     next(r for r in rows if r["name"] == "lanczos_pass_one_comp")[
         "steps_ms"] = k6_ms["per-step"]

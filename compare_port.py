@@ -45,7 +45,9 @@ instance (m = 5,000,000, p = 3,651), b and x from ``default_rng(0)``:
 With ``--probes`` a turn measures only the K14 probes that a probe
 redesign changes, at both sizes, x from ``default_rng(19)``: the gather
 K14a (``gather_cuda``) of x_n[u] and of x_a[arc of ent] through ``ldg``,
-and the stage probe K14c (``stages_cuda``) ``full`` and ``node_only``
+the stage probe K14c (``stages_cuda``) ``full``, ``arc_only`` and
+``node_only``, and the pipeline probe K14d (``pipeline_cuda`` with the
+checkout's defaults) ``full`` and its arc part alone (``arcs_only``),
 beside K7, each by the checkout's own ``probes.Timer`` cold-L2 and warm,
 in ms.
 
@@ -287,6 +289,7 @@ def probe_worker(root: Path) -> dict:
     from two_pass_lanczos_tpu_torch.ops import kkt_fused as kf
     from two_pass_lanczos_tpu_torch.probes.bench import Timer
     from two_pass_lanczos_tpu_torch.probes.gather import gather_cuda
+    from two_pass_lanczos_tpu_torch.probes.pipeline import pipeline_cuda
     from two_pass_lanczos_tpu_torch.probes.stages import stages_cuda
     if not Path(tpl.__file__).resolve().is_relative_to(root.resolve()):
         raise RuntimeError(f"imported {tpl.__file__}, not from {root}")
@@ -306,8 +309,13 @@ def probe_worker(root: Path) -> dict:
             "K14a arc_u ldg": lambda: gather_cuda(x[m:], lay.u, None, "ldg"),
             "K14a node ldg": lambda: gather_cuda(x[:m], arcs, None, "ldg"),
             "K14c full": lambda: stages_cuda(lay, x, "full", out=buf),
+            "K14c arc_only": lambda: stages_cuda(lay, x, "arc_only",
+                                                 out=buf),
             "K14c node_only": lambda: stages_cuda(lay, x, "node_only",
                                                   out=buf),
+            "K14d full": lambda: pipeline_cuda(lay, x, out=buf),
+            "K14d arc_only": lambda: pipeline_cuda(lay, x, arcs_only=True,
+                                                   out=buf),
             "K7": lambda: kf.kkt_shard_matvec_cuda(lay, x, out=buf7)}
         for name, fn in runs.items():
             ms[f"{name} cold{tag}"] = timer.cold(fn) / 1e3
@@ -382,7 +390,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="skip the sharded and generic solves and sol_bench")
     ap.add_argument("--probes", action="store_true",
-                    help="time only the K14a and K14c probes (see above)")
+                    help="time only the K14a, K14c and K14d probes (see "
+                         "above)")
     ap.add_argument("--out", default="chiprun_out/compare_port.json")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()

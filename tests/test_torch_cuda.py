@@ -109,7 +109,14 @@ from two_pass_lanczos_tpu_torch.probes.gather import (
     gather_plain as probe_gather_plain,
     two_level,
 )
+from two_pass_lanczos_tpu_torch.probes.bench import (
+    PIPELINE_MODES as PROBE_PIPELINE_MODES,
+)
 from two_pass_lanczos_tpu_torch.probes.pipeline import (
+    STAGE_COUNTS as PIPELINE_STAGE_COUNTS,
+    STORES as PIPELINE_STORES,
+    TILES as PIPELINE_TILES,
+    pipeline_blocks as probe_pipeline_blocks,
     pipeline_cuda as probe_pipeline_cuda,
 )
 from two_pass_lanczos_tpu_torch.probes.stages import (
@@ -1525,6 +1532,98 @@ def test_probe_stages_full_and_node_sorted_bitwise_k7_on_card(case,
             probe_stages_cuda(lay, x, "node_sorted", e_scale=e)[m:], y7[m:])
 
 
+@functools.lru_cache(maxsize=None)
+def _pipeline_problem(m):
+    """The headline, or a random instance of m arcs over 300 nodes (m of
+    1, 3, 1,023, 1,025 and 4,099: the ragged tiles and tails), and its x."""
+    rng = np.random.default_rng(11)
+    if m == "headline":
+        inst = generate_mcf_instance(500_000, rho=3, instance_id=1)
+        d, u, v, p = (inst.quad_costs, inst.arc_u, inst.arc_v,
+                      inst.num_nodes)
+    else:
+        d, u, v, p = CASES["random"](rng, m, 300)
+    return d, u, v, p, rng.standard_normal(len(d) + p).astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [1, 3, 1023, 1025, 4099, "headline"])
+def test_probe_pipeline_modes_and_stores_bitwise_k14c_on_card(m,
+                                                              cuda_device):
+    # every mode with both stores bitwise its K14c twin, full bitwise K7,
+    # at e = 1 and 0.5; the arc kernel alone and the serialised launch
+    # give the same bits; each call counts one launch
+    d, u, v, p, x = _pipeline_problem(m)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device)
+    reset_launches()
+    calls = 0
+    for e in (1.0, 0.5):
+        y7 = kkt_shard_matvec_cuda(lay, xd, e)
+        for mode, param in PROBE_PIPELINE_MODES:
+            twin = probe_stages_cuda(lay, xd, mode, param, e_scale=e)
+            for store in PIPELINE_STORES:
+                y = probe_pipeline_cuda(lay, xd, e, mode=mode, param=param,
+                                        store=store)
+                assert torch.equal(y, twin), (mode, param, store, e)
+                if mode == "full":
+                    assert torch.equal(y, y7), (store, e)
+                out = torch.full_like(xd, 7.0)
+                y = probe_pipeline_cuda(lay, xd, e, out=out, mode=mode,
+                                        param=param, store=store,
+                                        nodes=False)
+                assert torch.equal(y[:lay.m], twin[:lay.m])
+                assert bool((y[lay.m:] == 7.0).all())
+                y = probe_pipeline_cuda(lay, xd, e, mode=mode, param=param,
+                                        store=store, concurrent=False)
+                assert torch.equal(y, twin), (mode, store, "serialised")
+                calls += 3
+    torch.cuda.synchronize()
+    assert LAUNCHES["probe_pipeline"] == calls
+    assert LAUNCHES["probe_stages"] == 2 * len(PROBE_PIPELINE_MODES)
+
+
+@pytest.mark.parametrize("m", [3, 4099, "headline"])
+def test_probe_pipeline_ring_shapes_bitwise_k7_on_card(m, cuda_device):
+    # every tile, stage count and store of the sweep: full bitwise K7 and
+    # arc_only's y_a K7's, y_n untouched; the occupancy query answers
+    d, u, v, p, x = _pipeline_problem(m)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device)
+    y7 = kkt_shard_matvec_cuda(lay, xd)
+    for tile in PIPELINE_TILES:
+        for stages in PIPELINE_STAGE_COUNTS:
+            for store in PIPELINE_STORES:
+                ring = dict(tile=tile, stages=stages, store=store)
+                assert torch.equal(probe_pipeline_cuda(lay, xd, **ring), y7)
+                out = torch.full_like(xd, 7.0)
+                y = probe_pipeline_cuda(lay, xd, arcs_only=True, out=out,
+                                        **ring)
+                assert torch.equal(y[:lay.m], y7[:lay.m])
+                assert bool((y[lay.m:] == 7.0).all())
+                per_sm, smem = probe_pipeline_blocks("full", **ring)
+                assert per_sm >= 1
+                assert smem == 128 + 4 * stages * tile * (
+                    4 + (store == "bulk"))
+
+
+def test_probe_pipeline_fork_replays_in_a_graph_on_card(cuda_device):
+    # the forked node kernel is a branch of a captured graph: a replay on
+    # new x gives K7's y of the new x
+    d, u, v, p, x = _pipeline_problem(4099)
+    lay = KKTLayout.build(d, u, v, p, cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device)
+    out = torch.zeros_like(xd)
+    probe_pipeline_cuda(lay, xd, out=out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        probe_pipeline_cuda(lay, xd, out=out)
+    xd.mul_(-2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, kkt_shard_matvec_cuda(lay, xd))
+
+
 def _gather_views(dev, n, off, table):
     """A table, and int32, int16, uint8 and two-level index views of n
     entries starting ``off`` elements into their buffers."""
@@ -1600,9 +1699,15 @@ def test_probe_runs_check_and_time_on_card(cuda_device):
         reset_launches()
         recs = probe_run(name, lay, x, reps=5)
         assert recs and all(r["us"] > 0 and r["us_cold"] > 0 for r in recs)
-    # the pipeline's two checked calls, then two timed variants, each warm
-    # and cold: 3 warm-up calls and 5 calls a replay of the graph
-    assert LAUNCHES["probe_pipeline"] == 2 + 2 * 2 * (3 + 5 * PROBE_REPLAYS)
+    # the pipeline's checked calls: 7 modes x 2 stores, the 3 ALU chains'
+    # arc kernels alone x 2 stores, the 3 x 3 x 2 sweep of full and
+    # arc_only, the serialised full; then its timed variants: those 14 +
+    # 6 + 36, the default concurrent and serialised; each warm and cold,
+    # 3 warm-up calls and 5 calls a replay of the graph
+    checked = 7 * 2 + 3 * 2 + 3 * 3 * 2 * 2 + 1
+    timed = 7 * 2 + 3 * 2 + 3 * 3 * 2 * 2 + 2
+    assert LAUNCHES["probe_pipeline"] == checked + timed * 2 * (
+        3 + 5 * PROBE_REPLAYS)
     assert "bound by the" in stage_split(probe_run("stages", lay, x, reps=5))
 
 

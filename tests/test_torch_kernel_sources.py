@@ -1080,21 +1080,47 @@ def test_gather_modes_match_the_kernels():
     assert (const("kVec"), const("kUnroll")) == (g.VEC, g.UNROLL)
 
 
+#: the bulk-copy and mbarrier helpers of probe_common.cuh (shared by K14a
+#: and K14d) and the PTX each one issues
+_BULK_HELPERS = {
+    "mbar_init": "mbarrier.init.shared::cta.b64",
+    "mbar_init_fence": "fence.mbarrier_init.release.cluster",
+    "mbar_expect_tx": "mbarrier.arrive.expect_tx.shared::cta.b64",
+    "mbar_arrive": "mbarrier.arrive.shared::cta.b64",
+    "mbar_wait": "mbarrier.try_wait.parity.shared::cta.b64",
+    "bulk_load": "cp.async.bulk.shared::cluster.global.mbarrier::"
+                 "complete_tx::bytes",
+    "fence_proxy_async": "fence.proxy.async.shared::cta",
+    "bulk_store": "cp.async.bulk.global.shared::cta.bulk_group",
+    "bulk_commit": "cp.async.bulk.commit_group",
+    "bulk_wait_read": "cp.async.bulk.wait_group.read",
+    "bulk_wait": "cp.async.bulk.wait_group ",
+}
+
+
+@pytest.mark.parametrize("helper", sorted(_BULK_HELPERS))
+def test_bulk_copy_helpers_issue_their_ptx_once(helper):
+    body = _routine(_code(CSRC / "probe_common.cuh"), helper)
+    assert body.count(_BULK_HELPERS[helper]) == 1
+    others = [p for h, p in _BULK_HELPERS.items()
+              if h != helper and p not in _BULK_HELPERS[helper]]
+    assert not any(p in body for p in others), helper
+
+
 def test_gather_stages_by_bulk_copy_on_an_mbarrier():
     # the smem and cluster tiers stage with one bulk copy completing an
     # mbarrier's phase (initialised, fenced, waited on by parity), not by a
-    # thread loop over the table
+    # thread loop over the table; the PTX lives in probe_common.cuh's
+    # helpers, which K14d shares
     code = _code(CSRC / "probe_gather.cu")
     stage = _kernel_body(code, "float* stage_slice")
-    for ptx in ("mbarrier.init.shared::cta.b64",
-                "fence.mbarrier_init.release.cluster",
-                "mbarrier.arrive.expect_tx.shared::cta.b64",
-                "cp.async.bulk.shared::cluster.global.mbarrier::"
-                "complete_tx::bytes",
-                "mbarrier.try_wait.parity.shared::cta.b64"):
-        assert stage.count(ptx) == 1, ptx
-    assert stage.index("mbarrier.init") < stage.index("__syncthreads()") \
-        < stage.index("expect_tx")
+    for helper in ("mbar_init", "mbar_init_fence", "mbar_expect_tx",
+                   "bulk_load", "mbar_wait"):
+        assert len(re.findall(rf"\b{helper}\(", stage)) == 1, helper
+    assert "asm" not in stage and "cp.async.bulk" not in code
+    assert stage.index("mbar_init(") < stage.index("__syncthreads()") \
+        < stage.index("mbar_expect_tx(")
+    assert "mbar_wait(bar, 0)" in stage
     assert "i < count - body" in stage  # the threads copy the ragged ends
     kernel = _kernel_body(code, "probe_gather_kernel")
     assert kernel.count("stage_slice(") == 2
@@ -1124,9 +1150,138 @@ def test_gather_cluster_launch_returns_its_error_without_fallback():
     assert "cluster.sync()" in _kernel_body(code, "probe_gather_kernel")
 
 
-@pytest.mark.parametrize("src", ["probe_gather.cu", "probe_stages.cu"])
+@pytest.mark.parametrize("src", ["probe_gather.cu", "probe_stages.cu",
+                                 "probe_pipeline.cu", "probe_common.cuh"])
 def test_redesigned_probes_use_no_atomics(src):
     code = _code(CSRC / src)
     assert not re.search(r"\batomic\w*\s*\(", code)
     assert not re.search(r"\b(atom|red)(\.\w+)*\.\w+\b", code)
     assert "red.async" not in code and "cp.reduce" not in code
+
+
+# --- K14d, the pipeline probe ----------------------------------------------
+
+#: the pipeline probe's modes (probes/pipeline.MODES) and their members
+_PIPELINE_MEMBERS = {"full": "kFull", "arc_only": "kArcOnly",
+                     "no_gather": "kNoGather", "stream_only": "kStreamOnly",
+                     "alu": "kAlu"}
+
+
+@pytest.mark.parametrize("mode", sorted(_PIPELINE_MEMBERS))
+def test_each_pipeline_mode_is_an_instance_the_entry_point_dispatches(mode):
+    # the Python mode's number is the enum member's and the stage probe's
+    # twin's; both entry points reach dispatch(), whose switch gives each
+    # member its own instance, by tile, stages and store
+    from two_pass_lanczos_tpu_torch.probes.pipeline import MODES
+    code = _code(CSRC / "probe_pipeline.cu")
+    member = _PIPELINE_MEMBERS[mode]
+    assert _enum(code, "PipelineMode")[member] == MODES[mode]
+    assert _enum(_code(CSRC / "probe_stages.cu"), "StagesMode")[member] \
+        == MODES[mode]
+    assert set(MODES) == set(_PIPELINE_MEMBERS)
+    dispatch = _kernel_body(code, "cudaError_t dispatch")
+    assert re.search(rf"TPL_PIPE\({member}\);", dispatch)
+    assert "return by_tile<M>(tile, stages, bulk, c)" in dispatch
+    for entry in ("tpl_probe_pipeline", "tpl_probe_pipeline_blocks"):
+        assert "tpl::dispatch(mode, tile, stages, bulk, c)" in _entry_body(
+            code, entry)
+    for tile in (512, 1024, 2048):
+        assert f"return by_stages<Mode, {tile}>(stages, bulk, c);" in code
+    for stages in (2, 3, 4):
+        assert f"return by_store<Mode, T, {stages}>(bulk, c);" in code
+
+
+def test_pipeline_kernels_branch_on_no_mode_at_run_time():
+    code = _code(CSRC / "probe_pipeline.cu")
+    for kernel in ("probe_pipeline_arcs", "probe_pipeline_nodes"):
+        body = _kernel_body(code, kernel)
+        assert not re.search(r"\bmode\b", body), kernel
+        assert "switch" not in body
+        branches = re.findall(r"\bif\s*(constexpr\s*)?\(([^)]*)", body)
+        assert all(c or "Mode" not in cond for c, cond in branches)
+
+
+def test_pipeline_node_kernel_is_k7s_warp_rows_without_shared_memory():
+    # ceil(p / 8) blocks of 8 warp rows, K7's routine and store, no block
+    # row, no shared memory, no barrier; launched with no dynamic bytes,
+    # before the arc kernel
+    code = _code(CSRC / "probe_pipeline.cu")
+    body = _kernel_body(code, "probe_pipeline_nodes")
+    rows = re.findall(r"\b(kkt_node_row(?:_warp)?)\s*\(", body)
+    assert rows and set(rows) == {"kkt_node_row_warp"}
+    for word in ("__shared__", "__syncthreads", "block_sum", "extern"):
+        assert word not in body, word
+    assert "blockIdx.x * kWarps + threadIdx.x / kWarpSize" in body
+    assert "y[m + node] = __fmul_rn(e, total)" in body
+    assert "IndexAsValue{x}" in body
+    run = _kernel_body(code, "cudaError_t run")
+    assert "(c.p + kWarps - 1) / kWarps" in run
+    assert "<<<node_blocks, kThreads, 0, c.node_stream>>>" in run
+    assert run.index("probe_pipeline_nodes<") < run.index("arcs<<<")
+    assert not re.search(r"\bkkt_node_row\s*\(", code)
+
+
+def test_pipeline_arc_kernel_streams_through_bulk_copies_on_mbarriers():
+    # a producer warp's elected lane waits for a stage's empty barrier,
+    # arms its full barrier with expect_tx and bulk-copies d, u, v and x_a;
+    # the consumer warps wait for the full barrier by parity, compute K7's
+    # arc row and arrive on empty once a warp; no cp.async.cg or .ca left
+    code = _code(CSRC / "probe_pipeline.cu")
+    body = _kernel_body(code, "probe_pipeline_arcs")
+    assert "cp.async.cg" not in code and "cp.async.ca" not in code
+    assert "asm" not in body  # the PTX is probe_common.cuh's helpers'
+    producer = body[body.index("if (threadIdx.x >= kConsumers) {"):
+                    body.index("const int c = threadIdx.x;")]
+    assert "if (threadIdx.x != kConsumers) return;" in producer
+    assert producer.index("mbar_wait(empty + 8 * s, ((k / S) & 1) ^ 1)") \
+        < producer.index("mbar_expect_tx(bar, kArrays * bytes)") \
+        < producer.index("bulk_load(")
+    assert len(re.findall(r"\bbulk_load\(", producer)) == 4
+    for src in ("d + base", "u + base", "v + base", "x + base"):
+        assert src in producer
+    consumer = body[body.index("const int c = threadIdx.x;"):]
+    assert "mbar_wait(full + 8 * s, (k / S) & 1)" in consumer
+    assert "if (c % kWarpSize == 0) mbar_arrive(empty + 8 * s)" in consumer
+    assert "mbar_init(empty + 8 * s, kConsumerWarps)" in body
+    assert "mbar_init(full + 8 * s, 1)" in body
+    assert body.index("mbar_init_fence()") < body.index("__syncthreads()")
+    assert "tile += gridDim.x, ++k" in consumer
+    # the tail words of a ragged tile come from global memory
+    assert "const int body = count & ~3;" in consumer
+    assert "staged ? slot[t] : d[j]" in consumer
+    arc = _routine(code, "arc_row")
+    assert ("kkt_arc_row(dj, xj, __fmul_rn(e, __ldg(xn + uj)),\n"
+            "                           __fmul_rn(e, __ldg(xn + vj)))") in arc
+
+
+def test_pipeline_bulk_store_is_fenced_and_waited_for():
+    # store = bulk: every consumer fences its output-stage writes for the
+    # async proxy, one thread waits until the stage's last store was read,
+    # the consumers meet, then one bulk store of the tile's body; the
+    # kernel ends after every store is done
+    code = _code(CSRC / "probe_pipeline.cu")
+    body = _kernel_body(code, "probe_pipeline_arcs")
+    store = body[body.index("if constexpr (Bulk) {\n      fence_proxy_async"):]
+    order = ["fence_proxy_async()", "bulk_wait_read<S - 2>()",
+             "consumers_sync()", "bulk_store(y + base, ys, 4u * body)",
+             "bulk_commit()"]
+    at = [store.index(word) for word in order]
+    assert at == sorted(at)
+    assert body.count("bulk_store(") == 1
+    assert "if (c == 0) bulk_wait<0>();" in body
+    assert 'bar.sync 1, %0;" ::"n"(kConsumers)' in _routine(
+        code, "consumers_sync")
+
+
+def test_pipeline_returns_each_launchs_error():
+    # the node launch's error is returned before the arc kernel launches;
+    # the arc launch's is returned; no fallback to another launch
+    code = _code(CSRC / "probe_pipeline.cu")
+    run = _kernel_body(code, "cudaError_t run")
+    launches = [m.end() for m in re.finditer(r">>>\([^;]*;", run)]
+    assert len(launches) == 2
+    for end in launches:
+        assert run[end:].lstrip().startswith("err = cudaGetLastError();")
+    assert "if (err != cudaSuccess) return err;" in run
+    assert run.rstrip().endswith("return err;")
+    assert "kkt_shard_matvec" not in code

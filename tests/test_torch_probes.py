@@ -50,8 +50,16 @@ from two_pass_lanczos_tpu_torch.probes.gather import (
     walk,
 )
 from two_pass_lanczos_tpu_torch.probes.pipeline import (
+    MODES as PIPELINE_MODES,
+    NODE_MODES as PIPELINE_NODE_MODES,
+    STAGE_COUNTS,
+    STORES,
+    TILES,
     pipeline,
     pipeline_cuda,
+    pipeline_plain,
+    ring_plan,
+    ring_walk,
 )
 from two_pass_lanczos_tpu_torch.probes.stages import (
     ARC_MODES,
@@ -403,6 +411,191 @@ def test_pipeline_plain_is_k7(case):
     assert torch.equal(pipeline(lay, T(x)), kkt_shard_matvec(lay, T(x)))
 
 
+@pytest.mark.parametrize("mode,param", bench.PIPELINE_MODES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pipeline_modes_are_bitwise_their_stage_twins(case, mode, param):
+    """Each K14d mode is the K14c mode of the same name: the plain
+    versions agree bit for bit, at e = 1 and 0.5, through pipeline() on
+    the CPU too; the modes without a node part leave y_n zero."""
+    d, u, v, p, x = _instance(case)
+    m = len(d)
+    lay = KKTLayout.build(d, u, v, p, CPU)
+    xt = T(x)
+    for e in (1.0, 0.5):
+        want = stages_plain(lay, xt, mode, param, e)
+        assert torch.equal(pipeline_plain(lay, xt, e, mode, param), want)
+        assert torch.equal(pipeline(lay, xt, e, mode, param), want)
+    y = pipeline_plain(lay, xt, mode=mode, param=param)
+    assert bool((y[m:] == 0).all()) == (mode not in PIPELINE_NODE_MODES)
+    assert PIPELINE_MODES[mode] == STAGE_MODES[mode]
+
+
+@pytest.mark.parametrize("sc", [1.0, 0.5])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pipeline_full_matches_jax_streaming_matvec(case, sc):
+    """``full`` (man_full's function) against the JAX streaming matvec in
+    interpret mode, within K7's tolerance, atol 2e-5·max|y|."""
+    d, u, v, p, x = _instance(case)
+    m = len(d)
+    jl = SortedKKTLayout.build(d, u, v, p)
+    arrs = tuple(jnp.asarray(a) for a in (
+        jl.u.d2, jl.u.es2, jl.u.eo2, jl.u.gn3,
+        jl.v.d2, jl.v.es2, jl.v.eo2, jl.v.gn3))
+    wins = (jnp.asarray(jl.u.win), jnp.asarray(jl.v.win))
+    xu, xv, xn = (jnp.asarray(a) for a in jl.pack(x))
+    yu, _, yn = kkt_streaming_matvec(
+        arrs, wins, xu, xv, xn, p_hi=jl.p_hi, c_chunks=jl.u.C, p2=jl.P2,
+        wg_u=jl.u.wg, wg_v=jl.v.wg, interpret=True, e_scale=sc)
+    ref = jl.unpack(yu, yn)
+    lay = KKTLayout.build(d, u, v, p, CPU)
+    y = pipeline(lay, T(x), sc).numpy()
+    np.testing.assert_allclose(y, ref, rtol=0, atol=2e-5 * np.abs(ref).max())
+    assert y.shape == (m + p,)
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("rem", [0, 1, 2, 3])
+def test_ring_plan_covers_every_arc_once(tile, rem):
+    """The arc kernel's tiles: each tile's body (a multiple of 4 words, by
+    bulk copy, 16-byte aligned at both ends) and its tail (up to 3 words,
+    by the threads) cover every arc exactly once, for m mod 4 = rem, m
+    below one tile and m = 0."""
+    for m in (rem, 4 + rem, tile - 4 + rem, tile + rem, 5 * tile + 8 + rem):
+        plan = ring_plan(m, tile)
+        seen = np.zeros(m, dtype=int)
+        for t in plan:
+            assert t.base % tile == 0 and 0 < t.count <= tile
+            assert t.body % 4 == 0 and 0 <= t.count - t.body <= 3
+            assert (4 * t.base) % 16 == 0 and (4 * t.body) % 16 == 0
+            seen[t.base:t.base + t.body] += 1       # bulk copy
+            seen[t.base + t.body:t.base + t.count] += 1  # the threads
+        assert (seen == 1).all(), (m, tile)
+        assert len(plan) == -(-m // tile)
+        # only the last tile may be ragged, and only it may have a tail
+        assert all(t.count == tile for t in plan[:-1])
+    assert ring_plan(0, tile) == []
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_ring_plan_refuses_arrays_off_16_bytes(off):
+    if off:
+        with pytest.raises(ValueError, match="16-byte"):
+            ring_plan(1000, 1024, off)
+    else:
+        assert ring_plan(1000, 1024, off)[0].body == 1000
+
+
+class _MBarrier:
+    """An mbarrier's phases: a phase completes when its arrivals (the
+    init count) and its armed bytes are all in; try_wait.parity(P) passes
+    once the phase of parity P has completed (a fresh barrier is in phase
+    0, so P = 1 passes at once)."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def arrive(self, expect_tx=0):
+        self.tx += expect_tx
+        self.pending -= 1
+        self._complete()
+
+    def complete_tx(self, nbytes):
+        self.tx -= nbytes
+        self._complete()
+
+    def _complete(self):
+        assert self.pending >= 0
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def passes(self, parity):
+        return (self.phase & 1) != parity
+
+
+@pytest.mark.parametrize("stages", STAGE_COUNTS)
+@pytest.mark.parametrize("ntiles,grid", [(1, 1), (5, 1), (13, 3), (40, 4)])
+def test_ring_walk_parities_fill_and_drain_without_a_race(stages, ntiles,
+                                                          grid):
+    """The arc kernel's ring, run on emulated mbarriers by ring_walk's
+    stages and parities under random schedules: the producer never
+    refills a stage a consumer warp still reads, every consumer warp reads
+    each of its block's tiles in order with that tile's bytes, and the
+    ring never stalls (the empty barrier's count is the warps that
+    arrive)."""
+    warps = 8
+    rng = np.random.default_rng(ntiles * 10 + stages)
+    for walk in ring_walk(ntiles, grid, stages):
+        assert [t for t, *_ in walk] == list(range(walk[0][0] if walk
+                                                   else 0, ntiles, grid))
+        for _ in range(20):
+            full = [_MBarrier(1) for _ in range(stages)]
+            empty = [_MBarrier(warps) for _ in range(stages)]
+            slot = [None] * stages       # the tile a stage holds
+            readers = [0] * stages       # warps still reading a stage
+            inflight = []                # (stage, tile) copies not landed
+            prod = 0
+            cons = [0] * warps
+            reading = [False] * warps
+            while prod < len(walk) or min(cons) < len(walk) or inflight:
+                moves = []
+                if prod < len(walk):
+                    t, s, _, pe = walk[prod]
+                    if empty[s].passes(pe):
+                        moves.append(("produce", None))
+                if inflight:
+                    moves.append(("land", None))
+                for w in range(warps):
+                    if cons[w] < len(walk):
+                        t, s, pf, _ = walk[cons[w]]
+                        if reading[w] or full[s].passes(pf):
+                            moves.append(("consume", w))
+                assert moves, "the ring stalled"
+                kind, w = moves[rng.integers(len(moves))]
+                if kind == "produce":
+                    t, s, _, _ = walk[prod]
+                    assert readers[s] == 0, "refilled a stage being read"
+                    full[s].arrive(expect_tx=16)
+                    inflight.append((s, t))
+                    prod += 1
+                elif kind == "land":
+                    s, t = inflight.pop(rng.integers(len(inflight)))
+                    slot[s] = t
+                    full[s].complete_tx(16)
+                elif not reading[w]:  # the warp passed the full barrier
+                    t, s, _, _ = walk[cons[w]]
+                    assert slot[s] == t, "read a stage before its copy"
+                    reading[w] = True
+                    readers[s] += 1
+                else:  # done with the stage: the warp's lane 0 arrives
+                    t, s, _, _ = walk[cons[w]]
+                    reading[w] = False
+                    readers[s] -= 1
+                    empty[s].arrive()
+                    cons[w] += 1
+
+
+@pytest.mark.parametrize("mode,param", [
+    ("bogus", 0), ("node_only", 0), ("gather", 1), ("alu", -1), ("full", 4),
+    ("stream_only", 2)])
+def test_pipeline_refuses_bad_modes(mode, param):
+    d, u, v, p, x = _instance("random")
+    lay = KKTLayout.build(d, u, v, p, CPU)
+    for call in (pipeline, pipeline_plain):
+        with pytest.raises(ValueError, match="mode|param"):
+            call(lay, T(x), mode=mode, param=param)
+
+
+@pytest.mark.parametrize("tile,stages,store", [
+    (256, 3, "direct"), (4096, 3, "direct"), (1024, 1, "direct"),
+    (1024, 5, "bulk"), (1024, 3, "tma")])
+def test_pipeline_refuses_rings_it_has_no_instance_of(tile, stages, store):
+    d, u, v, p, x = _instance("random")
+    lay = KKTLayout.build(d, u, v, p, CPU)
+    with pytest.raises(ValueError, match="the ring takes"):
+        pipeline_cuda(lay, T(x), tile=tile, stages=stages, store=store)
+
+
 # --- wrappers, records and the entry point ----------------------------------
 
 @pytest.mark.parametrize("probe", ["gather", "stream", "stages", "pipeline"])
@@ -458,6 +651,43 @@ def test_stage_split_names_the_wall():
     text = probes.stage_split([rec(k, v) for k, v in base.items()])
     assert "bound by the arc part" in text
     assert "node-sorted" not in text
+
+
+def _pipeline_records(alu_us):
+    def rec(variant, us, **extra):
+        return bench._record("pipeline", variant, 100_000_000, us, us + 5,
+                             **extra)
+    ring = {"tile": 1024, "stages": 3, "store": "direct",
+            "blocks_per_sm": 4}
+    out = [rec("pipeline", 120.0, **ring), rec("pipeline_serial", 150.0),
+           rec("k7", 118.0), rec("k7_arc_only", 40.0),
+           rec("k7_node_only", 90.0), rec("arc_only/direct", 35.0),
+           rec("k14c/full", 118.0)]
+    for n, us in alu_us.items():
+        out += [rec(f"alu{n}/arcs/direct", us),
+                rec(f"k14c/alu{n}", 118.0 + n / 4)]
+    return out
+
+
+def test_pipeline_split_answers_max_or_sum():
+    """The ALU question: with the stream 40 µs cold and the chain at the
+    f32 issue rate (2·N·m / 33.5e12 s), a ring time at the max is nearer
+    the max, one at the sum nearer the sum."""
+    m, p = 5_000_000, 3651
+    alu = {n: 2 * n * m / 33.5e12 * 1e6 for n in (4, 16, 64)}
+    text = probes.pipeline_split(_pipeline_records(
+        {4: 35.0, 16: 35.0, 64: max(40.0, alu[64]) - 5}), m, p)
+    lines = text.splitlines()
+    assert "T1024xS3/direct, 4 blocks/SM" in lines[0]
+    assert "against serialised 155.000" in lines[1]
+    bound = (20 * m + 4 * p) / 3.35e12 * 1e6
+    assert f"{bound / 40.0:.1%} of its {bound:.3f} us bound" in lines[2]
+    assert all("nearer the max" in ln for ln in lines[3:])
+    text = probes.pipeline_split(_pipeline_records(
+        {n: 35.0 + alu[n] for n in alu}), m, p)
+    assert all("nearer the sum" in ln for ln in text.splitlines()[3:])
+    assert [ln.split()[1] for ln in text.splitlines()[3:]] == [
+        "4:", "16:", "64:"]
 
 
 def test_stage_split_prints_the_node_sorted_floor():

@@ -10,8 +10,10 @@
 // term. FusedKKTSolver(compensated=True) runs it once on the card before it
 // trusts the compensated build; the expected values are exact.
 //
-// What bounds it: nothing that matters, a few elementwise operations per
-// element; it is a check, not a hot path.
+// What bounds it: its launch. 128 elements are one block's few elementwise
+// operations each; a check, not a hot path. tpl_empty_launch (below), a
+// kernel that does nothing, is timed beside it as the launch floor
+// (chip_smoke.py phase 19, PERF.md §6 row 13).
 #include "lanczos_common.cuh"
 
 namespace tpl {
@@ -34,6 +36,10 @@ eft_check_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// Does nothing: one launch of it is the floor under any kernel's time, the
+// yardstick beside K13's (a launch's fixed cost, not a TPU kernel's port).
+__global__ void empty_kernel() {}
+
 }  // namespace
 }  // namespace tpl
 
@@ -46,5 +52,12 @@ extern "C" int tpl_eft_check(const float* a, const float* b, int n,
   int g = (n + kThreads - 1) / kThreads;
   if (g < 1) g = 1;
   eft_check_kernel<<<g, kThreads, 0, stream>>>(a, b, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One block of one thread that does nothing, on stream. Does not
+// synchronise; returns cudaGetLastError().
+extern "C" int tpl_empty_launch(cudaStream_t stream) {
+  tpl::empty_kernel<<<1, 1, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -123,8 +123,8 @@ __device__ __forceinline__ T kkt_arc_row(T d, T x, T gu, T gv) {
 // is arc a with sign -1), walked in a fixed strided order and folded with
 // block_sum: deterministic, no atomics. Every thread of the block must call
 // it; returns the sum in every thread. x_a is read through `load`. The
-// block-row reference entry points and the K14 probes run it; every other
-// matvec runs kkt_node_row_warp, which gives the same bits.
+// block-row reference entry points and K3 run it; every other matvec (and
+// every K14 probe) runs kkt_node_row_warp, which gives the same bits.
 template <typename T, typename Load = DirectLoad>
 __device__ __forceinline__ T kkt_node_row(const int* __restrict__ ptr,
                                           const int* __restrict__ ent,

@@ -85,10 +85,6 @@ __host__ __device__ constexpr bool staged() {
   return kMode == kGatherSmem || clustered<kMode>();
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ float load_plain(const float* p) {
   float v;
   asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
@@ -115,36 +111,19 @@ __device__ __forceinline__ float* stage_slice(const float* src, int count,
   const unsigned bytes = static_cast<unsigned>(body) * 4u;
   const unsigned bar = smem_addr(smem);
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-                 "r"(1)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init(bar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                     "r"(bar), "r"(bytes)
-                 : "memory");
-    if (bytes)
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + head)),
-          "l"(src + head), "r"(bytes), "r"(bar)
-          : "memory");
+    mbar_expect_tx(bar, bytes);
+    if (bytes) bulk_load(dst + head, src + head, bytes, bar);
   }
   for (int i = threadIdx.x; i < count - body; i += kGatherThreads) {
     const int k = i < head ? i : i + body;
     dst[k] = src[k];
   }
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(0)
-        : "memory");
+  mbar_wait(bar, 0);
   return dst;
 }
 

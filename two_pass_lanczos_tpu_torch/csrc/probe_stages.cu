@@ -56,10 +56,6 @@ enum StagesMode {
   kGather = 7,
   kNodeSorted = 8,
 };
-// the ALU chain's step, r = r * kAluMul + kAluAdd, rounded after each
-constexpr float kAluMul = 0.999f;
-constexpr float kAluAdd = 1e-3f;
-
 template <int Mode>
 __host__ __device__ constexpr bool has_arcs() {
   return Mode != kNodeOnly && Mode != kNodeNoGather && Mode != kNodeSorted;
@@ -68,15 +64,6 @@ template <int Mode>
 __host__ __device__ constexpr bool has_nodes() {
   return Mode != kArcOnly && Mode != kStreamOnly;
 }
-
-// kkt_node_row_warp's load for the stages without the gather: the entry's
-// arc index a, as 1e-30 * float(a), in place of x_a[a].
-struct IndexAsValue {
-  const float* base;
-  __device__ __forceinline__ float operator()(const float* p) const {
-    return __fmul_rn(kTiny, __int2float_rn(static_cast<int>(p - base)));
-  }
-};
 
 template <int Mode>
 __global__ void __launch_bounds__(kThreads)

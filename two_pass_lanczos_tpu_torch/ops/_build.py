@@ -87,6 +87,8 @@ _SIGNATURES = {
     "tpl_lanczos_pass_two_grid": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
     # a, b, n, out (6 x n), stream
     "tpl_eft_check": [_P, _P, _I, _P, _P],
+    # stream (a launch of one empty block, K13's yardstick)
+    "tpl_empty_launch": [_P],
     # the double-float kernels (csrc/df_*.cu): d2, u, v, ptr, ent, m, p, ...
     # ... x2, y2, stream
     "tpl_df_kkt_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
@@ -130,8 +132,13 @@ _SIGNATURES = {
     # K7's arguments, then mode, param, stream
     "tpl_probe_stages": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _I,
                          _P],
-    # K7's arguments, then with_nodes, stream
-    "tpl_probe_pipeline": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
+    # K7's arguments, then mode, param, tile, stages, bulk, with_nodes,
+    # arc_stream, node_stream
+    "tpl_probe_pipeline": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _P, _P],
+    # mode, tile, stages, bulk, *blocks_per_sm, *smem_bytes
+    "tpl_probe_pipeline_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I)],
     # code (returns the message, a const char*)
     "tpl_error_string": [_I],
 }

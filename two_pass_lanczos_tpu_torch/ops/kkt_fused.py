@@ -597,6 +597,19 @@ def eft_check_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def empty_launch_cuda(device) -> None:
+    """One launch of a kernel that does nothing (``tpl_empty_launch`` in
+    ``csrc/eft_check.cu``) on the current stream of a CUDA ``device``: the
+    launch floor that K13's time is set beside. Counted nowhere: it is a
+    yardstick, no kernel of a path."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch_cuda takes a CUDA device, got "
+                         f"{device}")
+    lib = load_library()
+    _check(lib, lib.tpl_empty_launch(_stream()), "empty_launch")
+
+
 def pass_two_cuda(lay: KKTLayout, b: torch.Tensor,
                   decomp: LanczosDecomposition, y_full: torch.Tensor,
                   ztol: float, state: Optional[torch.Tensor] = None,

@@ -16,18 +16,23 @@ with a plain PyTorch version in its module and a launch counter in
 * :mod:`.stages` (K14c): K7's routines in K7's block order with each
   stage switched at compile time, plus extra ALU or gather work per arc,
   and the node walk on a node-sorted signed copy of x_a (``node_sorted``);
-* :mod:`.pipeline` (K14d): K7 with its arc part fed by a double-buffered
-  ``cp.async`` pipeline, bitwise K7.
+* :mod:`.pipeline` (K14d): K7 with its arc stream on a ring of bulk
+  copies (TMA) on mbarriers, a producer warp beside the consumer warps,
+  and K7's node blocks in a kernel of their own on a forked stream; the
+  JAX probe's modes (``full`` bitwise K7, ``stream_only``, ``alu`` N,
+  ``arc_only``, ``no_gather``), each bitwise the stage probe's twin.
 
 :mod:`.bench` checks every variant against its plain version and times it
 warm and cold-L2 on the card; ``python -m two_pass_lanczos_tpu_torch.probes
 {gather,stream,stages,pipeline} [--arcs N]`` prints one JSON record per
-variant.
+variant (and, for ``stages`` and ``pipeline``, :func:`.bench.stage_split`
+or :func:`.bench.pipeline_split` on stderr).
 """
 
 from two_pass_lanczos_tpu_torch.probes.bench import (
     RUNS,
     Timer,
+    pipeline_split,
     run,
     stage_split,
 )
@@ -36,5 +41,5 @@ from two_pass_lanczos_tpu_torch.probes.pipeline import pipeline
 from two_pass_lanczos_tpu_torch.probes.stages import stages
 from two_pass_lanczos_tpu_torch.probes.stream import stream, stream_records
 
-__all__ = ["RUNS", "Timer", "run", "stage_split", "gather", "stream",
-           "stream_records", "stages", "pipeline"]
+__all__ = ["RUNS", "Timer", "run", "stage_split", "pipeline_split",
+           "gather", "stream", "stream_records", "stages", "pipeline"]

@@ -58,8 +58,14 @@ from two_pass_lanczos_tpu_torch.probes.gather import (
     two_level,
 )
 from two_pass_lanczos_tpu_torch.probes.pipeline import (
+    STAGE_COUNTS as PIPE_STAGE_COUNTS,
+    STAGES as PIPE_STAGES,
+    STORE as PIPE_STORE,
+    STORES as PIPE_STORES,
+    TILE as PIPE_TILE,
+    TILES as PIPE_TILES,
+    pipeline_blocks,
     pipeline_cuda,
-    pipeline_plain,
 )
 from two_pass_lanczos_tpu_torch.probes.stages import (
     ARC_MODES,
@@ -79,10 +85,12 @@ from two_pass_lanczos_tpu_torch.probes.stream import (
 )
 
 __all__ = ["HBM_BPS", "Timer", "card_name", "kkt_function_bytes", "run",
-           "stage_split", "RUNS", "main"]
+           "stage_split", "pipeline_split", "RUNS", "main"]
 
 #: H100 SXM HBM3 bytes/s (NVIDIA's data sheet)
 HBM_BPS = 3.35e12
+#: H100 SXM f32 instructions/s: its 67 TFLOP/s count an FMA as two
+F32_ISSUE = 33.5e12
 #: the cold-L2 flush: a write of 128 MB, past the 50 MB L2
 FLUSH_BYTES = 128 * 2 ** 20
 REPS = 200
@@ -95,6 +103,10 @@ STAGES = (("full", 0), ("arc_only", 0), ("node_only", 0),
           ("node_no_gather", 0), ("no_gather", 0), ("stream_only", 0),
           ("alu", 4), ("alu", 16), ("alu", 64), ("gather", 1), ("gather", 2),
           ("gather", 4), ("node_sorted", 0))
+#: the pipeline probe's modes, each beside its stage-probe twin: (mode,
+#: param), the JAX probe's man_full, man_stream and man_alu<N>
+PIPELINE_MODES = (("full", 0), ("arc_only", 0), ("stream_only", 0),
+                  ("no_gather", 0), ("alu", 4), ("alu", 16), ("alu", 64))
 
 
 def card_name() -> str:
@@ -351,28 +363,139 @@ def run_stages(lay: KKTLayout, x: torch.Tensor, timer: Timer,
     return out
 
 
+def _variant(mode: str, param: int) -> str:
+    return f"{mode}{param}" if param else mode
+
+
 def run_pipeline(lay: KKTLayout, x: torch.Tensor, timer: Timer,
                  **_) -> List[dict]:
-    """K14d against K7 on the instance, both timed in the same run, and the
-    pipelined arc part alone against K7's arc blocks alone (the stage
-    probe's ``arc_only``)."""
+    """K14d on the instance, K7 and K14c timed in the same run. Every mode
+    of :data:`PIPELINE_MODES` with both stores at the default ring
+    (``{mode}/{store}``), each bitwise its K14c twin (``k14c/{mode}``,
+    also timed) and ``full`` bitwise K7; the arc kernel alone with each
+    ALU chain (``alu{N}/arcs/{store}``, ``nodes=False``); the
+    T × S × store sweep of ``full`` and ``arc_only``
+    (``sweep/{mode}/T{t}xS{s}/{store}``, with the arc kernel's blocks per
+    SM and dynamic shared memory); and the default ``full`` concurrent
+    (``pipeline``, :data:`PROBE_MAIN`'s variant) and serialised on one
+    stream (``pipeline_serial``) beside K7, K7's arc blocks alone
+    (``k7_arc_only``) and its node blocks alone (``k7_node_only``: the
+    node kernel's instruction stream). A check that fails raises."""
     m = lay.m
     nbytes = kkt_function_bytes(m, lay.p)
     y7 = kkt_shard_matvec_cuda(lay, x)
-    y = pipeline_cuda(lay, x)
-    _require(torch.equal(y, y7), "pipeline is not bitwise K7")
-    err = float((y - pipeline_plain(lay, x)).abs().max())
-    _require(torch.equal(pipeline_cuda(lay, x, arcs_only=True)[:m], y7[:m]),
-             "the pipelined arc part is not bitwise K7's")
     buf = torch.zeros_like(x)
-    runs = (("pipeline", lambda: pipeline_cuda(lay, x)),
-            ("k7", lambda: kkt_shard_matvec_cuda(lay, x)),
-            ("pipeline_arc_only",
-             lambda: pipeline_cuda(lay, x, arcs_only=True, out=buf)),
-            ("k7_arc_only", lambda: stages_cuda(lay, x, "arc_only", out=buf)))
-    return [_record("pipeline", name, nbytes, timer.warm(fn), timer.cold(fn),
-                    **({"max_abs_err": err} if name == "pipeline" else {}))
-            for name, fn in runs]
+    out = []
+
+    def timed(variant, fn, **extra):
+        out.append(_record("pipeline", variant, nbytes, timer.warm(fn),
+                           timer.cold(fn), **extra))
+
+    def ring(store, tile=PIPE_TILE, stages=PIPE_STAGES):
+        per_sm, smem = pipeline_blocks("full", tile, stages, store)
+        return {"tile": tile, "stages": stages, "store": store,
+                "blocks_per_sm": per_sm, "smem_bytes": smem}
+
+    errs = {}
+    for mode, param in PIPELINE_MODES:
+        name = _variant(mode, param)
+        twin = stages_cuda(lay, x, mode, param)
+        ref = stages_plain(lay, x, mode, param)
+        for store in PIPE_STORES:
+            y = pipeline_cuda(lay, x, mode=mode, param=param, store=store)
+            _require(torch.equal(y, twin), f"pipeline {name} {store} is not "
+                     "bitwise its K14c twin")
+            _require(torch.equal(y[:m], ref[:m]), f"pipeline {name} {store} "
+                     "arc part is not bitwise its plain version")
+            _require(mode != "full" or torch.equal(y, y7),
+                     f"pipeline full {store} is not bitwise K7")
+            errs[name, store] = float((y - ref).abs().max())
+            timed(f"{name}/{store}",
+                  lambda mo=mode, pa=param, st=store: pipeline_cuda(
+                      lay, x, out=buf, mode=mo, param=pa, store=st),
+                  max_abs_err=errs[name, store], **ring(store))
+            if mode == "alu":
+                y = pipeline_cuda(lay, x, mode=mode, param=param,
+                                  store=store, nodes=False)
+                _require(torch.equal(y[:m], twin[:m]),
+                         f"pipeline {name} {store} arc kernel alone")
+                timed(f"{name}/arcs/{store}",
+                      lambda mo=mode, pa=param, st=store: pipeline_cuda(
+                          lay, x, out=buf, mode=mo, param=pa, store=st,
+                          nodes=False), **ring(store))
+        timed(f"k14c/{name}", lambda mo=mode, pa=param: stages_cuda(
+            lay, x, mo, pa, out=buf))
+    for tile in PIPE_TILES:
+        for stages in PIPE_STAGE_COUNTS:
+            for store in PIPE_STORES:
+                for mode in ("full", "arc_only"):
+                    y = pipeline_cuda(lay, x, mode=mode, tile=tile,
+                                      stages=stages, store=store)
+                    _require(torch.equal(y, y7) if mode == "full" else
+                             torch.equal(y[:m], y7[:m]),
+                             f"pipeline {mode} T{tile}xS{stages} {store} is "
+                             "not bitwise K7")
+                    timed(f"sweep/{mode}/T{tile}xS{stages}/{store}",
+                          lambda mo=mode, t=tile, s=stages, st=store:
+                          pipeline_cuda(lay, x, out=buf, mode=mo, tile=t,
+                                        stages=s, store=st),
+                          **ring(store, tile, stages))
+    y = pipeline_cuda(lay, x, concurrent=False)
+    _require(torch.equal(y, y7), "pipeline serialised is not bitwise K7")
+    timed("pipeline", lambda: pipeline_cuda(lay, x, out=buf),
+          max_abs_err=errs["full", PIPE_STORE], **ring(PIPE_STORE))
+    timed("pipeline_serial",
+          lambda: pipeline_cuda(lay, x, out=buf, concurrent=False),
+          **ring(PIPE_STORE))
+    timed("k7", lambda: kkt_shard_matvec_cuda(lay, x))
+    timed("k7_arc_only", lambda: stages_cuda(lay, x, "arc_only", out=buf))
+    timed("k7_node_only", lambda: stages_cuda(lay, x, "node_only", out=buf))
+    return out
+
+
+def pipeline_split(records: List[dict], m: int, p: int) -> str:
+    """What :func:`run_pipeline`'s records say, cold L2: K14d against K7;
+    the two kernels concurrent against serialised and each alone; the
+    ring's arc stream against its bound (the arcs' 20 bytes and x_n once)
+    and K7's arc blocks; and, for each ALU chain N, whether the ring's arc
+    kernel with the chain is nearer max(stream, ALU) or stream + ALU, the
+    ALU taken at the card's f32 issue rate (2·N operations an arc; a
+    multiply and an add, not contracted) and the stream the arc kernel
+    alone without the chain (``arc_only``); beside it the K14c twin's (a
+    grid of one arc a thread) time over its ``full``."""
+    by = {r["variant"]: r for r in records if r["probe"] == "pipeline"}
+    store = by["pipeline"]["store"]
+    full, k7 = by["pipeline"], by["k7"]
+    arc, node = by[f"arc_only/{store}"], by["k7_node_only"]
+    bound_us = (20 * m + 4 * p) / HBM_BPS * 1e6
+    lines = [
+        f"ring T{full['tile']}xS{full['stages']}/{store}, "
+        f"{full['blocks_per_sm']} blocks/SM: full {full['us_cold']:.3f} us "
+        f"cold ({full['us']:.3f} warm) against K7 {k7['us_cold']:.3f} "
+        f"({k7['us']:.3f}), {full['us_cold'] / k7['us_cold']:.3f}x",
+        f"concurrent {full['us_cold']:.3f} us against serialised "
+        f"{by['pipeline_serial']['us_cold']:.3f}; arc kernel alone "
+        f"{arc['us_cold']:.3f}, node kernel alone {node['us_cold']:.3f}",
+        f"arc stream {arc['us_cold']:.3f} us cold ({arc['us']:.3f} warm), "
+        f"{bound_us / arc['us_cold']:.1%} of its {bound_us:.3f} us bound, "
+        f"against K7's arc blocks {by['k7_arc_only']['us_cold']:.3f} "
+        f"({by['k7_arc_only']['us']:.3f} warm)"]
+    stream = arc["us_cold"]
+    for mode, param in PIPELINE_MODES:
+        if mode != "alu":
+            continue
+        t = by[f"alu{param}/arcs/{store}"]["us_cold"]
+        alu = 2 * param * m / F32_ISSUE * 1e6
+        top, both = max(stream, alu), stream + alu
+        near = "max" if abs(t - top) <= abs(t - both) else "sum"
+        grid = (by[f"k14c/alu{param}"]["us_cold"]
+                - by["k14c/full"]["us_cold"])
+        lines.append(
+            f"alu {param}: ring arcs {t:.3f} us against max(stream, ALU) "
+            f"{top:.3f} and sum {both:.3f} (stream {stream:.3f}, ALU "
+            f"{alu:.3f}): nearer the {near}; K14c alu {param} over its full "
+            f"{grid:+.3f} us")
+    return "\n".join(lines)
 
 
 RUNS: Dict[str, Callable] = {"gather": run_gather, "stream": run_stream,
@@ -455,4 +578,6 @@ def main(argv=None) -> int:
         print(json.dumps({**r, "arcs": m, "nodes": p, "card": card}))
     if args.probe == "stages":
         print(stage_split(records), file=sys.stderr)
+    if args.probe == "pipeline":
+        print(pipeline_split(records, m, p), file=sys.stderr)
     return 0

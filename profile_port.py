@@ -46,7 +46,11 @@ each call ending in ``torch.cuda.synchronize()``. Per call:
 - ``events``: device events (kernels and copies) per call;
 - ``host_top``: ``[name, host self ms per call, calls per call]`` of the
   operators that take the host longest (``key_averages``' self CPU time);
-- ``top``: ``[name, device ms per call, launches per call]`` by device time.
+- ``top``: ``[name, device ms per call, launches per call]`` by device time;
+- ``spans``, where the path opens the program's ``tpl.*`` spans
+  (``observability.trace``): :func:`span_breakdown` over the profiled
+  calls, the device's idle and the host's waits for the device by the
+  span the host was in, and each span's launches.
 
 Prints a table per path and the card's ``nvidia-smi`` name and power limit;
 writes the numbers as JSON to ``--out``. Raises when the trace holds no
@@ -56,6 +60,7 @@ device event.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import sys
@@ -67,13 +72,28 @@ ROOT = Path(__file__).resolve().parent
 HEADLINE = {"arcs": 500_000, "rho": 3, "instance_id": 1}
 CHUNK = 64
 TOP = 12
+#: the prefix of the program's spans (``observability.trace``), and the
+#: span of one call of a solve
+SPAN, SOLVE = "tpl.", "tpl.solve"
+#: this script's span around each profiled call
+CALL = "profile_port.call"
 
 
-def device_events(prof):
-    """(name, start µs, end µs) of every device-side event of the trace."""
+def trace_events(prof):
+    """``(device, host)`` of a finished trace: ``(name, start µs, end µs,
+    id)`` of each device operation (kernels, copies, sets; not the device's
+    copies of host annotations) and of each host event; a runtime call and
+    the operation it launched share the ``id``, their correlation."""
     from torch.autograd import DeviceType
-    return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device, host = [], []
+    for e in prof.events():
+        row = (e.name, e.time_range.start, e.time_range.end, int(e.id or 0))
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                device.append(row)
+        elif e.device_type == DeviceType.CPU:
+            host.append(row)
+    return device, host
 
 
 def busy_us(events) -> float:
@@ -87,31 +107,148 @@ def busy_us(events) -> float:
     return total
 
 
+def merged(intervals):
+    """The union of ``(start, end)`` intervals as sorted, disjoint
+    ``[start, end]`` lists."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
 def overlap_us(events, pick, against):
     """``(total, overlapped, hit)``: µs of the events whose name ``pick``s,
     how many of those µs an event that ``against`` picks ran at the same
     time, and how many picked events overlapped one at all."""
-    import bisect
     mine = [(s, e) for name, s, e in events if pick(name)]
-    merged = []
-    for s, e in sorted((s, e) for name, s, e in events if against(name)):
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], e)
-        else:
-            merged.append([s, e])
-    starts = [s for s, _ in merged]
+    theirs = merged((s, e) for name, s, e in events if against(name))
+    starts = [s for s, _ in theirs]
     total = over = 0.0
     hit = 0
     for s, e in mine:
         total += e - s
         i = max(bisect.bisect_right(starts, s) - 1, 0)
         here = 0.0
-        while i < len(merged) and merged[i][0] < e:
-            here += max(0.0, min(e, merged[i][1]) - max(s, merged[i][0]))
+        while i < len(theirs) and theirs[i][0] < e:
+            here += max(0.0, min(e, theirs[i][1]) - max(s, theirs[i][0]))
             i += 1
         over += here
         hit += here > 0
     return total, over, hit
+
+
+def is_host_sync(name: str) -> bool:
+    """A runtime call that waits for the device: ``cu*Synchronize`` or a
+    blocking ``cudaMemcpy``."""
+    return name.endswith("Synchronize") or name == "cudaMemcpy"
+
+
+def innermost(spans, times):
+    """For each of ``times``, the name of the innermost of the nested
+    ``spans`` (``(name, start, end)``, one thread's) that holds it, None
+    where none does: one sweep over both in time order."""
+    spans = sorted(spans, key=lambda sp: (sp[1], -sp[2]))
+    out = [None] * len(times)
+    stack, i = [], 0
+    for q in sorted(range(len(times)), key=times.__getitem__):
+        t = times[q]
+        while i < len(spans) and spans[i][1] <= t:
+            while stack and stack[-1][2] < spans[i][1]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][2] < t:
+            stack.pop()
+        out[q] = stack[-1][0] if stack else None
+    return out
+
+
+def span_breakdown(device, host, window: str, top: int = 4) -> dict:
+    """Where the device idles and the host waits, by the program's
+    ``tpl.*`` spans, per call; ``device`` and ``host`` as
+    :func:`trace_events` gives them, each call inside a host span named
+    ``window``.
+
+    - ``idle_ms``: the gaps of the union of the device intervals inside
+      the calls, each instant given to the innermost ``tpl.*`` span its
+      host was in (``none``: in no span); the values sum to the calls'
+      wall time less their busy time;
+    - ``host_syncs``: runtime calls inside ``tpl.solve`` that wait for the
+      device (:func:`is_host_sync`), by innermost span;
+    - ``launches``: each span's ``top`` device operations launched in the
+      calls, by count, each placed by its launch (the runtime call of its
+      correlation id, else its own start);
+    - ``misaligned_ms``: device time of those operations that lies outside
+      the call that launched them. It is 0 where the host's clock (the
+      spans) and the device's (the runtime calls and operations) agree;
+      where it is not, the trace's clocks were not aligned and the
+      assignment above is not to be read.
+    """
+    calls = sorted((s, e) for name, s, e, _ in host if name == window)
+    spans = [(name, s, e) for name, s, e, _ in host
+             if name.startswith(SPAN)]
+    if not calls or not spans:
+        return {}
+    busy = merged((s, e) for _, s, e, _ in device)
+    # the idle pieces: each call's gaps, cut at every span's edges
+    edges = sorted({t for _, s, e in spans for t in (s, e)})
+    pieces, j = [], 0
+    for w0, w1 in calls:
+        while j < len(busy) and busy[j][1] <= w0:
+            j += 1
+        gaps, t, i = [], w0, j
+        while i < len(busy) and busy[i][0] < w1:
+            if busy[i][0] > t:
+                gaps.append((t, busy[i][0]))
+            t = max(t, busy[i][1])
+            i += 1
+        if t < w1:
+            gaps.append((t, w1))
+        for g0, g1 in gaps:
+            lo, hi = bisect.bisect_right(edges, g0), bisect.bisect_left(
+                edges, g1)
+            cuts = [g0, *edges[lo:hi], g1]
+            pieces.extend(zip(cuts, cuts[1:]))
+    idle = defaultdict(float)
+    for (a, b), name in zip(pieces, innermost(
+            spans, [(a + b) / 2 for a, b in pieces])):
+        idle[name or "none"] += b - a
+    solves = sorted((s, e) for name, s, e in spans if name == SOLVE)
+    waits = [s for name, s, _, _ in host if is_host_sync(name)
+             and _holds(solves, s)]
+    syncs = defaultdict(int)
+    for name in innermost(spans, waits):
+        syncs[name] += 1
+    runtime = {i: s for name, s, _, i in host if name.startswith("cu")}
+    launched, outside = [], 0.0
+    for name, s, e, i in device:
+        t = runtime.get(i, s)
+        c = bisect.bisect_right(calls, (t, float("inf"))) - 1
+        if c >= 0 and t <= calls[c][1]:
+            launched.append((name, t))
+            outside += min(e - s, max(0.0, calls[c][0] - s)
+                           + max(0.0, e - calls[c][1]))
+    launches = defaultdict(lambda: defaultdict(int))
+    for (name, _), span in zip(launched, innermost(
+            spans, [t for _, t in launched])):
+        launches[span or "none"][name[:60]] += 1
+    n = len(calls)
+    return {
+        "idle_ms": {k: v / 1e3 / n for k, v in sorted(idle.items())},
+        "host_syncs": {k: v / n for k, v in sorted(syncs.items())},
+        "launches": {k: [[kn, c / n] for kn, c in sorted(
+            v.items(), key=lambda kv: -kv[1])[:top]]
+            for k, v in sorted(launches.items())},
+        "misaligned_ms": outside / 1e3 / n}
+
+
+def _holds(intervals, t) -> bool:
+    """Whether t lies in one of the sorted, disjoint ``intervals``."""
+    i = bisect.bisect_right(intervals, (t, float("inf"))) - 1
+    return i >= 0 and intervals[i][0] <= t <= intervals[i][1]
 
 
 def is_nccl(name: str) -> bool:
@@ -140,10 +277,12 @@ def profile(fn, reps: int, overlap: bool = False) -> dict:
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
+            with torch.profiler.record_function(CALL):
+                fn()
+                torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = device_events(prof)
+    device, host = trace_events(prof)
+    events = [(name, s, e) for name, s, e, _ in device]
     if not events:
         raise RuntimeError("the profiler recorded no device event")
     per_name = defaultdict(lambda: [0.0, 0])
@@ -151,7 +290,8 @@ def profile(fn, reps: int, overlap: bool = False) -> dict:
         per_name[name][0] += e - s
         per_name[name][1] += 1
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]
-    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    by_self = sorted(prof.key_averages(),
+                     key=lambda a: -a.self_cpu_time_total)
     wall_ms = wall * 1e3 / reps
     busy_ms = busy_us(events) / 1e3 / reps
     extra = {}
@@ -163,13 +303,16 @@ def profile(fn, reps: int, overlap: bool = False) -> dict:
             extra["nccl_ms"] = nccl_us / 1e3 / reps
             extra[f"nccl_overlap_{label}_ms"] = over_us / 1e3 / reps
             extra[f"nccl_events_overlapping_{label}"] = hit / reps
+    spans = span_breakdown(device, host, CALL)
+    if spans:
+        extra["spans"] = spans
     return {**extra, "wall_ms": wall_ms, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "events": len(events) / reps,
             "top": [[name[:60], t / 1e3 / reps, round(c / reps)]
                     for name, (t, c) in top],
             "host_top": [[a.key[:60], a.self_cpu_time_total / 1e3 / reps,
-                          round(a.count / reps)] for a in host[:6]]}
+                          round(a.count / reps)] for a in by_self[:6]]}
 
 
 def chebyshev(s, b):
@@ -287,6 +430,12 @@ def main(argv=None) -> int:
                   "ms")
         for kname, ms, count in r["top"]:
             print(f"    {ms:9.4f} ms  x {count:4d}  {kname}")
+        if "spans" in r:
+            print("    device idle (ms) and host waits by span: " + ", ".join(
+                f"{span} {ms:.4f}" for span, ms in r["spans"]["idle_ms"]
+                .items()) + "; " + ", ".join(
+                f"{span} {c:g}" for span, c in r["spans"]["host_syncs"]
+                .items()))
         print("    host self time:")
         for kname, ms, count in r["host_top"]:
             print(f"    {ms:9.4f} ms  x {count:6d}  {kname}")

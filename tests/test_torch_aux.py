@@ -156,14 +156,19 @@ def test_checkpoint_rejects_unknown_version(tmp_path):
 
 
 def test_trace_names_a_profiler_region():
+    # no profiler: the shared null context, no record_function
+    off = observability.trace("tpl_off")
+    with off:
+        torch.ones(4).sum()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]) as prof:
-        with observability.trace("tpl_region"):
-            torch.ones(4).sum()
-        with observability.trace("tpl_off", enabled=False):
+        on = observability.trace("tpl_region")
+        with on:
             torch.ones(4).sum()
     names = {e.key for e in prof.key_averages()}
     assert "tpl_region" in names and "tpl_off" not in names
+    assert isinstance(on, torch.profiler.record_function)
+    assert not isinstance(off, torch.profiler.record_function)
 
 
 def test_sol_model_of_the_port_layout():

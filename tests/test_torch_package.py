@@ -317,3 +317,122 @@ def test_kernel_sources_keep_the_rules():
         assert not re.search(r"\batomic\w*\s*\(", p.read_text()), p.name
     assert not any("fast_math" in f or "fmad" in f for f in _build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_profile_innermost_span_of_nested_spans():
+    mod = _load_script("profile_port")
+    spans = [("tpl.solve", 0.0, 100.0), ("tpl.pass_one", 1.0, 40.0),
+             ("tpl.spmv", 2.0, 3.0), ("tpl.spmv", 5.0, 6.0),
+             ("tpl.f_tk", 41.0, 50.0), ("tpl.pass_two", 51.0, 99.0)]
+    times = [120.0, -1.0, 0.5, 2.5, 4.0, 45.0, 99.5, 5.5]
+    assert mod.innermost(spans, times) == [
+        None, None, "tpl.solve", "tpl.spmv", "tpl.pass_one", "tpl.f_tk",
+        "tpl.solve", "tpl.spmv"]
+    assert mod.innermost([], [1.0]) == [None]
+
+
+def _span_trace():
+    """Two calls of a solve: pass one's kernel, f(T_k)'s kernel after a
+    wait for the device, pass two's kernel launched late; the call's
+    closing synchronise lies outside ``tpl.solve``."""
+    host, device = [], []
+    for c, t0 in enumerate((0.0, 200.0)):
+        i = 10 * c
+        host += [("profile_port.call", t0, t0 + 100.0, i + 1),
+                 ("tpl.solve", t0 + 1.0, t0 + 60.0, i + 2),
+                 ("tpl.pass_one", t0 + 2.0, t0 + 10.0, i + 3),
+                 ("cudaLaunchCooperativeKernel", t0 + 3.0, t0 + 4.0, i + 4),
+                 ("tpl.f_tk", t0 + 10.0, t0 + 50.0, i + 5),
+                 ("cudaLaunchKernel", t0 + 11.0, t0 + 12.0, i + 6),
+                 ("cudaStreamSynchronize", t0 + 13.0, t0 + 45.0, i + 7),
+                 ("tpl.pass_two", t0 + 50.0, t0 + 60.0, i + 8),
+                 ("cudaLaunchCooperativeKernel", t0 + 55.0, t0 + 56.0,
+                  i + 9),
+                 ("cudaDeviceSynchronize", t0 + 61.0, t0 + 99.0, i + 10)]
+        # (the device runs pass one to t0 + 40, f(T_k) to 44, pass two
+        # from 57 to 98)
+        device += [("pass_one_persistent_kernel", t0 + 5.0, t0 + 40.0,
+                    i + 4),
+                   ("getrf_pivot", t0 + 41.0, t0 + 44.0, i + 6),
+                   ("pass_two_persistent_kernel", t0 + 57.0, t0 + 98.0,
+                    i + 9)]
+    # a launch between the calls (drawing the next b) is in none
+    host.append(("cudaLaunchKernel", 150.0, 151.0, 99))
+    device.append(("randn", 152.0, 153.0, 99))
+    return device, host
+
+
+def test_profile_span_breakdown_assigns_idle_waits_and_launches():
+    mod = _load_script("profile_port")
+    device, host = _span_trace()
+    r = mod.span_breakdown(device, host, "profile_port.call")
+    # idle a call: [0, 5) (none 1, solve 1, pass one 3), [40, 41) and
+    # [44, 50) in f(T_k), [50, 57) in pass two, [98, 100) in none
+    assert r["idle_ms"] == pytest.approx({
+        "none": 3e-3, "tpl.solve": 1e-3, "tpl.pass_one": 3e-3,
+        "tpl.f_tk": 7e-3, "tpl.pass_two": 7e-3})
+    busy = mod.busy_us([(n, s, e) for n, s, e, _ in device[:6]])
+    assert sum(r["idle_ms"].values()) * 2 == pytest.approx(
+        (200.0 - busy) / 1e3)
+    # the closing synchronise is outside tpl.solve
+    assert r["host_syncs"] == {"tpl.f_tk": 1.0}
+    # pass two's kernel starts after its span: placed by its launch
+    assert r["launches"] == {
+        "tpl.f_tk": [["getrf_pivot", 1.0]],
+        "tpl.pass_one": [["pass_one_persistent_kernel", 1.0]],
+        "tpl.pass_two": [["pass_two_persistent_kernel", 1.0]]}
+    assert r["misaligned_ms"] == 0.0
+    # a device clock 3 µs late: pass two's kernel ends past its call
+    late = [(n, s + 3.0, e + 3.0, i) for n, s, e, i in device]
+    assert mod.span_breakdown(late, host, "profile_port.call")[
+        "misaligned_ms"] == pytest.approx(1e-3)
+    assert mod.span_breakdown(device, [h for h in host
+                                       if not h[0].startswith("tpl.")],
+                              "profile_port.call") == {}
+
+
+def test_profile_trace_events_skip_the_devices_copies_of_annotations():
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    mod = _load_script("profile_port")
+
+    def ev(name, kind, annotation=False, ident=1):
+        return SimpleNamespace(
+            name=name, id=ident, device_type=kind,
+            is_user_annotation=annotation,
+            time_range=SimpleNamespace(start=1.0, end=2.0))
+
+    prof = SimpleNamespace(events=lambda: [
+        ev("tpl.solve", DeviceType.CPU, True),
+        ev("tpl.solve", DeviceType.CUDA, True),
+        ev("cudaLaunchKernel", DeviceType.CPU, ident=7),
+        ev("getrf_pivot", DeviceType.CUDA, ident=7)])
+    device, host = mod.trace_events(prof)
+    assert device == [("getrf_pivot", 1.0, 2.0, 7)]
+    assert [h[0] for h in host] == ["tpl.solve", "cudaLaunchKernel"]
+
+
+def test_profile_reports_a_paths_spans(monkeypatch):
+    # the card's trace stood in for: the CPU trace, one device operation
+    # at the start of each profiled call
+    from tests.torch_cases import random_kkt
+    from two_pass_lanczos_tpu_torch import FusedKKTSolver
+    mod = _load_script("profile_port")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    real = mod.trace_events
+
+    def one_kernel_a_call(prof):
+        _, host = real(prof)
+        return [("kernel", s, s + 1.0, 0) for name, s, _, _ in host
+                if name == mod.CALL], host
+
+    monkeypatch.setattr(mod, "trace_events", one_kernel_a_call)
+    s = FusedKKTSolver(*random_kkt(np.random.default_rng(3), 60, 20),
+                       device="cpu")
+    b = torch.ones(s.n)
+    r = mod.profile(lambda: s.solve(b, k=6, raw=True), reps=2)
+    assert r["events"] == 1.0 and r["host_top"]
+    assert {"tpl.pass_one", "tpl.f_tk", "tpl.pass_two"} <= set(
+        r["spans"]["idle_ms"])
+    assert r["spans"]["launches"] == {"none": [["kernel", 1.0]]}

@@ -8,8 +8,31 @@ Counterpart of ``two_pass_lanczos_tpu/observability.py``:
   it would have stopped and :func:`truncate_decomposition` cuts the
   decomposition there. The in-run stop is
   ``FusedKKTSolver.pass_one_chunked``.
-* **Profiling** — :func:`trace` names a region in a ``torch.profiler``
-  trace.
+* **Spans** — :func:`trace` opens a span, a ``record_function`` region of
+  the running ``torch.profiler`` trace, on the profiler's clock beside the
+  device's operations; with no profiler recording it is one check of the
+  profiler's state and records nothing. No switch turns them on: run the
+  solve under ``torch.profiler.profile``. The solve paths open
+
+  - ``tpl.solve``: ``FusedKKTSolver.solve``, ``solve_fAb``; the whole call
+    (pack, the passes, the readback when ``raw=False``);
+  - ``tpl.pass_one``: the fused pass one (scratch and the K2, K4 or K5
+    launches) or the generic recurrence (``pass_one_scan``,
+    ``pass_one_reorth``);
+  - ``tpl.f_tk``: f(T_k)·e₁ (``kkt_fused.scaled_y``, which the arc-sharded
+    solver shares, and ``solve_fAb``'s): ``functions.padded_f_e1``, the
+    mask, the ‖b‖ scaling. On a card it holds an ``inv`` solve's two
+    waits for the device: ``ops/tridiag._e1``'s store of e₁'s 1 from the
+    host and ``torch.linalg.solve``'s check of the LU's ``info``;
+  - ``tpl.pass_two``: K3's argument conversions and launch, or the generic
+    replay (``lanczos_pass_two``);
+  - ``tpl.basis_product``: the one-pass x = V_k·y;
+  - ``tpl.spmv``: one ``ops/spmv.coo_spmv`` product (a generic solve on a
+    ``SparseOperator``, one a product).
+
+  A span's parent is the span that encloses it on the host, so every span
+  of one call nests in its ``tpl.solve``. ``profile_port.py`` assigns the
+  device's idle time and the host's waits to them.
 * **Speed-of-light model** — :func:`kkt_matvec_bytes` and
   :func:`kkt_spmv_sol`: the bytes one K1 matvec (``csrc/kkt_matvec.cu``)
   must move, against the H100 SXM's HBM3 bandwidth;
@@ -24,6 +47,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
 
 from two_pass_lanczos_tpu_torch.algorithms.core import LanczosDecomposition
 
@@ -90,14 +114,19 @@ def truncate_decomposition(
     )
 
 
-@contextlib.contextmanager
-def trace(name: str, enabled: bool = True):
-    """``torch.profiler.record_function`` context (no-op when disabled)."""
-    if not enabled:
-        yield
-        return
-    with torch.profiler.record_function(name):
-        yield
+#: what :func:`trace` returns while no profiler records: one shared
+#: context whose entry and exit do nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+def trace(name: str):
+    """A span named ``name``: ``torch.profiler.record_function(name)``
+    while a profiler records, else the shared null context, so that a span
+    costs one check of the profiler's state when none runs. Its parent is
+    the span that encloses it on the host."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 # ---------------------------------------------------------------------------

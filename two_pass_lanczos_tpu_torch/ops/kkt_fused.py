@@ -74,6 +74,7 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     zero_tolerance,
 )
 from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
+from two_pass_lanczos_tpu_torch.observability import trace
 from two_pass_lanczos_tpu_torch.ops._build import load_library
 from two_pass_lanczos_tpu_torch.ops.eft import eft_check_plain
 from two_pass_lanczos_tpu_torch.ops.spmv import kkt_matvec
@@ -659,9 +660,10 @@ def scaled_y(decomp: LanczosDecomposition, f, k: int) -> torch.Tensor:
     for one function spec and ``(nf, k)`` for a tuple of them."""
     multi = isinstance(f, tuple)
     fs = f if multi else (f,)
-    y = torch.stack([functions.padded_f_e1(decomp, fi) for fi in fs])
-    keep = torch.arange(k, device=y.device) < decomp.steps_taken
-    y_full = torch.where(keep, y * decomp.b_norm, torch.zeros_like(y))
+    with trace("tpl.f_tk"):
+        y = torch.stack([functions.padded_f_e1(decomp, fi) for fi in fs])
+        keep = torch.arange(k, device=y.device) < decomp.steps_taken
+        y_full = torch.where(keep, y * decomp.b_norm, torch.zeros_like(y))
     return y_full if multi else y_full[0]
 
 
@@ -894,22 +896,27 @@ class FusedKKTSolver:
             raise ValueError(
                 "callback early stopping is implemented for the two_pass "
                 "method (the one-pass variant stores its basis in one run)")
-        b = self.pack(b)
-        basis = None
-        if callback is not None:
-            decomp = self.pass_one_chunked(b, k, callback, callback_chunk)
-        elif method == "one_pass":
-            decomp, basis = self.pass_one_with_basis(b, k)
-        else:
-            decomp = self.pass_one(b, k)
-        y_full = scaled_y(decomp, f, k)
-        if basis is not None:
-            x = basis_product(y_full, basis)
-        else:
-            x = self.pass_two(b, decomp, y_full)
-        if raw:
-            return x, decomp
-        return x.cpu().numpy(), decomp
+        with trace("tpl.solve"):
+            b = self.pack(b)
+            basis = None
+            with trace("tpl.pass_one"):
+                if callback is not None:
+                    decomp = self.pass_one_chunked(b, k, callback,
+                                                   callback_chunk)
+                elif method == "one_pass":
+                    decomp, basis = self.pass_one_with_basis(b, k)
+                else:
+                    decomp = self.pass_one(b, k)
+            y_full = scaled_y(decomp, f, k)
+            if basis is not None:
+                with trace("tpl.basis_product"):
+                    x = basis_product(y_full, basis)
+            else:
+                with trace("tpl.pass_two"):
+                    x = self.pass_two(b, decomp, y_full)
+            if raw:
+                return x, decomp
+            return x.cpu().numpy(), decomp
 
     # -- capability methods --------------------------------------------------
     def _slq_pass_one(self, probes, k: int) -> LanczosDecomposition:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
+from two_pass_lanczos_tpu_torch.observability import trace
 
 __all__ = ["SortedCOO", "csr_from_triplets", "coo_spmv", "kkt_matvec"]
 
@@ -118,11 +119,12 @@ def coo_spmv(a: SortedCOO, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x``: gather, multiply, and one fixed-order sum per row.
     A complex product is summed as its ``(nnz, 2)`` real view, the real
     and imaginary parts of each row in the same fixed order."""
-    prod = a.vals * x[a.cols]
-    if prod.is_complex():
-        return torch.view_as_complex(torch.segment_reduce(
-            torch.view_as_real(prod), "sum", offsets=a.indptr, axis=0))
-    return torch.segment_reduce(prod, "sum", offsets=a.indptr)
+    with trace("tpl.spmv"):
+        prod = a.vals * x[a.cols]
+        if prod.is_complex():
+            return torch.view_as_complex(torch.segment_reduce(
+                torch.view_as_real(prod), "sum", offsets=a.indptr, axis=0))
+        return torch.segment_reduce(prod, "sum", offsets=a.indptr)
 
 
 def kkt_matvec(d: torch.Tensor, arc_u: torch.Tensor, arc_v: torch.Tensor,

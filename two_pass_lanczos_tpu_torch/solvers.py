@@ -50,6 +50,7 @@ from two_pass_lanczos_tpu_torch.errors import (
     SolverError,
 )
 from two_pass_lanczos_tpu_torch.functions import padded_f_e1
+from two_pass_lanczos_tpu_torch.observability import trace
 
 __all__ = ["lanczos", "lanczos_two_pass", "solve_fAb"]
 
@@ -250,7 +251,13 @@ def lanczos_two_pass(operator, b, k: int, f_tk_solver: Callable, *,
 
 def solve_fAb(operator, b, *, k: int, f="exp", method: str = "two_pass",
               reorth=False) -> torch.Tensor:
-    """f(A)·b for built-in matrix functions, with no host synchronisation.
+    """f(A)·b for built-in matrix functions.
+
+    On a card the passes over a ``SparseOperator`` queue their work
+    without waiting for the device; f(T_k)·e₁ waits for it, twice a solve
+    for ``f="inv"`` (``ops/tridiag._e1`` stores e₁'s 1 from the host, and
+    ``torch.linalg.solve`` reads the LU's ``info`` back), inside the span
+    ``tpl.f_tk``.
 
     ``f`` ∈ {"exp", "inv"} or a callable on a tensor of eigenvalues, or a
     TUPLE of those: the Krylov work is paid once and the result is stacked
@@ -267,16 +274,22 @@ def solve_fAb(operator, b, *, k: int, f="exp", method: str = "two_pass",
             "storing it)")
     if method not in ("one_pass", "two_pass"):
         raise ValueError(f"unknown method {method!r}")
-    b = _rhs(operator, b)
     multi = isinstance(f, tuple)
-    if mode is not None:
-        decomp, v_k = pass_one_reorth(operator.matvec, b, k, mode)
-    else:
-        decomp, v_k = pass_one_scan(operator.matvec, b, k,
-                                    emit_basis=method == "one_pass")
-    y = torch.stack([padded_f_e1(decomp, fi) for fi in (f if multi else (f,))])
-    y = (y * decomp.b_norm).to(b.dtype)
-    y = y if multi else y[0]
-    if method == "one_pass":
-        return basis_product(y, v_k)
-    return lanczos_pass_two(operator, b, decomp, y)
+    with trace("tpl.solve"):
+        b = _rhs(operator, b)
+        with trace("tpl.pass_one"):
+            if mode is not None:
+                decomp, v_k = pass_one_reorth(operator.matvec, b, k, mode)
+            else:
+                decomp, v_k = pass_one_scan(operator.matvec, b, k,
+                                            emit_basis=method == "one_pass")
+        with trace("tpl.f_tk"):
+            y = torch.stack([padded_f_e1(decomp, fi)
+                             for fi in (f if multi else (f,))])
+            y = (y * decomp.b_norm).to(b.dtype)
+        y = y if multi else y[0]
+        if method == "one_pass":
+            with trace("tpl.basis_product"):
+                return basis_product(y, v_k)
+        with trace("tpl.pass_two"):
+            return lanczos_pass_two(operator, b, decomp, y)

@@ -113,6 +113,14 @@ Phases (each one raises on failure, so the exit code is non-zero):
     ``SparseOperator`` (``kkt_sorted_coo``) whose pass two regenerates pass
     one's basis bitwise; then the medians of 5 generic two-pass and one-pass
     k = 500 solves and K8's time beside the plain version's and cuSPARSE's;
+    then K15, the CSR SpMV of the sparse operators, on the headline's
+    assembled f32 matrix: ``solve_fAb(SparseOperator, b, k=500)`` with
+    exactly 2k - 1 = 999 K15 launches and nothing else, the same bits twice,
+    the basis replayed bitwise at k = 500, α at k = 20 within rtol 1e-4 of
+    K8's; y the same bits twice and within 2·(deg+2)·ε·(|A|·|x|)
+    (``ops/spmv.row_sum_bound``) of the plain version on the card; its device time warm and cold-L2 beside its
+    bound, the plain version's, cuSPARSE's CSR SpMV's, and the medians of 5
+    generic two-pass solves on it;
 15. K11, the double-float matvec (``DFKKTOperator``), on the headline with
     f64 costs: arc part bitwise its plain version in both planes, node part
     within 8·(deg+1)·2⁻⁴⁸·Σ|x|, rel 1e-13 of K8's f64 instance, the pair
@@ -180,8 +188,9 @@ Phases (each one raises on failure, so the exit code is non-zero):
     CUDA graph, by the same timer;
 20. the row-sharded ``ShardedSparseOperator`` on the same one-rank NCCL
     group, on the headline's f32 KKT triplets: ``solve_fAb(b, k=500,
-    f="inv")`` with 999 asynchronous gathers and owned SpMVs and no port
-    kernel, x finite, pass two's v_s bitwise pass one's, α, β at k = 20
+    f="inv")`` with 999 asynchronous gathers and owned SpMVs and exactly
+    999 K15 launches (one rank owns every column, so no remote part), x
+    finite, pass two's v_s bitwise pass one's, α, β at k = 20
     within rtol 1e-4 of the generic ``SparseOperator`` solve; device events
     per step; medians of 5 solves beside the generic two-pass solve; a
     small f64 instance within rel 1e-9 of one device;
@@ -219,7 +228,7 @@ Phases (each one raises on failure, so the exit code is non-zero):
     twin on the same probes, v0 or coefficients: the row-sharded
     operator's ``eigsh`` (LA and SA), SLQ methods, ``solve_fAb_block``,
     ``estimate_interval``, ``chebyshev_fAb`` and ``solve_fAb(reorth=True)``
-    (no port kernel), the arc-sharded solver's SLQ methods (k K7 launches
+    (K15 alone), the arc-sharded solver's SLQ methods (k K7 launches
     a probe, a probe bitwise a solve's pass one), ``estimate_interval``
     (K8 only, the fused solver's interval, cached) and ``chebyshev_fAb``
     (``degree`` K7 launches; whether it is bitwise the fused K1 expansion
@@ -242,28 +251,36 @@ Phases (each one raises on failure, so the exit code is non-zero):
     the Hofstadter magnetic Laplacian on a periodic 1024 × 1024 lattice
     (flux 1/64, Landau gauge, ``models.hofstadter_triplets``; n =
     1,048,576, nnz = 5,242,880, complex128) shifted by 0.5 (κ ≤ 17), f =
-    inv: the generic ``solve_fAb(SparseOperator, b, k=500)`` launches no
-    port kernel, replays its basis bit for bit (``basis_drift_fro`` 0) and
+    inv: the generic ``solve_fAb(SparseOperator, b, k=500)`` launches
+    exactly 999 K15 (c128) and nothing else, replays its basis bit for bit
+    (``basis_drift_fro`` 0) and
     gives the same bits in two runs, its residual at most 1e-10, α and β
     at k = 20 within 1e-11·max|α| of the CPU run, the one-pass solve at k
     = 200 within 1e-12 of it; the row-sharded ``ShardedSparseOperator``
-    on a one-rank NCCL group within 1e-12 of it, and its ``eigsh(nev=2,
-    which="LA")`` pairs with ‖Hu − θu‖ ≤ 1e-7; medians of 3 of the
-    single-card and row-sharded complex solves beside phase 20's real
-    one; then ``entry()`` (exactly 31 K8 launches, x within 1e-3 of the
-    f64 CPU solve) and ``dryrun_multichip(1)`` (every leg's check, its K7,
-    K8 and K12 launches counted).
+    on a one-rank NCCL group within 1e-12 of it (999 K15 launches), and
+    its ``eigsh(nev=2, which="LA")`` pairs with ‖Hu − θu‖ ≤ 1e-7; medians
+    of 3 of the single-card and row-sharded complex solves beside phase
+    20's real one; K15's c128 time warm and cold-L2 beside its bound, the
+    plain version's and cuSPARSE's; then ``entry()`` (exactly 31 K8
+    launches, x within 1e-3 of the f64 CPU solve) and
+    ``dryrun_multichip(1)`` (every leg's check, its K7, K8, K12 and K15
+    launches counted).
 
 Every kernel's entry of the JSON line carries its launches on its main
 path, plus those of phases 21–23's paths (``capability_launches``, per
 path: K1's in the fused Chebyshev expansion, K2's and K6's in the SLQ
 methods, K8's under ``estimate_interval``, the generic expansion, the
 reorthogonalised and block solves and the arc-sharded interval, K7's in
-the arc-sharded SLQ methods and expansion), of phase 24's
+the arc-sharded SLQ methods and expansion, K15's in the row-sharded
+methods), of phase 24's
 (``tool_launches``: K1, K2, K3 and K4 under ``tradeoff`` and
 ``scalability``, K8 under ``tradeoff --backend pallas``, K7 in
 ``sol_bench``'s graphs) and of phase 25's (``entry_launches``: K8 under
-``entry()``, K7, K8 and K12 under ``dryrun_multichip(1)``). On the solve
+``entry()``, K7, K8, K12 and K15 under ``dryrun_multichip(1)``). K15's
+entry (``csr_spmv``, which replaces no TPU kernel) is the headline's
+assembled f32 KKT matrix of phase 14, with its ``cold_ms`` and phase 25's
+Hofstadter times (``hofstadter``: c128, warm and cold, plain, cuSPARSE,
+bound). On the solve
 path K1 launches 0 times, since K2-K6 launch no K1; its entry also carries
 ``in_pass_matvecs``, the matvec phases its routines ran inside K2 and K3
 on the main path, K4 in the one-pass solve, K5 in the callback solve and
@@ -375,6 +392,8 @@ KERNELS = {
                      "scripts/probe/stream_stages.py:98"),
     "probe_pipeline": ("two_pass_lanczos_tpu_torch/csrc/probe_pipeline.cu",
                        "scripts/probe/stream_manual.py:194"),
+    # K15 replaces no TPU kernel: the JAX coo_spmv is XLA's
+    "csr_spmv": ("two_pass_lanczos_tpu_torch/csrc/csr_spmv.cu", None),
 }
 #: the probe variant whose numbers stand in the ``kernels`` line
 PROBE_MAIN = {"probe_gather": ("gather", "arc_u/ldg/int32"),
@@ -498,6 +517,9 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
         "probe_stream": roofline_ms(20 * m, 4 * m),
         "probe_stages": matvec,
         "probe_pipeline": matvec,
+        # K15 on the assembled f32 KKT matrix: 5 nonzeros an arc (D's, E's
+        # and Eᵀ's)
+        "csr_spmv": csr_spmv_bound(5 * m, n, n, 4, False),
     }
 
 
@@ -2051,8 +2073,11 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
                            inst.num_nodes, dtype=torch.float32, device=dev)
     n, paths, lines = op.shape[0], {}, []
 
-    def none_launched(got, what):
-        check(not got, f"{what} launched port kernels {got}")
+    def k15_only(got, what):
+        """K15 and no other port kernel; the path's launches recorded."""
+        check(set(got) == {"csr_spmv"},
+              f"{what} launched {got}, not K15 alone")
+        paths[what.replace(" ", "_")] = got
 
     v0 = np.random.default_rng(23).standard_normal(n).astype(np.float32)
     # eigsh's own scale: its convergence test is resid <= tol·max|θ| over
@@ -2064,7 +2089,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
         r_sh, got = driven(lambda: sop.eigsh(
             nev=2, which=which, tol=EIG_TOL, ncv=20, maxiter=EIG_MAXITER,
             v0=v0))
-        none_launched(got, f"sharded eigsh {which}")
+        k15_only(got, f"sharded eigsh {which}")
         r_1 = eigsh(op, nev=2, which=which, tol=EIG_TOL, ncv=20,
                     maxiter=EIG_MAXITER, v0=v0)
         # LA: two separated extremes, compared pair by pair. SA: the KKT's
@@ -2087,21 +2112,21 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
 
     res, got = driven(lambda: sop.slq_trace("inv", k=SLQ_K,
                                             num_probes=SH_PROBES, key=SEED))
-    none_launched(got, "sharded slq_trace")
+    k15_only(got, "sharded slq_trace")
     ref = slq_trace(op, "inv", k=SLQ_K, num_probes=SH_PROBES, key=SEED)
     np.testing.assert_allclose(res.samples.cpu().numpy(),
                                ref.samples.cpu().numpy(), rtol=2e-3)
     grid = np.linspace(iv[0], iv[1], DOS_POINTS)
     phi, got = driven(lambda: sop.slq_spectral_density(
         grid, k=SLQ_K, num_probes=SH_PROBES, key=SEED))
-    none_launched(got, "sharded slq_spectral_density")
+    k15_only(got, "sharded slq_spectral_density")
     phi1 = slq_spectral_density(op, grid, k=SLQ_K, num_probes=SH_PROBES,
                                 key=SEED).cpu().numpy()
     np.testing.assert_allclose(phi.cpu().numpy(), phi1, rtol=5e-3,
                                atol=5e-4 * phi1.max())
     res_a, got = driven(lambda: sop.slq_trace_adaptive(
         "inv", k=SLQ_K, batch=4, max_probes=SH_PROBES, key=SEED))
-    none_launched(got, "sharded slq_trace_adaptive")
+    k15_only(got, "sharded slq_trace_adaptive")
     ref_a = slq_trace_adaptive(op, "inv", k=SLQ_K, batch=4,
                                max_probes=SH_PROBES, key=SEED)
     np.testing.assert_allclose(res_a.samples.numpy(), ref_a.samples.numpy(),
@@ -2114,7 +2139,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
     bb = torch.from_numpy(np.random.default_rng(22).standard_normal(
         (n, BLOCK_P)).astype(np.float32)).to(dev)
     x10, got = driven(lambda: sop.solve_fAb_block(bb, k=10, f="inv"))
-    none_launched(got, "sharded solve_fAb_block")
+    k15_only(got, "sharded solve_fAb_block")
     rel_blk = rel_err(x10, solve_fAb_block(op, bb, 10, "inv"))
     check(rel_blk <= 1e-4, f"sharded block k=10 {rel_blk:.3e} from generic")
     x100 = sop.solve_fAb_block(bb, k=BLOCK_K, f="inv")
@@ -2125,7 +2150,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
                  f"{sop._last_block_steps} steps (CholeskyQR2)")
 
     iv_sh, got = driven(sop.estimate_interval)
-    none_launched(got, "sharded estimate_interval")
+    k15_only(got, "sharded estimate_interval")
     iv_1 = estimate_interval(op)
     np.testing.assert_allclose(iv_sh, iv_1, rtol=1e-2)
     rho = 0.5 * (iv[1] - iv[0])
@@ -2135,7 +2160,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
 
     y_sh, got = driven(lambda: sop.chebyshev_fAb(
         b, f_cheb, degree=CHEB_DEGREE, interval=iv))
-    none_launched(got, "sharded chebyshev_fAb")
+    k15_only(got, "sharded chebyshev_fAb")
     y_1 = chebyshev_fAb(op, b, f_cheb, degree=CHEB_DEGREE,
                         interval=iv).cpu().numpy()
     err_c = float(np.abs(y_sh - y_1).max())
@@ -2143,7 +2168,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
           f"sharded chebyshev {err_c:.3e} from the generic one")
     xr, got = driven(lambda: sop.solve_fAb(b, k=K_CHECK, f="inv",
                                            method="one_pass", reorth=True))
-    none_launched(got, "sharded reorth")
+    k15_only(got, "sharded reorth")
     rel_r = rel_err(xr[0], solve_fAb(op, b, k=K_CHECK, f="inv",
                                      method="one_pass", reorth=True))
     check(rel_r <= 1e-4, f"sharded reorth k={K_CHECK} {rel_r:.3e}")
@@ -2153,8 +2178,8 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
                  f"generic one; solve_fAb(k={K_CHECK}, reorth=True) "
                  f"{rel_r:.3e} from the generic one")
     print(f"[23] ShardedSparseOperator on a one-rank "
-          f"{torch.distributed.get_backend(mesh.group)} group, no port "
-          f"kernel launched: " + "; ".join(lines))
+          f"{torch.distributed.get_backend(mesh.group)} group, K15 alone "
+          f"launched: " + "; ".join(lines))
 
     sh = ShardedFusedKKTSolver(inst.quad_costs, inst.arc_u, inst.arc_v,
                                inst.num_nodes, mesh)
@@ -2256,12 +2281,56 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
     return {"paths": paths, "times": times}
 
 
+def k15_times(dev, a, x, a_csr) -> dict:
+    """K15 on ``a`` (a SortedCOO on the card) and x: checked (the same bits
+    twice, within ``row_sum_bound`` of the plain version on the card), then
+    timed as device time warm (200 calls in one CUDA graph) and cold (a 128
+    MB write evicts the L2 before each call, its own time taken out), beside
+    the plain version and cuSPARSE's CSR SpMV (``torch.mv`` of ``a_csr``),
+    and its bound (``csr_spmv_bound``)."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.spmv import (
+        coo_spmv,
+        coo_spmv_plain,
+        row_sum_bound,
+    )
+    from two_pass_lanczos_tpu_torch.probes.bench import Timer
+    y = coo_spmv(a, x)
+    again = coo_spmv(a, x)
+    y_plain = coo_spmv_plain(a, x)
+    torch.cuda.synchronize()
+    check(torch.equal(y, again), "K15 gave other bits on a second call")
+    gap = (y - y_plain).abs().double()
+    check(bool((gap <= row_sum_bound(a, x)).all()),
+          f"K15 past the bound of the plain sum: max gap {float(gap.max()):.3e}")
+    rel_lib = float(torch.linalg.norm(torch.mv(a_csr, x) - y)
+                    / torch.linalg.norm(y))
+    cold = Timer(dev, reps=50).cold(lambda: coo_spmv(a, x)) / 1e3
+    return {"err": float(gap.max()), "rel_lib": rel_lib,
+            "ms": device_ms(lambda: coo_spmv(a, x), 200), "cold_ms": cold,
+            "plain_ms": device_ms(lambda: coo_spmv_plain(a, x), 200),
+            "library_ms": device_ms(lambda: torch.mv(a_csr, x), 200),
+            "bound": csr_spmv_bound(a.nnz, *a.shape, x.element_size(),
+                                    a.vals.is_complex())}
+
+
+def csr_spmv_bound(nnz: int, n_rows: int, n_cols: int, width: int,
+                   is_complex: bool):
+    """(bound ms, what binds) of y = A·x over ``nnz`` nonzeros of
+    ``width``-byte values: a value and a 4-byte column index a nonzero, a
+    4-byte row pointer a row, x read and y written once; 2 operations a
+    nonzero, 8 for complex values."""
+    nbytes = (width + 4) * nnz + 4 * (n_rows + 1) + width * (n_rows + n_cols)
+    return roofline_ms(nbytes, (8 if is_complex else 2) * nnz)
+
+
 def sparse_phase(card, dev, mesh, inst) -> list:
     """Phase 20: the row-sharded ``ShardedSparseOperator`` on ``mesh`` (a
     one-rank NCCL group), on the f32 KKT triplets of ``inst``, with b on the
     card and the counters reset: ``solve_fAb(b, k=500, f="inv")`` issues
-    one asynchronous gather and one owned SpMV a matvec and launches no
-    port kernel (its SpMV is the fixed-order CSR row sum), x is finite, pass
+    one asynchronous gather and one owned SpMV a matvec and launches K15
+    (the fixed-order CSR SpMV) once a matvec and no other port kernel, x is
+    finite, pass
     two's v_s is bitwise pass one's, α, β at k = 20 within rtol 1e-4 of the
     generic ``solve_fAb`` tier on a ``SparseOperator`` of the same matrix;
     device kernels per step counted by the profiler; medians of 5 solves
@@ -2316,8 +2385,11 @@ def sparse_phase(card, dev, mesh, inst) -> list:
     launches = dict(LAUNCHES)
     starts = log.events.count("all-gather-start")
     owned = log.events.count("owned-spmv")
-    check(sum(launches.values()) == 0,
-          f"the row-sharded solve launched port kernels {launches}")
+    # one rank owns every column: the owned part alone, one K15 a matvec
+    check(sop.remote.nnz == 0
+          and {k_: v_ for k_, v_ in launches.items() if v_}
+          == {"csr_spmv": 2 * K - 1},
+          f"the row-sharded solve launched {launches}, not {2 * K - 1} K15")
     check(starts == owned == 2 * K - 1,
           f"{starts} gathers and {owned} owned SpMVs, not {2 * K - 1}")
     check(x.shape == (n,) and bool(np.isfinite(x).all()),
@@ -2368,8 +2440,8 @@ def sparse_phase(card, dev, mesh, inst) -> list:
           f"one-rank {torch.distributed.get_backend(mesh.group)} group, "
           f"built in {build_s:.3f} s: solve_fAb(k={K}, f='inv') first call "
           f"{first_s:.4f} s, steps {steps}, {starts} async gathers and "
-          f"{owned} owned SpMVs, port kernel launches "
-          f"{sum(launches.values())}; pass two's v_{steps} bitwise pass "
+          f"{owned} owned SpMVs, K15 launches "
+          f"{launches['csr_spmv']} and no other kernel; pass two's v_{steps} bitwise pass "
           f"one's; alpha, beta at k={K_CHECK} vs the generic SparseOperator "
           f"max rel {rel20:.3e}; {per_step:.1f} device events per matvec "
           f"step ({nccl} NCCL kernels in {2 * K_CHECK - 1} steps, traced); "
@@ -2723,8 +2795,9 @@ def complex_phase(card, dev, t_real) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launched = {k: v for k, v in LAUNCHES.items() if v}
-    check(not launched, f"the complex sparse solve launched port kernels "
-                        f"{launched}")
+    check(launched == {"csr_spmv": 2 * K - 1},
+          f"the complex sparse solve launched {launched}, not {2 * K - 1} "
+          f"K15")
     check(x.dtype == torch.complex128 and x.shape == (n,)
           and bool(torch.isfinite(torch.view_as_real(x)).all()),
           "complex x not a finite complex128 (n,) tensor")
@@ -2769,8 +2842,10 @@ def complex_phase(card, dev, t_real) -> dict:
     reset_launches()
     xs, dec_s = sop.solve_fAb(b, k=K, f="inv")
     torch.cuda.synchronize()
-    check(not any(LAUNCHES.values()), "the complex row-sharded solve "
-                                      "launched port kernels")
+    got_sh = {k: v for k, v in LAUNCHES.items() if v}
+    check(sop.remote.nnz == 0 and got_sh == {"csr_spmv": 2 * K - 1},
+          f"the complex row-sharded solve launched {got_sh}, not "
+          f"{2 * K - 1} K15")
     x_np = x.cpu().numpy()
     rel_sh = float(np.linalg.norm(xs - x_np) / np.linalg.norm(x_np))
     check(xs.dtype == np.complex128 and rel_sh <= 1e-12,
@@ -2789,14 +2864,19 @@ def complex_phase(card, dev, t_real) -> dict:
     t_one = wall_s(lambda: tpl.solve_fAb(op, b, k=K, f="inv"), 3)
     t_sh = wall_s(lambda: sop.solve_fAb(b, k=K, f="inv", raw=True), 3)
     del sop
+    a_csr = torch.sparse_csr_tensor(op.mat.indptr, op.mat.cols, op.mat.vals,
+                                    size=(n, n))
+    k15 = k15_times(dev, op.mat, b, a_csr)
+    del a_csr
     if formed:
         torch.distributed.destroy_process_group()
     print(f"[25] complex Hermitian sparse tiers: Hofstadter H + "
           f"{HOF_SHIFT}I on the periodic {HOF_SIDE}x{HOF_SIDE} lattice, "
           f"flux 1/{HOF_FLUX} (n={n}, nnz {coo.nnz}, complex128), built "
           f"in {build_s:.2f} s (row-sharded operator {sop_build_s:.2f} s); "
-          f"solve_fAb(k={K}, f='inv') first call {first_s:.3f} s, no port "
-          f"kernel, residual {resid:.3e}, the same bits twice, "
+          f"solve_fAb(k={K}, f='inv') first call {first_s:.3f} s, "
+          f"{2 * K - 1} K15 launches and nothing else, residual "
+          f"{resid:.3e}, the same bits twice, "
           f"basis_drift_fro {drift} over {steps} steps; alpha, beta at "
           f"k={K_CHECK} max {gap:.3e} from the CPU run (max|alpha| "
           f"{scale:.3f}); one-pass k={HOF_K_ONE} rel {rel_one:.3e}; "
@@ -2807,8 +2887,12 @@ def complex_phase(card, dev, t_real) -> dict:
     print(f"     on {card}: single-card complex two-pass solve k={K}: "
           f"{runs(t_one)}; row-sharded complex k={K}: {runs(t_sh)}; "
           f"phase 20's real f32 row-sharded k={K} (n=501155): "
-          f"{runs(t_real)}; phase wall {time.perf_counter() - t_phase:.1f} s")
-    return {"single_s": t_one, "sharded_s": t_sh}
+          f"{runs(t_real)}; K15 (c128) device time {k15['ms']:.5f} ms warm, "
+          f"{k15['cold_ms']:.5f} ms cold-L2, bound {k15['bound'][0]:.5f} ms, "
+          f"plain {k15['plain_ms']:.5f} ms, cuSPARSE {k15['library_ms']:.5f} "
+          f"ms (rel {k15['rel_lib']:.3e}); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"single_s": t_one, "sharded_s": t_sh, "k15": k15}
 
 
 def entry_phase(card, dev) -> dict:
@@ -2853,7 +2937,8 @@ def entry_phase(card, dev) -> dict:
     dry = {k: v for k, v in LAUNCHES.items() if v}
     for name, label in (("kkt_streaming_matvec", "K7"),
                         ("df_kkt_streaming_matvec", "K12"),
-                        ("kkt_operator_matvec", "K8")):
+                        ("kkt_operator_matvec", "K8"),
+                        ("csr_spmv", "K15")):
         check(dry.get(name, 0) > 0,
               f"dryrun_multichip(1) launched no {label}: {dry}")
     print(f"     entry() on {card}: forward x {tuple(x.shape)} "
@@ -3764,6 +3849,49 @@ def main() -> int:
           f"SpMV {lib_ms:.5f} ms; per call from Python (CUDA events): "
           f"kernel {k8_call_ms:.4f} ms, cuSPARSE {lib_call_ms:.4f} ms")
 
+    # 14, continued. K15, the CSR SpMV of the sparse operators, on the
+    # headline's assembled f32 matrix: the generic solve on a SparseOperator
+    spop32 = tpl.SparseOperator(coo32)
+    reset_launches()
+    x15 = tpl.solve_fAb(spop32, b, k=K, f="inv")
+    torch.cuda.synchronize()
+    got15 = {k_: v_ for k_, v_ in LAUNCHES.items() if v_}
+    check(got15 == {"csr_spmv": 2 * K - 1},
+          f"the SparseOperator solve launched {got15}, not {2 * K - 1} K15")
+    launches["csr_spmv"] = got15["csr_spmv"]
+    check(tuple(x15.shape) == (n,) and bool(torch.isfinite(x15).all())
+          and torch.equal(x15, tpl.solve_fAb(spop32, b, k=K, f="inv")),
+          "the SparseOperator solve's x not finite or not the same bits twice")
+    dec15, v15 = tpl.lanczos_standard(spop32, b, K)
+    _, regen15 = tpl.lanczos_pass_two_with_basis(
+        spop32, b, dec15, torch.ones(K, dtype=b.dtype, device=dev))
+    steps15 = dec15.steps()
+    check(torch.equal(v15[:steps15], regen15[:steps15]),
+          f"SparseOperator basis not replayed bitwise at k={K}")
+    del v15, regen15
+    a15 = tpl.lanczos_pass_one(spop32, b, K_CHECK).alphas.cpu().numpy()
+    a8 = tpl.lanczos_pass_one(op, b, K_CHECK).alphas.cpu().numpy()
+    np.testing.assert_allclose(a15, a8, rtol=1e-4)
+    k15 = k15_times(dev, coo32, x, a_csr)
+    ms["csr_spmv"], plain_ms["csr_spmv"] = k15["ms"], k15["plain_ms"]
+    t_sp = wall_s(lambda: tpl.solve_fAb(spop32, b, k=K, f="inv"), 5)
+    print(f"[14] K15 (csr_spmv) on the headline's f32 SortedCOO (nnz "
+          f"{coo32.nnz}, {coo32.blocks.numel() - 1} row blocks): "
+          f"solve_fAb(SparseOperator, k={K}) {got15['csr_spmv']} K15 "
+          f"launches and nothing else, the same bits twice, the basis "
+          f"replayed bitwise over {steps15} steps, alpha at k={K_CHECK} "
+          f"within rtol 1e-4 of K8's (max rel "
+          f"{float(np.abs(a15 - a8).max() / np.abs(a8).max()):.3e}); y "
+          f"within the plain sum's bound (max gap {k15['err']:.3e}), "
+          f"cuSPARSE rel {k15['rel_lib']:.3e}")
+    print(f"    on {card}: K15 device time {k15['ms']:.5f} ms warm, "
+          f"{k15['cold_ms']:.5f} ms cold-L2, bound {k15['bound'][0]:.5f} ms "
+          f"({k15['bound'][1]}); plain (gather, multiply, segment_reduce) "
+          f"{k15['plain_ms']:.5f} ms; cuSPARSE CSR SpMV "
+          f"{k15['library_ms']:.5f} ms; generic two-pass "
+          f"solve_fAb(SparseOperator) k={K}: {runs(t_sp)}")
+    del spop32
+
     # 15. K11: the double-float matvec on the headline, f64 costs
     from two_pass_lanczos_tpu_torch import DFFusedKKTSolver, DFKKTOperator
     from two_pass_lanczos_tpu_torch.algorithms.df import lanczos_pass_one_df
@@ -4055,7 +4183,7 @@ def main() -> int:
     p24 = tools_phase(card, dev, inst, k7)
     # 25. complex Hermitian operators in the sparse tiers; the twin of
     #     __graft_entry__.py
-    complex_phase(card, dev, t_real)
+    c25 = complex_phase(card, dev, t_real)
     p25 = entry_phase(card, dev)
     for extra in (p22, p23):
         cap["paths"].update(extra["paths"])
@@ -4072,7 +4200,8 @@ def main() -> int:
                "df_kkt_matvec": lib64_ms,
                "kkt_streaming_matvec": k7["headline"]["library_ms"],
                "df_kkt_streaming_matvec": k12["headline"]["library_ms"],
-               **{name: got["library_ms"] for name, got in k14.items()}}
+               **{name: got["library_ms"] for name, got in k14.items()},
+               "csr_spmv": k15["library_ms"]}
     errs = {**{name: got["err"] for name, got in k14.items()},
             "kkt_matvec": err_k1, "lanczos_pass_one": err_k2,
             "lanczos_pass_two": err_k3, "lanczos_pass_one_basis": err_k4,
@@ -4081,7 +4210,8 @@ def main() -> int:
             "df_kkt_matvec": err_k11, "df_lanczos_pass_one": err_k9,
             "df_lanczos_pass_two": err_k10,
             "kkt_streaming_matvec": k7["headline"]["err"],
-            "df_kkt_streaming_matvec": k12["headline"]["err"]}
+            "df_kkt_streaming_matvec": k12["headline"]["err"],
+            "csr_spmv": k15["err"]}
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errs[name],
              "ms": ms[name], "plain_ms": plain_ms[name],
@@ -4115,6 +4245,12 @@ def main() -> int:
     # K6 beside the compensated per-step launches it replaced, in turns
     next(r for r in rows if r["name"] == "lanczos_pass_one_comp")[
         "steps_ms"] = k6_ms["per-step"]
+    # K15 cold-L2 at the headline, and on phase 25's Hofstadter Laplacian
+    k15_row = next(r for r in rows if r["name"] == "csr_spmv")
+    k15_row["cold_ms"] = k15["cold_ms"]
+    k15_row["hofstadter"] = {key: c25["k15"][key] for key in
+                             ("ms", "cold_ms", "plain_ms", "library_ms")}
+    k15_row["hofstadter"]["bound_ms"] = c25["k15"]["bound"][0]
     k11_row = next(r for r in rows if r["name"] == "df_kkt_matvec")
     k11_row["in_pass_matvecs"] = df_in_pass_matvecs
     k11_row["in_pass_us"] = df_in_pass_us

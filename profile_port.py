@@ -262,9 +262,11 @@ def is_compute(name: str) -> bool:
 
 
 def is_segment_reduce(name: str) -> bool:
-    """The row sums of ``coo_spmv`` (``torch.segment_reduce``), the owned
-    SpMV's last kernel and by far its longest."""
-    return "segmentedreduce" in name.lower().replace("_", "")
+    """The row sums of ``coo_spmv``: K15 (``csr_spmv_kernel``, one launch a
+    product on the card) or ``torch.segment_reduce``'s (CUB's segmented
+    reduce, the plain version's last kernel and by far its longest)."""
+    low = name.lower().replace("_", "")
+    return "segmentedreduce" in low or "csrspmv" in low
 
 
 def profile(fn, reps: int, overlap: bool = False) -> dict:

@@ -1719,9 +1719,12 @@ def test_sharded_sparse_operator_on_a_one_rank_nccl_group_on_card(
                          dict(d=d, u=u, v=v, p=p, b=b, k=k))],
                     tmp_path, device="cuda")
     r = rank0["path"]
-    # no port kernel: the SpMV is the fixed-order CSR row sum; one gather
-    # a matvec; the replay bitwise; the generic tier's coefficients
-    assert sum(r["launches"].values()) == 0
+    # one K15 launch a matvec (one rank owns every column, so no remote
+    # part) and nothing else; one gather a matvec; the replay bitwise; the
+    # generic tier's coefficients
+    assert r["remote_nnz"] == 0
+    assert {n: c for n, c in r["launches"].items() if c} == {
+        "csr_spmv": 2 * k - 1}
     assert r["starts"] == 2 * k - 1 and r["replay"]
     assert r["dec"]["steps"] == r["dec1"]["steps"] == k
     np.testing.assert_allclose(r["dec"]["alphas"], r["dec1"]["alphas"],
@@ -1741,7 +1744,10 @@ def test_sharded_sparse_operator_across_four_cards(problem, cuda_device,
                        dict(d=d, u=u, v=v, p=p, b=b, k=k))],
                   tmp_path, device="cuda")
     for r in (rank["path"] for rank in ranks):
-        assert sum(r["launches"].values()) == 0 and r["replay"]
+        # K15 for the owned part a matvec, and for the remote part if any
+        parts = 2 if r["remote_nnz"] else 1
+        assert {n: c for n, c in r["launches"].items() if c} == {
+            "csr_spmv": parts * (2 * k - 1)} and r["replay"]
         assert r["starts"] == 2 * k - 1
         assert np.array_equal(r["x"], ranks[0]["path"]["x"])
         assert np.array_equal(r["dec"]["alphas"],

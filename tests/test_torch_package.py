@@ -272,6 +272,26 @@ def test_chip_smoke_probe_bounds_count_each_input_once():
         assert (ROOT / rep.split(":")[0]).is_file()
 
 
+def test_chip_smoke_csr_spmv_bound_counts_each_input_once():
+    mod = _load_script("chip_smoke")
+    n, nnz = 501_155, 2_500_000
+    # f32: 8 bytes a nonzero, 4 a row pointer, x and y; the benchmark's
+    # counts.coo_spmv, whose 7.77 us the spmv_roofline metric divides
+    assert mod.csr_spmv_bound(nnz, n, n, 4, False) == (
+        pytest.approx((8 * nnz + 4 * (n + 1) + 8 * n) / 3.35e12 * 1e3),
+        "bytes")
+    assert mod.csr_spmv_bound(nnz, n, n, 4, False)[0] == pytest.approx(
+        7.765e-3, rel=1e-3)
+    # c128: a 16-byte value and a 4-byte index a nonzero, 16-byte x and y
+    assert mod.csr_spmv_bound(5, 3, 4, 16, True)[0] == pytest.approx(
+        (20 * 5 + 4 * 4 + 16 * 7) / 3.35e12 * 1e3)
+    # the kernels line's row: the headline's assembled KKT, 5 nonzeros an arc
+    assert mod.kernel_bounds(500_000, n, 500, 500)["csr_spmv"] == \
+        mod.csr_spmv_bound(nnz, n, n, 4, False)
+    src, rep = mod.KERNELS["csr_spmv"]
+    assert (ROOT / src).is_file() and rep is None  # replaces no TPU kernel
+
+
 def test_profile_busy_is_the_union_of_device_intervals():
     mod = _load_script("profile_port")
     # overlapping, nested, touching and disjoint intervals, in any order
@@ -295,6 +315,12 @@ def test_profile_overlap_counts_time_beside_other_kernels():
     assert (total, over, hit) == (11.0, 2.0, 1)
     assert mod.is_segment_reduce(
         "void at_cuda_detail::cub::DeviceSegmentedReduceKernel<at_cud")
+    assert mod.is_segment_reduce(
+        "void tpl::(anonymous namespace)::csr_spmv_kernel<float>(float "
+        "const*, long long const*, long long const*, long long const*, "
+        "int, float const*, float*)")
+    assert not mod.is_segment_reduce("void tpl::kkt_matvec_kernel<float, "
+                                     "false>(float const*, int const*)")
     assert mod.overlap_us([], mod.is_nccl, mod.is_nccl) == (0.0, 0.0, 0)
     # a copy inside a NCCL range is not compute
     assert not mod.is_compute("Memcpy DtoD (Device -> Device)")

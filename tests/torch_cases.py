@@ -156,3 +156,122 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+# --- K15, the CSR SpMV (csrc/csr_spmv.cu) -----------------------------------
+
+
+def csr_kkt(rng):
+    """The assembled KKT of a hub instance: arc rows of 3 nonzeros, node
+    rows of ~100, and node 0's row past the plan's budget of 1,024."""
+    m, p = 4000, 50
+    u = np.where(rng.random(m) < 0.4, 0, rng.integers(0, p, m))
+    v = (u + 1 + rng.integers(0, p - 1, m)) % p
+    j = np.arange(m)
+    rows = np.concatenate([j, u + m, v + m, j, j])
+    cols = np.concatenate([j, j, j, u + m, v + m])
+    return m + p, m + p, rows, cols
+
+
+def csr_empty_rows(rng):
+    """Rows of 0 to 9 nonzeros, half of them empty, an empty last row."""
+    n = 3000
+    lengths = np.where(rng.random(n) < 0.5, 0, rng.integers(1, 10, n))
+    lengths[-1] = 0
+    rows = np.repeat(np.arange(n), lengths)
+    return n, n, rows, rng.integers(0, n, rows.size)
+
+
+def csr_all_empty(rng):
+    """2,500 rows and no nonzero: blocks of 1,024 empty rows."""
+    return 2500, 700, np.zeros(0, np.int64), np.zeros(0, np.int64)
+
+
+def csr_long_row(rng):
+    """Row 0 holds 100,000 nonzeros, rows 1..3,000 one each."""
+    n_cols = 100_000
+    rows = np.concatenate([np.zeros(n_cols, np.int64), np.arange(1, 3001)])
+    cols = np.concatenate([np.arange(n_cols), rng.integers(0, n_cols, 3000)])
+    return 3001, n_cols, rows, cols
+
+
+def csr_hofstadter(rng):
+    """The Hofstadter Laplacian's pattern on a 24 × 24 torus: 5 a row."""
+    from two_pass_lanczos_tpu_torch.models import hofstadter_triplets
+    n, rows, cols, _ = hofstadter_triplets(24, 8)
+    return n, n, rows, cols
+
+
+#: the sparsity patterns of K15's tests: (n_rows, n_cols, rows, cols)
+CSR_CASES = {"kkt": csr_kkt, "empty_rows": csr_empty_rows,
+             "all_empty": csr_all_empty, "long_row": csr_long_row,
+             "hofstadter": csr_hofstadter}
+
+
+def csr_matrix(name, dtype, seed=0, device=CPU):
+    """(the SortedCOO of CSR_CASES[name] with values drawn in ``dtype``,
+    an x of its columns in ``dtype``), both on ``device``."""
+    from two_pass_lanczos_tpu_torch.ops.spmv import csr_from_triplets
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols, rows, cols = CSR_CASES[name](rng)
+    np_dt = torch.empty((), dtype=dtype).numpy().dtype
+
+    def draw(size):
+        out = rng.standard_normal(size)
+        if np_dt.kind == "c":
+            out = out + 1j * rng.standard_normal(size)
+        return out.astype(np_dt)
+
+    a = csr_from_triplets(n_rows, n_cols, rows, cols, draw(rows.size),
+                          device=device)
+    return a, torch.from_numpy(draw(n_cols)).to(device)
+
+
+def csr_rows_in_kernel_order(a, x):
+    """``y = A·x`` rounded as ``csr_spmv_kernel`` (``csrc/csr_spmv.cu``)
+    rounds it, in the matrix's dtype, from the plan ``a.blocks``: in a block
+    of R rows, L = the largest power of two ≤ threads / R lanes a row; lane
+    l folds the products ``vals[i] · x[cols[i]]`` (a complex one as ``(ar·xr
+    − ai·xi, ar·xi + ai·xr)``, each operation rounded) of the row's entries
+    l, l + L, ... in turn into a zero; then the warp levels ``v[j] += v[j +
+    s]`` for s = min(L, 32)/2 .. 1 within each warp of the row, then the
+    same over the row's L/32 warp sums. Real and imaginary parts alike, in
+    NumPy, one operation at a time. (256 threads a block, as
+    ``tpl::kThreads``.)"""
+    threads = NODE_ROW_THREADS
+    indptr, blocks = a.indptr.cpu().numpy(), a.blocks.cpu().numpy()
+    vals = a.vals.cpu().numpy()
+    xs = x.cpu().numpy()[a.cols.cpu().numpy()]
+    if np.iscomplexobj(vals):
+        vr, vi, xr, xi = vals.real, vals.imag, xs.real, xs.imag
+        prods = (np.subtract(vr * xr, vi * xi), np.add(vr * xi, vi * xr))
+    else:
+        prods = (np.multiply(vals, xs),)
+    out = [np.zeros(a.shape[0], p.dtype) for p in prods]
+    for b in range(blocks.size - 1):
+        r0, r1 = int(blocks[b]), int(blocks[b + 1])
+        lanes = threads
+        while lanes > 1 and lanes * (r1 - r0) > threads:
+            lanes //= 2
+        width = min(lanes, WARP_LANES)
+        for r in range(r0, r1):
+            s, e = int(indptr[r]), int(indptr[r + 1])
+            for prod, y in zip(prods, out):
+                acc = np.zeros(lanes, prod.dtype)
+                for i in range(s, e, lanes):
+                    chunk = prod[i:min(i + lanes, e)]
+                    acc[:chunk.size] = acc[:chunk.size] + chunk
+                acc = acc.reshape(-1, width)  # a row of a warp each
+                step = width // 2
+                while step:
+                    acc[:, :step] = acc[:, :step] + acc[:, step:2 * step]
+                    step //= 2
+                sums = acc[:, 0].copy()
+                step = sums.size // 2
+                while step:
+                    sums[:step] = sums[:step] + sums[step:2 * step]
+                    step //= 2
+                y[r] = sums[0]
+    y = out[0] if len(out) == 1 else out[0] + 1j * out[1]
+    return torch.from_numpy(y.astype(vals.dtype))
+

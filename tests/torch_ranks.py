@@ -692,8 +692,9 @@ def case_fused_chebyshev_errors(device, d, u, v, p):
 
 
 def case_sparse_card_path(device, d, u, v, p, b, k):
-    """On a card: the f32 row-sharded solve launches no port kernel (its
-    SpMV is the fixed-order CSR row sum), gathers once a matvec, replays
+    """On a card: the f32 row-sharded solve launches K15 (the fixed-order
+    CSR SpMV) for its owned part a matvec, and for its remote part where
+    the rank has one, and nothing else; gathers once a matvec, replays
     bitwise, and agrees with the generic single-device solve."""
     import torch
     from two_pass_lanczos_tpu_torch import (
@@ -717,6 +718,7 @@ def case_sparse_card_path(device, d, u, v, p, b, k):
     with record_collectives() as log:
         x, dec = sop.solve_fAb(bt, k=k, f="inv")
     torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
     arrays = KKTArrays(quad_costs=d, arc_u=u, arc_v=v, num_nodes=p,
                        num_arcs=len(d))
     op = SparseOperator(kkt_sorted_coo(arrays, dtype=np.float32,
@@ -724,9 +726,10 @@ def case_sparse_card_path(device, d, u, v, p, b, k):
     x1 = solve_fAb(op, bt, k=k, f="inv")
     dec1 = lanczos_pass_one(op, bt, k)
     rep = case_sparse_replay(device, spec, b, k)
-    return {"launches": dict(LAUNCHES), "x": x, "x1": _np(x1),
+    return {"launches": launches, "x": x, "x1": _np(x1),
             "dec": _dec(dec), "dec1": _dec(dec1), "replay": rep["replay"],
-            "starts": sum(1 for e in log.events if e == "all-gather-start")}
+            "starts": sum(1 for e in log.events if e == "all-gather-start"),
+            "remote_nnz": sop.remote.nnz}
 
 
 CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())

@@ -8,7 +8,8 @@ the caller passes ``device="cpu"``, and ``matvec`` takes a tensor there.
 * :class:`DenseOperator`    — dense symmetric/Hermitian A (``torch.mv``).
 * :class:`DiagonalOperator` — diagonal A (the stability scenarios).
 * :class:`SparseOperator`   — generic sparse A (:class:`SortedCOO`), summed
-  row by row in a fixed order.
+  row by row in a fixed order: K15 (``csrc/csr_spmv.cu``) on a card, one
+  launch a product, in f32, f64, c64 or c128.
 * :class:`KKTOperator`      — structure-aware ``[[D, Eᵀ], [E, 0]]``: the
   plain ``kkt_matvec`` on the CPU, K8 (``csrc/kkt_matvec.cu``) on a card.
   ``CudaKKTOperator``, the name of JAX's ``PallasKKTOperator`` here, is the
@@ -106,7 +107,11 @@ class DiagonalOperator(LinearOperator):
 
 class SparseOperator(LinearOperator):
     """Generic sparse operator over a row-sorted :class:`SortedCOO`, moved
-    to ``device``."""
+    to ``device`` with its row-block plan. Its matvec is
+    ``ops/spmv.coo_spmv``: one launch of K15 for a CUDA x, each row summed
+    in an order fixed by the matrix alone (so pass two replays pass one's
+    basis bit for bit), the plain gather, multiply and
+    ``torch.segment_reduce`` for a CPU x."""
 
     def __init__(self, mat: SortedCOO, device=DEFAULT_DEVICE):
         self.mat = mat.to(device)

@@ -54,6 +54,10 @@ _SIGNATURES = {
     "tpl_kkt_matvec_blockrows": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "tpl_kkt_matvec_blockrows_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P,
                                      _P],
+    # vals, cols, indptr, blocks, n_blocks, budget, x, y, stream (K15, one
+    # instance a dtype)
+    **{f"tpl_csr_spmv_{dt}": [_P, _P, _P, _P, _I, _I, _P, _P, _P]
+       for dt in ("f32", "f64", "c64", "c128")},
     # one shard's layout (d, u, v, ptr, ent, m, p), e_scale, x, y, stream
     # (K7 and its block-row reference)
     "tpl_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],

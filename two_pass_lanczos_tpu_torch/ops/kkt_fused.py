@@ -100,7 +100,9 @@ __all__ = ["KKTLayout", "FusedKKTSolver", "LAUNCHES", "reset_launches",
 #: solvers (``parallel/``), as ``kkt_streaming_matvec`` and
 #: ``df_kkt_streaming_matvec``, the names of the TPU kernels' wrappers; the
 #: K14 micro-kernels (``probes/``) as ``probe_gather``, ``probe_stream``,
-#: ``probe_stages`` and ``probe_pipeline``; the block-row references of K1,
+#: ``probe_stages`` and ``probe_pipeline``; K15, the CSR SpMV of the sparse
+#: operators (``ops/spmv_kernel.csr_spmv_cuda``), as ``csr_spmv``, one a
+#: product; the block-row references of K1,
 #: K8 and K7 (one block a node row, which their warp rows replaced; no solve
 #: calls them) as ``kkt_matvec_blockrows``, ``kkt_operator_matvec_blockrows``
 #: and ``kkt_streaming_matvec_blockrows``
@@ -118,7 +120,7 @@ LAUNCHES = {"kkt_matvec": 0, "kkt_matvec_in_pass": 0,
             "df_lanczos_pass_one_steps": 0, "df_lanczos_pass_two_steps": 0,
             "df_kkt_streaming_matvec": 0,
             "probe_gather": 0, "probe_stream": 0, "probe_stages": 0,
-            "probe_pipeline": 0}
+            "probe_pipeline": 0, "csr_spmv": 0}
 #: size of one plane of pass one's block-partials scratch
 #: (``tpl::kMaxPartials``); the per-step scratch holds two planes, the
 #: persistent one four (K6's two dots, a hi and a lo plane each)

@@ -5,8 +5,9 @@ Counterpart of ``two_pass_lanczos_tpu/ops/spmv.py``:
 * :class:`SortedCOO`, :func:`csr_from_triplets` and :func:`coo_spmv`, the
   generic sparse operator's matrix and product. The JAX package padded the
   nonzeros to a lane-aligned length for XLA's static shapes; PyTorch runs
-  eagerly, so the port keeps exactly ``nnz`` entries, sorted by row, and a
-  CSR row pointer ``indptr`` beside them.
+  eagerly, so the port keeps exactly ``nnz`` entries, sorted by row, a CSR
+  row pointer ``indptr`` beside them, and the row-block plan ``blocks``
+  (:func:`row_blocks`) of the CUDA kernel K15 (``csrc/csr_spmv.cu``).
 * :func:`kkt_matvec`, the plain version of the KKT matvec kernel (K1 and
   K8, ``csrc/kkt_matvec.cu``). The KKT matrix ``A = [[D, Eᵀ], [E, 0]]`` is
   never materialised: ``E`` is the node–arc incidence matrix with
@@ -19,9 +20,11 @@ Counterpart of ``two_pass_lanczos_tpu/ops/spmv.py``:
   version is nondeterministic there; it is a reference, never the Lanczos
   path (the path uses ``csrc/kkt_matvec.cu``).
 
-:func:`coo_spmv` sums each row in the fixed order of its CSR segment
-(``torch.segment_reduce``), never with an atomic scatter, so pass two's
-matvec rounds as pass one's did on either device.
+:func:`coo_spmv` sums each row in a fixed order that depends only on the
+matrix, never with an atomic scatter, so pass two's matvec rounds as pass
+one's did: on a CUDA tensor one launch of K15 (``ops/spmv_kernel
+.csr_spmv_cuda``), on a CPU tensor its plain version :func:`coo_spmv_plain`
+(a gather, a multiply and ``torch.segment_reduce`` over the CSR segments).
 """
 
 from __future__ import annotations
@@ -35,7 +38,31 @@ import torch
 from two_pass_lanczos_tpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from two_pass_lanczos_tpu_torch.observability import trace
 
-__all__ = ["SortedCOO", "csr_from_triplets", "coo_spmv", "kkt_matvec"]
+__all__ = ["SortedCOO", "csr_from_triplets", "row_blocks", "coo_spmv",
+           "coo_spmv_plain", "row_sum_bound", "kkt_matvec", "ROW_BLOCK_NNZ"]
+
+#: the row-block plan's budget: the nonzeros (and the rows) one block of
+#: K15 takes, and the entries of its shared-memory stage
+ROW_BLOCK_NNZ = 1024
+
+
+def row_blocks(indptr, budget: int = ROW_BLOCK_NNZ) -> np.ndarray:
+    """K15's row-block plan from a CSR row pointer (host, NumPy): the
+    ``(blocks + 1,)`` int64 first rows of the blocks, then ``n_rows``.
+    Each block takes consecutive rows, as many as fit in ``budget``
+    nonzeros and ``budget`` rows; a row of more than ``budget`` nonzeros
+    takes a block alone. It depends on ``indptr`` alone, and so does the
+    kernel's order of summation. Zero rows give ``[0]``, no block."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n = indptr.shape[0] - 1
+    starts = [0]
+    r = 0
+    while r < n:
+        end = int(np.searchsorted(indptr, indptr[r] + budget, "right")) - 1
+        end = min(end, r + budget, n)
+        r = max(end, r + 1)
+        starts.append(r)
+    return np.asarray(starts, dtype=np.int64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +71,27 @@ class SortedCOO:
 
     ``rows``, ``cols`` (int64) and ``vals`` hold the ``nnz`` entries sorted
     by row (then column); ``indptr`` (int64, ``n_rows + 1``) delimits each
-    row's segment of them.
+    row's segment of them; ``blocks`` (int64) is K15's row-block plan,
+    :func:`row_blocks` of ``indptr``, built where the matrix is made.
     """
 
     rows: torch.Tensor
     cols: torch.Tensor
     vals: torch.Tensor
     indptr: torch.Tensor
+    blocks: torch.Tensor
     shape: Tuple[int, int]
+
+    def __post_init__(self):
+        # checked once here, so that K15's wrapper checks only x a product
+        for name in ("rows", "cols", "vals", "indptr", "blocks"):
+            t = getattr(self, name)
+            if (t.device != self.vals.device or not t.is_contiguous()
+                    or (name != "vals" and t.dtype != torch.int64)):
+                raise ValueError(
+                    f"{name}: expected a contiguous "
+                    f"{'' if name == 'vals' else 'int64 '}tensor on "
+                    f"{self.vals.device}, got {t.dtype} on {t.device}")
 
     @property
     def nnz(self) -> int:
@@ -69,7 +109,7 @@ class SortedCOO:
         dev = resolve_device(device)
         return SortedCOO(rows=self.rows.to(dev), cols=self.cols.to(dev),
                          vals=self.vals.to(dev), indptr=self.indptr.to(dev),
-                         shape=self.shape)
+                         blocks=self.blocks.to(dev), shape=self.shape)
 
     def todense(self) -> torch.Tensor:
         out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
@@ -112,19 +152,46 @@ def csr_from_triplets(n_rows: int, n_cols: int, rows, cols, vals, dtype=None,
         return torch.from_numpy(np.array(a)).to(dev)
 
     return SortedCOO(rows=up(rows), cols=up(cols), vals=up(vals),
-                     indptr=up(indptr), shape=(int(n_rows), int(n_cols)))
+                     indptr=up(indptr), blocks=up(row_blocks(indptr)),
+                     shape=(int(n_rows), int(n_cols)))
 
 
 def coo_spmv(a: SortedCOO, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x``: gather, multiply, and one fixed-order sum per row.
-    A complex product is summed as its ``(nnz, 2)`` real view, the real
-    and imaginary parts of each row in the same fixed order."""
+    """``y = A @ x``, each row summed in a fixed order: K15 for a CUDA x,
+    :func:`coo_spmv_plain` for a CPU x. There is no other route."""
     with trace("tpl.spmv"):
-        prod = a.vals * x[a.cols]
-        if prod.is_complex():
-            return torch.view_as_complex(torch.segment_reduce(
-                torch.view_as_real(prod), "sum", offsets=a.indptr, axis=0))
-        return torch.segment_reduce(prod, "sum", offsets=a.indptr)
+        if x.is_cuda:
+            # imported here: spmv_kernel imports this module
+            from two_pass_lanczos_tpu_torch.ops.spmv_kernel import (
+                csr_spmv_cuda,
+            )
+            return csr_spmv_cuda(a, x.contiguous())
+        return coo_spmv_plain(a, x)
+
+
+def coo_spmv_plain(a: SortedCOO, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of K15 on any device: gather, multiply, and one
+    sum per row over its CSR segment (``torch.segment_reduce``). A complex
+    product is summed as its ``(nnz, 2)`` real view, the real and imaginary
+    parts of each row in the same order."""
+    prod = a.vals * x[a.cols]
+    if prod.is_complex():
+        return torch.view_as_complex(torch.segment_reduce(
+            torch.view_as_real(prod), "sum", offsets=a.indptr, axis=0))
+    return torch.segment_reduce(prod, "sum", offsets=a.indptr)
+
+
+def row_sum_bound(a: SortedCOO, x: torch.Tensor) -> torch.Tensor:
+    """Per row, ``2·(deg + 2)·ε·(|A|·|x|)`` in f64 on ``a``'s device: the
+    most two orders of one row's sum (and a complex product's rounding)
+    can differ, so the tolerance between K15 and :func:`coo_spmv_plain`."""
+    eps = torch.finfo(a.vals.real.dtype if a.vals.is_complex()
+                      else a.vals.dtype).eps
+    deg = (a.indptr[1:] - a.indptr[:-1]).double()
+    mag = torch.segment_reduce(a.vals.abs().double()
+                               * x.abs().double()[a.cols], "sum",
+                               offsets=a.indptr)
+    return 2.0 * (deg + 2.0) * eps * mag
 
 
 def kkt_matvec(d: torch.Tensor, arc_u: torch.Tensor, arc_v: torch.Tensor,

@@ -16,9 +16,11 @@ in this order (:meth:`ShardedSparseOperator._matvec`):
 5. the two scalar reductions (α, β²) as all-gathers of the (D,) partials
    folded in rank order (``comm.gather_fold``).
 
-Each part of the SpMV is ``ops/spmv.coo_spmv``, a fixed-order CSR row sum,
-as the generic ``SparseOperator`` does: no ``index_add_`` (atomic on CUDA),
-so pass two replays pass one's basis bit for bit on every rank. The JAX
+Each part of the SpMV is ``ops/spmv.coo_spmv``, a fixed-order CSR row sum
+(one launch of K15, ``csrc/csr_spmv.cu``, on a card; each part carries its
+own row-block plan), as the generic ``SparseOperator`` does: no
+``index_add_`` (atomic on CUDA), so pass two replays pass one's basis bit
+for bit on every rank. The JAX
 package reduced the dots with ``lax.psum``; the rank-ordered fold gives
 every rank the same α, β bits whatever NCCL's algorithm. The recurrence is
 ``algorithms/core.py``'s, eager around the product and the collectives,
@@ -86,7 +88,11 @@ from two_pass_lanczos_tpu_torch.eigen import (
     validate_eigsh_params,
 )
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import run_chunks, scaled_y
-from two_pass_lanczos_tpu_torch.ops.spmv import SortedCOO, coo_spmv
+from two_pass_lanczos_tpu_torch.ops.spmv import (
+    SortedCOO,
+    coo_spmv,
+    row_blocks,
+)
 from two_pass_lanczos_tpu_torch.parallel.comm import (
     all_gather,
     all_gather_start,
@@ -160,6 +166,7 @@ class ShardedSparseOperator:
                 np.ascontiguousarray(a, dt)).to(self.device)
             return SortedCOO(rows=up(lr, np.int64), cols=up(lc, np.int64),
                              vals=up(lv, vals.dtype), indptr=up(indptr, np.int64),
+                             blocks=up(row_blocks(indptr), np.int64),
                              shape=(rp, width))
 
         #: this rank's rows: columns of its own shard, and of the gathered

@@ -7,6 +7,13 @@ traffic)``, which makes one call as the traffic says and returns an
 :class:`Output`, ``traced(system)``, the system with the harness's spans
 around the calls into its layers (only the traced stretch uses it), and
 ``counters()``, a snapshot of the program's counters.
+
+In a cell of D > 1 cards the same module runs in every rank, one process
+a card, once the harness's process group is up (so the program's own mesh,
+``make_mesh(D)``, finds it): ``build`` runs on every rank with that rank's
+card, ``solve`` is called on every rank in the same order with the same b
+(drawn on each card), rank 0's :class:`Output` is the one checked, and
+``counters()`` are rank 0's.
 """
 
 from __future__ import annotations

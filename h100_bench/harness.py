@@ -17,7 +17,30 @@ it, ``solve_p95_ms`` the 95th percentile of the calls' times (call to
 synchronise), ``peak_mem_mb`` the allocator's peak over the window, in
 units of 10^6 bytes. The window's clock stops while the check copies a
 sampled call's answer to the host: that copy is the benchmark's work, not
-the system's.
+the system's. A traced run hands the per-layer readers the host clock's
+times of its calls before the traced stretch, which no profiler slows.
+
+A cell whose ``chips`` is D > 1 runs as D processes, one a card, in one
+process group (``ranks.py``); a cell of one card forms no group and starts
+no process. Every rank generates the same instance, builds the system on
+its card (``cuda:<rank>``), draws b there from the same seed (the same
+bits, which one checksum after the warm-up confirms) and makes the same
+calls in the same order. Rank 0 keeps the clock: before each call it tells
+the other ranks whether the window goes on, by one write to the group's
+store that counts as the benchmark's work (the clock stops for it, as for
+the check's copies; its cost is reported under ``ranks``). Rank 0 does
+not wait for the other ranks there: one that ends a call later holds up
+rank 0's next call, and that wait stays on the clock. ``solve_ms`` and
+``solve_p95_ms`` are rank 0's; ``setup_s`` runs from rank 0's start to a
+barrier after every rank's warm-up and holds a ``ranks`` phase (the other
+processes' start, their imports and the group's set-up);
+``peak_mem_mb`` is the largest window peak of the ranks and
+``memory_peak_bytes`` the largest peak, set-up or window, of any card. With
+``--trace 1`` every rank calls through ``entry.traced``, but only rank 0's
+profiler records: the per-layer metrics and the breakdown are rank 0's
+stretch and rank 0's counters. After the window every rank frees its
+state and the other ranks leave; rank 0 alone checks its outputs against
+the reference and prints the result.
 """
 
 from __future__ import annotations
@@ -27,9 +50,11 @@ import gc
 import importlib
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 from typing import Optional
 
@@ -38,6 +63,14 @@ import torch
 
 from h100_bench import compare, peaks
 from h100_bench import trace as tracing
+from h100_bench.ranks import (
+    ENV_PARENT,
+    WINDOW_SLACK_S,
+    Ranks,
+    checksum,
+    fault_of,
+    fold,
+)
 
 #: when this module's imports (torch's among them) were done
 IMPORTED = time.perf_counter()
@@ -45,6 +78,8 @@ IMPORTED = time.perf_counter()
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "two_pass_lanczos_tpu")
+#: the device type the ranks drive: unset, CUDA; the CPU tests set "cpu"
+ENV_DEVICE = "H100_BENCH_DEVICE"
 #: draws of b: the window's calls, and the warm-up calls apart from them
 WINDOW, WARMUP = 0, 1
 
@@ -64,8 +99,9 @@ def find_cell(spec: dict, workload: str) -> dict:
 def module(kind: str, name: str, bench: Path = BENCH):
     """``<bench>/<kind>/<name>.py``: a generator, reference, entry or
     metric, found by its name (``bench`` another tree of the same layout,
-    as the tests make)."""
-    if bench == BENCH:
+    as the tests make; a name with a dot, such as a metric split by the
+    end-to-end metric it moves, is loaded from its file)."""
+    if bench == BENCH and "." not in name:
         return importlib.import_module(f"h100_bench.{kind}.{name}")
     path = Path(bench) / kind / f"{name}.py"
     key = f"h100_bench_tree_{abs(hash(str(path)))}.{kind}.{name}"
@@ -84,6 +120,13 @@ def forbidden_modules() -> list:
     """Loaded modules whose top-level name is one the run may not load."""
     tops = {name.split(".", 1)[0] for name in list(sys.modules)}
     return sorted(tops & set(FORBIDDEN))
+
+
+def forbidden_mask() -> int:
+    """:func:`forbidden_modules` as bits over :data:`FORBIDDEN`."""
+    found = forbidden_modules()
+    return sum(1 << bit for bit, name in enumerate(FORBIDDEN)
+               if name in found)
 
 
 class Rhs:
@@ -159,9 +202,15 @@ def read_per_layer(spec: dict, workload: str, ctx, bench: Path = BENCH
 class Context:
     """What a per-layer metric's reader reads: the traced stretch, the
     program's counters over it, the instance's sizes, the traffic, the
-    steps each traced call took and the card's peaks."""
+    steps each traced call took, the card's peaks, the ranks the cell
+    runs on (``world``) and the host clock's times of the window's calls
+    before the traced stretch (``call_ms``). In a D-rank cell the
+    stretch, the counters, the steps and the times are rank 0's."""
 
-    def __init__(self, stretch, counters, instance, traffic, steps, peak):
+    def __init__(self, stretch, counters, instance, traffic, steps, peak,
+                 world=1, call_ms=()):
+        self.world = world
+        self.call_ms = list(call_ms)
         self.stretch = stretch
         self.solves = stretch.solves
         self.counters = counters
@@ -191,14 +240,21 @@ def instance(config: dict, bench: Path = BENCH):
 def run_cell(spec: dict, workload: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", entry=None,
              started: Optional[float] = None, bench: Path = BENCH,
-             log=sys.stderr) -> dict:
+             log=sys.stderr, ranks: Optional[Ranks] = None
+             ) -> Optional[dict]:
     """One run; returns the result line's object. ``entry`` replaces the
-    traffic's entry module (the tests break the program through it)."""
+    traffic's entry module (the tests break the program through it).
+    ``ranks`` is the group of a D-rank cell, whose ranks each drive their
+    own card (``device`` is then ``ranks.device``); a rank other than 0
+    returns None once it has left the group."""
     t0 = time.perf_counter() if started is None else started
     # set-up's phases, each ended by a mark: they show what makes it swing
     marks = [("imports", IMPORTED)] if t0 < IMPORTED else []
+    if ranks is not None:
+        marks.append(("ranks", ranks.joined))
+    lead = ranks is None or ranks.rank == 0
     cell, config, traffic, limits = load_cell(spec, workload, bench)
-    dev = torch.device(device)
+    dev = torch.device(device) if ranks is None else ranks.device
     torch.empty(0, device=dev)
     marks.append(("context", time.perf_counter()))
     entry = entry or module("entries", traffic["entry"], bench)
@@ -212,6 +268,8 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     for i in range(traffic["warmup_solves"]):
         entry.solve(system, rhs(i, WARMUP), traffic)
         sync(dev)
+    if ranks is not None:
+        ranks.barrier()
     marks.append(("warmup", time.perf_counter()))
     setup_s = marks[-1][1] - t0
     print("setup_s " + " ".join(
@@ -220,6 +278,12 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
 
     cuda = dev.type == "cuda"
     setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    if ranks is not None:
+        # the same b on every rank, or the ranks solve different systems
+        sums = [s[0] for s in ranks.gather([checksum(rhs(0, WARMUP))])]
+        if lead and len(set(sums)) > 1:
+            ranks.abort(f"b's checksums differ across the ranks: {sums}")
+        ranks.deadline = time.monotonic() + seconds + WINDOW_SLACK_S
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     first = traffic["trace_after_solves"]
@@ -227,14 +291,25 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     spanned = entry.traced(system) if trace else system
     prof, counters0, steps = None, None, []
     sample = Reservoir(seed, traffic["check_solves"])
-    times = []
+    times, exchanges, before = [], [], []
     sync(dev)
     w0 = t_end = time.perf_counter()
-    paused = 0.0  # the check's copies of sampled answers, not the system's
+    # the check's copies of sampled answers and the ranks' exchange: the
+    # benchmark's work, not the system's
+    paused = 0.0
     i = 0
-    while t_end - w0 - paused < seconds or (trace and i < last):
+    while True:
+        go = t_end - w0 - paused < seconds or (trace and i < last)
+        if ranks is not None:
+            tx = time.perf_counter()
+            go = ranks.flag(i, go)
+            if go:
+                exchanges.append(time.perf_counter() - tx)
+                paused += exchanges[-1]
+        if not go:
+            break
         traced = trace and first <= i < last
-        if traced and prof is None:
+        if traced and prof is None and lead:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if cuda:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -259,7 +334,9 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
             sync(dev)
             t_end = time.perf_counter()
         times.append(t_end - ts)
-        slot = sample.slot()
+        if i < first:
+            before.append(times[-1])
+        slot = sample.slot() if lead else None
         if slot is not None:
             sample.kept[slot] = (i, compare.host_output(out))
             paused += time.perf_counter() - t_end
@@ -269,23 +346,38 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
             prof.__exit__(None, None, None)
     wall = t_end - w0 - paused
     window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    folded = None
+    if ranks is not None:
+        folded = fold(ranks.gather([setup_peak, window_peak, len(times),
+                                    forbidden_mask()]), FORBIDDEN)
+        if lead and fault_of(folded):
+            ranks.abort(fault_of(folded))
     del system, spanned, out, b
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if ranks is not None:
+        ranks.leave()
+        if not lead:
+            return None
+        ranks.close()
 
+    mem_peak = max(setup_peak, window_peak)
+    if folded is not None:  # the fullest card's
+        mem_peak, window_peak = folded["memory_peak"], folded["window_peak"]
     kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
     result = {"correct": False, "attempted": len(times), "failed": 0,
               "metrics": {},
               "device": {"platform": "gpu" if cuda else "cpu", "kind": kind,
                          "count": int(cell["chips"]),
-                         "memory_peak_bytes": int(max(setup_peak,
-                                                      window_peak))}}
+                         "memory_peak_bytes": int(mem_peak)}}
     if trace:
         stretch = tracing.reduce_profile(prof)
         counters = {k: counters1[k] - counters0.get(k, 0) for k in counters1}
         ctx = Context(stretch, counters, inst, traffic, steps,
-                      peaks.peak_of(kind))
+                      peaks.peak_of(kind),
+                      1 if ranks is None else ranks.world,
+                      [1e3 * t for t in before])
         result["metrics"] = read_per_layer(spec, workload, ctx, bench)
         result["device"]["busy_s"] = stretch.busy_us / 1e6
         result["device"]["window_s"] = stretch.window_us / 1e6
@@ -299,6 +391,16 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
             if applies(metric, workload):
                 result["metrics"][metric["name"]] = {
                     "value": e2e[metric["name"]], "unit": metric["unit"]}
+    if folded is not None:
+        us = sorted(1e6 * x for x in exchanges)
+        result["ranks"] = {
+            "world": ranks.world, "calls": folded["calls"],
+            "setup_peak_bytes": folded["setup_peaks"],
+            "window_peak_bytes": folded["window_peaks"],
+            "exchange_us_median": float(np.median(us)) if us else None,
+            "exchange_us_max": us[-1] if us else None}
+        print("ranks " + " ".join(f"{k} {v}" for k, v in
+                                  result["ranks"].items()), file=log)
     result["card"] = card(dev)
 
     # the check, once the window has closed and the program's state is freed
@@ -319,22 +421,59 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     return result
 
 
-def main(argv=None, started: Optional[float] = None) -> int:
+def _other_rank(spec: dict, args, device_type: str, bench: Path,
+                started: Optional[float]) -> int:
+    """Ranks 1 … D − 1 of a D-rank cell: join rank 0's group, make the
+    run's calls, leave. Any fault ends the process with 1 at once (rank
+    0's watchdog sees it); nothing here writes the result."""
+    try:
+        ranks = Ranks.from_env(device_type)
+        run_cell(spec, args.workload, args.seed, args.seconds,
+                 bool(args.trace), started=started, bench=bench,
+                 ranks=ranks)
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    return 0
+
+
+def main(argv=None, started: Optional[float] = None,
+         bench: Path = BENCH) -> int:
+    """Run one cell from the command line (``argv`` after the program's
+    name) in the tree ``bench``, whose ``BENCHMARK.json`` lies beside it;
+    print the result line; return the exit code."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
-    spec = load_json(ROOT / "BENCHMARK.json")
+    spec = load_json(Path(bench).parent / "BENCHMARK.json")
     chips = int(find_cell(spec, args.workload)["chips"])
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+    device_type = os.environ.get(ENV_DEVICE, "cuda")
+    if ENV_PARENT in os.environ:
+        return _other_rank(spec, args, device_type, bench, started)
+    if device_type == "cuda" and (not torch.cuda.is_available()
+                                  or torch.cuda.device_count() < chips):
         print(f"needs {chips} CUDA device(s); torch sees "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    result = run_cell(spec, args.workload, args.seed, args.seconds,
-                      bool(args.trace), started=started)
+    ranks = None
+    try:
+        if chips > 1:
+            ranks = Ranks.launch(chips, Path(bench) / "run.py", argv,
+                                 device_type)
+        result = run_cell(spec, args.workload, args.seed, args.seconds,
+                          bool(args.trace), device=device_type,
+                          started=started, bench=bench, ranks=ranks)
+    except BaseException:
+        if ranks is None:
+            raise
+        traceback.print_exc()
+        ranks.abort("rank 0 raised")
     found = forbidden_modules()
     if found:
         print(f"the run loaded {', '.join(found)}: no result", file=sys.stderr)

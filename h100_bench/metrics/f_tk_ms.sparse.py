@@ -1,0 +1,8 @@
+"""``f_tk_ms`` in a cell whose end-to-end metrics are ``setup_s`` and
+``peak_mem_mb`` alone (its ``solve_ms`` is read per layer, as
+``generic_solve_ms``): the same reading, under a name of its own, since a
+per-layer metric moves one end-to-end metric in every cell it lists."""
+
+from __future__ import annotations
+
+from h100_bench.metrics.f_tk_ms import read  # noqa: F401

@@ -14,6 +14,12 @@ also ``busy_s`` and ``window_s``), ``breakdown`` (``--trace 1``), ``card``
 check compared beside its limit; the same numbers end standard error.
 Exits non-zero and prints no result without the cards the cell needs, or
 if the process loaded JAX or the JAX package.
+
+A cell of D > 1 cards: this process becomes rank 0 and starts D − 1 more
+of this script with the same arguments, each told its rank by its
+environment (``h100_bench/ranks.py``); rank r drives ``cuda:r``. Only rank
+0 prints the result. A fault of any rank (it raises, is killed, or loads
+JAX or the JAX package) ends every rank and exits non-zero with no result.
 """
 
 import os

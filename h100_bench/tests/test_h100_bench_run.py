@@ -61,8 +61,10 @@ def test_manifest_keeps_to_the_contract():
         assert (harness.ROOT / c["file"]).is_file()
         assert harness.load_json(harness.ROOT / c["file"])["name"] == c["name"]
         assert len(c["why"]) <= 200 and len(c["source"]) <= 200
+    four = [w["name"] for w in spec["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(spec["workloads"]) // 4)
     for w in spec["workloads"]:
-        assert w["config"] in names and w["chips"] == 1
+        assert w["config"] in names and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200
         assert any(harness.applies(m, w["name"]) for m in spec["per_layer"])
 
@@ -91,8 +93,13 @@ def test_a_new_cell_runs_from_new_files_alone(tree, mix):
     assert list(result)[-1] == "checks"
     assert result["correct"] is True and result["failed"] == 0
     assert result["attempted"] >= 1
-    assert set(result["metrics"]) >= {"setup_s", "solve_ms", "peak_mem_mb"}
+    spec, _ = tree
+    assert set(result["metrics"]) == {
+        m["name"] for m in spec["end_to_end"]
+        if harness.applies(m, f"tiny.{mix}")}
+    assert {"setup_s", "peak_mem_mb"} <= set(result["metrics"])
     assert ("solve_p95_ms" in result["metrics"]) == (mix != "sparse")
+    assert ("solve_ms" in result["metrics"]) == (mix != "sparse")
     for metric in result["metrics"].values():
         assert set(metric) == {"value", "unit"}
     assert set(result["device"]) == {"platform", "kind", "count",
@@ -116,6 +123,23 @@ def test_a_new_metric_file_is_read_in_the_traced_run(tree):
                                                "unit": "solves"}
     assert {"busy_s", "window_s"} <= set(result["device"])
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+    assert result["correct"] is True
+
+
+def test_the_sparse_cells_per_layer_metrics_are_read_in_the_traced_run(
+        tree):
+    spec, bench = tree
+    result = harness.run_cell(spec, "tiny.sparse", 5, 0.3, True,
+                              device="cpu", bench=bench, log=io.StringIO())
+    wanted = {m["name"] for m in spec["per_layer"]
+              if harness.applies(m, "tiny.sparse")}
+    assert {"generic_solve_ms", "launches_per_solve.sparse",
+            "f_tk_ms.sparse"} <= wanted
+    # a CPU trace has no device events: the launches read 0, the device
+    # times nothing
+    assert set(result["metrics"]) == {"generic_solve_ms",
+                                      "launches_per_solve.sparse"}
+    assert result["metrics"]["generic_solve_ms"]["value"] > 0
     assert result["correct"] is True
 
 

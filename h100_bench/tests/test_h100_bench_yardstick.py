@@ -3,6 +3,8 @@ the reduction of a trace, each held to an independent source."""
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -172,6 +174,7 @@ class _Ctx:
         self.stretch, self.solves = stretch, stretch.solves
         self.traffic, self.steps, self.peak = traffic, steps, peak
         self.counters = counters or {}
+        self.call_ms = []
         self.m, self.p = 10, 4
         self.n = 14
 
@@ -203,6 +206,20 @@ def test_readers_on_a_known_stretch():
     assert pass_one_ms.read(gctx) is None
     nopeak = _Ctx(fused, {"method": "two_pass"}, [7], None)
     assert pass_one_roofline.read(nopeak) is None
+
+
+def test_generic_solve_ms_is_the_mean_of_the_calls_before_the_stretch():
+    from h100_bench.metrics import generic_solve_ms
+    ctx = types.SimpleNamespace(call_ms=[200.0, 300.0, 250.0])
+    assert generic_solve_ms.read(ctx) == pytest.approx(250.0)
+    assert generic_solve_ms.read(types.SimpleNamespace(call_ms=[])) is None
+
+
+@pytest.mark.parametrize("name", ["launches_per_solve", "f_tk_ms"])
+def test_a_split_metric_reads_as_its_original(name):
+    from h100_bench import harness
+    split = harness.module("metrics", f"{name}.sparse")
+    assert split.read is harness.module("metrics", name).read
 
 
 def test_judge_takes_the_worst_and_counts_failed_solves():

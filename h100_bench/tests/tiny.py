@@ -7,9 +7,13 @@ with limits of its own. At this size and k the float32 program's x lies
 within 2e-5 of float64's and the TF32 control's 1.5e-2 or more away (seeds
 1-3), so ``x_gap`` is held to 1e-3 here; ``bnorm_gap`` reads up to 3.8e-8
 against the control's 5.4e-7 or more (seeds 1-12 and 1-3), ``ritz_gap``
-6.3e-8 against 1.8e-4. It returns the spec (the
-real ``BENCHMARK.json`` with each new cell in the lists of the metrics its
-real cell has) and the copy's path. No file of the real tree is edited.
+6.3e-8 against 1.8e-4. It also adds the test-only entry
+``tiny_sharded`` (``sharded_entry.py``: ``ShardedFusedKKTSolver`` over
+gloo) and two cells of it on 2 and 4 ranks, ``tiny.sharded2`` and
+``tiny.sharded4``, held to the fused limits. It writes the spec (the real
+``BENCHMARK.json`` with each new cell in the lists of the metrics its
+real cell has) beside the copy, so that the copy's ``run.py`` runs it, and
+returns the spec and the copy's path. No file of the real tree is edited.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ FUSED = {"steps_gap": 0, "bnorm_gap": 2e-7, "ab_gap": 3e-5,
 LIMITS = {"two_pass": FUSED, "one_pass": FUSED, "sparse": {"x_gap": 1e-3}}
 REAL_CELL = {"two_pass": "kkt500k.two_pass", "one_pass": "kkt500k.one_pass",
              "sparse": "kkt500k.sparse"}
+#: the multi-rank cells: name -> ranks
+SHARDED = {"tiny.sharded2": 2, "tiny.sharded4": 4}
 
 
 def tiny_tree(path: Path):
@@ -51,4 +57,18 @@ def tiny_tree(path: Path):
         for metric in spec["per_layer"] + spec["end_to_end"]:
             if real in metric.get("workloads", ()):
                 metric["workloads"].append(f"tiny.{mix}")
+    shutil.copy(Path(__file__).with_name("sharded_entry.py"),
+                bench / "entries" / "tiny_sharded.py")
+    traffic = harness.load_json(bench / "traffic" / "tiny_two_pass.json")
+    traffic["entry"] = "tiny_sharded"
+    (bench / "traffic" / "tiny_sharded.json").write_text(json.dumps(traffic))
+    for cell, world in SHARDED.items():
+        (bench / "limits" / f"{cell}.json").write_text(json.dumps(FUSED))
+        spec["workloads"].append({"name": cell, "config": "mcf3k_rho3",
+                                  "traffic": "tiny_sharded", "chips": world,
+                                  "why": "a multi-rank cell for the tests"})
+        for metric in spec["per_layer"] + spec["end_to_end"]:
+            if REAL_CELL["two_pass"] in metric.get("workloads", ()):
+                metric["workloads"].append(cell)
+    (Path(path) / "BENCHMARK.json").write_text(json.dumps(spec))
     return spec, bench

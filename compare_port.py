@@ -260,6 +260,7 @@ def worker(root: Path, quick: bool) -> dict:
             out.setdefault("sol_fraction_ideal", {})[tag.strip() or
                                                       "headline"] = (
                 ideal.sol_fraction)
+        sharded.release_graphs()
         torch.distributed.destroy_process_group()
     del solver, solver_c, lay64, x64
     torch.cuda.empty_cache()

@@ -447,6 +447,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     out["card"] = card
     out["k"] = k
+    sh.release_graphs()
     torch.distributed.destroy_process_group()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))

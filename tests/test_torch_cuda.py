@@ -1433,7 +1433,76 @@ def test_sharded_solvers_across_four_cards(problem, cuda_device, tmp_path):
         assert _rel(r["xd"], r["xd1"]) < 1e-10
 
 
-# --- K14: the probes ---------------------------------------------------------
+@pytest.fixture(scope="module")
+def graph_runs(problem, tmp_path_factory):
+    """``case_graph_path`` on 2 and 4 NCCL ranks (the worlds the cards
+    allow), k = 30 and a new k = 12."""
+    d, u, v, p, b = problem
+    b2 = np.random.default_rng(17).standard_normal(len(b)).astype(np.float32)
+    out = {}
+    for world in (2, 4):
+        if torch.cuda.device_count() >= world:
+            out[world] = spawn(world, [("g", "graph_path", dict(
+                d=d, u=u, v=v, p=p, b=b, b2=b2, k=30, k2=12))],
+                tmp_path_factory.mktemp(f"graph{world}"), device="cuda")
+    return out
+
+
+def _graph_ranks(graph_runs, world):
+    if world not in graph_runs:
+        pytest.skip(f"needs {world} NVIDIA GPUs")
+    return [rank["g"] for rank in graph_runs[world]]
+
+
+def _bitwise(a, b):
+    for key in ("alphas", "betas", "x"):
+        assert np.array_equal(a[key], b[key]), key
+    assert a["steps"] == b["steps"] and a["b_norm"] == b["b_norm"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_graph_replay_is_bitwise_the_eager_solve_on_cards(
+        graph_runs, world, cuda_device):
+    """The first solve runs eagerly; the second captures pass one and pass
+    two and replays them: α, β, the steps taken, ‖b‖ and the gathered x
+    bit for bit the eager solve's, on every rank."""
+    ranks = _graph_ranks(graph_runs, world)
+    for r in ranks:
+        _bitwise(r["again"], r["first"])
+        _bitwise(r["first"], ranks[0]["first"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_graph_takes_a_second_b_bitwise_on_cards(graph_runs, world,
+                                                        cuda_device):
+    for r in _graph_ranks(graph_runs, world):
+        _bitwise(r["again2"], r["eager2"])
+        assert not np.array_equal(r["again2"]["x"], r["again"]["x"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_graph_a_new_k_captures_a_new_graph_on_cards(
+        graph_runs, world, cuda_device):
+    for r in _graph_ranks(graph_runs, world):
+        # one pair of graphs after the capture, a second for k = 12
+        assert r["graphs"] == (1, 2, [(12, 0), (30, 0)])
+        _bitwise(r["other_k"], r["eager_k2"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_graph_counts_what_the_eager_solve_counts_on_cards(
+        graph_runs, world, cuda_device):
+    """LAUNCHES, the collectives and an open log after the capturing
+    solve and after a replay equal the eager solve's: 2k − 1 K7 launches
+    and 4k + 1 all-gathers with the x gather, the same calls in order."""
+    k = 30
+    for r in _graph_ranks(graph_runs, world):
+        eager, captured, replayed = r["counts"]
+        assert eager["launches"] == {"kkt_streaming_matvec": 2 * k - 1}
+        assert eager["collectives"]["all-gather"] == 4 * k + 1
+        assert len(eager["calls"]) == 4 * k + 1
+        for other in (captured, replayed):
+            assert other == eager
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_probe_gather_kernel_matches_plain_on_card(case, cuda_device):

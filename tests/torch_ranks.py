@@ -732,6 +732,118 @@ def case_sparse_card_path(device, d, u, v, p, b, k):
             "remote_nnz": sop.remote.nnz}
 
 
+# --- the two-pass solve's CUDA graphs, its x gather, spans and counts ------
+
+def _counted(fn):
+    """``fn()``'s result, and what it added to ``LAUNCHES``, to
+    ``comm.COLLECTIVES`` and to an open ``record_collectives`` log."""
+    import torch
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import LAUNCHES
+    from two_pass_lanczos_tpu_torch.parallel.comm import COLLECTIVES
+    from two_pass_lanczos_tpu_torch.utils.collectives import (
+        record_collectives,
+    )
+    launches, collectives = dict(LAUNCHES), dict(COLLECTIVES)
+    with record_collectives() as log:
+        out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {
+        "launches": {k: LAUNCHES[k] - launches[k] for k in LAUNCHES
+                     if LAUNCHES[k] != launches[k]},
+        "collectives": {k: COLLECTIVES[k] - collectives[k]
+                        for k in COLLECTIVES},
+        "calls": list(log.calls), "events": list(log.events)}
+
+
+def _gathered(s, b, k, f="inv"):
+    """One raw solve and its x gathered on the device: NumPy x and the
+    decomposition."""
+    xr, dec = s.solve(b, k=k, f=f, raw=True)
+    return dict(_dec(dec), x=_np(s.gather_x(xr)))
+
+
+def case_gathered_solves(device, d, u, v, p, k, bs):
+    """The raw solve of each b of ``bs`` (key → b) and its x gathered on
+    the device (:meth:`gather_x`), as a benchmark call makes them."""
+    s = _f32(device, d, u, v, p)
+    return {key: _gathered(s, b, k) for key, b in bs.items()}
+
+
+def case_gather_x(device, d, u, v, p, b, k, nf):
+    """``gather_x`` of the raw pair and of the local x, against
+    ``unpack`` and the solve's own NumPy x, for one f or ``nf`` of them."""
+    import torch
+    s = _f32(device, d, u, v, p)
+    f = "inv" if nf == 0 else ("inv",) * nf
+    (xa, xn), _ = s.solve(b, k=k, f=f, raw=True)
+    pair = _np(s.gather_x((xa, xn)))
+    local = torch.cat([xa, xn], dim=-1)
+    x_np, _ = s.solve(b, k=k, f=f)
+    return {"pair": pair, "local": _np(s.gather_x(local)),
+            "unpack": s.unpack(local), "solve": x_np,
+            "device": str(s.gather_x(local).device)}
+
+
+def case_spans(device, d, u, v, p, b, k):
+    """The ``tpl.*`` spans of a two-pass solve, raw with its gather, a
+    one-pass and a callback solve: ``[(name, parent)]`` each, as
+    ``tests/test_torch_spans.py`` reads them."""
+    from torch.profiler import ProfilerActivity, profile
+    s = _f32(device, d, u, v, p)
+
+    def spans(fn):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        out = []
+        for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
+            if not ev.name.startswith("tpl."):
+                continue
+            up = ev.cpu_parent
+            while up is not None and not up.name.startswith("tpl."):
+                up = up.cpu_parent
+            out.append((ev.name, None if up is None else up.name))
+        return out
+
+    return {
+        "two_pass": spans(lambda: s.solve(b, k=k)),
+        "raw": spans(lambda: s.gather_x(s.solve(b, k=k, raw=True)[0])),
+        "one_pass": spans(lambda: s.solve(b, k=k, method="one_pass",
+                                          raw=True)),
+        "callback": spans(lambda: s.solve(
+            b, k=k, raw=True, callback=lambda *_: True, callback_chunk=5)),
+    }
+
+
+def case_counts(device, d, u, v, p, b, k):
+    """What a solve with its x gather adds to the counters and the log:
+    ``solve`` itself, and a raw solve then :meth:`gather_x`."""
+    s = _f32(device, d, u, v, p)
+    _, whole = _counted(lambda: s.solve(b, k=k))
+    _, raw = _counted(lambda: s.gather_x(s.solve(b, k=k, raw=True)[0]))
+    return {"whole": whole, "raw": raw, "m_d": s.m_d, "p": s.p,
+            "width": max(s.shard_sizes), "world": s.mesh.size}
+
+
+def case_graph_path(device, d, u, v, p, b, b2, k, k2):
+    """On a card: a solver's first solve (eager), its second (captured,
+    then replayed), a second b through the same graphs and a new k,
+    against eager solves of the same b on fresh solvers; with what each
+    solve counted."""
+    s = _f32(device, d, u, v, p)
+    first, eager_counts = _counted(lambda: _gathered(s, b, k))
+    again, captured_counts = _counted(lambda: _gathered(s, b, k))
+    after_capture = len(s._graphs)
+    again2, replay_counts = _counted(lambda: _gathered(s, b2, k))
+    other_k, _ = _counted(lambda: _gathered(s, b, k2))
+    eager2 = _gathered(_f32(device, d, u, v, p), b2, k)
+    eager_k2 = _gathered(_f32(device, d, u, v, p), b, k2)
+    return {"first": first, "again": again, "again2": again2,
+            "eager2": eager2, "other_k": other_k, "eager_k2": eager_k2,
+            "graphs": (after_capture, len(s._graphs), sorted(s._graphs)),
+            "counts": (eager_counts, captured_counts, replay_counts)}
+
+
 CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())
          if name.startswith("case_")}
 

@@ -16,6 +16,16 @@ gather is tiny (D·p·4 bytes: 18 KB at p = 1,155 and 58 KB at p = 3,651 for
 D = 4). The double-float fold is ``_df_fold_leading`` of
 ``two_pass_lanczos_tpu/parallel/fused_sharded_df.py``: an f32 sum of df
 partials would re-round them to f32.
+
+:data:`COLLECTIVES` counts the collectives run on this rank, by kind,
+always, whether or not a log is open: one for each call of
+:func:`all_gather` or :func:`all_gather_start`, so one for each
+:func:`gather_fold`, :func:`df_gather_fold` and :func:`all_gather_arcs`.
+A CUDA graph that holds collectives (``parallel/fused_sharded.py``) adds
+at each replay what its capture counted, so a replayed solve counts what
+the eager one does: the arc-sharded f32 two-pass solve of k steps with
+its x gather counts 4k + 1 (‖b‖, three a step of pass one, one a step of
+pass two's k − 1, the gather).
 """
 
 from __future__ import annotations
@@ -33,12 +43,21 @@ from two_pass_lanczos_tpu_torch.utils.collectives import (
 )
 
 __all__ = ["all_gather", "all_gather_start", "PendingGather", "gather_fold",
-           "df_gather_fold", "all_gather_arcs"]
+           "df_gather_fold", "all_gather_arcs", "COLLECTIVES"]
 
 # one flat all-gather into a preallocated buffer (gloo takes it flat):
 # all_gather_single, or its older name where PyTorch predates it
 _gather_flat = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+
+#: collectives run on this rank, by kind (the module docstring)
+COLLECTIVES = {"all-gather": 0, "all-gather-start": 0}
+
+
+def _called(kind: str, out: torch.Tensor) -> None:
+    """Count one collective and report it to the open logs."""
+    COLLECTIVES[kind] += 1
+    record_call(kind, out.dtype, out.shape)
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -53,7 +72,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     out = torch.empty((mesh.size,) + tuple(t.shape), dtype=t.dtype,
                       device=t.device)
     _gather_flat(_flat(out), _flat(t), group=mesh.group)
-    record_call("all-gather", out.dtype, out.shape)
+    _called("all-gather", out)
     return out
 
 
@@ -82,7 +101,7 @@ def all_gather_start(t: torch.Tensor, mesh: Mesh) -> PendingGather:
                       device=t.device)
     work = _gather_flat(_flat(out), _flat(t), group=mesh.group,
                         async_op=True)
-    record_call("all-gather-start", out.dtype, out.shape)
+    _called("all-gather-start", out)
     return PendingGather(out, work)
 
 

@@ -18,11 +18,36 @@ Counterpart of ``two_pass_lanczos_tpu/parallel/fused_sharded.py`` on
 
 The recurrence is ``algorithms/core.py``'s (``pass_one_scan``,
 ``pass_one_chunk_scan``, ``pass_two_scan``) over that matvec and dot:
-eager PyTorch around K7 and the collectives, with the breakdown flag, α and
-β kept on the device, so a k-step pass queues its work with no host sync
+PyTorch around K7 and the collectives, with the breakdown flag, α and β
+kept on the device, so a k-step pass queues its work with no host sync
 (NCCL collectives are stream-ordered); only the callback path reads back,
 once per chunk. On CPU tensors (a gloo mesh) K7's plain version
 ``ops/kkt_fused.kkt_shard_matvec`` runs instead; a CUDA shard never runs it.
+
+* **Each pass one CUDA graph.** Issued one operation at a time, a step's
+  ~36 operations around K7 and the folds leave the host to set the pace.
+  So on a CUDA mesh a two-pass :meth:`ShardedFusedKKTSolver.solve` without
+  a callback replays two captured graphs: pass one (every K7 launch, every
+  fold's all-gather, every elementwise step of ``pass_one_scan``) and pass
+  two (the same of ``pass_two_scan``). f(T_k)·e₁ (``scaled_y``, which waits
+  on the host twice) runs between them, eagerly. The graphs are cached on
+  the solver by ``(k, number of f rows)`` and captured at first use, after
+  one eager solve has set up NCCL's communicators; every rank makes the
+  same calls, so every rank captures the same sequence. Their inputs are
+  static buffers: :meth:`ShardedFusedKKTSolver.pack` writes b into the one
+  both passes read, and pass one's decomposition (α, β, steps taken, ‖b‖)
+  and f(T_k)·e₁'s y are copied into pass two's; the caller gets copies of
+  the outputs. A pair of graphs shares one private memory pool, which the
+  allocator's peak does not count (``torch.cuda.memory_reserved`` does).
+  The arithmetic is the eager solve's, kernel for kernel, so a replay is
+  bitwise the eager solve on every rank. A replay adds to ``LAUNCHES``,
+  ``comm.COLLECTIVES`` and the open ``record_collectives`` logs what its
+  capture recorded, which the capture itself does not count: it runs
+  nothing. The CPU path, the callback path, one-pass and the capability
+  methods run eagerly. NCCL does not destroy a communicator while a graph
+  that holds its collectives lives, so ``destroy_process_group`` waits
+  until the solver is freed or :meth:`ShardedFusedKKTSolver.release_graphs`
+  has run.
 
 The capability methods run on the same matvec and folds: the SLQ
 methods one sharded pass one a probe (each probe's α and β bitwise a
@@ -39,7 +64,7 @@ the lanes and the lack of a gather forced; and ``interpret``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +85,9 @@ from two_pass_lanczos_tpu_torch.algorithms.core import (
     pass_two_scan,
     zero_tolerance,
 )
+from two_pass_lanczos_tpu_torch.observability import trace
 from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
+    LAUNCHES,
     KKTLayout,
     kkt_shard_matvec,
     kkt_shard_matvec_cuda,
@@ -68,10 +95,15 @@ from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
     scaled_y,
 )
 from two_pass_lanczos_tpu_torch.parallel.comm import (
+    COLLECTIVES,
     all_gather_arcs,
     gather_fold,
 )
 from two_pass_lanczos_tpu_torch.parallel.mesh import Mesh
+from two_pass_lanczos_tpu_torch.utils.collectives import (
+    report_again,
+    set_aside,
+)
 
 __all__ = ["ShardedFusedKKTSolver"]
 
@@ -82,6 +114,60 @@ def split_arcs(m: int, mesh: Mesh):
         raise ValueError(f"{m} arcs cannot be split over {mesh.size} ranks")
     arc_idx = np.array_split(np.arange(m, dtype=np.int64), mesh.size)
     return arc_idx, arc_idx[mesh.rank]
+
+
+class _Captured:
+    """One pass captured as a CUDA graph (``run()`` its work, its result
+    ``out``), with what the capture recorded: the kernel launches, the
+    collectives and the calls of the open ``record_collectives`` logs. The
+    capture counts none of them, since it runs nothing on the device; each
+    :meth:`replay` adds them, as the eager pass would."""
+
+    def __init__(self, run: Callable[[], object], pool=None):
+        self.graph = torch.cuda.CUDAGraph()
+        counts = (dict(LAUNCHES), dict(COLLECTIVES))
+        try:
+            with set_aside() as self.log:
+                # thread-local: NCCL's watchdog thread queries its events
+                # while this thread captures
+                with torch.cuda.graph(self.graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    self.out = run()
+            self.launches = {k: LAUNCHES[k] - counts[0][k] for k in LAUNCHES}
+            self.collectives = {k: COLLECTIVES[k] - counts[1][k]
+                                for k in COLLECTIVES}
+        finally:
+            LAUNCHES.update(counts[0])
+            COLLECTIVES.update(counts[1])
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, c in self.launches.items():
+            LAUNCHES[k] += c
+        for k, c in self.collectives.items():
+            COLLECTIVES[k] += c
+        report_again(self.log)
+
+
+class _TwoPassGraphs:
+    """The two graphs of a two-pass solve at one ``(k, nf)``: pass one
+    from the solver's static b, pass two from the same b and its own
+    static decomposition and y, sharing one memory pool (pass two always
+    replays after pass one)."""
+
+    def __init__(self, solver: "ShardedFusedKKTSolver", k: int, nf: int):
+        dev, b = solver.device, solver._static_b
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.decomp = LanczosDecomposition(
+            alphas=torch.zeros(k, **f32), betas=torch.zeros(k, **f32),
+            steps_taken=torch.zeros((), dtype=torch.int32, device=dev),
+            b_norm=torch.zeros((), **f32))
+        self.y = torch.zeros((k,) if nf == 0 else (nf, k), **f32)
+        self.one = _Captured(lambda: pass_one_scan(
+            solver._matvec, b, k, dot=solver._dot)[0])
+        self.two = _Captured(lambda: pass_two_scan(
+            solver._matvec, b, self.decomp, self.y)[0],
+            pool=self.one.graph.pool())
 
 
 class ShardedFusedKKTSolver:
@@ -122,21 +208,28 @@ class ShardedFusedKKTSolver:
         # and its cache
         self._kkt_arrays = (d.astype(np.float32), u, v, self.p)
         self._interval_cache = None
+        # the CUDA graphs of the two-pass solve by (k, f rows; 0 for one
+        # spec), their static b, and whether an eager solve has run (and
+        # so set up NCCL's communicators)
+        self._graphs: Dict[Tuple[int, int], _TwoPassGraphs] = {}
+        self._static_b: Optional[torch.Tensor] = None
+        self._warm = False
 
     @property
     def _cuda(self) -> bool:
         return self.device.type == "cuda"
 
     # -- packing ----------------------------------------------------------
-    def pack(self, b) -> torch.Tensor:
+    def pack(self, b, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The local ``(m_d + p,)`` f32 right-hand side on this rank's
         device, ``[b_a of the shard, b_n]``, from an (n,) b (NumPy, or a
         tensor anywhere). An ``(m_d + p,)`` f32 tensor already on the device
-        is the pre-packed b, used in place."""
+        is the pre-packed b, used in place; with ``out`` (the graphs'
+        static b) b is written into ``out``, which is returned."""
         if (isinstance(b, torch.Tensor) and b.device == self.device
                 and b.dtype == torch.float32
                 and tuple(b.shape) == (self.n_local,) and b.is_contiguous()):
-            return b
+            return b if out is None else out.copy_(b)
         t = b if isinstance(b, torch.Tensor) else torch.from_numpy(
             np.asarray(b, np.float32))
         if tuple(t.shape) != (self.n,):
@@ -144,14 +237,24 @@ class ShardedFusedKKTSolver:
                              f"({self.n_local},), got {tuple(t.shape)}")
         t = t.to(device=self.device, dtype=torch.float32)
         a0 = self._arc0
-        return torch.cat([t[a0:a0 + self.m_d], t[self.m:]])
+        return torch.cat([t[a0:a0 + self.m_d], t[self.m:]], out=out)
 
-    def unpack(self, x: torch.Tensor) -> np.ndarray:
-        """The full (n,) — or (nf, n) — x as NumPy on every rank, from the
-        local one: one all-gather of the arc shards (each padded to the
-        largest) and the replicated node block."""
-        xa = all_gather_arcs(x[..., :self.m_d], self.shard_sizes, self.mesh)
-        return torch.cat([xa, x[..., self.m_d:]], dim=-1).cpu().numpy()
+    def gather_x(self, x) -> torch.Tensor:
+        """The full (n,) — or (nf, n) — f32 x on this rank's device, from
+        the local one (``(..., m_d + p)``, or the ``(x_a of the shard,
+        x_n)`` pair of ``solve(raw=True)``): one all-gather of the arc
+        shards (each padded to the largest) and the replicated node
+        block."""
+        with trace("tpl.gather_x"):
+            xa, xn = x if isinstance(x, tuple) else (x[..., :self.m_d],
+                                                     x[..., self.m_d:])
+            return torch.cat(
+                [all_gather_arcs(xa, self.shard_sizes, self.mesh), xn],
+                dim=-1)
+
+    def unpack(self, x) -> np.ndarray:
+        """:meth:`gather_x` as NumPy on the host."""
+        return self.gather_x(x).cpu().numpy()
 
     # -- the per-step collectives -----------------------------------------
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -236,20 +339,60 @@ class ShardedFusedKKTSolver:
         return decomp, stopped
 
     # -- solve ------------------------------------------------------------
+    def _graph_two_pass(self, b, k: int, f
+                        ) -> Tuple[torch.Tensor, LanczosDecomposition]:
+        """The two-pass solve by the graphs of ``(k, f rows)``, captured
+        here at their first use: this rank's local x and the
+        decomposition, copies of the graphs' outputs."""
+        if self._static_b is None:
+            self._static_b = torch.empty(self.n_local, dtype=torch.float32,
+                                         device=self.device)
+        key = (k, len(f) if isinstance(f, tuple) else 0)
+        if key not in self._graphs:
+            self._graphs[key] = _TwoPassGraphs(self, k, key[1])
+        g = self._graphs[key]
+        self.pack(b, out=self._static_b)
+        with trace("tpl.pass_one"):
+            g.one.replay()
+            out = g.one.out
+            decomp = LanczosDecomposition(
+                alphas=out.alphas.clone(), betas=out.betas.clone(),
+                steps_taken=out.steps_taken.clone(),
+                b_norm=out.b_norm.clone())
+        y_full = scaled_y(decomp, f, k)
+        with trace("tpl.pass_two"):
+            for into, src in zip(
+                    (g.decomp.alphas, g.decomp.betas, g.decomp.steps_taken,
+                     g.decomp.b_norm, g.y),
+                    (decomp.alphas, decomp.betas, decomp.steps_taken,
+                     decomp.b_norm, y_full)):
+                into.copy_(src)
+            g.two.replay()
+            x = g.two.out.clone()
+        return x, decomp
+
+    def release_graphs(self) -> None:
+        """Free the two-pass solve's CUDA graphs and their memory; a later
+        solve captures them again. Call it (or free the solver) before
+        ``destroy_process_group``."""
+        self._graphs.clear()
+
     def solve(self, b, *, k: int, f="inv", method: str = "two_pass",
               raw: bool = False, callback=None, callback_chunk: int = 16):
         """Distributed f(A)·b, ``method`` ∈ {"two_pass", "one_pass"}.
 
         Returns ``(x, decomposition)``: x the full NumPy (n,) array on every
-        rank (one all-gather of the arc shards), or with ``raw=True`` this
-        rank's ``(x_a of the shard, x_n)`` device pair, with no collective.
-        ``b`` is an (n,) vector or the packed local tensor (:meth:`pack`),
-        used in place. ``f`` may be a tuple of function specs (x gains a
-        leading nf axis). ``method="one_pass"`` stores this rank's basis slab
-        (admitted against ``ONE_PASS_HBM_BUDGET``) and forms x = V_k·y in
-        full f32. ``callback`` (two_pass only) runs pass one by
-        :meth:`pass_one_chunked` in ``callback_chunk``-step chunks; a stop
-        at step s runs a pass two of s steps, so the solve pays at most
+        rank (:meth:`unpack`), or with ``raw=True`` this rank's ``(x_a of
+        the shard, x_n)`` device pair, with no collective (:meth:`gather_x`
+        gathers the whole x on the device). ``b`` is an (n,) vector or the
+        packed local tensor (:meth:`pack`). ``f`` may be a tuple of function
+        specs (x gains a leading nf axis). On a CUDA mesh a two-pass solve
+        without ``callback`` replays the passes' CUDA graphs (the module
+        docstring), after one eager solve. ``method="one_pass"`` stores this
+        rank's basis slab (admitted against ``ONE_PASS_HBM_BUDGET``) and
+        forms x = V_k·y in full f32. ``callback`` (two_pass only) runs pass
+        one by :meth:`pass_one_chunked` in ``callback_chunk``-step chunks; a
+        stop at step s runs a pass two of s steps, so the solve pays at most
         ceil(s/chunk)·chunk + s matvecs instead of 2k.
         """
         if method not in ("two_pass", "one_pass"):
@@ -267,26 +410,48 @@ class ShardedFusedKKTSolver:
             raise ValueError(
                 "callback early stopping is implemented for the two_pass "
                 "method")
+        with trace("tpl.solve"):
+            if (self._cuda and self._warm and callback is None
+                    and method == "two_pass"):
+                x, decomp = self._graph_two_pass(b, k, f)
+            else:
+                x, decomp = self._eager_solve(b, k, f, method, callback,
+                                              callback_chunk)
+                self._warm = True
+            if raw:
+                return (x[..., :self.m_d], x[..., self.m_d:]), decomp
+            return self.unpack(x), decomp
+
+    def _eager_solve(self, b, k: int, f, method: str, callback,
+                     callback_chunk: int
+                     ) -> Tuple[torch.Tensor, LanczosDecomposition]:
+        """:meth:`solve`'s work one operation at a time: this rank's local
+        x and the decomposition."""
         b = self.pack(b)
+        basis = None
+        with trace("tpl.pass_one"):
+            if callback is not None:
+                decomp, _ = self.pass_one_chunked(b, k, callback,
+                                                  callback_chunk)
+            elif method == "one_pass":
+                decomp, basis = self.pass_one_with_basis(b, k)
+            else:
+                decomp = self.pass_one(b, k)
+        y_full = scaled_y(decomp, f, k)
+        if basis is not None:
+            with trace("tpl.basis_product"):
+                return basis_product(y_full, basis), decomp
         if callback is not None:
-            decomp, _ = self.pass_one_chunked(b, k, callback, callback_chunk)
             k2 = max(decomp.steps(), 1)
             self._last_p2_len = k2
-            y_full = scaled_y(decomp, f, k)[..., :k2]
-            short = LanczosDecomposition(
+            y_full = y_full[..., :k2]
+            decomp_p2 = LanczosDecomposition(
                 alphas=decomp.alphas[:k2], betas=decomp.betas[:k2],
                 steps_taken=decomp.steps_taken, b_norm=decomp.b_norm)
-            x = self.pass_two(b, short, y_full)
-        elif method == "one_pass":
-            decomp, basis = self.pass_one_with_basis(b, k)
-            x = basis_product(scaled_y(decomp, f, k), basis)
-            del basis
         else:
-            decomp = self.pass_one(b, k)
-            x = self.pass_two(b, decomp, scaled_y(decomp, f, k))
-        if raw:
-            return (x[..., :self.m_d], x[..., self.m_d:]), decomp
-        return self.unpack(x), decomp
+            decomp_p2 = decomp
+        with trace("tpl.pass_two"):
+            return self.pass_two(b, decomp_p2, y_full), decomp
 
     # -- capability methods --------------------------------------------------
     def _slq_pass_one(self, probes, k: int) -> LanczosDecomposition:

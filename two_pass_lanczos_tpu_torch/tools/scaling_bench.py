@@ -144,6 +144,7 @@ def worker(args) -> int:
         bt = torch.from_numpy(b)
         record("fused", timed(
             lambda: sf.solve(bt, k=args.k, f="inv", raw=True)[0]))
+        sf.release_graphs()
     if "generic" in args.designs:  # row partition: the O(n) vector a step
         op = ShardedSparseOperator.from_kkt_arrays(
             KKTArrays(inst.quad_costs, inst.arc_u, inst.arc_v, p, m), mesh,

@@ -22,6 +22,10 @@ to it: each call's kind, and markers that carry no bytes
 ``wait()``) and the sharded matvec's ``"owned-spmv"`` and ``"remote-spmv"``.
 That order shows what a step computes while its gather is in flight, the
 counterpart of the JAX package's check on the traced program's data flow.
+
+A CUDA graph's capture runs no collective, so its calls go to a log of
+their own (:func:`set_aside`) and not to the open logs; each replay then
+reports them to the open logs (:func:`report_again`), in their order.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from typing import Iterator, List
 import torch
 
 __all__ = ["CollectiveOp", "CollectiveLog", "record_collectives",
-           "record_call", "record_event", "collective_bytes"]
+           "record_call", "record_event", "collective_bytes", "set_aside",
+           "report_again"]
 
 _DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "bf16": 2, "f16": 2, "s16": 2,
                 "u16": 2, "f32": 4, "s32": 4, "u32": 4, "f64": 8, "s64": 8,
@@ -97,6 +102,27 @@ def record_collectives() -> Iterator[CollectiveLog]:
         yield log
     finally:
         _open.remove(log)
+
+
+@contextlib.contextmanager
+def set_aside() -> Iterator[CollectiveLog]:
+    """Record the block's calls and markers in a new log alone: the open
+    logs take none of them, and are open again after the block."""
+    saved = _open[:]
+    _open[:] = []
+    log = CollectiveLog()
+    _open.append(log)
+    try:
+        yield log
+    finally:
+        _open[:] = saved
+
+
+def report_again(log: CollectiveLog) -> None:
+    """Report the calls and markers of ``log`` to every open log."""
+    for into in _open:
+        into.calls.extend(log.calls)
+        into.events.extend(log.events)
 
 
 def record_call(kind: str, dtype: torch.dtype, shape) -> None:

@@ -157,7 +157,19 @@ Phases (each one raises on failure, so the exit code is non-zero):
     nothing else, no plain shard matvec, x finite, pass two's v_s bitwise
     pass one's, α, β at k = 20 within rtol 2e-4 of K2; medians of 5 (3 at
     5M) solves, and of one-pass and callback (chunk 64) solves at the
-    headline; K7's time beside a cuSPARSE CSR SpMV of the shard's A;
+    headline; K7's time beside a cuSPARSE CSR SpMV of the shard's A. The
+    999 products are K7's step instances (k of pass one's, k - 1 of pass
+    two's), with k of each of the fused step's ``node_fold``,
+    ``orthogonalise``, ``norm`` and ``advance`` and k - 1 ``two_nodes``
+    (``sharded_step.STEP_KERNELS``, reset with ``LAUNCHES``);
+17b. each kernel of the fused step (K7's two step instances and
+    ``csrc/shard_step.cu``'s five) on rank 0's shard of the 5M instance
+    over four cards (~1.25M arcs and p), against its plain version
+    (``sharded_step.PlainStepKernels``) on copies of the same inputs:
+    every vector and 0-d output bitwise, the block partials and dot shares
+    within 64·eps·Σ|term|, K7's node partial within phase 17's bound;
+    then timed cold-L2 and warm beside the core scans' PyTorch operations
+    that computed the same function;
 18. K12, one shard's df matvec on (hi, lo) pairs, and the df sharded main
     path ``DFShardedFusedKKTSolver(d64, u, v, p, mesh).solve(b64, k=500)``
     on the same group at both sizes: one shard bitwise both K11 instances
@@ -228,8 +240,8 @@ Phases (each one raises on failure, so the exit code is non-zero):
     twin on the same probes, v0 or coefficients: the row-sharded
     operator's ``eigsh`` (LA and SA), SLQ methods, ``solve_fAb_block``,
     ``estimate_interval``, ``chebyshev_fAb`` and ``solve_fAb(reorth=True)``
-    (K15 alone), the arc-sharded solver's SLQ methods (k K7 launches
-    a probe, a probe bitwise a solve's pass one), ``estimate_interval``
+    (K15 alone), the arc-sharded solver's SLQ methods (k fused pass-one
+    steps a probe, a probe bitwise a solve's pass one), ``estimate_interval``
     (K8 only, the fused solver's interval, cached) and ``chebyshev_fAb``
     (``degree`` K7 launches; whether it is bitwise the fused K1 expansion
     is printed), and medians of 3 of every method;
@@ -271,8 +283,9 @@ path, plus those of phases 21–23's paths (``capability_launches``, per
 path: K1's in the fused Chebyshev expansion, K2's and K6's in the SLQ
 methods, K8's under ``estimate_interval``, the generic expansion, the
 reorthogonalised and block solves and the arc-sharded interval, K7's in
-the arc-sharded SLQ methods and expansion, K15's in the row-sharded
-methods), of phase 24's
+the arc-sharded expansion, the fused step's kernels (K7's pass-one
+instance among them) in the arc-sharded SLQ methods, K15's in the
+row-sharded methods), of phase 24's
 (``tool_launches``: K1, K2, K3 and K4 under ``tradeoff`` and
 ``scalability``, K8 under ``tradeoff --backend pallas``, K7 in
 ``sol_bench``'s graphs) and of phase 25's (``entry_launches``: K8 under
@@ -394,6 +407,18 @@ KERNELS = {
                        "scripts/probe/stream_manual.py:194"),
     # K15 replaces no TPU kernel: the JAX coo_spmv is XLA's
     "csr_spmv": ("two_pass_lanczos_tpu_torch/csrc/csr_spmv.cu", None),
+    # the arc-sharded solver's fused step: K7's step instances, and the
+    # kernels after the folds, which replace XLA's step around K7
+    "kkt_shard_matvec_step_one": (
+        "two_pass_lanczos_tpu_torch/csrc/kkt_shard_matvec.cu",
+        "two_pass_lanczos_tpu/ops/kkt_fused.py:937"),
+    "kkt_shard_matvec_step_two": (
+        "two_pass_lanczos_tpu_torch/csrc/kkt_shard_matvec.cu",
+        "two_pass_lanczos_tpu/ops/kkt_fused.py:937"),
+    **{name: ("two_pass_lanczos_tpu_torch/csrc/shard_step.cu", None)
+       for name in ("shard_step_node_fold", "shard_step_orthogonalise",
+                    "shard_step_norm", "shard_step_advance",
+                    "shard_step_two_nodes")},
 }
 #: the probe variant whose numbers stand in the ``kernels`` line
 PROBE_MAIN = {"probe_gather": ("gather", "arc_u/ldg/int32"),
@@ -520,6 +545,9 @@ def kernel_bounds(m: int, n: int, steps: int, k: int) -> dict:
         # K15 on the assembled f32 KKT matrix: 5 nonzeros an arc (D's, E's
         # and Eᵀ's)
         "csr_spmv": csr_spmv_bound(5 * m, n, n, 4, False),
+        # the fused sharded step, a launch on rank 0's shard of the instance
+        # over STEP_RANKS cards, one row of y
+        **step_bounds(-(-m // STEP_RANKS), n - m, STEP_RANKS, 1),
     }
 
 
@@ -1132,7 +1160,6 @@ def sharded_f32_phase(card, dev, mesh, sizes) -> dict:
         kkt_shard_matvec,
         kkt_shard_matvec_cuda,
         pass_one_cuda,
-        reset_launches,
         scaled_y,
     )
     from two_pass_lanczos_tpu_torch.parallel import (
@@ -1198,18 +1225,22 @@ def sharded_f32_phase(card, dev, mesh, sizes) -> dict:
             return plain_orig(*args, **kw)
 
         fused_sharded.kkt_shard_matvec = counted
-        reset_launches()
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x_main, dec_main = solver.solve(b, k=K, f="inv")
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = dict(LAUNCHES)
+        rows = row_counts()
         fused_sharded.kkt_shard_matvec = plain_orig
         check(launches["kkt_streaming_matvec"] == 2 * K - 1
               and sum(launches.values()) == 2 * K - 1 and not plain_calls,
               f"{label}: sharded launches {launches}, plain calls "
               f"{len(plain_calls)}")
+        check(rows == {**fused_pass_one(K), "kkt_shard_matvec_step_two":
+                       K - 1, "shard_step_two_nodes": K - 1},
+              f"{label}: the fused step's launches {rows}")
         check(x_main.shape == (n,) and bool(np.isfinite(x_main).all()),
               f"{label}: sharded x not a finite (n,) array")
         bl = solver.pack(b)
@@ -1237,7 +1268,7 @@ def sharded_f32_phase(card, dev, mesh, sizes) -> dict:
               f"vs plain max_abs_err {err:.3e}; cuSPARSE rel {rel_lib:.3e}; "
               f"sharded solve(k={K}) on a one-rank "
               f"{torch.distributed.get_backend(mesh.group)} group first call "
-              f"{first_s:.4f} s, steps {steps}, launches {launches}, plain "
+              f"{first_s:.4f} s, steps {steps}, launches {rows}, plain "
               f"calls {len(plain_calls)}; pass two's v_{steps} bitwise pass "
               f"one's; alpha, beta at k={K_CHECK} vs K2 max rel {rel20:.3e}")
         t_solve = wall_s(lambda: solver.solve(b, k=K, f="inv", raw=True),
@@ -1254,11 +1285,356 @@ def sharded_f32_phase(card, dev, mesh, sizes) -> dict:
                 callback_chunk=CHUNK), 5)
             print(f"     sharded one-pass solve k={K}: {runs(t_one)}; "
                   f"callback (never stops, chunk {CHUNK}): {runs(t_cb)}")
-        out[label] = {"launches": launches["kkt_streaming_matvec"],
+        out[label] = {"launches": rows.get("kkt_streaming_matvec", 0),
+                      "step_launches": rows,
                       "err": err, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms,
                       "bound": roofline_ms(20 * m + 8 * p, 5 * m)}
         del solver, whole, bl, st1, st2
+    return out
+
+
+#: the arc-sharded solver's fused step: K7's two step instances, then
+#: ``csrc/shard_step.cu``'s five kernels (each a row of the kernels line)
+STEP_ROWS = ("kkt_shard_matvec_step_one", "kkt_shard_matvec_step_two",
+             "shard_step_node_fold", "shard_step_orthogonalise",
+             "shard_step_norm", "shard_step_advance", "shard_step_two_nodes")
+#: the ranks of the fused step's phase: the 4-card cell's shard
+STEP_RANKS = 4
+
+
+def step_bounds(m: int, p: int, ranks: int, nf: int) -> dict:
+    """``(bound ms, what binds)`` of each fused-step kernel's function, a
+    launch over a shard of m arcs and p nodes gathered from ``ranks`` cards,
+    nf rows of y: each input read once and each output written once (f32
+    values, int32 indices; the (ranks, 16) share buffers and the state
+    slots counted, the 0-d scalars not), and f32 operations (a matvec's 5
+    an arc, as K7's bound counts it, 2 a dot or a scaled add's term)."""
+    n = m + p
+    parts, quads = -(-m // 256), -(-m // 1024)
+    shares = 4 * 16 * (ranks + 1)  # a gathered arc group and a node group
+    return {
+        # K7's 20 B an arc less y_a, with v_prev_a read and w_a written;
+        # the node partial and the block partials written
+        "kkt_shard_matvec_step_one": roofline_ms(
+            24 * m + 8 * p + 4 * parts, 9 * m),
+        # ... with v_prev_a read, v_next_a written and x_a read and written
+        # for each row of y
+        "kkt_shard_matvec_step_two": roofline_ms(
+            24 * m + 8 * m * nf + 8 * p, (10 + 2 * nf) * m),
+        # g, v_prev_n, v_n and K7's partials read; w_n and two groups written
+        "shard_step_node_fold": roofline_ms(
+            4 * ranks * p + 12 * p + 4 * parts + 2 * 64,
+            (ranks + 3) * p + parts),
+        # w and v read, w written, the block partials written
+        "shard_step_orthogonalise": roofline_ms(
+            12 * n + 4 * quads + shares, 4 * n),
+        "shard_step_norm": roofline_ms(4 * p + 4 * quads + 2 * 64,
+                                       2 * p + quads),
+        # w read and written (an advancing step, no basis row)
+        "shard_step_advance": roofline_ms(8 * n + shares, n),
+        "shard_step_two_nodes": roofline_ms(
+            4 * ranks * p + 12 * p + 8 * p * nf,
+            (ranks + 4) * p + 2 * p * nf),
+    }
+
+
+def shard_step_phase(card, dev, big, timed: bool = True) -> dict:
+    """Phase 17b: each kernel of the arc-sharded solver's fused step on
+    rank 0's shard of the 5M-arc instance split over ``STEP_RANKS`` cards
+    (the 4-card cell's shard, ~1.25M arcs and p), against its plain version
+    (``sharded_step.PlainStepKernels``) on copies of the same inputs. The
+    gathered share groups and node shares are multiples of 1/64, whose sums
+    are exact in any order, so every vector and 0-d output is held bitwise;
+    the block partials and dot shares, which sum in another order, within
+    64·eps·Σ|term|, and K7's node partial within 2·deg·eps·Σ|x| (phase 17's
+    bound). ``advance`` is driven advancing with a basis row and not
+    executing; ``two_matvec`` and ``two_nodes`` active with nf = 1 and 2 and
+    inactive. Then timed: ``ms`` a launch cold-L2 and ``warm_ms``, 50
+    launches in one CUDA graph (``probes.bench.Timer``), as are
+    ``library_ms``, the PyTorch operations of the core scans that computed
+    the same function (cuSPARSE's CSR SpMV of the shard for the matvecs);
+    ``plain_ms`` the plain version's, which reads its flags on the host
+    (CUDA events, warm). Returns each kernel's row values."""
+    import numpy as np
+    import torch
+    from two_pass_lanczos_tpu_torch.models.kkt import kkt_sorted_coo
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import KKTLayout
+    from two_pass_lanczos_tpu_torch.parallel.sharded_step import (
+        CudaStepKernels,
+        PlainStepKernels,
+    )
+    from two_pass_lanczos_tpu_torch.utils.data_loader import KKTArrays
+
+    f32, eps = torch.float32, torch.finfo(torch.float32).eps
+    ranks = STEP_RANKS
+    sl = shard_slices(big.num_arcs, ranks)[0]
+    p = big.num_nodes
+    lay = KKTLayout.build(big.quad_costs[sl], big.arc_u[sl], big.arc_v[sl],
+                          p, dev)
+    m, n = lay.m, lay.n
+    parts, quads = -(-m // 256), -(-m // 1024)
+    gen = torch.Generator().manual_seed(29)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def dyadic(*shape, low=-64):
+        return (torch.randint(low, 65, shape, generator=gen).to(f32)
+                / 64).to(dev)
+
+    def slot(beta_prev, done, steps, b_norm=1.5):
+        t = torch.tensor([beta_prev, 0.0, 0.0, b_norm], dtype=f32)
+        t = t.view(torch.int32)
+        t[1], t[2] = done, steps
+        return t.to(dev)
+
+    card_k, plain_k = (PlainStepKernels(), PlainStepKernels()) \
+        if dev.type != "cuda" else (CudaStepKernels(), PlainStepKernels())
+    errs, notes = {}, []
+
+    def both(name, launch, bufs):
+        """``launch(kernels, bufs)`` on copies for the card's kernels and
+        the plain ones: (the card's buffers, the plain ones)."""
+        got = {key: t.clone() for key, t in bufs.items()}
+        want = {key: t.clone() for key, t in bufs.items()}
+        launch(card_k, got)
+        launch(plain_k, want)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return got, want
+
+    def same(name, got, want, keys):
+        for key in keys:
+            check(torch.equal(got[key], want[key]),
+                  f"{name}: {key} is not its plain version's bits (max "
+                  f"diff {float((got[key] - want[key]).abs().max()):.3e})")
+        errs.setdefault(name, 0.0)
+
+    def near(name, what, got, want, scale):
+        gap = (got.double() - want.double()).abs()
+        bound = 64 * eps * scale.double()
+        check(bool((gap <= bound).all()),
+              f"{name}: {what} past 64·eps·Σ|term| of its plain version "
+              f"(max gap {float(gap.max()):.3e})")
+        errs[name] = max(errs.get(name, 0.0), float(gap.max()))
+        share = float((gap / bound.clamp_min(1e-300)).max())
+        notes.append(f"{name} {what} {share:.3f} of its bound")
+
+    def blocks(t, size):
+        pad = (-t.numel()) % size
+        return torch.cat([t, t.new_zeros(pad)]).view(-1, size).sum(1)
+
+    vp, v, w0 = normal(n), normal(n), normal(n)
+    base = {"vp": vp, "v": v, "w": w0, "s": torch.zeros(p, device=dev),
+            "partials": torch.zeros(parts, device=dev),
+            "scal": dyadic(4, 16), "st": slot(0.75, 0, 3),
+            "after": slot(0.0, 0, 0), "g_nodes": normal(ranks, p),
+            "g_alpha": dyadic(ranks, 16), "g_beta2": dyadic(ranks, 16, low=1),
+            "alpha": torch.zeros((), device=dev),
+            "beta": torch.zeros((), device=dev),
+            "basis": torch.zeros(n, device=dev)}
+    k_limit = 500
+
+    def one_matvec(kern, b):
+        kern("one_matvec", lay, b["vp"], b["v"], b["w"], b["s"],
+             b["partials"], b["st"])
+
+    got, want = both("one_matvec", one_matvec, base)
+    same("kkt_shard_matvec_step_one", got, want, ["w"])
+    check(bool(((got["s"] - want["s"]).abs() <= node_bound(lay, v, eps))
+               .all()), "step one's node partial past K7's bound")
+    near("kkt_shard_matvec_step_one", "block partials", got["partials"],
+         want["partials"], blocks((v[:m] * want["w"][:m]).abs(), 256))
+    errs["kkt_shard_matvec_step_one"] = max(
+        errs["kkt_shard_matvec_step_one"],
+        float((got["s"] - want["s"]).abs().max()))
+    w1 = want["w"]  # w_a from K7, w_n from node_fold below
+
+    def node_fold(kern, b):
+        kern("node_fold", b["g_nodes"], ranks, m, p, b["vp"], b["v"],
+             b["w"], b["partials"], parts, b["st"], b["scal"])
+
+    fold_in = dict(base, w=w1, partials=normal(parts))
+    got, want = both("node_fold", node_fold, fold_in)
+    same("shard_step_node_fold", got, want, ["w"])
+    near("shard_step_node_fold", "alpha's arc part",
+         got["scal"][0].double().sum(), want["scal"][0].double().sum(),
+         fold_in["partials"].abs().double().sum())
+    near("shard_step_node_fold", "<v_n, w_n>",
+         got["scal"][1].double().sum(), want["scal"][1].double().sum(),
+         (v[m:] * want["w"][m:]).abs().double().sum())
+
+    def orthogonalise(kern, b):
+        kern("orthogonalise", b["g_alpha"], ranks, m, p, b["v"], b["w"],
+             b["partials"], b["st"], k_limit, b["alpha"], b["scal"])
+
+    orth_in = dict(base, w=want["w"])
+    got, want = both("orthogonalise", orthogonalise, orth_in)
+    same("shard_step_orthogonalise", got, want, ["w", "alpha"])
+    near("shard_step_orthogonalise", "block partials", got["partials"][:quads],
+         want["partials"][:quads],
+         blocks((want["w"][:m] * want["w"][:m]).abs(), 1024))
+    w2 = want["w"]
+
+    def norm(kern, b):
+        kern("norm", m, p, b["w"], b["partials"], quads, b["scal"])
+
+    norm_in = dict(base, w=w2, partials=normal(parts).abs())
+    got, want = both("norm", norm, norm_in)
+    near("shard_step_norm", "beta^2's arc part",
+         got["scal"][2].double().sum(), want["scal"][2].double().sum(),
+         norm_in["partials"][:quads].double().sum())
+    near("shard_step_norm", "<w_n, w_n>", got["scal"][3].double().sum(),
+         want["scal"][3].double().sum(),
+         (w2[m:] * w2[m:]).double().sum())
+
+    def advance(kern, b, limit=k_limit, basis=True):
+        kern("advance", b["g_beta2"], ranks, m, p, b["vp"], b["v"], b["w"],
+             b["basis"] if basis else None, b["st"], b["after"], limit,
+             1e-6, b["beta"], b["scal"])
+
+    adv_in = dict(base, w=w2, scal=dyadic(4, 16, low=1))
+    everything = ["vp", "v", "w", "basis", "after", "beta"]
+    got, want = both("advance", advance, adv_in)
+    same("shard_step_advance", got, want, everything)
+    check(float(want["beta"]) > 0 and int(want["after"][2]) == 4,
+          "advance did not advance")
+    got, want = both("advance", lambda kern, b: advance(kern, b, 3), adv_in)
+    same("shard_step_advance", got, want, everything)
+    check(float(want["beta"]) == 0 and torch.equal(want["w"], v),
+          "a step past the limit moved on")
+
+    k = 8
+    two = {"vp": vp, "v": v, "vn": torch.zeros(n, device=dev),
+           "s": torch.zeros(p, device=dev),
+           "alphas": normal(k), "betas": normal(k).abs() + 0.5,
+           "steps": torch.tensor(k, dtype=torch.int32, device=dev),
+           "g_nodes": normal(ranks, p)}
+
+    def two_matvec(kern, b, step):
+        y = b["y"]
+        kern("two_matvec", lay, b["vp"], b["v"], b["vn"], b["s"],
+             b["alphas"], b["betas"], b["steps"], y, y.shape[0], k, step,
+             b["x"])
+
+    def two_nodes(kern, b, step):
+        y = b["y"]
+        kern("two_nodes", b["g_nodes"], ranks, m, p, b["vp"], b["v"],
+             b["vn"], b["alphas"], b["betas"], b["steps"], y, y.shape[0], k,
+             step, b["x"])
+
+    for nf in (1, 2):
+        two_in = dict(two, y=normal(nf, k), x=normal(nf, n))
+        for step in (3, k - 1):  # active, then inactive
+            got, want = both("two_matvec",
+                             lambda kern, b: two_matvec(kern, b, step),
+                             two_in)
+            same("kkt_shard_matvec_step_two", got, want, ["vn", "x", "v"])
+            check(bool(((got["s"] - want["s"]).abs()
+                        <= node_bound(lay, v, eps)).all()),
+                  "step two's node partial past K7's bound")
+            errs["kkt_shard_matvec_step_two"] = max(
+                errs["kkt_shard_matvec_step_two"],
+                float((got["s"] - want["s"]).abs().max()))
+            nodes_in = dict(two_in, vn=want["vn"], x=want["x"])
+            got, want = both("two_nodes",
+                             lambda kern, b: two_nodes(kern, b, step),
+                             nodes_in)
+            same("shard_step_two_nodes", got, want, ["vn", "x", "v"])
+    print(f"[17b] the fused step's kernels on rank 0's shard of {ranks} "
+          f"(m={m}, p={p}): every vector and 0-d output bitwise its plain "
+          f"version's; " + "; ".join(notes))
+    out = {name: {"err": errs[name]} for name in STEP_ROWS}
+    if not timed:
+        return out
+
+    from two_pass_lanczos_tpu_torch.probes.bench import Timer
+
+    timer = Timer(dev, reps=50)
+    arrays = KKTArrays(quad_costs=big.quad_costs[sl], arc_u=big.arc_u[sl],
+                       arc_v=big.arc_v[sl], num_nodes=p, num_arcs=m)
+    coo = kkt_sorted_coo(arrays, dtype=np.float32, device=dev)
+    a_csr = torch.sparse_csr_tensor(coo.indptr, coo.cols, coo.vals,
+                                    size=(n, n))
+    del coo
+    b = dict(base, w=w2.clone(), partials=normal(parts).abs(),
+             scal=dyadic(4, 16, low=1))
+    t2 = dict(two, y=normal(1, k), x=normal(1, n))
+    beta_t, alpha_t = torch.tensor(0.75, device=dev), torch.tensor(
+        0.25, device=dev)
+    inv_t = torch.tensor(0.5, device=dev)
+    adv_t = torch.tensor(True, device=dev)
+
+    def fold(g):
+        acc = g[0]
+        for r in range(1, ranks):
+            acc = acc + g[r]
+        return acc
+
+    def lib_one():
+        y = torch.mv(a_csr, b["v"])
+        wa = y[:m] - beta_t * b["vp"][:m]
+        torch.dot(b["v"][:m], wa)
+
+    def lib_two():
+        y = torch.mv(a_csr, t2["v"])
+        vn = ((y[:m] - beta_t * t2["vp"][:m]) - alpha_t * t2["v"][:m]) * inv_t
+        t2["x"][:, :m] += t2["y"][:, 4:5] * vn
+
+    def lib_node_fold():
+        wn = fold(b["g_nodes"]) - beta_t * b["vp"][m:]
+        torch.dot(b["v"][m:], wn) + b["partials"].sum()
+
+    def lib_orthogonalise():
+        a = fold(b["g_alpha"]).sum() + b["scal"][1].sum()
+        b["w"].sub_(a * b["v"])
+        torch.dot(b["w"][:m], b["w"][:m])
+
+    def lib_norm():
+        torch.dot(b["w"][m:], b["w"][m:]) + b["partials"][:quads].sum()
+
+    def lib_advance():
+        beta = torch.sqrt(fold(b["g_beta2"]).sum() + b["scal"][3].sum())
+        inv = torch.where(adv_t, 1.0 / beta, torch.zeros_like(beta))
+        v_next = b["w"] * inv
+        torch.where(adv_t, b["v"], b["vp"])
+        torch.where(adv_t, v_next, b["v"])
+
+    def lib_two_nodes():
+        vn = ((fold(t2["g_nodes"]) - beta_t * t2["vp"][m:])
+              - alpha_t * t2["v"][m:]) * inv_t
+        t2["x"][:, m:] += t2["y"][:, 4:5] * vn
+
+    runs = {
+        "kkt_shard_matvec_step_one": (lambda kern: one_matvec(kern, b),
+                                      lib_one),
+        "kkt_shard_matvec_step_two": (lambda kern: two_matvec(kern, t2, 3),
+                                      lib_two),
+        "shard_step_node_fold": (lambda kern: node_fold(kern, b),
+                                 lib_node_fold),
+        "shard_step_orthogonalise": (lambda kern: orthogonalise(kern, b),
+                                     lib_orthogonalise),
+        "shard_step_norm": (lambda kern: norm(kern, b), lib_norm),
+        "shard_step_advance": (lambda kern: advance(kern, b, basis=False),
+                               lib_advance),
+        "shard_step_two_nodes": (lambda kern: two_nodes(kern, t2, 3),
+                                 lib_two_nodes),
+    }
+    bounds = step_bounds(m, p, ranks, 1)
+    for name, (launch, lib) in runs.items():
+        b["w"].copy_(w2)
+        row = out[name]
+        row["ms"] = timer.cold(lambda: launch(card_k)) / 1e3
+        row["warm_ms"] = timer.warm(lambda: launch(card_k)) / 1e3
+        row["plain_ms"] = event_ms(lambda: launch(plain_k), 10)
+        row["library_ms"] = timer.cold(lib) / 1e3
+        row["bound"] = bounds[name]
+        print(f"     {name}: {row['ms']:.5f} ms cold-L2, {row['warm_ms']:.5f}"
+              f" warm, plain {row['plain_ms']:.5f}, library (the scans' "
+              f"operations) {row['library_ms']:.5f} ms cold, bound "
+              f"{row['bound'][0]:.5f} ms ({row['bound'][1]}) on {card}")
+    del a_csr, lay
     return out
 
 
@@ -1802,19 +2178,46 @@ def capability_phase(card, dev, inst, solver, solver_c, b) -> dict:
 
 
 
+def reset_counts() -> None:
+    """Reset ``LAUNCHES`` and ``sharded_step.STEP_KERNELS``."""
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import reset_launches
+    from two_pass_lanczos_tpu_torch.parallel.sharded_step import STEP_KERNELS
+    reset_launches()
+    for name in STEP_KERNELS:
+        STEP_KERNELS[name] = 0
+
+
+def row_counts() -> dict:
+    """The launches since :func:`reset_counts` by row of the kernels line:
+    ``LAUNCHES`` and ``STEP_KERNELS``, K7's step instances apart from its
+    plain one (a pass-one step ends in one ``advance``, a pass-two step in
+    one ``two_nodes``, each after one of K7's step launches)."""
+    from two_pass_lanczos_tpu_torch.ops.kkt_fused import LAUNCHES
+    from two_pass_lanczos_tpu_torch.parallel.sharded_step import STEP_KERNELS
+    got = {**LAUNCHES, **STEP_KERNELS}
+    got["kkt_shard_matvec_step_one"] = STEP_KERNELS["shard_step_advance"]
+    got["kkt_shard_matvec_step_two"] = STEP_KERNELS["shard_step_two_nodes"]
+    got["kkt_streaming_matvec"] -= (got["kkt_shard_matvec_step_one"]
+                                    + got["kkt_shard_matvec_step_two"])
+    return {name: c for name, c in got.items() if c}
+
+
+def fused_pass_one(steps: int) -> dict:
+    """:func:`row_counts` of ``steps`` steps of the fused sharded pass one."""
+    return {name: steps for name in (
+        "kkt_shard_matvec_step_one", "shard_step_node_fold",
+        "shard_step_orthogonalise", "shard_step_norm", "shard_step_advance")}
+
+
 def driven(fn):
     """Run ``fn`` with the launch counters reset just before it: (its
-    result, the launches it made)."""
+    result, the launches it made, by :func:`row_counts`)."""
     import torch
-    from two_pass_lanczos_tpu_torch.ops.kkt_fused import (
-        LAUNCHES,
-        reset_launches,
-    )
-    reset_launches()
+    reset_counts()
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: c for name, c in LAUNCHES.items() if c}
+    return out, row_counts()
 
 
 def tf32_same(fn) -> bool:
@@ -2185,7 +2588,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
                                inst.num_nodes, mesh)
     res, got = driven(lambda: sh.slq_trace("inv", k=SLQ_K,
                                            num_probes=SH_PROBES, key=SEED))
-    check(got == {"kkt_streaming_matvec": SH_PROBES * SLQ_K},
+    check(got == fused_pass_one(SH_PROBES * SLQ_K),
           f"fused sharded slq_trace launches {got}")
     paths["slq_trace_sharded"] = got
     ref = solver.slq_trace("inv", k=SLQ_K, num_probes=SH_PROBES, key=SEED)
@@ -2199,7 +2602,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
           "a sharded SLQ probe is not bitwise a solve's pass one")
     phi, got = driven(lambda: sh.slq_spectral_density(
         grid, k=SLQ_K, num_probes=SH_PROBES, key=SEED))
-    check(got == {"kkt_streaming_matvec": SH_PROBES * SLQ_K},
+    check(got == fused_pass_one(SH_PROBES * SLQ_K),
           f"fused sharded density launches {got}")
     paths["slq_spectral_density_sharded"] = got
     phi1 = solver.slq_spectral_density(grid, k=SLQ_K, num_probes=SH_PROBES,
@@ -2209,7 +2612,7 @@ def sharded_capability_phase(card, dev, mesh, inst, solver, b) -> dict:
     res_a, got = driven(lambda: sh.slq_trace_adaptive(
         "inv", k=SLQ_K, batch=4, max_probes=SH_PROBES, key=SEED))
     m_a = int(res_a.samples.shape[0])
-    check(got == {"kkt_streaming_matvec": m_a * SLQ_K},
+    check(got == fused_pass_one(m_a * SLQ_K),
           f"fused sharded adaptive launches {got}")
     paths["slq_trace_adaptive_sharded"] = got
     iv_f, got = driven(sh.estimate_interval)
@@ -2929,17 +3332,18 @@ def entry_phase(card, dev) -> dict:
                         f="inv").numpy()
     rel = float(np.linalg.norm(x.cpu().numpy() - x64) / np.linalg.norm(x64))
     check(rel <= 1e-3, f"entry() x rel {rel:.3e} from the f64 CPU solve")
-    reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     dryrun_multichip(1, device=dev)
     torch.cuda.synchronize()
     dry_s = time.perf_counter() - t0
-    dry = {k: v for k, v in LAUNCHES.items() if v}
-    for name, label in (("kkt_streaming_matvec", "K7"),
-                        ("df_kkt_streaming_matvec", "K12"),
-                        ("kkt_operator_matvec", "K8"),
-                        ("csr_spmv", "K15")):
-        check(dry.get(name, 0) > 0,
+    dry = row_counts()
+    for names, label in ((("kkt_streaming_matvec",
+                           "kkt_shard_matvec_step_one"), "K7"),
+                         (("df_kkt_streaming_matvec",), "K12"),
+                         (("kkt_operator_matvec",), "K8"),
+                         (("csr_spmv",), "K15")):
+        check(sum(dry.get(name, 0) for name in names) > 0,
               f"dryrun_multichip(1) launched no {label}: {dry}")
     print(f"     entry() on {card}: forward x {tuple(x.shape)} "
           f"{str(x.dtype).split('.')[-1]}, K8 launches 31, rel {rel:.3e} "
@@ -4164,6 +4568,7 @@ def main() -> int:
           and torch.distributed.get_backend(mesh.group) == "nccl",
           f"mesh {mesh}")
     k7 = sharded_f32_phase(card, dev, mesh, [("headline", inst), ("5M", big)])
+    k_step = shard_step_phase(card, dev, big)
     k12 = sharded_df_phase(card, dev, mesh, [("headline", inst, dfop),
                                              ("5M", big, None)])
     # 19. the K14 probes; 20. the row-sharded operator on the same group
@@ -4196,12 +4601,20 @@ def main() -> int:
     bounds = kernel_bounds(m, n, steps, K)
     for name in ("df_lanczos_pass_one", "df_lanczos_pass_two"):
         bounds[name] = kernel_bounds(m, n, steps_df, K)[name]
+    # the fused sharded step: its launches on phase 17's headline main path,
+    # the rest phase 17b's at the 4-card cell's shard
+    for name in STEP_ROWS:
+        got = k_step[name]
+        launches[name] = k7["headline"]["step_launches"].get(name, 0)
+        ms[name], plain_ms[name] = got["ms"], got["plain_ms"]
+        bounds[name] = got["bound"]
     library = {"kkt_matvec": lib_ms, "kkt_operator_matvec": lib_ms,
                "df_kkt_matvec": lib64_ms,
                "kkt_streaming_matvec": k7["headline"]["library_ms"],
                "df_kkt_streaming_matvec": k12["headline"]["library_ms"],
                **{name: got["library_ms"] for name, got in k14.items()},
-               "csr_spmv": k15["library_ms"]}
+               "csr_spmv": k15["library_ms"],
+               **{name: k_step[name]["library_ms"] for name in STEP_ROWS}}
     errs = {**{name: got["err"] for name, got in k14.items()},
             "kkt_matvec": err_k1, "lanczos_pass_one": err_k2,
             "lanczos_pass_two": err_k3, "lanczos_pass_one_basis": err_k4,
@@ -4211,7 +4624,8 @@ def main() -> int:
             "df_lanczos_pass_two": err_k10,
             "kkt_streaming_matvec": k7["headline"]["err"],
             "df_kkt_streaming_matvec": k12["headline"]["err"],
-            "csr_spmv": k15["err"]}
+            "csr_spmv": k15["err"],
+            **{name: k_step[name]["err"] for name in STEP_ROWS}}
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errs[name],
              "ms": ms[name], "plain_ms": plain_ms[name],
@@ -4237,6 +4651,11 @@ def main() -> int:
                                  for label, got in rows_ms.items()}
             r["warp_rows_ms"] = {label: got[name]["ms"]
                                  for label, got in rows_ms.items()}
+    # the fused step's rows: warm beside cold, at the 4-card cell's shard
+    for r in rows:
+        if r["name"] in STEP_ROWS:
+            r["warm_ms"] = k_step[r["name"]]["warm_ms"]
+            r["shard"] = "rank 0 of 4 at 5M"
     # K13 beside an empty launch (phase 19's timer): its launch floor
     k13_row = next(r for r in rows if r["name"] == "eft_check")
     k13_row["graph_ms"] = k13_floor["eft_check"]

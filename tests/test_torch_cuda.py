@@ -1504,6 +1504,127 @@ def test_sharded_graph_counts_what_the_eager_solve_counts_on_cards(
         for other in (captured, replayed):
             assert other == eager
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_graph_counts_the_fused_step_kernels_on_cards(
+        graph_runs, world, cuda_device):
+    """The fused step's launches other than K7 (``STEP_KERNELS``) after the
+    capturing solve and after a replay equal the eager solve's: four
+    kernels a step of pass one, one a step of pass two."""
+    k = 30
+    for r in _graph_ranks(graph_runs, world):
+        eager, captured, replayed = r["counts"]
+        assert eager["step_kernels"] == {
+            "shard_step_node_fold": k, "shard_step_orthogonalise": k,
+            "shard_step_norm": k, "shard_step_advance": k,
+            "shard_step_two_nodes": k - 1}
+        assert captured["step_kernels"] == eager["step_kernels"]
+        assert replayed["step_kernels"] == eager["step_kernels"]
+
+
+@pytest.fixture(scope="module")
+def fused_step_runs(problem, tmp_path_factory):
+    """``case_fused_step`` on 1, 2 and 4 NCCL ranks (those the cards
+    allow), each beside the same case on as many gloo ranks, where the
+    passes are the core scans: ``{world: (card ranks, CPU ranks)}``."""
+    d, u, v, p, b = problem
+    kwargs = dict(d=d, u=u, v=v, p=p, b=b, k=20, chunk=7,
+                  breakdown=breakdown_kkt())
+    out = {}
+    for world in (1, 2, 4):
+        if torch.cuda.device_count() >= world:
+            out[world] = tuple(
+                spawn(world, [("f", "fused_step", kwargs)],
+                      tmp_path_factory.mktemp(f"fused{world}{dev}"),
+                      device=dev)
+                for dev in ("cuda", "cpu"))
+    return out
+
+
+def _fused_ranks(fused_step_runs, world):
+    if world not in fused_step_runs:
+        pytest.skip(f"needs {world} NVIDIA GPUs")
+    card, cpu = fused_step_runs[world]
+    return [(c["f"], h["f"]) for c, h in zip(card, cpu)]
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_fused_step_solve_meets_the_scans_and_one_card_on_cards(
+        fused_step_runs, world, cuda_device):
+    """The fused solve against the core scans on gloo ranks and against one
+    card's FusedKKTSolver, at the sharded tests' tolerances; every rank
+    holds rank 0's bits, and the replayed solve the eager one's."""
+    ranks = _fused_ranks(fused_step_runs, world)
+    for card, cpu in ranks:
+        _bitwise(card["first"], ranks[0][0]["first"])
+        _bitwise(card["again"], card["first"])
+        for ref in (cpu["first"], card["one_card"]):
+            assert card["first"]["steps"] == ref["steps"] == 20
+            np.testing.assert_allclose(card["first"]["alphas"],
+                                       ref["alphas"], rtol=2e-4)
+            assert _rel(card["first"]["x"], ref["x"]) < 1e-4
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_fused_step_pass_two_replays_the_basis_bitwise_on_cards(
+        fused_step_runs, world, cuda_device):
+    """Pass two of y = I gives the basis pass's rows back bit for bit, and
+    the basis pass's α, β are pass one's."""
+    for card, _ in _fused_ranks(fused_step_runs, world):
+        assert card["replay"] == (True, True)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_fused_step_chunks_are_the_monolithic_pass_on_cards(
+        fused_step_runs, world, cuda_device):
+    for card, _ in _fused_ranks(fused_step_runs, world):
+        chunked, whole = card["chunked"]
+        for key in ("alphas", "betas"):
+            assert np.array_equal(chunked[key], whole[key]), key
+        assert chunked["steps"] == whole["steps"]
+        assert chunked["b_norm"] == whole["b_norm"]
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_fused_step_zero_b_takes_no_step_on_cards(fused_step_runs, world,
+                                                  cuda_device):
+    for card, cpu in _fused_ranks(fused_step_runs, world):
+        zero = card["zero"]
+        assert zero["steps"] == cpu["zero"]["steps"] == 0
+        assert not zero["alphas"].any() and not zero["x"].any()
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_fused_step_breakdown_inside_a_step_on_cards(fused_step_runs, world,
+                                                     cuda_device):
+    """The breakdown instance stops after a few steps, as the core scans
+    do: the masked steps store zeros, the replay is bitwise the eager
+    solve, and x meets the scans'."""
+    for card, cpu in _fused_ranks(fused_step_runs, world):
+        eager, again = card["breakdown"]
+        ref = cpu["breakdown"][0]
+        steps = eager["steps"]
+        assert steps == ref["steps"] < 20
+        assert eager["betas"][steps - 1] == 0.0
+        assert not eager["alphas"][steps:].any()
+        np.testing.assert_allclose(eager["alphas"], ref["alphas"], rtol=2e-4,
+                                   atol=1e-6)
+        assert _rel(eager["x"], ref["x"]) < 1e-4
+        _bitwise(again, eager)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_fused_step_solves_two_functions_on_cards(fused_step_runs, world,
+                                                  cuda_device):
+    """f = ("inv", "exp"): x of two rows, the first bit for bit the solve
+    of "inv" alone, both within the scans' tolerance."""
+    for card, cpu in _fused_ranks(fused_step_runs, world):
+        x2, n = card["nf2"]["x"], len(card["first"]["x"])
+        assert x2.shape == cpu["nf2"]["x"].shape == (2, n)
+        assert np.array_equal(x2[0], card["first"]["x"])
+        for row in range(2):
+            assert _rel(x2[row], cpu["nf2"]["x"][row]) < 1e-4
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_probe_gather_kernel_matches_plain_on_card(case, cuda_device):
     rng = np.random.default_rng(6)

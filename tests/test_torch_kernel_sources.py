@@ -1285,3 +1285,187 @@ def test_pipeline_returns_each_launchs_error():
     assert "if (err != cudaSuccess) return err;" in run
     assert run.rstrip().endswith("return err;")
     assert "kkt_shard_matvec" not in code
+
+
+# --- the fused arc-sharded step: K7's step instances, shard_step.cu ------
+
+def _block_after(code: str, start: int) -> str:
+    """The text from ``start`` to the end of the brace block opened
+    first after it."""
+    i, depth = code.index("{", start), 0
+    for j in range(i, len(code)):
+        depth += {"{": 1, "}": -1}.get(code[j], 0)
+        if depth == 0:
+            return code[start:j + 1]
+    raise AssertionError("unbalanced braces")
+
+
+def _step_parts() -> dict:
+    """name -> code of each part of the fused sharded step: K7's step
+    structs and their kernel template, and every kernel and device routine
+    of ``shard_step.cu`` and ``shard_step.cuh``."""
+    k7 = _code(CSRC / "kkt_shard_matvec.cu")
+    parts = {name: _block_after(k7, k7.index(f"struct {name} {{"))
+             for name in ("StepPassOne", "StepPassTwo")}
+    parts["k7_step_kernel"] = _block_after(
+        k7, k7.index("template <class Step>\n__global__"))
+    for src in ("shard_step.cuh", "shard_step.cu"):
+        code = _code(CSRC / src)
+        for hit in re.finditer(
+                r"__global__ void __launch_bounds__\(kThreads\)\s*(\w+)\("
+                r"|__device__ __forceinline__ [^;{(]*?\b(\w+)\(", code):
+            parts[hit.group(1) or hit.group(2)] = _block_after(code,
+                                                               hit.start())
+    return parts
+
+
+STEP_PARTS = _step_parts()
+#: every name the step's code declares as a float (a scalar, an array of
+#: floats, a struct member) or as a pointer to floats
+_STEP_CODE = "\n".join(STEP_PARTS.values()) + _code(CSRC / "shard_step.cuh")
+_FLOATS = set(re.findall(r"\bfloat\s+(\w+)\s*[=;,\[)]", _STEP_CODE))
+_FLOAT_PTRS = set(re.findall(
+    r"\bfloat\s*\*\s*(?:const\s+)?(?:__restrict__\s+)?(\w+)", _STEP_CODE))
+
+
+def _strip_brackets(text: str) -> str:
+    while re.search(r"\[[^\[\]]*\]", text):
+        text = re.sub(r"\[[^\[\]]*\]", "", text)
+    return text
+
+
+def _selected(rhs: str) -> str:
+    """The values a right-hand side can take: both arms of a top-level
+    ``cond ? a : b`` (the condition may compute indices), else itself."""
+    depth = 0
+    for i, c in enumerate(rhs):
+        depth += {"(": 1, ")": -1}.get(c, 0)
+        if c == "?" and depth == 0:
+            return rhs[i + 1:]
+    return rhs
+
+
+def _assignments(code: str):
+    """``(target, operator, right-hand side)`` of each assignment in
+    ``code``; the target is the assigned name (a subscripted or
+    dereferenced pointer's name, a member's name) and whether it was
+    subscripted or dereferenced."""
+    out = []
+    for hit in re.finditer(r"(?<![=!<>+\-*/&|])([-+*/]?)=(?!=)", code):
+        i = hit.start() - 1
+        while code[i].isspace():
+            i -= 1
+        through = False
+        while code[i] == "]":
+            depth = 0
+            while True:
+                depth += {"]": 1, "[": -1}.get(code[i], 0)
+                i -= 1
+                if depth == 0:
+                    break
+            through = True
+        j = i
+        while code[j].isalnum() or code[j] == "_":
+            j -= 1
+        name = code[j + 1:i + 1]
+        through = through or code[j] == "*" and not code[j - 1].isalnum()
+        end = hit.end()
+        depth = 0
+        while not (depth == 0 and code[end] in ";,") and not (
+                depth == 0 and code[end] == ")"):
+            depth += {"(": 1, ")": -1}.get(code[end], 0)
+            end += 1
+        out.append((name, through, hit.group(1), code[hit.end():end]))
+    return out
+
+
+@pytest.mark.parametrize("part", sorted(STEP_PARTS))
+def test_fused_step_rounds_every_float_update_through_the_rn_helpers(part):
+    # every float the step computes is an *_rn helper's result (or a load,
+    # a select, a constant): no bare + - * / that nvcc could contract into
+    # an FMA, and no compound assignment, so pass two's regenerated vectors
+    # round as pass one's; and no atomic
+    code = STEP_PARTS[part]
+    assert "atomic" not in code
+    checked = 0
+    for name, through, op, rhs in _assignments(code):
+        is_float = (name in _FLOATS and not through) or (
+            name in _FLOAT_PTRS and through) or (name in _FLOATS and through)
+        if not is_float:
+            continue
+        checked += 1
+        assert op == "", (part, name, op, rhs)
+        bare = _strip_brackets(_selected(rhs)).replace("->", ".")
+        assert not re.search(r"[-+*/]", bare), (part, name, rhs)
+    assert checked or part in ("kkt_shard_matvec_kernel", "step_executes",
+                               "slice_sum", "load_quad") or not re.search(
+        r"\bfloat\b", code), part
+
+
+def test_fused_step_spells_the_recurrence_with_the_shared_routines():
+    # the vector updates are lanczos_common.cuh's, so they round as the
+    # per-step and persistent passes and as the PyTorch scans do
+    uses = {"StepPassOne": ["sub_scaled(", "mul_rn(", "block_sum("],
+            "StepPassTwo": ["lanczos_update(", "normalise(", "add_rn(",
+                            "mul_rn("],
+            "pass_two_scalars": ["lanczos_inverse("],
+            "shard_step_node_fold_kernel": ["sub_scaled(", "fold_ranks(",
+                                            "block_sum("],
+            "shard_step_orthogonalise_kernel": ["fold_dot(", "sub_scaled(",
+                                                "block_sum("],
+            "shard_step_advance_kernel": ["__fsqrt_rn(", "fold_dot(",
+                                          "normalise(", "lanczos_inverse("],
+            "shard_step_two_nodes_kernel": ["fold_ranks(", "lanczos_update(",
+                                            "normalise(", "add_rn("]}
+    for part, calls in uses.items():
+        for call in calls:
+            assert call in STEP_PARTS[part], (part, call)
+    # K7's step instances are instances of K7 itself: the profiler's name
+    # keeps kkt_shard_matvec_kernel, and the plain instance is untouched
+    k7 = _code(CSRC / "kkt_shard_matvec.cu")
+    assert "kkt_shard_matvec_kernel<Step>" in k7
+    assert "kkt_shard_matvec_kernel<BlockRows>" in k7
+    assert "tpl::launch<false>(" in _entry_body(k7, "tpl_kkt_shard_matvec")
+
+
+def _params(code: str, kernel: str) -> dict:
+    """name -> declaration of each parameter of ``kernel`` in ``code``."""
+    head = code[code.index(kernel + "("):]
+    head = head[len(kernel) + 1:head.index(")")]
+    return {d.split()[-1].lstrip("*"): " ".join(d.split())
+            for d in head.split(",")}
+
+
+def test_fused_step_reads_no_vector_its_launch_writes_through_ldg():
+    # shard_step.cu never takes the read-only path, and a vector a kernel
+    # writes is a plain float* (no const, no __restrict__, which would let
+    # nvcc load it through ld.global.nc); K7's step instances read through
+    # __ldg only the node table of v, which no thread of the launch writes
+    step = _code(CSRC / "shard_step.cu")
+    assert "__ldg" not in step and "__ldg" not in _code(
+        CSRC / "shard_step.cuh")
+    kernels = re.findall(r"__global__ void __launch_bounds__\(kThreads\)\n"
+                         r"(\w+)\(", step)
+    assert len(kernels) == 5
+    for kernel in kernels:
+        body = STEP_PARTS[kernel][STEP_PARTS[kernel].index("{"):]
+        params = _params(step, kernel)
+        written = {name for name, through, _, _ in _assignments(body)
+                   if through and name in params}
+        written |= {args[0] for args in _call_args(body, "store_quad")}
+        assert written, kernel
+        for name in written:
+            decl = params[name]
+            assert "__restrict__" not in decl or "const" not in decl, decl
+            read = (re.search(rf"\b{name}\[[^\]]*\](?!\s*=[^=])", body)
+                    or any(args[0] == name
+                           for args in _call_args(body, "load_quad")))
+            if read:
+                assert decl == f"float* {name}", (kernel, decl)
+    k7 = "".join(STEP_PARTS[p] for p in ("StepPassOne", "StepPassTwo",
+                                         "k7_step_kernel"))
+    assert re.findall(r"__ldg\((&?\w+)", k7) == ["&xn", "&xn"]
+    assert "const float* xn = x + m;" in STEP_PARTS["k7_step_kernel"]
+    assert not re.search(r"\bx\[[^\]]*\]\s*=[^=]", k7)  # v is only read
+    assert _call_args(k7, "kkt_node_row_warp") == [
+        ["ptr", "ent", "x", "node"]]

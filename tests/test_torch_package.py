@@ -250,6 +250,46 @@ def test_chip_smoke_shard_bounds_count_each_input_once():
     assert set(mod.KERNELS) <= set(bounds)
 
 
+def test_chip_smoke_step_bounds_count_each_input_once():
+    mod = _load_script("chip_smoke")
+    m, p = 1_250_000, 3651
+    n = m + p
+    bounds = mod.step_bounds(m, p, 4, 1)
+    # K7's step instances: K7's 20 B an arc less y_a, with v_prev_a read
+    # and w_a written (+4 B), or v_prev_a read, v_next_a written and x_a
+    # read and written (+12 B); the block partials besides
+    ms, by = bounds["kkt_shard_matvec_step_one"]
+    assert by == "bytes" and ms == pytest.approx(
+        (24 * m + 8 * p + 4 * -(-m // 256)) / 3.35e12 * 1e3)
+    ms, by = bounds["kkt_shard_matvec_step_two"]
+    assert by == "bytes"
+    assert ms == pytest.approx((32 * m + 8 * p) / 3.35e12 * 1e3)
+    # the vector kernels: w and v read and w written; w read and written
+    ms, by = bounds["shard_step_orthogonalise"]
+    assert by == "bytes" and 12 * n / 3.35e9 < ms < 12.01 * n / 3.35e9
+    ms, by = bounds["shard_step_advance"]
+    assert by == "bytes" and 8 * n / 3.35e9 < ms < 8.01 * n / 3.35e9
+    # the node kernels touch p rows and the shares only
+    for name in ("shard_step_node_fold", "shard_step_norm",
+                 "shard_step_two_nodes"):
+        assert bounds[name][0] < 1e-4
+    # a second row of y reads and writes x once more
+    two = mod.step_bounds(m, p, 4, 2)
+    assert two["kkt_shard_matvec_step_two"][0] == pytest.approx(
+        bounds["kkt_shard_matvec_step_two"][0] + 8 * m / 3.35e9)
+
+
+def test_chip_smoke_step_phase_holds_each_kernel_to_its_plain_version():
+    """Phase 17b's checks, run on the CPU with the plain kernels on both
+    sides: every comparison it makes passes, and it reports each kernel."""
+    mod = _load_script("chip_smoke")
+    big = generate_mcf_instance(20_000, rho=3, instance_id=1)
+    out = mod.shard_step_phase("cpu", torch.device("cpu"), big, timed=False)
+    assert set(out) == set(mod.STEP_ROWS)
+    assert all(row["err"] == 0.0 for row in out.values())
+    assert set(mod.STEP_ROWS) <= set(mod.KERNELS)
+
+
 def test_chip_smoke_probe_bounds_count_each_input_once():
     mod = _load_script("chip_smoke")
     m, p = 5_000_000, 3651

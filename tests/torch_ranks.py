@@ -735,15 +735,20 @@ def case_sparse_card_path(device, d, u, v, p, b, k):
 # --- the two-pass solve's CUDA graphs, its x gather, spans and counts ------
 
 def _counted(fn):
-    """``fn()``'s result, and what it added to ``LAUNCHES``, to
-    ``comm.COLLECTIVES`` and to an open ``record_collectives`` log."""
+    """``fn()``'s result, and what it added to ``LAUNCHES``, to the fused
+    step's ``STEP_KERNELS``, to ``comm.COLLECTIVES`` and to an open
+    ``record_collectives`` log."""
     import torch
     from two_pass_lanczos_tpu_torch.ops.kkt_fused import LAUNCHES
     from two_pass_lanczos_tpu_torch.parallel.comm import COLLECTIVES
+    from two_pass_lanczos_tpu_torch.parallel.fused_sharded import (
+        STEP_KERNELS,
+    )
     from two_pass_lanczos_tpu_torch.utils.collectives import (
         record_collectives,
     )
     launches, collectives = dict(LAUNCHES), dict(COLLECTIVES)
+    step_kernels = dict(STEP_KERNELS)
     with record_collectives() as log:
         out = fn()
     if torch.cuda.is_available():
@@ -751,6 +756,8 @@ def _counted(fn):
     return out, {
         "launches": {k: LAUNCHES[k] - launches[k] for k in LAUNCHES
                      if LAUNCHES[k] != launches[k]},
+        "step_kernels": {k: STEP_KERNELS[k] - step_kernels[k]
+                         for k in STEP_KERNELS},
         "collectives": {k: COLLECTIVES[k] - collectives[k]
                         for k in COLLECTIVES},
         "calls": list(log.calls), "events": list(log.events)}
@@ -842,6 +849,37 @@ def case_graph_path(device, d, u, v, p, b, b2, k, k2):
             "eager2": eager2, "other_k": other_k, "eager_k2": eager_k2,
             "graphs": (after_capture, len(s._graphs), sorted(s._graphs)),
             "counts": (eager_counts, captured_counts, replay_counts)}
+
+
+def case_fused_step(device, d, u, v, p, b, k, chunk, breakdown):
+    """The arc-sharded solver's passes as the fused step runs them on a card
+    (the core scans on the CPU): a solve (eager) and the same solve again
+    (replayed), a solve of two functions, pass one chunked and whole, the
+    basis pass and pass two of y = I (which gives the basis back), a zero
+    b, the breakdown instance ``breakdown`` = (d, u, v, p, b) solved twice,
+    and one card's ``FusedKKTSolver`` on the same b."""
+    import torch
+    from two_pass_lanczos_tpu_torch import FusedKKTSolver
+    s = _f32(device, d, u, v, p)
+    first = _gathered(s, b, k)
+    out = {"first": first, "again": _gathered(s, b, k),
+           "nf2": _gathered(s, b, k, f=("inv", "exp"))}
+    whole = s.pass_one(b, k)
+    chunked, _ = s.pass_one_chunked(b, k, chunk=chunk)
+    out["chunked"] = (_dec(chunked), _dec(whole))
+    dec, basis = s.pass_one_with_basis(b, k)
+    rows = s.pass_two(b, dec, torch.eye(k, device=s.device))
+    out["replay"] = (torch.equal(rows, basis),
+                     torch.equal(dec.alphas, whole.alphas)
+                     and torch.equal(dec.betas, whole.betas))
+    out["zero"] = _gathered(s, np.zeros_like(b), k)
+    sb = _f32(device, *breakdown[:4])
+    out["breakdown"] = (_gathered(sb, breakdown[4], k),
+                        _gathered(sb, breakdown[4], k))
+    x1, dec1 = FusedKKTSolver(d, u, v, p, device=s.device).solve(
+        torch.from_numpy(b).to(s.device), k=k, f="inv")
+    out["one_card"] = dict(_dec(dec1), x=_np(x1))
+    return out
 
 
 CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())

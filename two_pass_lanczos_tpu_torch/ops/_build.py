@@ -63,6 +63,31 @@ _SIGNATURES = {
     "tpl_kkt_shard_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
     "tpl_kkt_shard_matvec_blockrows": [_P, _P, _P, _P, _P, _I, _I, _F, _P,
                                        _P, _P],
+    # the fused sharded step (csrc/kkt_shard_matvec.cu's step instances of
+    # K7, csrc/shard_step.cu): one shard's layout, v_prev, v, w, s,
+    # partials, state, stream
+    "tpl_shard_step_one_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                                  _P, _P, _P],
+    # ... layout, v_prev, v, v_next, s, alphas, betas, steps, y, nf, k,
+    # step, x, stream
+    "tpl_shard_step_two_matvec": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # g, ranks, m, p, v_prev, v, w, partials, parts, state, scal, stream
+    "tpl_shard_step_node_fold": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                                 _P],
+    # g, ranks, m, p, v, w, partials, state, k_limit, alpha, scal, stream
+    "tpl_shard_step_orthogonalise": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                                     _P, _P],
+    # m, p, w, partials, parts, scal, stream
+    "tpl_shard_step_norm": [_I, _I, _P, _P, _I, _P, _P],
+    # g, ranks, m, p, v_prev, v, w, basis_row, state, next_state, k_limit,
+    # tol, beta, scal, stream
+    "tpl_shard_step_advance": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                               _F, _P, _P, _P],
+    # g, ranks, m, p, v_prev, v, v_next, alphas, betas, steps, y, nf, k,
+    # step, x, stream
+    "tpl_shard_step_two_nodes": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _P, _P],
     # *_PASS_ONE, comp, clock, *matvec_launches, stream
     "tpl_lanczos_pass_one": [*_PASS_ONE, _I, _P, ctypes.POINTER(_I), _P],
     # *_PASS_ONE, comp, basis, clock, *matvec_launches, stream

@@ -9,7 +9,7 @@ Counterpart of ``two_pass_lanczos_tpu/parallel`` on the ranks of a
   owned-column product runs;
 * the arc-sharded fused solvers: a 1-D partition of the KKT arc block, the
   node block replicated, and per step only the O(p) node partials and the
-  scalar dot partials all-gathered.
+  dots' partials (a few floats a rank) all-gathered.
 
 Every reduction is an all-gather folded in rank order
 (``parallel/comm.py``), so every rank holds the same bits.

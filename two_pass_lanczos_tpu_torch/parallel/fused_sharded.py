@@ -16,20 +16,34 @@ Counterpart of ``two_pass_lanczos_tpu/parallel/fused_sharded.py`` on
   used ``lax.psum`` for both; the rank-ordered fold keeps the node block
   and α, β bitwise equal on every rank whatever NCCL's algorithm.
 
-The recurrence is ``algorithms/core.py``'s (``pass_one_scan``,
-``pass_one_chunk_scan``, ``pass_two_scan``) over that matvec and dot:
-PyTorch around K7 and the collectives, with the breakdown flag, α and β
-kept on the device, so a k-step pass queues its work with no host sync
-(NCCL collectives are stream-ordered); only the callback path reads back,
-once per chunk. On CPU tensors (a gloo mesh) K7's plain version
-``ops/kkt_fused.kkt_shard_matvec`` runs instead; a CUDA shard never runs it.
+On CPU tensors (a gloo mesh) the recurrence is ``algorithms/core.py``'s
+(``pass_one_chunk_scan``, whose chained chunks are bitwise one
+``pass_one_scan``, and ``pass_two_scan``) over that matvec and dot, with
+K7's plain version ``ops/kkt_fused.kkt_shard_matvec``; a CUDA shard never
+runs it. The solver picks its passes once, at construction: the scans or
+the fused step, each with ``start``, ``pass_one`` and ``pass_two``.
 
-* **Each pass one CUDA graph.** Issued one operation at a time, a step's
-  ~36 operations around K7 and the folds leave the host to set the pace.
-  So on a CUDA mesh a two-pass :meth:`ShardedFusedKKTSolver.solve` without
-  a callback replays two captured graphs: pass one (every K7 launch, every
-  fold's all-gather, every elementwise step of ``pass_one_scan``) and pass
-  two (the same of ``pass_two_scan``). f(T_k)·e₁ (``scaled_y``, which waits
+* **On a card, the fused step** (``parallel/sharded_step.py``): a step of
+  pass one is K7's pass-one instance, whose arc threads go on from y_a to
+  w_a and ⟨v_a, w_a⟩'s block partials, and one hand-written kernel after
+  each of its three folds (w_n and α's parts; w −= α·v and β²'s partials,
+  then their sum; β, the breakdown test, v_next and the masked state): five
+  kernels and three all-gathers, where the scans issued ~36 operations. A
+  step of pass two is K7's pass-two instance, which updates v_a and x_a
+  from the stored α_j, β_j, one fold and one node kernel. The collectives
+  are the scans', call for call; the vectors round as the scans' operations
+  do, and only the dots sum in a new (fixed) order. Every card pass takes
+  it: the solve's, the chunked pass one of the callback path (chunks
+  bitwise the monolithic pass), the basis pass of one-pass and the SLQ
+  methods' passes. The breakdown flag, α and β stay on the device, so a
+  k-step pass queues its work with no host sync (NCCL collectives are
+  stream-ordered); only the callback path reads back, once per chunk.
+
+* **Each pass one CUDA graph.** Issued one at a time, even the fused
+  step's eight operations leave the host to set the pace. So on a CUDA
+  mesh a two-pass :meth:`ShardedFusedKKTSolver.solve` without a callback
+  replays two captured graphs: pass one (every step's kernels and
+  all-gathers) and pass two. f(T_k)·e₁ (``scaled_y``, which waits
   on the host twice) runs between them, eagerly. The graphs are cached on
   the solver by ``(k, number of f rows)`` and captured at first use, after
   one eager solve has set up NCCL's communicators; every rank makes the
@@ -37,10 +51,11 @@ once per chunk. On CPU tensors (a gloo mesh) K7's plain version
   static buffers: :meth:`ShardedFusedKKTSolver.pack` writes b into the one
   both passes read, and pass one's decomposition (α, β, steps taken, ‖b‖)
   and f(T_k)·e₁'s y are copied into pass two's; the caller gets copies of
-  the outputs. A pair of graphs shares one private memory pool, which the
-  allocator's peak does not count (``torch.cuda.memory_reserved`` does).
-  The arithmetic is the eager solve's, kernel for kernel, so a replay is
-  bitwise the eager solve on every rank. A replay adds to ``LAUNCHES``,
+  the outputs. A pair of graphs shares one private memory pool, which holds
+  the passes' vectors and which the allocator's peak does not count
+  (``torch.cuda.memory_reserved`` does). The arithmetic is the eager
+  solve's, kernel for kernel, so a replay is bitwise the eager solve on
+  every rank. A replay adds to ``LAUNCHES``, ``sharded_step.STEP_KERNELS``,
   ``comm.COLLECTIVES`` and the open ``record_collectives`` logs what its
   capture recorded, which the capture itself does not count: it runs
   nothing. The CPU path, the callback path, one-pass and the capability
@@ -50,11 +65,12 @@ once per chunk. On CPU tensors (a gloo mesh) K7's plain version
   has run.
 
 The capability methods run on the same matvec and folds: the SLQ
-methods one sharded pass one a probe (each probe's α and β bitwise a
-solve's pass one on it), ``chebyshev_fAb`` the expansion on the packed
-local vector (``degree`` K7 launches and node folds, no inner product) and
-``estimate_interval`` eigsh on the f32 ``make_kkt_operator`` of the whole
-instance on this rank's device (K8 on a card), cached.
+methods one sharded pass one a probe (on a card the fused step; each
+probe's α and β bitwise a solve's pass one on it), ``chebyshev_fAb`` the
+expansion on the packed local vector (``degree`` plain K7 launches and
+node folds, no inner product) and ``estimate_interval`` eigsh on the f32
+``make_kkt_operator`` of the whole instance on this rank's device (K8 on
+a card), cached.
 
 Not ported: the TPU layout (per-shard dual sorted orderings padded to a
 common R, a common windowed-gather width with re-clamped windows, arrays
@@ -77,11 +93,12 @@ from two_pass_lanczos_tpu_torch.algorithms.chebyshev import (
     validate_interval_for_f,
 )
 from two_pass_lanczos_tpu_torch.algorithms.core import (
+    ChunkCarry,
     LanczosDecomposition,
+    _start,
     basis_product,
     breakdown_tolerance,
     pass_one_chunk_scan,
-    pass_one_scan,
     pass_two_scan,
     zero_tolerance,
 )
@@ -100,12 +117,16 @@ from two_pass_lanczos_tpu_torch.parallel.comm import (
     gather_fold,
 )
 from two_pass_lanczos_tpu_torch.parallel.mesh import Mesh
+from two_pass_lanczos_tpu_torch.parallel.sharded_step import (
+    STEP_KERNELS,
+    ShardStep,
+)
 from two_pass_lanczos_tpu_torch.utils.collectives import (
     report_again,
     set_aside,
 )
 
-__all__ = ["ShardedFusedKKTSolver"]
+__all__ = ["ShardedFusedKKTSolver", "STEP_KERNELS"]
 
 
 def split_arcs(m: int, mesh: Mesh):
@@ -116,16 +137,50 @@ def split_arcs(m: int, mesh: Mesh):
     return arc_idx, arc_idx[mesh.rank]
 
 
+class _ScanPasses:
+    """The passes on CPU tensors (a gloo mesh) with :class:`ShardStep`'s
+    ``start``, ``pass_one`` and ``pass_two``: ``algorithms/core.py``'s
+    scans over the solver's matvec and dot. Its carry is the scans'
+    ``ChunkCarry``; chained chunks are bitwise one ``pass_one_scan``."""
+
+    def __init__(self, matvec, dot):
+        self.matvec, self.dot = matvec, dot
+
+    def start(self, b: torch.Tensor) -> ChunkCarry:
+        return _start(b, self.dot)
+
+    def pass_one(self, carry: ChunkCarry, count: int, k_limit: int,
+                 alphas: torch.Tensor, betas: torch.Tensor,
+                 basis: Optional[torch.Tensor] = None) -> ChunkCarry:
+        # the scan takes its dtype and device from the vector it is given
+        a, b, carry = pass_one_chunk_scan(self.matvec, carry.v_curr, count,
+                                          carry, k_limit, dot=self.dot,
+                                          basis=basis)
+        alphas.copy_(a)
+        betas.copy_(b)
+        return carry
+
+    def pass_two(self, b: torch.Tensor, decomp: LanczosDecomposition,
+                 y: torch.Tensor):
+        state = torch.empty((2,) + tuple(b.shape), dtype=b.dtype)
+        x, _ = pass_two_scan(self.matvec, b, decomp, y, state=state)
+        return x, state[0], state[1]
+
+
 class _Captured:
     """One pass captured as a CUDA graph (``run()`` its work, its result
-    ``out``), with what the capture recorded: the kernel launches, the
-    collectives and the calls of the open ``record_collectives`` logs. The
+    ``out``), with what the capture recorded: the kernel launches
+    (``LAUNCHES`` and :data:`STEP_KERNELS`), the collectives and the calls
+    of the open ``record_collectives`` logs. The
     capture counts none of them, since it runs nothing on the device; each
     :meth:`replay` adds them, as the eager pass would."""
 
+    #: the counters a capture records and a replay adds to
+    COUNTERS = (LAUNCHES, STEP_KERNELS, COLLECTIVES)
+
     def __init__(self, run: Callable[[], object], pool=None):
         self.graph = torch.cuda.CUDAGraph()
-        counts = (dict(LAUNCHES), dict(COLLECTIVES))
+        before = [dict(c) for c in self.COUNTERS]
         try:
             with set_aside() as self.log:
                 # thread-local: NCCL's watchdog thread queries its events
@@ -133,19 +188,17 @@ class _Captured:
                 with torch.cuda.graph(self.graph, pool=pool,
                                       capture_error_mode="thread_local"):
                     self.out = run()
-            self.launches = {k: LAUNCHES[k] - counts[0][k] for k in LAUNCHES}
-            self.collectives = {k: COLLECTIVES[k] - counts[1][k]
-                                for k in COLLECTIVES}
+            self.counts = [{k: c[k] - b[k] for k in c}
+                           for c, b in zip(self.COUNTERS, before)]
         finally:
-            LAUNCHES.update(counts[0])
-            COLLECTIVES.update(counts[1])
+            for c, b in zip(self.COUNTERS, before):
+                c.update(b)
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, c in self.launches.items():
-            LAUNCHES[k] += c
-        for k, c in self.collectives.items():
-            COLLECTIVES[k] += c
+        for c, added in zip(self.COUNTERS, self.counts):
+            for k, n in added.items():
+                c[k] += n
         report_again(self.log)
 
 
@@ -163,11 +216,9 @@ class _TwoPassGraphs:
             steps_taken=torch.zeros((), dtype=torch.int32, device=dev),
             b_norm=torch.zeros((), **f32))
         self.y = torch.zeros((k,) if nf == 0 else (nf, k), **f32)
-        self.one = _Captured(lambda: pass_one_scan(
-            solver._matvec, b, k, dot=solver._dot)[0])
-        self.two = _Captured(lambda: pass_two_scan(
-            solver._matvec, b, self.decomp, self.y)[0],
-            pool=self.one.graph.pool())
+        self.one = _Captured(lambda: solver.pass_one(b, k))
+        self.two = _Captured(lambda: solver.pass_two(b, self.decomp, self.y),
+                             pool=self.one.graph.pool())
 
 
 class ShardedFusedKKTSolver:
@@ -204,6 +255,10 @@ class ShardedFusedKKTSolver:
         self.n_local = self.layout.n
         self.tol = breakdown_tolerance(torch.float32)
         self.ztol = zero_tolerance(torch.float32)
+        # the passes: the fused step on a card, the core scans on the CPU
+        self._passes = (
+            ShardStep(self.layout, mesh, self.tol, self.ztol, self._dot)
+            if self._cuda else _ScanPasses(self._matvec, self._dot))
         # the whole instance on the host, for estimate_interval's operator,
         # and its cache
         self._kkt_arrays = (d.astype(np.float32), u, v, self.p)
@@ -280,29 +335,52 @@ class ShardedFusedKKTSolver:
         return self.unpack(self._matvec(self.pack(x)))
 
     # -- passes -----------------------------------------------------------
+    def _pass_one(self, b: torch.Tensor, k: int,
+                  basis: Optional[torch.Tensor] = None):
+        """Pass one from the packed b: the decomposition and the final
+        carry."""
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        f32 = dict(dtype=torch.float32, device=self.device)
+        alphas, betas = torch.empty(k, **f32), torch.empty(k, **f32)
+        carry = self._passes.pass_one(self._passes.start(b), k, k, alphas,
+                                      betas, basis)
+        return LanczosDecomposition(alphas, betas, carry.steps,
+                                    carry.b_norm), carry
+
     def pass_one(self, b, k: int, state: Optional[torch.Tensor] = None
                  ) -> LanczosDecomposition:
         """Pass one over the mesh; a ``(2, m_d + p)`` ``state`` receives
         this rank's final ``(v_prev, v_curr)``."""
-        dec, _ = pass_one_scan(self._matvec, self.pack(b), k, state=state,
-                               dot=self._dot)
+        dec, carry = self._pass_one(self.pack(b), k)
+        if state is not None:
+            state[0].copy_(carry.v_prev)
+            state[1].copy_(carry.v_curr)
         return dec
 
     def pass_one_with_basis(self, b, k: int
                             ) -> Tuple[LanczosDecomposition, torch.Tensor]:
         """Pass one that keeps this rank's ``(k, m_d + p)`` basis slab."""
-        return pass_one_scan(self._matvec, self.pack(b), k, emit_basis=True,
-                             dot=self._dot)
+        basis = torch.empty((k, self.n_local), dtype=torch.float32,
+                            device=self.device)
+        return self._pass_one(self.pack(b), k, basis)[0], basis
 
     def pass_two(self, b, decomp: LanczosDecomposition, y_full,
                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pass two over the mesh: this rank's local x for a ``(k,)`` or
-        ``(nf, k)`` y (zero beyond ``steps_taken``, scaled by ‖b‖)."""
+        ``(nf, k)`` y (zero beyond ``steps_taken``, scaled by ‖b‖);
+        ``state`` receives the final ``(v_prev, v_curr)``."""
         y_full = torch.as_tensor(y_full, dtype=torch.float32,
                                  device=self.device)
-        x, _ = pass_two_scan(self._matvec, self.pack(b), decomp, y_full,
-                             state=state)
-        return x
+        k = decomp.k_max
+        if y_full.dim() not in (1, 2) or y_full.shape[-1] != k:
+            raise ValueError(f"y_full must be (k,) or (nf, k) with k={k}")
+        x, v_prev, v_curr = self._passes.pass_two(
+            self.pack(b), decomp, y_full.reshape(-1, k).contiguous())
+        if state is not None:
+            state[0].copy_(v_prev)
+            state[1].copy_(v_curr)
+        return x if y_full.dim() == 2 else x[0]
 
     def one_pass_basis_bytes(self, k: int) -> int:
         """Per-rank device bytes of the one-pass basis slab."""
@@ -314,8 +392,8 @@ class ShardedFusedKKTSolver:
         reference's in-loop ``LanczosCallback`` break-out on the distributed
         path. ``packed`` is b, packed or not.
 
-        Runs ceil(k/chunk) chunks of ``pass_one_chunk_scan`` (the monolithic
-        pass's step, so α and β are bitwise its own); after each, one
+        Runs ceil(k/chunk) chunks of the passes' ``pass_one`` (the
+        monolithic pass's step, so α and β are bitwise its own); after each, one
         readback brings the chunk's α, β, ``steps`` and breakdown flag to
         the host, and ``callback(s, None, (alphas[:s], betas[:s-1]))`` is
         replayed for every new step s. A stop at step s costs at most
@@ -324,13 +402,19 @@ class ShardedFusedKKTSolver:
         b = self.pack(packed)
         carry = None
 
-        def run(j0, c):
+        def next_steps(c):
+            """The next ``c`` steps: their α, β, and (steps, done, ‖b‖)."""
             nonlocal carry
-            a_c, b_c, carry = pass_one_chunk_scan(self._matvec, b, c, carry, k,
-                                                  dot=self._dot)
-            host = torch.cat([a_c, b_c, carry.steps.float().reshape(1),
-                              carry.done.float().reshape(1),
-                              carry.b_norm.reshape(1)]).cpu().numpy()
+            if carry is None:
+                carry = self._passes.start(b)
+            f32 = dict(dtype=torch.float32, device=self.device)
+            a_c, b_c = torch.empty(c, **f32), torch.empty(c, **f32)
+            carry = self._passes.pass_one(carry, c, k, a_c, b_c)
+            return a_c, b_c, torch.stack([
+                carry.steps.float(), carry.done.float(), carry.b_norm])
+
+        def run(j0, c):
+            host = torch.cat(next_steps(c)).cpu().numpy()
             return (host[:c], host[c:2 * c], int(host[2 * c]),
                     not host[2 * c + 1], host[2 * c + 2])
 
